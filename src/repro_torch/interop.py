@@ -1,0 +1,24 @@
+"""Weights carried across between the reference's numpy arrays and the
+port's tensors.
+
+The reference draws its initial weights with ``jax.random``, a stream
+torch cannot reproduce; parity checks give both packages the same init
+by converting the reference's list-of-``{"w", "b"}`` arrays — with or
+without a leading row axis — through these two functions.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def params_from_numpy(tree, device="cpu"):
+    """List-of-``{"w", "b"}`` numpy arrays → tensors on ``device``."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_numpy`."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

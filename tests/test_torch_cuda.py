@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without an NVIDIA GPU these tests skip (a CUDA kernel
+has no CPU mode).  On the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+``sbc_apply`` must equal its plain version bitwise; ``sbc_stats`` counts
+must be equal and its sums agree to rtol 1e-6 (both accumulate in
+float64, in different orders); ``compress_dense`` on the card must keep
+the same survivors as the CPU path and agree with it to 2e-5; a chunked
+``Experiment.run`` on the card must equal the monolithic one bitwise."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import Experiment, ScenarioSpec, SerialExecutor
+from repro_torch.compression import sbc as csbc
+from repro_torch.core.latency import DeviceProfile
+from repro_torch.data.pipeline import ClassificationData
+from repro_torch.kernels import sbc as ksbc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("segments,n", [(192, 10), (192, 256), (7, 1001),
+                                        (3, 8192), (2, 8193), (192, 65_536),
+                                        (5, 786_432)])
+def test_kernels_match_plain_versions(cuda, segments, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((segments, n), generator=gen, device=cuda)
+    x[0] = 0.0
+    if segments > 2:
+        x[1, ::3] = 0.5
+        x[1, 1::3] = -0.5
+    thr = csbc.topk_threshold_bisect(x.abs(), csbc.n_keep(n, 0.005))
+    thr[1] = 0.5 if segments > 2 else thr[1]
+    before = (ksbc.sbc_stats.launches, ksbc.sbc_apply.launches)
+    got = ksbc.sbc_stats(x, thr)
+    want = ksbc.sbc_stats_plain(x, thr)
+    assert torch.equal(got[:, 2:], want[:, 2:])
+    torch.testing.assert_close(got[:, :2], want[:, :2], rtol=1e-6, atol=0)
+    scalars = csbc.group_scalars(thr, want)
+    out, res = ksbc.sbc_apply(x, scalars)
+    pout, pres = ksbc.sbc_apply_plain(x, scalars)
+    assert torch.equal(out, pout) and torch.equal(res, pres)
+    assert (ksbc.sbc_stats.launches, ksbc.sbc_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_unaligned_rows_take_the_scalar_path(cuda):
+    x = torch.randn(3 * 1000 + 1, device=cuda)[1:].reshape(3, 1000)
+    thr = torch.full((3,), 1.0, device=cuda)
+    torch.testing.assert_close(ksbc.sbc_stats(x, thr),
+                               ksbc.sbc_stats_plain(x, thr), rtol=1e-6,
+                               atol=0)
+    sc = torch.stack([thr, thr, -thr], -1)
+    for a, b in zip(ksbc.sbc_apply(x, sc), ksbc.sbc_apply_plain(x, sc)):
+        assert torch.equal(a, b)
+
+
+def test_stats_are_bitwise_reproducible(cuda):
+    x = torch.randn((64, 100_000), device=cuda)
+    thr = torch.full((64,), 2.0, device=cuda)
+    assert torch.equal(ksbc.sbc_stats(x, thr), ksbc.sbc_stats(x, thr))
+
+
+def test_compress_dense_on_the_card_matches_the_cpu_path(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shapes = [(3072, 64), (64,), (64, 10), (10,)]
+    grads = [{"w": torch.randn((2, 3) + shapes[i], generator=gen,
+                               device=cuda),
+              "b": torch.randn((2, 3) + shapes[i + 1], generator=gen,
+                               device=cuda)} for i in (0, 2)]
+    resid = [{k: 0.1 * torch.randn_like(v) for k, v in l.items()}
+             for l in grads]
+    approx, new_res = csbc.compress_dense(grads, 0.005, resid, batch_dims=2)
+    cpu = lambda t: [{k: v.cpu() for k, v in l.items()} for l in t]  # noqa
+    p_approx, p_res = csbc.compress_dense(cpu(grads), 0.005, cpu(resid),
+                                          batch_dims=2)
+    for a, b, r, pr in zip(approx, p_approx, new_res, p_res):
+        for k in a:
+            assert torch.equal(a[k].cpu() != 0, b[k] != 0)
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-5,
+                                       atol=2e-5)
+            torch.testing.assert_close(r[k].cpu(), pr[k], rtol=2e-5,
+                                       atol=2e-5)
+
+
+def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.randn((2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        ksbc.sbc_stats(x, torch.zeros(2))          # threshold on the CPU
+    with pytest.raises(ValueError):
+        ksbc.sbc_apply(x[:, ::2], torch.zeros((2, 3), device=cuda))
+
+
+def test_chunked_run_equals_monolithic_bitwise_on_the_card(cuda):
+    data, test = ClassificationData.synthetic(n=600, dim=64,
+                                              spread=6.0).split(100)
+    fleet = tuple(DeviceProfile(kind="cpu", f_cpu=f * 1e9)
+                  for f in (0.7, 1.4, 2.1, 0.7))
+    specs = [ScenarioSpec(fleet=fleet[:k], partition=p, hidden=32, b_max=16,
+                          compression=0.05, seeds=(0, 1))
+             for k in (3, 4) for p in ("iid", "noniid")]
+    before = ksbc.sbc_stats.launches
+    mono = Experiment(data, test, specs, device=cuda).run(4)
+    assert ksbc.sbc_stats.launches - before == 6 * 4
+    chunked = Experiment(data, test, specs, device=cuda).run(
+        4, executor=SerialExecutor(chunk_periods=3))
+    for f in ("losses", "accs", "times", "global_batch"):
+        np.testing.assert_array_equal(getattr(chunked, f), getattr(mono, f))
