@@ -36,7 +36,8 @@ class Executor:
                 periods: int) -> Iterator[BucketSeries]:
         """Yield ``(bucket, (losses, accs, times, global_batch))`` per
         bucket, in bucket order.  ``data`` is the host training set (for
-        planning), ``arrays`` the device dataset tuple."""
+        planning), ``arrays`` the experiment's
+        :class:`~repro_torch.api.lowering.DeviceData`."""
         raise NotImplementedError
 
 

@@ -26,12 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.api.executor import Executor, SerialExecutor
-from repro_torch.api.lowering import Bucket, group_rows
+from repro_torch.api.lowering import Bucket, DeviceData, group_rows
 from repro_torch.api.results import (Results, ResultsBuilder,
                                      assign_row_coords, empty_coords)
 from repro_torch.api.spec import ScenarioSpec
 from repro_torch.data.pipeline import ClassificationData
-from repro_torch.fed import engine
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,7 +82,7 @@ class Experiment:
             raise ValueError("Experiment has no specs")
         if executor is None:
             executor = SerialExecutor()
-        arrays = engine.dataset_to_device(self.data, self.test, self.device)
+        arrays = DeviceData(self.data, self.test, self.device)
         builder = ResultsBuilder(coords=self._coords(buckets),
                                  n_rows=self._n_rows(buckets),
                                  n_buckets=len(buckets))

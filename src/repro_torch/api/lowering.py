@@ -12,7 +12,9 @@ batched device loop over its rows via three phases:
   scheduler-identical modulo partition/base_lr (``_plan_key``), batcher
   sampling, the cumulative latency ledger.
 * :func:`dispatch_bucket` — init the rows' parameters (fresh run) and
-  enqueue ``engine.run_trajectory_batch`` over the (scenario × seed) rows;
+  enqueue ``engine.run_trajectory_batch`` (feel-mlp) or
+  ``model_engine.run_model_trajectory_batch`` (the transformer family)
+  over the (scenario × seed) rows;
   CUDA work is asynchronous, so this returns before the device finishes.
 * :func:`collect_bucket` — wait for the device values and return host
   ``(losses, accs, times, global_batch)`` series, one row per computed row.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field, replace
+from functools import cached_property
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -41,7 +44,7 @@ from repro_torch.api.spec import ScenarioSpec
 from repro_torch.core.scheduler import FeelScheduler, plan_horizons_batch
 from repro_torch.data.pipeline import (FederatedBatcher, partition_iid,
                                        partition_noniid)
-from repro_torch.fed import engine, feel_model
+from repro_torch.fed import engine, feel_model, model_engine
 from repro_torch.tree import tree_map
 
 
@@ -96,6 +99,27 @@ def group_rows(specs: Sequence[ScenarioSpec]) -> List[Bucket]:
             for key, rows in entries.items()]
 
 
+@dataclass
+class DeviceData:
+    """An experiment's dataset on the device, in each form a bucket's
+    engine reads — features for feel-mlp (``engine.dataset_to_device``),
+    token sequences for the big-model families
+    (``model_engine.tokens_to_device``) — each uploaded once, at first
+    use."""
+    data: object
+    test: object
+    device: object
+
+    @cached_property
+    def features(self) -> tuple:
+        return engine.dataset_to_device(self.data, self.test, self.device)
+
+    @cached_property
+    def tokens(self) -> tuple:
+        return model_engine.tokens_to_device(self.data, self.test,
+                                             self.device)
+
+
 def _partition(spec: ScenarioSpec, data, seed: int):
     if spec.partition == "iid":
         return partition_iid(len(data.y), spec.k, seed)
@@ -103,15 +127,25 @@ def _partition(spec: ScenarioSpec, data, seed: int):
 
 
 def _n_params(spec: ScenarioSpec, input_dim: int, classes: int = 10) -> int:
+    if spec.model_family != "feel_mlp":
+        # the big-model families price the uplink at the true parameter
+        # count of the derived ArchConfig
+        return model_engine.family_n_params(spec.model_family, spec.hidden,
+                                            spec.depth)
     dims = [input_dim] + [spec.hidden] * (spec.depth - 1) + [classes]
     return sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
 
 
 def _init_params_batch(rows: Sequence[Row], input_dim: int, device):
-    """Row-batched initial params: each row draws ``feel_model.init`` from
-    a CPU generator seeded with its seed, so a row's weights do not depend
-    on the device or on its bucket neighbours."""
+    """Row-batched initial params: each row draws its model's init
+    (``feel_model.init``, or ``models.model.init`` for a big-model
+    family) from a CPU generator seeded with its seed, so a row's weights
+    do not depend on the device or on its bucket neighbours."""
     spec = rows[0].spec
+    if spec.model_family != "feel_mlp":
+        return model_engine.init_params_batch(
+            spec.model_family, spec.hidden, spec.depth,
+            [r.seed for r in rows], device)
     per_row = [feel_model.init(torch.Generator().manual_seed(r.seed),
                                spec.hidden, depth=spec.depth,
                                input_dim=input_dim)
@@ -124,10 +158,12 @@ def _plan_key(r: Row) -> tuple:
     """Scheduler identity modulo ``base_lr``: rows with equal keys consume
     identical rng streams and produce identical horizons (the partition
     only affects the batcher, base_lr only rescales the lr row), so the
-    lowering plans each unique key once."""
+    lowering plans each unique key once.  ``model_family`` is part of the
+    key as in the reference's; ``bucket_key`` already keeps the families
+    in separate buckets, so it changes no plan."""
     s = r.spec
     return (s.fleet, s.effective_policy, s.b_max, s.compression, s.cell,
-            s.hidden, s.depth, r.seed)
+            s.hidden, s.depth, r.seed, s.model_family)
 
 
 def _rescale_lr(horizon, base_lr: float, ref_batch: float):
@@ -216,20 +252,28 @@ def plan_bucket(bucket: Bucket, data, periods: int) -> BucketPlan:
     return _FeelPlanner(bucket, data).plan(periods)
 
 
-def dispatch_bucket(plan: BucketPlan, arrays, state=None) -> BucketHandle:
+def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
+                    state=None) -> BucketHandle:
     """Enqueue one planned bucket's device loop (the reference's
-    ``_dispatch_feel``).  ``arrays`` is ``engine.dataset_to_device``'s
-    tuple; ``state`` resumes a previous chunk's carry (``None``: fresh
-    init params and zero residuals)."""
+    ``_dispatch_feel``): the feel-mlp engine, or the big-model engine for
+    a ``model_family`` bucket.  ``state`` resumes a previous chunk's carry
+    (``None``: fresh init params and zero residuals)."""
     spec0 = plan.bucket.rows[0].spec
     if state is None:
         params0 = _init_params_batch(plan.bucket.rows, plan.input_dim,
-                                     arrays[0].device)
+                                     arrays.device)
         state = engine.EngineState(
             params0, engine.zero_residual(params0, plan.bucket.k_pad))
-    state, (losses, accs, _) = engine.run_trajectory_batch(
-        state, plan.schedules, arrays, compress=spec0.compress,
-        ratio=spec0.compression, active=plan.active)
+    if spec0.model_family != "feel_mlp":
+        state, (losses, accs, _) = model_engine.run_model_trajectory_batch(
+            state, plan.schedules, arrays.tokens,
+            model_family=spec0.model_family, hidden=spec0.hidden,
+            depth=spec0.depth, compress=spec0.compress,
+            ratio=spec0.compression, active=plan.active)
+    else:
+        state, (losses, accs, _) = engine.run_trajectory_batch(
+            state, plan.schedules, arrays.features, compress=spec0.compress,
+            ratio=spec0.compression, active=plan.active)
     return BucketHandle(bucket=plan.bucket, losses=losses, accs=accs,
                         times=plan.times, global_batch=plan.global_batch,
                         state=state)
@@ -257,7 +301,7 @@ class BucketRun:
     data: object
     periods: int
     chunk: int
-    arrays: tuple
+    arrays: DeviceData
     planned: int = 0
     collected: int = 0
     _planner: object = None

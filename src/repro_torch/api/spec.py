@@ -6,13 +6,16 @@ device fleet, wireless cell, data partition, batchsize policy, training
 scheme, compression, learning-rate base and the seed set — as one frozen,
 hashable value.
 
-This slice of the port runs the FEEL scheme with the feel-mlp model and
-one local step per period.  The fields of what later slices bring stay
+This port runs the FEEL scheme with one local step per period, on the
+feel-mlp model or the dense transformer family (``model_family=
+"transformer"``).  The fields of what later slices bring stay
 on the spec so that a spec written for the reference is rejected with a
 clear error instead of being run differently: schemes other than
 ``"feel"``, ``local_steps > 1``, ``replan``, ``sampling``, ``topology``,
 ``fading``, ``faults``, ``energy``, ``adapt_tau`` and
-``model_family != "feel_mlp"``.
+``model_family="mamba2"``.  A big-model family is validated as the
+reference validates it (FEEL only, flat, one local step, ``hidden``
+divisible by 4) before any of these.
 
 Two specs share a bucket — one batched device loop — iff
 :meth:`ScenarioSpec.bucket_key` matches: slot width (``b_max``),
@@ -68,10 +71,6 @@ class ScenarioSpec:
         object.__setattr__(self, "seeds", tuple(self.seeds))
         if self.scheme not in SCHEMES:
             raise ValueError(f"scheme {self.scheme!r} not in {SCHEMES}")
-        if self.scheme != "feel":
-            raise NotImplementedError(
-                f"scheme {self.scheme!r} is not ported yet; the PyTorch "
-                "port runs scheme='feel'")
         if self.partition not in ("iid", "noniid"):
             raise ValueError(f"partition {self.partition!r}")
         if self.policy not in POLICIES:
@@ -82,9 +81,32 @@ class ScenarioSpec:
             raise ValueError(
                 f"model_family {self.model_family!r} not in {MODEL_FAMILIES}")
         if self.model_family != "feel_mlp":
+            if self.is_dev_scheme:
+                raise ValueError(
+                    "big-model families run the FEEL train step; the "
+                    f"{self.scheme!r} scheme keeps per-device MLPs")
+            if self.topology is not None:
+                raise ValueError(
+                    "the hierarchical scan is feel_mlp-only; drop "
+                    "topology= or use model_family='feel_mlp'")
+            if self.local_steps != 1 or self.adapt_tau is not None:
+                raise ValueError(
+                    "big-model families take one aggregated step per "
+                    "period (local_steps=1, no adapt_tau); the local-SGD "
+                    "delta-upload loop is feel_mlp-only")
+            if self.hidden % 4 != 0:
+                raise ValueError(
+                    f"model_family={self.model_family!r} derives its "
+                    f"ArchConfig from hidden={self.hidden}, which must be "
+                    "divisible by 4 (attention heads / SSM head grouping)")
+        if self.model_family == "mamba2":
             raise NotImplementedError(
-                f"model_family {self.model_family!r} is not ported yet; the "
-                "PyTorch port runs model_family='feel_mlp'")
+                "model_family 'mamba2' is not ported yet; the PyTorch port "
+                "runs model_family='feel_mlp' and 'transformer'")
+        if self.scheme != "feel":
+            raise NotImplementedError(
+                f"scheme {self.scheme!r} is not ported yet; the PyTorch "
+                "port runs scheme='feel'")
         if self.local_steps != 1:
             raise NotImplementedError(
                 f"local_steps={self.local_steps} is not ported yet; the "
@@ -94,6 +116,11 @@ class ScenarioSpec:
                 raise NotImplementedError(
                     f"{name}= is not ported yet; the PyTorch port runs the "
                     "static, flat, open-loop FEEL world")
+
+    @property
+    def is_dev_scheme(self) -> bool:
+        """True for the per-device-parameter schemes (no gradient fusion)."""
+        return self.scheme in ("individual", "model_fl")
 
     @property
     def k(self) -> int:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.sbc import sbc_apply, sbc_stats
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # f32 constants of the reference's bisection bracket hi = max·(1+1e-6)+1e-30
 _HI_SCALE = torch.tensor(1.0 + 1e-6, dtype=torch.float32)
@@ -119,9 +119,10 @@ def compress_dense(grads, ratio: float = 0.005, residual=None,
         approx, res = compress_segments(acc, ratio)
         return approx.reshape(g.shape), res.reshape(g.shape)
 
-    pairs = tree_map(one, grads, residual)
-    return (tree_map(lambda p: p[0], pairs),
-            tree_map(lambda p: p[1], pairs))
+    pairs = [one(g, r) for g, r in zip(tree_leaves(grads),
+                                       tree_leaves(residual))]
+    return (tree_unflatten(grads, [a for a, _ in pairs]),
+            tree_unflatten(grads, [r for _, r in pairs]))
 
 
 def compressed_bits(n_params: int, ratio: float = 0.005,

@@ -3,8 +3,9 @@ port's tensors.
 
 The reference draws its initial weights with ``jax.random``, a stream
 torch cannot reproduce; parity checks give both packages the same init
-by converting the reference's list-of-``{"w", "b"}`` arrays — with or
-without a leading row axis — through these two functions.
+by converting the reference's parameter trees — feel-mlp's list of
+``{"w", "b"}`` or a transformer's nested dicts, with or without a
+leading row axis — through these two functions.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from repro_torch.tree import tree_map
 
 
 def params_from_numpy(tree, device="cpu"):
-    """List-of-``{"w", "b"}`` numpy arrays → tensors on ``device``."""
+    """A tree of numpy (or array-like) leaves → tensors on ``device``."""
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 

@@ -4,12 +4,23 @@
 pair (the reference's ``kernels/ops.py::sbc_compress``): the threshold is
 ``torch.topk``, outside the kernels, then stats → group choice → apply.
 Its oracle is ``kernels.ref.sbc_ref`` (``sbc_tensor(exact=True)``).
+
+``flash_attention`` is differentiable attention through the flash
+kernels (the reference's ``kernels/ops.py::flash_attention``): a
+``torch.autograd.Function`` whose forward kernel saves ``(q, k, v, o,
+lse)`` and whose backward runs the dQ kernel and then the dK/dV kernel.
+On CPU tensors every step is the kernel's plain version, so the CPU path
+and the card path differ only in what computes each step.  Its oracle is
+``kernels.ref.attention_ref``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.compression.sbc import group_scalars, n_keep, topk_threshold
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.sbc import sbc_apply, sbc_stats
 
 
@@ -19,3 +30,35 @@ def sbc_compress(x: torch.Tensor, ratio: float = 0.005) -> torch.Tensor:
     thr = topk_threshold(flat.abs(), n_keep(flat.shape[1], ratio))
     out, _ = sbc_apply(flat, group_scalars(thr, sbc_stats(flat, thr)))
     return out.reshape(x.shape).to(x.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        opts = dict(causal=ctx.causal, window=ctx.window)
+        do = do.contiguous()
+        dq, dsum = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
+        dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) → (B, S, Hq, hd).
+
+    Grouped-query heads are resolved inside the kernels by index (no
+    repeated K/V).  Positions are contiguous from 0 (full-sequence
+    train/prefill), as in the reference wrapper."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, window)

@@ -59,10 +59,28 @@ def _fleet(k=3):
     ("scheme", "gradient_fl"), ("local_steps", 2), ("replan", 5),
     ("sampling", object()), ("topology", object()), ("fading", object()),
     ("faults", object()), ("energy", object()), ("adapt_tau", object()),
-    ("model_family", "transformer"), ("model_family", "mamba2")])
+    ("model_family", "mamba2")])
 def test_spec_rejects_what_later_slices_bring(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ScenarioSpec(fleet=_fleet(), **{field: value})
+
+
+def test_spec_accepts_the_transformer_family():
+    spec = ScenarioSpec(fleet=_fleet(), model_family="transformer")
+    assert spec.bucket_key()[-1] == "transformer"
+    assert spec.bucket_key() != ScenarioSpec(fleet=_fleet()).bucket_key()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("hidden", 10), ("local_steps", 2), ("scheme", "individual"),
+    ("scheme", "model_fl")])
+def test_spec_rejects_what_the_reference_rejects_for_big_models(field,
+                                                                value):
+    """As the reference's ``tests/test_model_families.py`` does: a big-model
+    family is FEEL-only, one step a period, ``hidden`` divisible by 4."""
+    with pytest.raises(ValueError):
+        ScenarioSpec(fleet=_fleet(), model_family="transformer",
+                     **{field: value})
 
 
 @pytest.mark.parametrize("field,value", [

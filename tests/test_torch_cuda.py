@@ -9,7 +9,11 @@ has no CPU mode).  On the card:
 must be equal and its sums agree to rtol 1e-6 (both accumulate in
 float64, in different orders); ``compress_dense`` on the card must keep
 the same survivors as the CPU path and agree with it to 2e-5; a chunked
-``Experiment.run`` on the card must equal the monolithic one bitwise."""
+``Experiment.run`` on the card must equal the monolithic one bitwise.
+The flash-attention forward must agree with its plain version to 2e-5
+(bf16: 2e-2) and the backward pair to 1e-4, against the plain backward
+and autograd of the oracle; the backward is bitwise reproducible; the
+wrappers raise on what the kernels do not take."""
 import numpy as np
 import pytest
 import torch
@@ -117,3 +121,104 @@ def test_chunked_run_equals_monolithic_bitwise_on_the_card(cuda):
         4, executor=SerialExecutor(chunk_periods=3))
     for f in ("losses", "accs", "times", "global_batch"):
         np.testing.assert_array_equal(getattr(chunked, f), getattr(mono, f))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward at 2e-5 (bf16 2e-2), backward at 1e-4 against
+# the plain versions and autograd of the oracle, bitwise reproducible
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels.ref import attention_ref  # noqa: E402
+
+ATTN_CASES = [  # (B, S, Hq, Hkv, hd, causal, window)
+    (96, 16, 4, 2, 64, True, None),        # the transformer cell's shape
+    (3, 128, 4, 2, 64, True, None),
+    (2, 256, 4, 1, 128, True, 64),
+    (2, 100, 4, 2, 64, True, 16),          # ragged: S % 16 != 0
+    (2, 100, 2, 2, 32, False, None),
+    (2, 77, 6, 3, 128, False, 16),
+]
+
+
+def _qkv(cuda, b, s, hq, hkv, hd, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn((b, s, h, hd), generator=gen, device=cuda)
+                 .to(dtype) for h in (hq, hkv, hkv))
+
+
+def _oracle(q, k, v, causal, window):
+    """attention_ref over the (BH, S, hd) layout after GQA expansion."""
+    b, s, hq, hd = q.shape
+    g = hq // k.shape[2]
+    flat = lambda t: t.transpose(1, 2).reshape(b * hq, s, hd)  # noqa: E731
+    out = attention_ref(flat(q), flat(k.repeat_interleave(g, 2)),
+                        flat(v.repeat_interleave(g, 2)), causal=causal,
+                        window=window)
+    return out.reshape(b, hq, s, hd).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_forward_matches_plain(cuda, case, dtype, tol):
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, dtype)
+    before = kfa.flash_attention_fwd.launches
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert kfa.flash_attention_fwd.launches == before + 1
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             window=window)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_backward_matches_plain_and_autograd(cuda, case):
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd)
+    do = torch.randn_like(q)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = (kfa.flash_attention_bwd_dq.launches,
+              kfa.flash_attention_bwd_dkdv.launches)
+    dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                          causal=causal, window=window)
+    dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum,
+                                          causal=causal, window=window)
+    assert (kfa.flash_attention_bwd_dq.launches,
+            kfa.flash_attention_bwd_dkdv.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    got = (dq, dk, dv)
+    plain = kfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                          causal=causal, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(_oracle(*leaves, causal, window), leaves, do)
+    for a, p, r in zip(got, plain, auto):
+        torch.testing.assert_close(a, p, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def test_attention_backward_is_bitwise_reproducible(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, 96, 16, 4, 2, 64))
+    do = torch.randn_like(q)
+    runs = [torch.autograd.grad(kops.flash_attention(q, k, v), (q, k, v), do)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_attention_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = _qkv(cuda, 2, 16, 4, 2, 64)
+    o, lse = kfa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):                  # head dim 48: no kernel
+        kfa.flash_attention_fwd(*_qkv(cuda, 2, 16, 4, 2, 48))
+    with pytest.raises(ValueError):                  # bf16 backward
+        bf = [t.bfloat16() for t in (q, k, v, o)]
+        kfa.flash_attention_bwd_dq(*bf, lse, bf[0])
+    with pytest.raises(ValueError):                  # lse on the CPU
+        kfa.flash_attention_bwd_dq(q, k, v, o, lse.cpu(), q)
+    with pytest.raises(ValueError):                  # non-contiguous q
+        kfa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k, v)
