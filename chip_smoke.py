@@ -4,12 +4,14 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown
 
-It drives the port's two paths through ``repro_torch.api.Experiment.run``
+It drives the port's three paths through ``repro_torch.api.Experiment.run``
 on the FEEL scheme with the Table-II fleet at K = 12 — the main path with
-feel-mlp at full width (3072→256→256→10, 855 050 parameters, 16 rows)
-and the transformer family at the spec's defaults (feel-transformer-
-h256-d3: d_model 256, 4 query / 2 KV heads of 64, SwiGLU 512, 16-token
-sequences, 1 836 800 parameters, 8 rows) — and holds every kernel of
+feel-mlp at full width (3072→256→256→10, 855 050 parameters, 16 rows),
+the transformer family at the spec's defaults (feel-transformer-h256-d3:
+d_model 256, 4 query / 2 KV heads of 64, SwiGLU 512, 16-token sequences,
+1 836 800 parameters, 8 rows) and the mamba2 family at the spec's
+defaults (feel-mamba2-h256-d3: d_model 256, 64 SSD heads of 8, state
+16, chunk 4, 1 330 208 parameters, 8 rows) — and holds every kernel of
 those paths against its plain PyTorch version on the card:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -19,22 +21,29 @@ those paths against its plain PyTorch version on the card:
      cases: the SBC pair (16 rows × 12 devices per leaf), ``compress_dense``
      on the card against the port's CPU path, and the flash-attention
      forward and backward (against the plain versions and autograd of the
-     oracle; the backward bitwise reproducible);
+     oracle; the backward bitwise reproducible); 3c. the SSD scan
+     forward and backward at the mamba2 cell's shape and four edge shapes
+     (against the plain versions in float64, and in float32 wherever
+     those are within half the tolerance of float64; the backward
+     bitwise reproducible);
   4. the main path, with launch counts read around it;
-  4b. the transformer cell, with launch counts read around it and held
-     against the formula stated in PERF.md;
+  4b. the transformer cell and 4c. the mamba2 cell, each with launch
+     counts read around it and held against the formula stated in
+     PERF.md;
   5. the card against the port's CPU path (three periods of one row),
      chunked == monolithic bitwise on the card, and a padded row against
-     its solo twin; 5b. the same for the transformer;
+     its solo twin; 5b. the same for the transformer, 5c. for mamba2;
   6. kernel times (CUDA events, cold L2) beside their bound, the plain
      versions' times and, for attention, one PyTorch call
-     (``scaled_dot_product_attention``) as a yardstick.
+     (``scaled_dot_product_attention``) as a yardstick (none computes the
+     SBC pair or the SSD scan in one call).
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
 object with the kernels' records, and ``{"ok": true, "device": ...}``.
 It needs one CUDA device; without one (or outside a checkout) it exits
-non-zero and prints no result.
+non-zero and prints no result.  With a card, the whole log and a JSON
+report go to ``chiprun_out/chip_smoke.log`` and ``chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -69,15 +79,37 @@ T_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 3,
               "flash_attention_bwd_dkdv": 3, "sbc_stats": 12,
               "sbc_apply": 12}
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-SOURCES = ("sbc", "flash_attention")
+# the mamba2 cell: the same rows and sequences; its SSD shape per forward
+# (copies = rows x devices, each with 128 sequences; B, S, H, P, G, N,
+# chunk) and its launches a period (the same 4 forwards and 1 backward
+# over 3 layers, the same 12 stacked leaves)
+M_ROWS, M_PERIODS = 8, 10
+M_COPIES = M_ROWS * DEVICES
+M_SHAPE = (M_COPIES * 128, SEQ, 64, 8, 1, 16, 4)
+M_LAUNCHES = {"ssd_scan_fwd": 12, "ssd_scan_bwd": 3, "sbc_stats": 12,
+              "sbc_apply": 12}
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SOURCES = ("sbc", "flash_attention", "ssd_scan")
+
+
+class _Log:
+    """Where log lines also go once the run has a card: the report
+    directory's ``chip_smoke.log`` (standard output may be cut)."""
+    file = None
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _Log.file is not None:
+        _Log.file.write(msg + "\n")
+        _Log.file.flush()
 
 
 def fail(msg: str) -> int:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    if _Log.file is not None:
+        _Log.file.write(f"FAIL: {msg}\n")
+        _Log.file.flush()
     return 1
 
 
@@ -256,6 +288,273 @@ def attention_times(torch, kfa, F):
     return out
 
 
+def ssd_inputs(torch, gen, copies, per, s, h, p, g, n):
+    """SSD inputs as the reference's kernel tests draw them, with x, Bm
+    and Cm slices of one conv-like tensor (token stride h*p + 2*g*n), as
+    on the mamba2 path; A is per copy; and an upstream dy."""
+    b = copies * per
+    scale = torch.full((h * p + 2 * g * n,), 0.5, device="cuda")
+    scale[:h * p] = 1.0
+    conv = torch.randn((b, s, scale.numel()), generator=gen,
+                       device="cuda") * scale
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen,
+                                                  device="cuda"))
+    a = -torch.exp(torch.randn((copies, h), generator=gen, device="cuda")
+                   * 0.3)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    return (x, dt, a, bm, cm), dy
+
+
+def close_to_plain(torch, got, plain, exact, tol, label):
+    """got within tol (rtol = atol) of the plain version run in float64,
+    everywhere, and of the float32 plain version wherever that is itself
+    within tol / 2 of float64.  Returns (max abs err vs float32 plain over
+    all elements, vs float64, the float32 plain version's own max abs err
+    vs float64, elements left out of the float32 comparison); raises
+    AssertionError."""
+    exact = exact.double()
+    err = float((got.double() - exact).abs().max())
+    if not torch.allclose(got.double(), exact, rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: beyond {tol} of the float64 plain "
+                             f"version (max abs err {err:.3g})")
+    sound = (plain.double() - exact).abs() <= tol / 2 * (1 + exact.abs())
+    if not torch.allclose(got[sound].float(), plain[sound].float(), rtol=tol,
+                          atol=tol):
+        raise AssertionError(f"{label}: beyond {tol} of the plain version")
+    return (float((got.float() - plain.float()).abs().max()), err,
+            float((plain.double() - exact).abs().max()), int((~sound).sum()))
+
+
+def ssd_checks(torch, kssd, kops):
+    """The SSD kernels against their plain versions on the card: forward
+    2e-5 (bf16 2e-2), backward 1e-4, each against the plain version in
+    float64 and in float32 (where sound), at the mamba2 cell's shape and
+    at the reference's four kernel-test shapes; the backward run twice
+    bitwise.  Returns the max abs errors; raises AssertionError."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"ssd_scan_fwd": 0.0, "ssd_scan_bwd": 0.0, "bf16_fwd": 0.0,
+            "fwd_vs_f64": 0.0, "bwd_vs_f64": 0.0, "plain_fwd_vs_f64": 0.0,
+            "plain_bwd_vs_f64": 0.0, "left_out": 0}
+    b, s, h, p, g, n, chunk = M_SHAPE
+    cases = [(M_COPIES, b // M_COPIES, s, h, p, g, n, chunk),
+             (2, 1, 128, 4, 32, 2, 16, 32), (1, 1, 64, 2, 64, 1, 32, 16),
+             (1, 2, 256, 8, 32, 4, 64, 64), (1, 1, 128, 4, 32, 4, 16, 128)]
+
+    def note(key, f64_key, got):
+        errs[key] = max(errs[key], got[0])
+        errs[f64_key] = max(errs[f64_key], got[1])
+        errs[f"plain_{f64_key}"] = max(errs[f"plain_{f64_key}"], got[2])
+        errs["left_out"] += got[3]
+
+    for copies, per, s, h, p, g, n, chunk in cases:
+        label = (f"ssd copies={copies} B={copies * per} S={s} H={h} P={p} "
+                 f"G={g} N={n} chunk={chunk}")
+        ins, dy = ssd_inputs(torch, gen, copies, per, s, h, p, g, n)
+        y = kssd.ssd_scan_fwd(*ins, chunk=chunk)
+        exact_in = [t.double() for t in ins]
+        note("ssd_scan_fwd", "fwd_vs_f64", close_to_plain(
+            torch, y, kssd.ssd_scan_fwd_plain(*ins, chunk=chunk),
+            kssd.ssd_scan_fwd_plain(*exact_in, chunk=chunk), 2e-5, label))
+        bf = [t.bfloat16() for t in ins]
+        bf[2] = ins[2]                                   # A stays float32
+        yb = kssd.ssd_scan_fwd(*bf, chunk=chunk).float()
+        pb = kssd.ssd_scan_fwd_plain(*bf, chunk=chunk).float()
+        if not torch.allclose(yb, pb, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"{label}: bf16 forward beyond 2e-2")
+        errs["bf16_fwd"] = max(errs["bf16_fwd"],
+                               float((yb - pb).abs().max()))
+        got = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+        plain = kssd.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
+        exact = kssd.ssd_scan_bwd_plain(*exact_in, dy.double(), chunk=chunk)
+        for name, a, pl, ex in zip(("dx", "ddt", "dA", "dBm", "dCm"), got,
+                                   plain, exact):
+            note("ssd_scan_bwd", "bwd_vs_f64",
+                 close_to_plain(torch, a, pl, ex, 1e-4, f"{label} {name}"))
+        del ins, dy, y, exact_in, bf, got, plain, exact
+        torch.cuda.empty_cache()
+    ins, dy = ssd_inputs(torch, gen, *cases[0][:7])
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    runs = [torch.autograd.grad(kops.ssd(*leaves, chunk=M_SHAPE[-1]), leaves,
+                                dy) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("the SSD backward is not bitwise reproducible")
+    return errs
+
+
+def ssd_times(torch, kssd):
+    """Cold-L2 median times at the mamba2 cell's SSD shape (x, Bm, Cm
+    slices of the conv output, as on the path): each kernel and its plain
+    version.  Bounds: bytes (each input read once, each output written
+    once) over 3.35 TB/s vs the f32 operations the function needs over
+    67 TFLOP/s — per (sequence, token, head, p) row: forward 5N + 2 (the
+    state update a*h + u*B and y = h.C), backward 14N + 8 (the state
+    again, dC, the adjoint update, dx, dB and d log a)."""
+    b, s, h, p, g, n, chunk = M_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ins, dy = ssd_inputs(torch, gen, M_COPIES, b // M_COPIES, s, h, p, g, n)
+    x, dt, a, bm, cm = ins
+    rows = b * s * h * p
+    read = 4 * (x.numel() + dt.numel() + a.numel() + bm.numel() + cm.numel())
+    runs = {
+        "ssd_scan_fwd": (lambda: kssd.ssd_scan_fwd(*ins, chunk=chunk),
+                         lambda: kssd.ssd_scan_fwd_plain(*ins, chunk=chunk),
+                         read + 4 * x.numel(), rows * (5 * n + 2)),
+        "ssd_scan_bwd": (lambda: kssd.ssd_scan_bwd(*ins, dy, chunk=chunk),
+                         lambda: kssd.ssd_scan_bwd_plain(*ins, dy,
+                                                         chunk=chunk),
+                         2 * read + 4 * dy.numel(), rows * (14 * n + 8)),
+    }
+    out = {}
+    for name, (kern, plain, nbytes, ops) in runs.items():
+        bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound_ops = 1e3 * ops / F32_OPS_PER_S
+        out[name] = {"ms": cold_ms(torch, kern),
+                     "plain_ms": cold_ms(torch, plain),
+                     "library_ms": None,
+                     "bound_ms": max(bound_bytes, bound_ops),
+                     "bound_by": ("bytes" if bound_bytes >= bound_ops
+                                  else "operations"),
+                     "bytes": nbytes, "ops": ops}
+    return out
+
+
+Env = namedtuple("Env", "torch np Experiment ScenarioSpec SerialExecutor "
+                        "DeviceProfile lowering data test")
+
+
+def family_cell(env, tag, family, rows, periods, per_period, counted):
+    """One big-model cell at full width: ``rows`` rows (iid and noniid x
+    seeds) x 12 devices x ``periods`` periods through Experiment.run after
+    a 1-period warm-up, with the kernels' launch counts set to 0 just
+    before and read just after (held against ``per_period`` x periods);
+    then the same bucket's host planning and device loop timed apart.
+    Returns the report, the specs and the bucket; raises AssertionError."""
+    torch, np = env.torch, env.np
+    specs = [env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES),
+                              name="K12", partition=p, policy="proposed",
+                              b_max=128, base_lr=0.05,
+                              seeds=tuple(range(rows // 2)),
+                              model_family=family)
+             for p in ("iid", "noniid")]
+    t0 = time.perf_counter()
+    env.Experiment(env.data, env.test, specs).run(1)     # warm-up period
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = env.Experiment(env.data, env.test, specs).run(periods)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {name: n * periods for name, n in per_period.items()}
+    arch = f"feel-{family}-h256-d3"
+    log(f"[{tag}] Experiment.run {arch}: {res.rows} rows x {periods} "
+        f"periods in {wall:.3f} s = {1e3 * wall / periods:.1f} ms/period "
+        f"(warm-up run of 1 period {t_warm:.2f} s); peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"[{tag}] launches during the run: {launches} (expected {want})")
+    log(f"[{tag}] mean accuracy period 1 {res.accs[:, 0].mean():.4f} -> "
+        f"period {periods} {res.final_acc.mean():.4f} (chance 0.1); mean "
+        f"loss {res.losses[:, 0].mean():.4f} -> "
+        f"{res.losses[:, -1].mean():.4f}")
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{want}")
+    if not (np.isfinite(res.losses).all() and np.isfinite(res.accs).all()
+            and np.isfinite(res.times).all()):
+        raise AssertionError(f"{tag}: non-finite series")
+    if res.rows != rows or not (res.losses[:, -1] != res.losses[:, 0]).all():
+        raise AssertionError(f"{tag}: a row's loss did not change over the "
+                             "run")
+    if not res.losses[:, -1].mean() < res.losses[:, 0].mean():
+        raise AssertionError(f"{tag}: the mean loss did not fall over the "
+                             "run")
+    bucket = env.Experiment(env.data, env.test, specs).lower()[0]
+    t0 = time.perf_counter()
+    plan = env.lowering.plan_bucket(bucket, env.data, periods)
+    t_plan = time.perf_counter() - t0
+    arrays = env.lowering.DeviceData(env.data, env.test, "cuda")
+    arrays.tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = env.lowering.dispatch_bucket(plan, arrays)
+    t_enqueue = time.perf_counter() - t0
+    env.lowering.collect_bucket(handle)
+    t_device = time.perf_counter() - t0
+    log(f"[{tag}] phases: host planning {t_plan:.3f} s "
+        f"({1e3 * t_plan / periods:.1f} ms/period); device loop "
+        f"{t_device:.3f} s ({1e3 * t_device / periods:.1f} ms/period, of "
+        f"which {t_enqueue:.3f} s until the last period was enqueued)")
+    return {"specs": specs, "bucket": bucket, "report": {
+        "rows": res.rows, "periods": periods, "wall_s": wall,
+        "ms_per_period": 1e3 * wall / periods, "plan_s": t_plan,
+        "device_loop_s": t_device, "enqueue_s": t_enqueue,
+        "peak_gib": peak, "final_acc": res.final_acc.tolist(),
+        "loss_first": res.losses[:, 0].tolist(),
+        "loss_last": res.losses[:, -1].tolist(), "launches": launches}}
+
+
+def family_contracts(env, tag, family, specs):
+    """The card against the port's CPU path (1 row, slot 16, 3 periods:
+    ledgers bitwise, losses 1e-4, accuracies two test predictions),
+    chunked == monolithic bitwise over the cell's rows x 3 periods, and a
+    padded K = 9 row against its solo twin (ledgers bitwise, losses
+    1e-4; the gap is reported).  Raises AssertionError."""
+    np, Experiment, data, test = env.np, env.Experiment, env.data, env.test
+    one = [env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES),
+                            name="K12", partition="iid", seeds=(0,),
+                            b_max=16, model_family=family)]
+    card = Experiment(data, test, one).run(3)
+    cpu = Experiment(data, test, one, device="cpu").run(3)
+    loss_err = float(np.abs(card.losses - cpu.losses).max())
+    acc_err = float(np.abs(card.accs - cpu.accs).max())
+    log(f"[{tag} card vs cpu] 3 periods, 1 row, slot 16: losses "
+        f"{card.losses[0]} vs {cpu.losses[0]} (max abs err "
+        f"{loss_err:.3g}); accs max abs err {acc_err:.3g}")
+    if not (np.array_equal(card.times, cpu.times)
+            and np.array_equal(card.global_batch, cpu.global_batch)
+            and np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=1e-4)
+            and acc_err <= 2.0 / len(test.y) + 1e-7):
+        raise AssertionError(f"{tag}: card and CPU path disagree beyond "
+                             "ledgers bitwise, losses 1e-4, accuracies two "
+                             "test predictions")
+    fields = ("losses", "accs", "times", "global_batch")
+    mono = Experiment(data, test, specs).run(3)
+    chunk = Experiment(data, test, specs).run(
+        3, executor=env.SerialExecutor(chunk_periods=1))
+    if not all(np.array_equal(getattr(mono, f), getattr(chunk, f))
+               for f in fields):
+        raise AssertionError(f"{tag}: chunked run differs from the "
+                             "monolithic one")
+    mixed = [env.ScenarioSpec(fleet=fleet(env.DeviceProfile, k),
+                              name=f"K{k}", partition="iid", seeds=(0,),
+                              model_family=family) for k in (12, 9)]
+    both = Experiment(data, test, mixed).run(3)
+    solo = Experiment(data, test, mixed[1:]).run(3)
+    pad_err = float(np.abs(both.losses[1] - solo.losses[0]).max())
+    same = np.array_equal(both.times[1], solo.times[0])
+    log(f"[{tag} card] chunked (1-period chunks) == monolithic bitwise over "
+        f"{mono.rows} rows x 3 periods; padded K=9 row vs its solo twin: "
+        f"ledgers {'equal' if same else 'DIFFER'}, losses max abs err "
+        f"{pad_err:.3g}")
+    if not (same
+            and np.array_equal(both.global_batch[1], solo.global_batch[0])
+            and np.allclose(both.losses[1], solo.losses[0], rtol=1e-4,
+                            atol=1e-4)):
+        raise AssertionError(f"{tag}: padded row and its solo twin disagree "
+                             "beyond ledgers bitwise, losses 1e-4")
+    return {"card_vs_cpu_loss_max_abs_err": loss_err,
+            "card_vs_cpu_acc_max_abs_err": acc_err,
+            "chunked_equals_monolithic": True,
+            "padded_vs_solo_loss_max_abs_err": pad_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -279,12 +578,15 @@ def main(argv=None) -> int:
         from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import sbc as ksbc
+        from repro_torch.kernels import ssd_scan as kssd
         from repro_torch.kernels.ref import attention_ref
     except ImportError as exc:
         return fail(f"the port is not importable from {ROOT}: {exc}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
+    OUT_DIR.mkdir(exist_ok=True)
+    _Log.file = open(OUT_DIR / "chip_smoke.log", "w")
 
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi_line()
@@ -294,7 +596,7 @@ def main(argv=None) -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:      # one nvcc each
+    with ThreadPoolExecutor(len(SOURCES)) as pool:       # one nvcc each
         libs = dict(zip(SOURCES, pool.map(build.load, SOURCES)))
     log(f"[2 build] {', '.join(f'{n}.cu' for n in SOURCES)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s (nvcc "
@@ -391,6 +693,26 @@ def main(argv=None) -> int:
         f"{attn_errs['bwd_vs_autograd']:.3g} vs autograd of the oracle "
         f"(tol 1e-4); backward run twice bitwise equal")
     report["attention_errors"] = attn_errs
+    try:
+        ssd_errs = ssd_checks(torch, kssd, kops)
+        torch.cuda.synchronize()
+    except AssertionError as exc:
+        return fail(f"phase 3c: {exc}")
+    errs.update({k: v for k, v in ssd_errs.items() if k.startswith("ssd")})
+    log(f"[3c kernels] SSD scan at {M_SHAPE} (B, S, H, P, G, N, chunk; "
+        f"{M_COPIES} copies of A) + the reference's kernel-test shapes (S up "
+        f"to 256, P up to 64, N up to 64, G up to 4, chunk up to 128): fwd "
+        f"max abs err {ssd_errs['ssd_scan_fwd']:.3g} vs the plain version, "
+        f"{ssd_errs['fwd_vs_f64']:.3g} vs it in float64 (tol 2e-5; the "
+        f"float32 plain version {ssd_errs['plain_fwd_vs_f64']:.3g}), bf16 "
+        f"fwd {ssd_errs['bf16_fwd']:.3g} (tol 2e-2); bwd "
+        f"{ssd_errs['ssd_scan_bwd']:.3g} vs the plain version, "
+        f"{ssd_errs['bwd_vs_f64']:.3g} vs it in float64 (tol 1e-4; the "
+        f"float32 plain version {ssd_errs['plain_bwd_vs_f64']:.3g}); "
+        f"{ssd_errs['left_out']} elements where the float32 plain version "
+        f"is itself beyond half the tolerance of float64; backward run "
+        f"twice bitwise equal")
+    report["ssd_errors"] = ssd_errs
 
     # ---- 4. the main path at full width ------------------------------------
     t0 = time.perf_counter()
@@ -465,75 +787,28 @@ def main(argv=None) -> int:
                       "launches": launches}
     del arrays, handle
 
-    # ---- 4b. the transformer cell at full width -----------------------------
-    tspecs = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
-                           partition=p, policy="proposed", b_max=128,
-                           base_lr=0.05, seeds=tuple(range(T_ROWS // 2)),
-                           model_family="transformer")
-              for p in ("iid", "noniid")]
-    counted = {"flash_attention_fwd": kfa.flash_attention_fwd,
-               "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
-               "flash_attention_bwd_dkdv": kfa.flash_attention_bwd_dkdv,
-               "sbc_stats": ksbc.sbc_stats, "sbc_apply": ksbc.sbc_apply}
-    t0 = time.perf_counter()
-    Experiment(data, test, tspecs).run(1)                # warm-up period
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    for fn in counted.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tres = Experiment(data, test, tspecs).run(T_PERIODS)
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t0
-    t_launches = {name: fn.launches for name, fn in counted.items()}
-    t_peak = torch.cuda.max_memory_allocated() / 2**30
-    want_t = {name: n * T_PERIODS for name, n in T_LAUNCHES.items()}
-    log(f"[4b transformer] Experiment.run feel-transformer-h256-d3: "
-        f"{tres.rows} rows x {T_PERIODS} periods in {t_wall:.3f} s = "
-        f"{1e3 * t_wall / T_PERIODS:.1f} ms/period (warm-up run of 1 period "
-        f"{t_warm:.2f} s); peak device memory {t_peak:.2f} GiB")
-    log(f"[4b transformer] launches during the run: {t_launches} "
-        f"(expected {want_t})")
-    log(f"[4b transformer] mean accuracy period 1 "
-        f"{tres.accs[:, 0].mean():.4f} -> period {T_PERIODS} "
-        f"{tres.final_acc.mean():.4f} (chance 0.1); mean loss "
-        f"{tres.losses[:, 0].mean():.4f} -> {tres.losses[:, -1].mean():.4f}")
-    if t_launches != want_t:
-        return fail(f"phase 4b: kernel launches {t_launches}, expected "
-                    f"{want_t}")
-    if not (np.isfinite(tres.losses).all() and np.isfinite(tres.accs).all()
-            and np.isfinite(tres.times).all()):
-        return fail("phase 4b: non-finite series")
-    if tres.rows != T_ROWS or not (tres.losses[:, -1] != tres.losses[:, 0]
-                                   ).all():
-        return fail("phase 4b: a row's loss did not change over the run")
-    if not tres.losses[:, -1].mean() < tres.losses[:, 0].mean():
-        return fail("phase 4b: the mean loss did not fall over the run")
-    tbucket = Experiment(data, test, tspecs).lower()[0]
-    t0 = time.perf_counter()
-    tplan = lowering.plan_bucket(tbucket, data, T_PERIODS)
-    t_plan = time.perf_counter() - t0
-    tarrays = lowering.DeviceData(data, test, "cuda")
-    tarrays.tokens
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    thandle = lowering.dispatch_bucket(tplan, tarrays)
-    t_enqueue = time.perf_counter() - t0
-    lowering.collect_bucket(thandle)
-    t_device = time.perf_counter() - t0
-    log(f"[4b transformer] phases: host planning {t_plan:.3f} s "
-        f"({1e3 * t_plan / T_PERIODS:.1f} ms/period); device loop "
-        f"{t_device:.3f} s ({1e3 * t_device / T_PERIODS:.1f} ms/period, of "
-        f"which {t_enqueue:.3f} s until the last period was enqueued)")
-    report["transformer"] = {
-        "rows": tres.rows, "periods": T_PERIODS, "wall_s": t_wall,
-        "ms_per_period": 1e3 * t_wall / T_PERIODS, "plan_s": t_plan,
-        "device_loop_s": t_device, "enqueue_s": t_enqueue,
-        "peak_gib": t_peak, "final_acc": tres.final_acc.tolist(),
-        "loss_first": tres.losses[:, 0].tolist(),
-        "loss_last": tres.losses[:, -1].tolist(), "launches": t_launches}
-    del tarrays, thandle
+    # ---- 4b/4c. the transformer and mamba2 cells at full width ------------
+    env = Env(torch, np, Experiment, ScenarioSpec, SerialExecutor,
+              DeviceProfile, lowering, data, test)
+    cells = {}
+    for tag, family, rows, periods, per_period, counted in (
+            ("4b transformer", "transformer", T_ROWS, T_PERIODS, T_LAUNCHES,
+             {"flash_attention_fwd": kfa.flash_attention_fwd,
+              "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+              "flash_attention_bwd_dkdv": kfa.flash_attention_bwd_dkdv}),
+            ("4c mamba2", "mamba2", M_ROWS, M_PERIODS, M_LAUNCHES,
+             {"ssd_scan_fwd": kssd.ssd_scan_fwd,
+              "ssd_scan_bwd": kssd.ssd_scan_bwd})):
+        counted = dict(counted, sbc_stats=ksbc.sbc_stats,
+                       sbc_apply=ksbc.sbc_apply)
+        try:
+            cells[family] = family_cell(env, tag, family, rows, periods,
+                                        per_period, counted)
+        except AssertionError as exc:
+            return fail(f"phase {exc}")
+        report[family] = cells[family]["report"]
+    t_launches = report["transformer"]["launches"]
+    m_launches = report["mamba2"]["launches"]
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
@@ -581,53 +856,14 @@ def main(argv=None) -> int:
     report["card_contracts"] = {"chunked_equals_monolithic": True,
                                 "padded_vs_solo_loss_max_abs_err": pad_err}
 
-    # ---- 5b. the transformer: card vs CPU path, chunked == monolithic -------
-    tone = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
-                         partition="iid", seeds=(0,), b_max=16,
-                         model_family="transformer")]
-    t_card = Experiment(data, test, tone).run(3)
-    t_cpu = Experiment(data, test, tone, device="cpu").run(3)
-    tloss_err = float(np.abs(t_card.losses - t_cpu.losses).max())
-    tacc_err = float(np.abs(t_card.accs - t_cpu.accs).max())
-    log(f"[5b transformer card vs cpu] 3 periods, 1 row, slot 16: losses "
-        f"{t_card.losses[0]} vs {t_cpu.losses[0]} (max abs err "
-        f"{tloss_err:.3g}); accs max abs err {tacc_err:.3g}")
-    if not (np.array_equal(t_card.times, t_cpu.times)
-            and np.array_equal(t_card.global_batch, t_cpu.global_batch)
-            and np.allclose(t_card.losses, t_cpu.losses, rtol=1e-4,
-                            atol=1e-4)
-            and tacc_err <= 2.0 / len(test.y) + 1e-7):
-        return fail("phase 5b: card and CPU path disagree beyond ledgers "
-                    "bitwise, losses 1e-4, accuracies two test predictions")
-    tmono = Experiment(data, test, tspecs).run(3)
-    tchunk = Experiment(data, test, tspecs).run(
-        3, executor=SerialExecutor(chunk_periods=1))
-    if not all(np.array_equal(getattr(tmono, f), getattr(tchunk, f))
-               for f in fields):
-        return fail("phase 5b: chunked transformer run differs from the "
-                    "monolithic one")
-    tmixed = [ScenarioSpec(fleet=fleet(DeviceProfile, k), name=f"K{k}",
-                           partition="iid", seeds=(0,),
-                           model_family="transformer") for k in (12, 9)]
-    tboth = Experiment(data, test, tmixed).run(3)
-    tsolo = Experiment(data, test, tmixed[1:]).run(3)
-    tpad_err = float(np.abs(tboth.losses[1] - tsolo.losses[0]).max())
-    same = np.array_equal(tboth.times[1], tsolo.times[0])
-    log(f"[5b transformer card] chunked (1-period chunks) == monolithic "
-        f"bitwise over {T_ROWS} rows x 3 periods; padded K=9 row vs its "
-        f"solo twin: ledgers {'equal' if same else 'DIFFER'}, losses max "
-        f"abs err {tpad_err:.3g}")
-    if not (same
-            and np.array_equal(tboth.global_batch[1], tsolo.global_batch[0])
-            and np.allclose(tboth.losses[1], tsolo.losses[0], rtol=1e-4,
-                            atol=1e-4)):
-        return fail("phase 5b: padded transformer row and its solo twin "
-                    "disagree beyond ledgers bitwise, losses 1e-4")
-    report["transformer_contracts"] = {
-        "card_vs_cpu_loss_max_abs_err": tloss_err,
-        "card_vs_cpu_acc_max_abs_err": tacc_err,
-        "chunked_equals_monolithic": True,
-        "padded_vs_solo_loss_max_abs_err": tpad_err}
+    # ---- 5b/5c. the big-model families: card vs CPU, chunked, padded -------
+    for tag, family in (("5b transformer", "transformer"),
+                        ("5c mamba2", "mamba2")):
+        try:
+            report[f"{family}_contracts"] = family_contracts(
+                env, tag, family, cells[family]["specs"])
+        except AssertionError as exc:
+            return fail(f"phase {exc}")
 
     # ---- 6. times ----------------------------------------------------------
     records = []
@@ -665,7 +901,8 @@ def main(argv=None) -> int:
                          else "src/repro/kernels/sbc.py:70"),
             "launches": launches[name],
             "launches_by_path": {"feel_mlp": launches[name],
-                                 "transformer": t_launches[name]},
+                                 "transformer": t_launches[name],
+                                 "mamba2": m_launches[name]},
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
@@ -693,13 +930,31 @@ def main(argv=None) -> int:
             + ("forward" if name == "flash_attention_fwd"
                else "forward + backward")
             + f" {t['library_ms']:.4f} ms")
+    for name, t in ssd_times(torch, kssd).items():
+        records.append({
+            "name": name, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": ("src/repro/kernels/ssd_scan.py:35"
+                         if name == "ssd_scan_fwd"
+                         else "none: backward of B3, C-ref-3"),
+            "launches": m_launches[name],
+            "launches_by_path": {"mamba2": m_launches[name]},
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+        log(f"[6 times] {name} at {M_SHAPE} (B, S, H, P, G, N, chunk): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['ops']} f32 ops); library_ms none (no single PyTorch call "
+            f"computes the SSD scan)")
 
     if args.profile:
         # device time by kernel over the device loop of two periods of
         # each path
         from torch.profiler import ProfilerActivity, profile
-        for path, pbucket, form in (("feel_mlp", bucket, "features"),
-                                    ("transformer", tbucket, "tokens")):
+        for path, pbucket, form in (
+                ("feel_mlp", bucket, "features"),
+                ("transformer", cells["transformer"]["bucket"], "tokens"),
+                ("mamba2", cells["mamba2"]["bucket"], "tokens")):
             plan = lowering.plan_bucket(pbucket, data, 2)
             arrays = lowering.DeviceData(data, test, "cuda")
             getattr(arrays, form)
@@ -726,7 +981,6 @@ def main(argv=None) -> int:
     report["kernels"] = records
     report["device"] = {"kind": kind, "smi": smi}
     try:
-        OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     except OSError as exc:
         log(f"(report not written: {exc})")

@@ -7,15 +7,14 @@ scheme, compression, learning-rate base and the seed set — as one frozen,
 hashable value.
 
 This port runs the FEEL scheme with one local step per period, on the
-feel-mlp model or the dense transformer family (``model_family=
-"transformer"``).  The fields of what later slices bring stay
-on the spec so that a spec written for the reference is rejected with a
-clear error instead of being run differently: schemes other than
+feel-mlp model or the big-model families (``model_family=
+"transformer"`` or ``"mamba2"``).  The fields of what later slices bring
+stay on the spec so that a spec written for the reference is rejected
+with a clear error instead of being run differently: schemes other than
 ``"feel"``, ``local_steps > 1``, ``replan``, ``sampling``, ``topology``,
-``fading``, ``faults``, ``energy``, ``adapt_tau`` and
-``model_family="mamba2"``.  A big-model family is validated as the
-reference validates it (FEEL only, flat, one local step, ``hidden``
-divisible by 4) before any of these.
+``fading``, ``faults``, ``energy`` and ``adapt_tau``.  A big-model family
+is validated as the reference validates it (FEEL only, flat, one local
+step, ``hidden`` divisible by 4) before any of these.
 
 Two specs share a bucket — one batched device loop — iff
 :meth:`ScenarioSpec.bucket_key` matches: slot width (``b_max``),
@@ -99,10 +98,6 @@ class ScenarioSpec:
                     f"model_family={self.model_family!r} derives its "
                     f"ArchConfig from hidden={self.hidden}, which must be "
                     "divisible by 4 (attention heads / SSM head grouping)")
-        if self.model_family == "mamba2":
-            raise NotImplementedError(
-                "model_family 'mamba2' is not ported yet; the PyTorch port "
-                "runs model_family='feel_mlp' and 'transformer'")
         if self.scheme != "feel":
             raise NotImplementedError(
                 f"scheme {self.scheme!r} is not ported yet; the PyTorch "

@@ -3,10 +3,11 @@
 An :class:`ArchConfig` is a frozen description of one decoder model; the
 big-model FEEL families derive theirs from a spec's ``(hidden, depth)``
 (``fed.model_engine.family_arch``).  The fields are the reference's, so
-a config written for it reads the same; ``models.model.init`` and
-``forward`` refuse the values that select parts not ported (MoE, MLA,
-SSM, hybrid, codebooks, VLM prefix, qkv bias, the GELU FFN, another
-``norm_eps``).
+a config written for it reads the same.  ``models.model.init`` and
+``forward`` run the ``dense`` family and the ``ssm`` family (an
+:class:`SSMConfig` with ``attn_kind="none"``), and refuse the values that
+select parts not ported (MoE, MLA, hybrid, codebooks, VLM prefix, qkv
+bias, the GELU FFN, another ``norm_eps``, an SSM on a dense model).
 """
 from __future__ import annotations
 

@@ -1,25 +1,28 @@
-"""Big-model FEEL engine: the transformer family's per-device train steps
-(port of the reference's ``fed/model_engine.py``).
+"""Big-model FEEL engine: the transformer and mamba2 families' per-device
+train steps (port of the reference's ``fed/model_engine.py``).
 
-A spec with ``model_family="transformer"`` lowers here.  Each period runs,
-for a whole (rows, devices) batch: per-device gradients of the
-weighted-CE loss (``fed.train_step``), per-device SBC uploads with error
-feedback (``compress_dense``, the SBC kernels on CUDA), the eq. (1)
-``B_k``-weighted aggregation and the ``optim.sgd`` step, then the loss
-after the step and the test accuracy.
+A spec with ``model_family="transformer"`` or ``"mamba2"`` lowers here.
+Each period runs, for a whole (rows, devices) batch: per-device
+gradients of the weighted-CE loss (``fed.train_step``), per-device SBC
+uploads with error feedback (``compress_dense``, the SBC kernels on
+CUDA), the eq. (1) ``B_k``-weighted aggregation and the ``optim.sgd``
+step, then the loss after the step and the test accuracy.
 
 **Per-device gradients.**  The reference takes ``vmap(grad)`` over
 devices.  A kernel launched through ``ctypes`` is opaque to
 ``torch.func.vmap``, so the port gives every (row, device) its own copy
 of the row's parameters (leaves ``(R·K, …)``), runs one batched forward
-over all copies — the dense products as batched GEMMs, attention as one
-flat batch through the flash kernels — and takes one backward of the sum
-of the per-device losses, each with its own denominator.  Each copy's
-gradient is then exactly its device's gradient.
+over all copies — the dense products as batched GEMMs, attention and
+the SSD scan as one flat batch through their kernels (the scan with a
+per-copy decay ``A``) — and takes one backward of the sum of the
+per-device losses, each with its own denominator.  Each copy's gradient
+is then exactly its device's gradient.  Nothing here depends on the
+family: any forward that takes a copy axis trains this way.
 
 The runtime pins ``attn_impl="pallas"``: attention runs the flash
 kernels (``kernels/csrc/flash_attention.cu``) on CUDA and their plain
-versions on the CPU, forward and backward.
+versions on the CPU, forward and backward.  The mamba2 family always
+runs the SSD kernels (``kernels/csrc/ssd_scan.cu``) the same way.
 
 The classification workload rides along unchanged: features are
 quantized to token sequences (:func:`tokenize`), the class label is the
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.compression.sbc import compress_dense
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.fed.engine import (EngineState, full_f32, host_to_device,
                                     stack_schedules)
 from repro_torch.fed.train_step import TrainState, make_loss_fn
@@ -58,16 +61,20 @@ KERNEL_RT = Runtime(attn_impl="pallas")
 def family_arch(model_family: str, hidden: int, depth: int) -> ArchConfig:
     """The family's architecture from the spec's (hidden, depth): the
     transformer uses 4 query heads over ``hidden`` (2 KV heads) and a
-    SwiGLU of width ``2·hidden``."""
+    SwiGLU of width ``2·hidden``; the SSM uses 8-wide state heads over
+    ``2·hidden`` inner channels (N 16, one group, chunk 4)."""
     if model_family == "transformer":
         return ArchConfig(
             name=f"feel-transformer-h{hidden}-d{depth}", family="dense",
             n_layers=depth, d_model=hidden, n_heads=4, n_kv_heads=2,
             d_ff=2 * hidden, vocab=VOCAB)
     if model_family == "mamba2":
-        raise NotImplementedError(
-            "model_family 'mamba2' is not ported yet; the PyTorch port "
-            "runs 'feel_mlp' and 'transformer'")
+        return ArchConfig(
+            name=f"feel-mamba2-h{hidden}-d{depth}", family="ssm",
+            n_layers=depth, d_model=hidden, n_heads=0, n_kv_heads=0,
+            d_ff=0, vocab=VOCAB, attn_kind="none",
+            ssm=SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=8,
+                          n_groups=1, chunk=4))
     raise ValueError(f"unknown big-model family {model_family!r}")
 
 

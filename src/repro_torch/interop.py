@@ -4,7 +4,8 @@ port's tensors.
 The reference draws its initial weights with ``jax.random``, a stream
 torch cannot reproduce; parity checks give both packages the same init
 by converting the reference's parameter trees — feel-mlp's list of
-``{"w", "b"}`` or a transformer's nested dicts, with or without a
+``{"w", "b"}``, or the nested dicts of a transformer or a mamba2 model
+(``layers.mixer.{in_proj, conv_w, A_log, ...}``), with or without a
 leading row axis — through these two functions.
 """
 from __future__ import annotations

@@ -12,6 +12,12 @@ lse)`` and whose backward runs the dQ kernel and then the dK/dV kernel.
 On CPU tensors every step is the kernel's plain version, so the CPU path
 and the card path differ only in what computes each step.  Its oracle is
 ``kernels.ref.attention_ref``.
+
+``ssd`` is the differentiable Mamba-2 SSD scan (the reference's
+``kernels/ops.py::ssd``): a ``torch.autograd.Function`` whose forward is
+the SSD forward kernel and whose backward is the SSD backward kernel
+(dx, ddt, dA, dBm, dCm), with the same CPU rule.  Its oracle is
+``kernels.ref.ssd_ref``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.compression.sbc import group_scalars, n_keep, topk_threshold
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.sbc import sbc_apply, sbc_stats
 
 
@@ -62,3 +69,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     train/prefill), as in the reference wrapper."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, window)
+
+
+class _SSD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return ssd_scan.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ssd_scan.ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                      chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """x (B, S, H, P), dt (B, S, H), A (H,) or (copies, H), Bm and Cm (B,
+    S, G, N) → y (B, S, H, P) (shapes as in :mod:`.ssd_scan`)."""
+    return _SSD.apply(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))

@@ -6,6 +6,7 @@ from typing import Optional
 import torch
 
 from repro_torch.compression.sbc import sbc_tensor as sbc_ref  # noqa: F401
+from repro_torch.models.mamba2 import ssd_reference
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
@@ -22,3 +23,10 @@ def attention_ref(q, k, v, *, causal: bool = True,
         mask &= pos[None, :] > pos[:, None] - window
     w = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, chunk: int = 256):
+    """Returns y only (the kernel contract), as the reference's
+    ``kernels/ref.py``."""
+    y, _ = ssd_reference(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))
+    return y

@@ -1,0 +1,203 @@
+"""The Mamba-2 SSD scan: a forward kernel and a deterministic backward
+kernel, each beside its plain PyTorch version.
+
+  * :func:`ssd_scan_fwd` — y of the chunked SSD scan (replaces the TPU
+    package's ``kernels/ssd_scan.py::_ssd_kernel``);
+  * :func:`ssd_scan_bwd` — ``(dx, ddt, dA, dBm, dCm)`` for an upstream
+    ``dy``.  The TPU package has no backward kernel (its gradient flows
+    through the jnp oracle on the CPU); this one is the port's own.
+
+Shapes: x (B, S, H, P), dt (B, S, H), Bm and Cm (B, S, G, N) with H a
+multiple of G (head h reads group ``h // (H // G)``), y like x.  A holds
+negative decay rates, float32: (H,), shared by every sequence, or
+(copies, H), copy c owning ``B / copies`` consecutive sequences — the
+port's per-(row, device) parameter copies flattened into the batch.  dA
+has A's shape.  ``chunk`` is the chunk of the plain (chunked) version;
+S must be a multiple of ``min(chunk, S)``, as in the reference.  x, Bm
+and Cm may be slices of the channels of one wider tensor (the conv
+output): the kernels read them with their token stride, no copy.
+
+On a CUDA tensor each function launches its hand-written kernel in
+``csrc/ssd_scan.cu`` and adds one to its ``launches`` count; on a CPU
+tensor it runs the plain version beside it.  There is no fallback: a CUDA
+tensor either launches the kernel or raises.  The forward takes float32
+or bfloat16 (all but A in one type) and N up to 64; the backward takes
+float32, N up to 64, P a power of two and ``(H // G) * P`` up to 512
+(N <= 16), 256 (N <= 32) or 128.  The kernels run the per-token
+recurrence; the plain versions are the chunked
+:func:`repro_torch.models.mamba2.ssd_reference` and its autograd.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models.mamba2 import ssd_reference
+
+MAX_STATE = 64            # N the kernels take
+SEGMENT = 16              # tokens of one backward segment (csrc kTile)
+
+
+@functools.cache
+def _library():
+    """The built ``csrc/ssd_scan.cu`` with its C signatures."""
+    c = build.load("ssd_scan").cdll
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dims = [i32] * 7 + [i64] * 3     # B, S, H, P, G, N, per_copy, ld x/B/C
+    c.ssd_scan_fwd_launch.argtypes = [ptr] * 6 + dims + [i32, ptr]
+    c.ssd_scan_bwd_launch.argtypes = [ptr] * 13 + dims + [ptr]
+    c.ssd_scan_fwd_launch.restype = i32
+    c.ssd_scan_bwd_launch.restype = i32
+    return c
+
+
+def _token_stride(what: str, name: str, t) -> int:
+    """Elements between consecutive tokens of a (B, S, heads, width)
+    tensor whose (heads, width) block is packed: a contiguous tensor, or
+    a slice of the channels of a wider one."""
+    b, s, k, w = t.shape
+    packed = (w == 1 or t.stride(3) == 1) and (k == 1 or t.stride(2) == w)
+    ld = t.stride(1) if s > 1 else (t.stride(0) if b > 1 else k * w)
+    if not packed or ld < k * w or (b > 1 and s > 1
+                                    and t.stride(0) != s * ld):
+        raise ValueError(f"{what}: {name} must be token rows with a packed "
+                         f"(heads, width) block, got strides {t.stride()}")
+    return ld
+
+
+def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, *like_x):
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"{what}: x must be (B, S, H, P), dt (B, S, H) and "
+                         f"Bm, Cm one (B, S, G, N) shape")
+    b, s, h, _ = x.shape
+    g = Bm.shape[2]
+    if (tuple(dt.shape) != (b, s, h) or tuple(Bm.shape[:2]) != (b, s)
+            or g == 0 or h % g):
+        raise ValueError(f"{what}: dt {tuple(dt.shape)}, Bm "
+                         f"{tuple(Bm.shape)} do not match x {tuple(x.shape)}"
+                         " (H must be a multiple of G)")
+    if (A.dim() not in (1, 2) or A.shape[-1] != h or A.dtype != torch.float32
+            or (A.dim() == 2 and (A.shape[0] == 0 or b % A.shape[0]))):
+        raise ValueError(f"{what}: A must be float32 (H,) or (copies, H) "
+                         f"with B a multiple of copies, got "
+                         f"{tuple(A.shape)} {A.dtype}")
+    if chunk < 1 or s % min(chunk, max(s, 1)):
+        raise ValueError(f"{what}: S={s} is not a multiple of chunk={chunk}")
+    if any(t.shape != x.shape for t in like_x):
+        raise ValueError(f"{what}: dy must have x's shape {tuple(x.shape)}")
+    for t in (x, dt, Bm, Cm, *like_x):
+        if t.dtype not in dtypes or t.dtype != x.dtype:
+            raise ValueError(f"{what}: x, dt, Bm, Cm must share one dtype of "
+                             f"{dtypes}, got {t.dtype} and {x.dtype}")
+    for t in (x, dt, A, Bm, Cm, *like_x):
+        if t.device != x.device:
+            raise ValueError(f"{what}: tensors must be on one device")
+    if x.device.type == "cuda":
+        if Bm.shape[3] > MAX_STATE:
+            raise ValueError(f"{what}: the kernels take N <= {MAX_STATE}, "
+                             f"got {Bm.shape[3]}")
+        for t in (dt, A, *like_x):
+            if not t.is_contiguous():
+                raise ValueError(f"{what}: dt, A and dy must be contiguous")
+
+
+def _dims(what: str, x, A, Bm, Cm):
+    b, s, h, p = x.shape
+    copies = A.shape[0] if A.dim() == 2 else 1
+    return (b, s, h, p, Bm.shape[2], Bm.shape[3], b // copies,
+            _token_stride(what, "x", x), _token_stride(what, "Bm", Bm),
+            _token_stride(what, "Cm", Cm))
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_fwd_plain(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """Plain PyTorch forward: the chunked scan, y in x's dtype."""
+    return ssd_reference(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))[0]
+
+
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
+    """Plain PyTorch backward: autograd of :func:`ssd_scan_fwd_plain`,
+    ``(dx, ddt, dA, dBm, dCm)``."""
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    with torch.enable_grad():
+        y = ssd_scan_fwd_plain(*leaves, chunk=chunk)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """y (B, S, H, P) in x's dtype."""
+    _check("ssd_scan_fwd", x, dt, A, Bm, Cm, chunk,
+           (torch.float32, torch.bfloat16))
+    if x.device.type == "cpu":
+        return ssd_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    dims = _dims("ssd_scan_fwd", x, A, Bm, Cm)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return y
+    _raise_on(_library().ssd_scan_fwd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), *dims, int(x.dtype == torch.bfloat16),
+        _stream(x)), "ssd_scan_fwd")
+    ssd_scan_fwd.launches += 1
+    return y
+
+
+ssd_scan_fwd.launches = 0
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
+    """``(dx, ddt, dA, dBm, dCm)``, each like its input (contiguous)."""
+    what = "ssd_scan_bwd"
+    _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32,), dy)
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rows = h // g * p
+    most = 512 if n <= 16 else 8192 // (32 if n <= 32 else 64)
+    if p & (p - 1) or rows > most:
+        raise ValueError(f"{what}: the kernel takes P a power of two and "
+                         f"(H // G) * P up to {most} at N={n}, got P={p}, "
+                         f"(H // G) * P={rows}")
+    dims = _dims(what, x, A, Bm, Cm)
+    new = functools.partial(torch.empty, device=x.device,
+                            dtype=torch.float32)
+    dx, ddt, dA = new(x.shape), new(dt.shape), new(A.shape)
+    dBm, dCm = new(Bm.shape), new(Cm.shape)
+    if x.numel() == 0 or Bm.numel() == 0:
+        return dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
+    part = torch.empty((b, h), dtype=torch.float64, device=x.device)
+    segments = -(-s // SEGMENT)
+    ws = new((max(b * g * (segments - 1) * n * rows, 1),))
+    _raise_on(_library().ssd_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), part.data_ptr(),
+        ws.data_ptr(), *dims, _stream(x)), what)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dBm, dCm
+
+
+ssd_scan_bwd.launches = 0

@@ -1,13 +1,16 @@
-"""The decoder model of the dense transformer family (port of the
-reference's ``models/model.py``): ``[ln → GQA → ln → SwiGLU] × L`` over a
-padded-vocab embedding, with a final norm and an untied LM head.
+"""The decoder model of the dense transformer and SSM families (port of
+the reference's ``models/model.py``) over a padded-vocab embedding, with a
+final norm and an untied LM head:
+
+  dense : [ln → GQA → ln → SwiGLU] × L
+  ssm   : [ln → mamba2] × L      (the Mamba-2 block, :mod:`.mamba2`)
 
 Parameters follow the reference's layout — ``embed.table``, ``lm_head``,
 ``final_norm.scale`` and ``layers.*`` stacked over a leading layer axis —
 and :func:`forward` takes a stack of N such sets (a leading copy axis on
 every leaf, :mod:`.layers`).  The stacked layer axis runs as a Python
-loop where the reference scans.  The other families (MoE, SSM, hybrid,
-audio, VLM) and decode are not ported.
+loop where the reference scans.  The other families (MoE, hybrid, audio,
+VLM) and decode are not ported.
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (dense_init, embedding_init, ffn,
                                        ffn_init, linear, padded_vocab,
                                        rmsnorm, rmsnorm_init)
@@ -34,21 +38,28 @@ class Runtime:
 _UNPORTED = ("attn_kind", "moe", "mla", "ssm", "hybrid_every",
              "n_codebooks", "vlm_prefix", "qkv_bias", "ffn_kind",
              "norm_eps")
+# the values each ported family takes where it differs from the defaults
+# (a class: any instance of it)
+_FAMILY_FIELDS = {"dense": {},
+                  "ssm": {"attn_kind": "none", "ssm": SSMConfig}}
 
 
 def _require_ported(cfg: ArchConfig):
     """Refuse a config that asks for what the port does not run, rather
     than run a different model."""
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY_FIELDS:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; the PyTorch "
-            "port runs the dense transformer")
-    default = {f.name: f.default for f in fields(ArchConfig)}
+            f"port runs {sorted(_FAMILY_FIELDS)}")
+    want = {f.name: f.default for f in fields(ArchConfig)}
+    want.update(_FAMILY_FIELDS[cfg.family])
     for name in _UNPORTED:
-        if getattr(cfg, name) != default[name]:
+        got = getattr(cfg, name)
+        if got != want[name] and not (isinstance(want[name], type)
+                                      and isinstance(got, want[name])):
             raise NotImplementedError(
-                f"ArchConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"yet; the port runs {name}={default[name]!r}")
+                f"ArchConfig.{name}={got!r} is not ported yet for family "
+                f"{cfg.family!r}; the port runs {name}={want[name]!r}")
 
 
 def _dense_layer_init(gen, cfg: ArchConfig, dtype):
@@ -59,17 +70,26 @@ def _dense_layer_init(gen, cfg: ArchConfig, dtype):
                             cfg.ffn_kind)}
 
 
+def _ssm_layer_init(gen, cfg: ArchConfig, dtype):
+    return {"ln": rmsnorm_init(cfg.d_model, dtype),
+            "mixer": m2.mamba2_init(gen, cfg, dtype)}
+
+
+_LAYER_INIT = {"dense": _dense_layer_init, "ssm": _ssm_layer_init}
+
+
 def init(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32):
     """One parameter set, drawn from ``gen`` in this order: embedding
     table, LM head, then per layer the attention projections (q, k, v,
-    o) and the FFN (gate, up, down).  Same shapes and scales as the
+    o) and the FFN (gate, up, down) — or, for the SSM family, the
+    mixer's in_proj, conv_w and out_proj.  Same shapes and scales as the
     reference's init, another random stream."""
     _require_ported(cfg)
     params = {"embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype),
               "lm_head": dense_init(gen, cfg.d_model,
                                     padded_vocab(cfg.vocab), dtype),
               "final_norm": rmsnorm_init(cfg.d_model, dtype)}
-    layers = [_dense_layer_init(gen, cfg, dtype)
+    layers = [_LAYER_INIT[cfg.family](gen, cfg, dtype)
               for _ in range(cfg.n_layers)]
     params["layers"] = tree_map(lambda *ls: torch.stack(ls), *layers)
     return params
@@ -100,6 +120,13 @@ def _dense_block(lp, cfg: ArchConfig, x, rt: Runtime):
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x))
 
 
+def _ssm_block(lp, cfg: ArchConfig, x, rt: Runtime):
+    return x + m2.mamba2_forward(lp["mixer"], cfg, rmsnorm(lp["ln"], x))
+
+
+_BLOCK = {"dense": _dense_block, "ssm": _ssm_block}
+
+
 def _layer_params(layers, n_layers: int):
     """Per-layer views of the stacked layer params (layer axis 1, after
     the copy axis); ``unbind`` keeps the gradient one stack per leaf."""
@@ -110,10 +137,11 @@ def _layer_params(layers, n_layers: int):
 
 def forward(cfg: ArchConfig, params, tokens, *, rt: Runtime = Runtime()):
     """Full-sequence forward of N parameter copies: tokens (N, B, S)
-    integers → logits (N, B, S, padded vocab).  The dense family has no
-    auxiliary loss, so only the logits are returned."""
+    integers → logits (N, B, S, padded vocab).  The ported families have
+    no auxiliary loss, so only the logits are returned."""
     _require_ported(cfg)
+    block = _BLOCK[cfg.family]
     x = _embed(params, cfg, tokens)
     for lp in _layer_params(params["layers"], cfg.n_layers):
-        x = _dense_block(lp, cfg, x, rt)
+        x = block(lp, cfg, x, rt)
     return _unembed(params, cfg, rmsnorm(params["final_norm"], x))

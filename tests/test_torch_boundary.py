@@ -58,8 +58,7 @@ def _fleet(k=3):
     ("scheme", "model_fl"), ("scheme", "individual"),
     ("scheme", "gradient_fl"), ("local_steps", 2), ("replan", 5),
     ("sampling", object()), ("topology", object()), ("fading", object()),
-    ("faults", object()), ("energy", object()), ("adapt_tau", object()),
-    ("model_family", "mamba2")])
+    ("faults", object()), ("energy", object()), ("adapt_tau", object())])
 def test_spec_rejects_what_later_slices_bring(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ScenarioSpec(fleet=_fleet(), **{field: value})
@@ -69,6 +68,15 @@ def test_spec_accepts_the_transformer_family():
     spec = ScenarioSpec(fleet=_fleet(), model_family="transformer")
     assert spec.bucket_key()[-1] == "transformer"
     assert spec.bucket_key() != ScenarioSpec(fleet=_fleet()).bucket_key()
+
+
+def test_spec_accepts_the_mamba2_family():
+    spec = ScenarioSpec(fleet=_fleet(), model_family="mamba2")
+    assert spec.bucket_key()[-1] == "mamba2"
+    assert spec.bucket_key() != ScenarioSpec(
+        fleet=_fleet(), model_family="transformer").bucket_key()
+    with pytest.raises(ValueError):               # the reference's rule
+        ScenarioSpec(fleet=_fleet(), model_family="mamba2", hidden=10)
 
 
 @pytest.mark.parametrize("field,value", [

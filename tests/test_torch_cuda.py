@@ -13,7 +13,12 @@ the same survivors as the CPU path and agree with it to 2e-5; a chunked
 The flash-attention forward must agree with its plain version to 2e-5
 (bf16: 2e-2) and the backward pair to 1e-4, against the plain backward
 and autograd of the oracle; the backward is bitwise reproducible; the
-wrappers raise on what the kernels do not take."""
+wrappers raise on what the kernels do not take.  The SSD forward must
+agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
+1e-4 — against the plain version run in float64 everywhere, and against
+the float32 plain version wherever that is itself within half the
+tolerance of the float64 value; the backward is bitwise reproducible; a
+mamba2 ``Experiment.run`` on the card matches the CPU path."""
 import numpy as np
 import pytest
 import torch
@@ -222,3 +227,125 @@ def test_attention_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                  # non-contiguous q
         kfa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                                 k, v)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan: forward at 2e-5 (bf16 2e-2), backward at 1e-4, against the
+# plain versions, bitwise reproducible, through Experiment.run
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+
+SSD_CASES = [  # (copies, B per copy, S, H, P, G, N, chunk)
+    (8, 32, 16, 64, 8, 1, 16, 4),          # the mamba2 cell's shape, cut
+    (2, 1, 128, 4, 32, 2, 16, 32),
+    (1, 1, 64, 2, 64, 1, 32, 16),
+    (1, 2, 256, 8, 32, 4, 64, 64),
+    (1, 1, 128, 4, 32, 4, 16, 128),
+]
+
+
+def _ssd_inputs(cuda, copies, per, s, h, p, g, n, seed=0):
+    """As the reference's kernel tests draw them; x, Bm and Cm are slices
+    of one conv-like tensor (token stride h*p + 2*g*n), as on the path."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    b = copies * per
+    scale = torch.full((h * p + 2 * g * n,), 0.5, device=cuda)
+    scale[:h * p] = 1.0
+    conv = torch.randn((b, s, scale.numel()), generator=gen,
+                       device=cuda) * scale
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen,
+                                                  device=cuda))
+    a = -torch.exp(torch.randn((copies, h), generator=gen, device=cuda) * 0.3)
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    return (x, dt, a, bm, cm), dy
+
+
+def _close_to_plain(got, plain, exact, tol):
+    """got within tol of the plain version run in float64 everywhere, and
+    of the float32 plain version wherever that is itself within tol / 2
+    of the float64 value."""
+    torch.testing.assert_close(got.double(), exact, rtol=tol, atol=tol)
+    sound = (plain.double() - exact).abs() <= tol / 2 * (1 + exact.abs())
+    torch.testing.assert_close(got[sound], plain[sound], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_forward_matches_plain(cuda, case):
+    copies, per, s, h, p, g, n, chunk = case
+    ins, _ = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
+    before = kssd.ssd_scan_fwd.launches
+    y = kssd.ssd_scan_fwd(*ins, chunk=chunk)
+    assert kssd.ssd_scan_fwd.launches == before + 1
+    _close_to_plain(y, kssd.ssd_scan_fwd_plain(*ins, chunk=chunk),
+                    kssd.ssd_scan_fwd_plain(*(t.double() for t in ins),
+                                            chunk=chunk), 2e-5)
+    bf = [t.bfloat16() for t in ins]
+    bf[2] = ins[2]                                   # A stays float32
+    yb = kssd.ssd_scan_fwd(*bf, chunk=chunk)
+    assert yb.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        yb.float(), kssd.ssd_scan_fwd_plain(*bf, chunk=chunk).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_matches_plain(cuda, case):
+    copies, per, s, h, p, g, n, chunk = case
+    ins, dy = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
+    before = kssd.ssd_scan_bwd.launches
+    got = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    assert kssd.ssd_scan_bwd.launches == before + 1
+    plain = kssd.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
+    exact = kssd.ssd_scan_bwd_plain(*(t.double() for t in (*ins, dy)),
+                                    chunk=chunk)
+    for a, pl, ex in zip(got, plain, exact):
+        assert a.shape == pl.shape
+        _close_to_plain(a, pl, ex, 1e-4)
+
+
+def test_ssd_backward_is_bitwise_reproducible(cuda):
+    ins, dy = _ssd_inputs(cuda, *SSD_CASES[0][:7])
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    runs = [torch.autograd.grad(kops.ssd(*leaves, chunk=4), leaves, dy)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
+    ins, dy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 16)
+    with pytest.raises(ValueError):                  # N = 128: no kernel
+        big, _ = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 128)
+        kssd.ssd_scan_fwd(*big, chunk=4)
+    with pytest.raises(ValueError):                  # P = 12: not 2^k
+        odd, ody = _ssd_inputs(cuda, 1, 2, 16, 4, 12, 1, 16)
+        kssd.ssd_scan_bwd(*odd, ody, chunk=4)
+    with pytest.raises(ValueError):                  # A on the CPU
+        kssd.ssd_scan_fwd(ins[0], ins[1], ins[2].cpu(), *ins[3:], chunk=4)
+    with pytest.raises(ValueError):                  # bf16 backward
+        bf = [t.bfloat16() for t in ins]
+        bf[2] = ins[2]
+        kssd.ssd_scan_bwd(*bf, dy.bfloat16(), chunk=4)
+
+
+def test_mamba2_run_on_the_card_matches_the_cpu_path(cuda):
+    data, test = ClassificationData.synthetic(n=600, dim=64,
+                                              spread=6.0).split(100)
+    fleet = tuple(DeviceProfile(kind="cpu", f_cpu=f * 1e9)
+                  for f in (0.7, 1.4, 2.1, 0.7))
+    specs = [ScenarioSpec(fleet=fleet, hidden=32, depth=2, b_max=16,
+                          compression=0.05, seeds=(0,),
+                          model_family="mamba2")]
+    before = (kssd.ssd_scan_fwd.launches, kssd.ssd_scan_bwd.launches)
+    card = Experiment(data, test, specs, device=cuda).run(3)
+    assert (kssd.ssd_scan_fwd.launches - before[0],
+            kssd.ssd_scan_bwd.launches - before[1]) == (4 * 2 * 3, 2 * 3)
+    cpu = Experiment(data, test, specs, device="cpu").run(3)
+    np.testing.assert_array_equal(card.times, cpu.times)
+    np.testing.assert_array_equal(card.global_batch, cpu.global_batch)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4, atol=1e-4)
+    assert np.abs(card.accs - cpu.accs).max() <= 2.0 / len(test.y) + 1e-7
