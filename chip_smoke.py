@@ -4,14 +4,17 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown
 
-It drives the port's three paths through ``repro_torch.api.Experiment.run``
+It drives the port's FEEL paths through ``repro_torch.api.Experiment.run``
 on the FEEL scheme with the Table-II fleet at K = 12 — the main path with
 feel-mlp at full width (3072→256→256→10, 855 050 parameters, 16 rows),
 the transformer family at the spec's defaults (feel-transformer-h256-d3:
 d_model 256, 4 query / 2 KV heads of 64, SwiGLU 512, 16-token sequences,
 1 836 800 parameters, 8 rows) and the mamba2 family at the spec's
 defaults (feel-mamba2-h256-d3: d_model 256, 64 SSD heads of 8, state
-16, chunk 4, 1 330 208 parameters, 8 rows) — and holds every kernel of
+16, chunk 4, 1 330 208 parameters, 8 rows) — and the token-decode
+driver ``repro_torch.launch.serve.main`` at the full width of
+mistral-nemo-12b (40 layers, d_model 5120, 32 query / 8 KV heads of 128,
+12.25 B parameters in float32) and mamba2-2.7b, and holds every kernel of
 those paths against its plain PyTorch version on the card:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -25,18 +28,27 @@ those paths against its plain PyTorch version on the card:
      forward and backward at the mamba2 cell's shape and four edge shapes
      (against the plain versions in float64, and in float32 wherever
      those are within half the tolerance of float64; the backward
-     bitwise reproducible);
+     bitwise reproducible); 3d. flash decode at the decode cell's shape
+     and edge cases (pos 0, the last slot, ring buffers, head dim 64 at
+     g 1/4/8, a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
-     PERF.md;
+     PERF.md; 4d. ``launch.serve.main`` on mistral-nemo-12b (batch 8,
+     prompt 128, 64 generated tokens, ctx 2048: 40 x 192 = 7 680 flash
+     decode launches) and on mamba2-2.7b (none), each with its launch
+     count, tokens/s and peak memory;
   5. the card against the port's CPU path (three periods of one row),
      chunked == monolithic bitwise on the card, and a padded row against
      its solo twin; 5b. the same for the transformer, 5c. for mamba2;
+     5d. decode at the reduced configs (and a window of 8) over 12
+     tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
+     port's full-sequence forward on the card (2e-3);
   6. kernel times (CUDA events, cold L2) beside their bound, the plain
-     versions' times and, for attention, one PyTorch call
+     versions' times and, for attention and decode, one PyTorch call
      (``scaled_dot_product_attention``) as a yardstick (none computes the
-     SBC pair or the SSD scan in one call).
+     SBC pair or the SSD scan in one call); flash decode also at one
+     layer of a 32k-token cache (B 16) in bf16 and f32.
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
@@ -48,6 +60,10 @@ report go to ``chiprun_out/chip_smoke.log`` and ``chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import gc
+import io
 import json
 import subprocess
 import sys
@@ -63,6 +79,7 @@ OUT_DIR = ROOT / "chiprun_out"
 # non-tensor-core float32 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # the main path's SBC segments: one per (row, device) upload of each leaf
 LEAF_LENGTHS = (786_432, 256, 65_536, 256, 2_560, 10)
@@ -89,7 +106,20 @@ M_SHAPE = (M_COPIES * 128, SEQ, 64, 8, 1, 16, 4)
 M_LAUNCHES = {"ssd_scan_fwd": 12, "ssd_scan_bwd": 3, "sbc_stats": 12,
               "sbc_apply": 12}
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
-SOURCES = ("sbc", "flash_attention", "ssd_scan")
+# the decode cell: launch.serve at full width, prefill by stepping the
+# decode path over the prompt, then greedy decode; mistral-nemo-12b's
+# cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
+# decodes; one layer of a 32k-token cache
+D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b")
+D_BATCH, D_PROMPT, D_GEN, D_CTX = 8, 128, 64, 2048
+D_ARGV = ["--full", "--batch", str(D_BATCH), "--prompt-len", str(D_PROMPT),
+          "--gen", str(D_GEN), "--ctx", str(D_CTX)]
+D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0}   # attention layers
+D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)
+D_POS = D_PROMPT + D_GEN - 1
+D_LONG = (16, 32_768, 32, 8, 128)
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+SOURCES = ("sbc", "flash_attention", "ssd_scan", "flash_decode")
 
 
 class _Log:
@@ -421,6 +451,239 @@ def ssd_times(torch, kssd):
     return out
 
 
+def decode_inputs(torch, gen, b, ctx, hq, hkv, hd, dtype=None):
+    """q (B, 1, Hq, hd) and the caches (B, ctx, Hkv, hd), as the model
+    stores them."""
+    dtype = dtype or torch.float32
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, 1, hq, hd), (b, ctx, hkv, hd),
+                               (b, ctx, hkv, hd)))
+
+
+def decode_checks(torch, kfd):
+    """Flash decode against its plain version on the card: f32 2e-5,
+    bf16 2e-2, at the decode cell's shape at the path's last position,
+    pos 0 and the last slot, ring buffers (pos < ctx and pos 1000), head
+    dim 64 at g 1, 4 and 8, and a ctx that is not a multiple of the
+    kernel's 32-slot tile; every case run twice and required bitwise
+    equal.  Returns the max abs errors; raises AssertionError."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {"flash_decode": 0.0, "bf16": 0.0}
+    b, ctx, hq, hkv, hd = D_SHAPE
+    cases = [D_SHAPE + (D_POS, None), D_SHAPE + (0, None),
+             D_SHAPE + (ctx - 1, None), (4, 256, 8, 2, 64, 100, 256),
+             (4, 256, 8, 2, 64, 1000, 256), (4, 512, 16, 4, 128, 700, 128),
+             (4, 256, 8, 8, 64, 200, None), (4, 256, 8, 2, 64, 200, None),
+             (4, 256, 64, 8, 64, 255, 64), (3, 1000, 32, 8, 128, 999, None),
+             (3, 1000, 32, 8, 128, 5000, None)]
+    for b, ctx, hq, hkv, hd, pos, window in cases:
+        label = (f"flash_decode B={b} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} "
+                 f"pos={pos} window={window}")
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for dtype, tol, key in ((torch.float32, 2e-5, "flash_decode"),
+                                (torch.bfloat16, 2e-2, "bf16")):
+            q, k, v = decode_inputs(torch, gen, b, ctx, hq, hkv, hd, dtype)
+            got = kfd.flash_decode(q, k, v, p, window=window)
+            want = kfd.flash_decode_plain(q, k, v, p, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol):
+                raise AssertionError(f"{label} {dtype}: beyond {tol} of the "
+                                     f"plain version (max abs err {err:.3g})")
+            if not torch.equal(got, kfd.flash_decode(q, k, v, p,
+                                                     window=window)):
+                raise AssertionError(f"{label} {dtype}: not bitwise "
+                                     "reproducible")
+            errs[key] = max(errs[key], err)
+    return errs
+
+
+def decode_cell(torch, serve, kfd, arch):
+    """``launch.serve.main`` at full width on ``arch`` with the flash
+    decode launch count set to 0 just before and read just after (held
+    against one launch per attention layer and step); the driver's own
+    lines go to the log.  Returns the report; raises AssertionError (the
+    driver raises on non-finite logits)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kfd.flash_decode.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        tps = serve.main(["--arch", arch] + D_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kfd.flash_decode.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in out.getvalue().splitlines():
+        log(f"[4d decode]   {line}")
+    want = D_LAYERS[arch] * (D_PROMPT + D_GEN)
+    ms = 1e3 * D_BATCH / tps
+    log(f"[4d decode] launch.serve.main --arch {arch} {' '.join(D_ARGV)}: "
+        f"{tps:.1f} tokens/s = {ms:.2f} ms per decode step (batch "
+        f"{D_BATCH}); whole call {wall:.2f} s (init, prefill, decode); "
+        f"peak device memory {peak:.2f} GiB; flash_decode launches "
+        f"{launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"4d {arch}: flash_decode launches {launches}, "
+                             f"expected {want}")
+    if not tps > 0:
+        raise AssertionError(f"4d {arch}: rate {tps}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": tps, "ms_per_step": ms, "wall_s": wall,
+            "peak_gib": peak, "launches": {"flash_decode": launches},
+            "argv": ["--arch", arch] + D_ARGV}
+
+
+def decode_contracts(torch, tm, get_arch, tree_map):
+    """Decode at the reduced configs (and mistral-nemo-12b with a window
+    of 8, a ring buffer) over 12 tokens of 2 sequences: the card against
+    the CPU path (1e-4 in log-softmax), and decode against the port's
+    full-sequence forward on the card (2e-3, the reference's bound).
+    Returns the max errors; raises AssertionError."""
+    n, b = 12, 2
+    errs = {}
+    for arch, window in (("mistral-nemo-12b", None), ("mistral-nemo-12b", 8),
+                         ("mamba2-2.7b", None)):
+        cfg = get_arch(arch).reduced()
+        if window is not None:
+            cfg = dataclasses.replace(cfg, attn_window=window)
+        params = tm.init(cfg, torch.Generator().manual_seed(0))
+        card = tree_map(lambda t: t.cuda(), params)
+        toks = torch.randint(0, cfg.vocab, (b, n),
+                             generator=torch.Generator().manual_seed(1))
+        caches = [tm.init_cache(cfg, b, n),
+                  tm.init_cache(cfg, b, n, device="cuda")]
+        on_cpu, on_card = [], []
+        for t in range(n):
+            lc, caches[0] = tm.decode_step(cfg, params, caches[0],
+                                           toks[:, t:t + 1])
+            lg, caches[1] = tm.decode_step(cfg, card, caches[1],
+                                           toks[:, t:t + 1].cuda())
+            on_cpu.append(lc)
+            on_card.append(lg)
+        lsm = lambda x: torch.log_softmax(  # noqa: E731
+            torch.cat(x, 1)[..., :cfg.vocab].float().cpu(), -1)
+        full = tm.forward(cfg, tree_map(lambda t: t[None], card),
+                          toks.cuda()[None])[0]
+        cpu_err = float((lsm(on_card) - lsm(on_cpu)).abs().max())
+        fwd_err = float((lsm(on_card) - lsm([full])).abs().max())
+        label = f"{cfg.name} window={window}"
+        log(f"[5d decode] {label}: {n} tokens card vs CPU path log-softmax "
+            f"max abs err {cpu_err:.3g} (tol 1e-4); decode vs forward on the "
+            f"card {fwd_err:.3g} (tol 2e-3)")
+        if not (cpu_err <= 1e-4 and fwd_err <= 2e-3):
+            raise AssertionError(f"5d {label}: card vs CPU {cpu_err:.3g}, "
+                                 f"decode vs forward {fwd_err:.3g}")
+        errs[label] = {"card_vs_cpu": cpu_err, "decode_vs_forward": fwd_err}
+    return errs
+
+
+def decode_times(torch, kfd, F):
+    """Cold-L2 median times of flash decode, its plain version and
+    ``scaled_dot_product_attention`` (a boolean mask of the visible
+    slots, ``enable_gqa=True``, over the cache's (B, Hkv, ctx, hd) view)
+    at the decode cell's shape at the path's last position (f32) and at
+    one layer of a full 32k-token cache (bf16 and f32).  Bounds: the
+    bytes the call needs (q and o once, the visible K/V slots once) over
+    3.35 TB/s vs the f32 operations of the visible (row, slot) pairs
+    (4 hd + 4 each) over the peak rate of the inputs' type."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for key, shape, pos, dtype in (
+            ("path", D_SHAPE, D_POS, torch.float32),
+            ("32k_bf16", D_LONG, D_LONG[1] - 1, torch.bfloat16),
+            ("32k_f32", D_LONG, D_LONG[1] - 1, torch.float32)):
+        b, ctx, hq, hkv, hd = shape
+        q, k, v = decode_inputs(torch, gen, b, ctx, hq, hkv, hd, dtype)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        mask = kfd.visible_slots(p, ctx, None, "cuda")[None, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        want = kfd.flash_decode_plain(q, k, v, p).transpose(1, 2)
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        esize = q.element_size()
+        visible = min(pos + 1, ctx)
+        nbytes = 2 * q.numel() * esize + 2 * b * visible * hkv * hd * esize
+        ops = b * hq * visible * (4 * hd + 4)
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound_ops = 1e3 * ops / rate
+        out[key] = {"shape": list(shape), "pos": pos,
+                    "dtype": str(dtype).split(".")[-1],
+                    "ms": cold_ms(torch, lambda: kfd.flash_decode(q, k, v,
+                                                                  p)),
+                    "plain_ms": cold_ms(torch, lambda: kfd.flash_decode_plain(
+                        q, k, v, p)),
+                    "library_ms": cold_ms(torch, sdpa),
+                    "library_max_abs_err": lib_err,
+                    "bound_ms": max(bound_bytes, bound_ops),
+                    "bound_by": ("bytes" if bound_bytes >= bound_ops
+                                 else "operations"),
+                    "bytes": nbytes, "ops": ops}
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_profile(torch, tm, get_arch, make_serve_step):
+    """Host and device time of 16 decode steps at full width (batch 8,
+    position 128 of a 2048-slot cache): the host's enqueue time against
+    the wall time to the end of the steps, and the device busy share
+    under torch.profiler.  A step whose enqueue takes as long as its wall
+    is bound by the host's launch rate."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for arch in D_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_arch(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tm.init(cfg, gen)
+        cache = tm.init_cache(cfg, D_BATCH, D_CTX, device="cuda")
+        step = make_serve_step(cfg, tm.Runtime(attn_impl="pallas"))
+        tok = torch.zeros((D_BATCH, 1), dtype=torch.long, device="cuda")
+        for _ in range(D_PROMPT):
+            step(params, cache, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            step(params, cache, tok)
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                step(params, cache, tok)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+        log(f"[profile decode {arch}] 16 steps: enqueue {1e3 * enqueue:.1f} "
+            f"ms, wall {1e3 * wall:.1f} ms ({1e3 * wall / 16:.2f} ms/step); "
+            f"profiled wall {1e3 * window:.1f} ms, device busy {busy:.1f} ms "
+            f"({100 * busy / (1e3 * window):.1f}%)")
+        table = events.table(sort_by="self_device_time_total", row_limit=20)
+        log(table)
+        out[arch] = {"enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
+                     "profile_window_ms": 1e3 * window, "busy_ms": busy,
+                     "table": table}
+        del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 Env = namedtuple("Env", "torch np Experiment ScenarioSpec SerialExecutor "
                         "DeviceProfile lowering data test")
 
@@ -579,7 +842,13 @@ def main(argv=None) -> int:
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import sbc as ksbc
         from repro_torch.kernels import ssd_scan as kssd
+        from repro_torch.kernels import flash_decode as kfd
         from repro_torch.kernels.ref import attention_ref
+        from repro_torch.configs import get_arch
+        from repro_torch.fed.train_step import make_serve_step
+        from repro_torch.launch import serve
+        from repro_torch.models import model as tm
+        from repro_torch.tree import tree_map
     except ImportError as exc:
         return fail(f"the port is not importable from {ROOT}: {exc}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -713,6 +982,19 @@ def main(argv=None) -> int:
         f"is itself beyond half the tolerance of float64; backward run "
         f"twice bitwise equal")
     report["ssd_errors"] = ssd_errs
+    try:
+        dec_errs = decode_checks(torch, kfd)
+        torch.cuda.synchronize()
+    except AssertionError as exc:
+        return fail(f"phase 3d: {exc}")
+    errs["flash_decode"] = dec_errs["flash_decode"]
+    log(f"[3d kernels] flash decode at {D_SHAPE} (B, ctx, Hq, Hkv, hd) at "
+        f"pos {D_POS}, 0 and {D_CTX - 1}, ring buffers (pos 100 and 1000 in "
+        f"256 slots, pos 700 with window 128), hd 64 at g 1, 4 and 8, ctx "
+        f"1000 (pos 999 and 5000): max abs err {dec_errs['flash_decode']:.3g} "
+        f"(tol 2e-5), bf16 {dec_errs['bf16']:.3g} (tol 2e-2); every case run "
+        f"twice bitwise equal")
+    report["decode_errors"] = dec_errs
 
     # ---- 4. the main path at full width ------------------------------------
     t0 = time.perf_counter()
@@ -810,6 +1092,15 @@ def main(argv=None) -> int:
     t_launches = report["transformer"]["launches"]
     m_launches = report["mamba2"]["launches"]
 
+    # ---- 4d. the token-decode driver at full width ------------------------
+    for arch in D_ARCHS:
+        try:
+            report[f"decode_{arch}"] = decode_cell(torch, serve, kfd, arch)
+        except (AssertionError, FloatingPointError) as exc:
+            return fail(f"phase 4d: {exc}")
+    d_launches = {arch: report[f"decode_{arch}"]["launches"]["flash_decode"]
+                  for arch in D_ARCHS}
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -864,6 +1155,13 @@ def main(argv=None) -> int:
                 env, tag, family, cells[family]["specs"])
         except AssertionError as exc:
             return fail(f"phase {exc}")
+
+    # ---- 5d. decode: card vs CPU, decode vs forward ------------------------
+    try:
+        report["decode_contracts"] = decode_contracts(torch, tm, get_arch,
+                                                      tree_map)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
 
     # ---- 6. times ----------------------------------------------------------
     records = []
@@ -947,7 +1245,33 @@ def main(argv=None) -> int:
             f"{t['ops']} f32 ops); library_ms none (no single PyTorch call "
             f"computes the SSD scan)")
 
+    dt = decode_times(torch, kfd, F)
+    path = dt["path"]
+    records.append({
+        "name": "flash_decode", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": "src/repro/kernels/flash_decode.py:25",
+        "launches": d_launches["mistral-nemo-12b"],
+        "launches_by_path": {f"decode {a}": n for a, n in d_launches.items()},
+        "max_abs_err": errs["flash_decode"], "ms": path["ms"],
+        "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+        "bound_by": path["bound_by"], "library_ms": path["library_ms"],
+        "at_32k": {k: {f: dt[k][f] for f in ("shape", "pos", "dtype", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}
+                   for k in ("32k_bf16", "32k_f32")}})
+    for key, t in dt.items():
+        log(f"[6 times] flash_decode {key} at {tuple(t['shape'])} (B, ctx, "
+            f"Hq, Hkv, hd), pos {t['pos']}, {t['dtype']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
+            f"{t['ops']} ops); scaled_dot_product_attention "
+            f"{t['library_ms']:.4f} ms (max abs err vs plain "
+            f"{t['library_max_abs_err']:.3g})")
+    report["decode_times"] = dt
+
     if args.profile:
+        report["profile_decode"] = decode_profile(torch, tm, get_arch,
+                                                  make_serve_step)
         # device time by kernel over the device loop of two periods of
         # each path
         from torch.profiler import ProfilerActivity, profile

@@ -8,9 +8,12 @@ a config written for it reads the same.  ``models.model.init`` and
 :class:`SSMConfig` with ``attn_kind="none"``), and refuse the values that
 select parts not ported (MoE, MLA, hybrid, codebooks, VLM prefix, qkv
 bias, the GELU FFN, another ``norm_eps``, an SSM on a dense model).
+:meth:`ArchConfig.reduced` is the reference's CPU-smoke variant of the
+same family (2 layers, d_model 256), for tests.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -65,3 +68,29 @@ class ArchConfig:
         from repro_torch.tree import tree_leaves
         params = init(self, torch.Generator())
         return sum(t.numel() for t in tree_leaves(params))
+
+    def reduced(self) -> "ArchConfig":
+        """CPU smoke variant: same family/wiring, tiny dims (the
+        reference's ``reduced``; MoE and MLA configs are not ported)."""
+        if self.moe is not None or self.mla is not None:
+            raise NotImplementedError(
+                f"reduced() of {self.name!r}: MoE and MLA configs are not "
+                "ported yet")
+        kw = dict(
+            name=self.name + "-smoke",
+            n_layers=2,
+            d_model=256,
+            n_heads=4 if self.n_heads else 0,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            d_ff=512,
+            vocab=min(self.vocab, 512),
+            head_dim=64 if self.n_heads else 0,
+            attn_window=(min(self.attn_window, 64) if self.attn_window
+                         else None),
+            hybrid_every=1 if self.hybrid_every else 0,
+            vlm_prefix=16 if self.vlm_prefix else 0,
+        )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=32, chunk=32)
+        return dataclasses.replace(self, **kw)

@@ -6,6 +6,9 @@ Losses are per parameter copy: ``params`` is a stack of N sets and the
 batch's tokens, labels and weights are (N, B, S), so one call gives the
 (N,) losses of N devices (or rows), each over its own examples with its
 own denominator.
+
+:func:`make_serve_step` is the one-token decode step (the reference's
+``make_serve_step``) over one parameter set.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import Runtime, forward
+from repro_torch.models.model import Runtime, decode_step, forward
 from repro_torch.tree import tree_map
 
 
@@ -50,3 +53,10 @@ def make_loss_fn(cfg: ArchConfig, rt: Runtime):
         return weighted_ce(cfg, logits, batch["labels"], batch["weights"])
 
     return loss_fn
+
+
+def make_serve_step(cfg: ArchConfig, rt: Runtime):
+    def serve(params, cache, tokens):
+        return decode_step(cfg, params, cache, tokens, rt=rt)
+
+    return serve

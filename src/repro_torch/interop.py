@@ -6,7 +6,12 @@ torch cannot reproduce; parity checks give both packages the same init
 by converting the reference's parameter trees — feel-mlp's list of
 ``{"w", "b"}``, or the nested dicts of a transformer or a mamba2 model
 (``layers.mixer.{in_proj, conv_w, A_log, ...}``), with or without a
-leading row axis — through these two functions.
+leading row axis — through these two functions.  The same two carry a
+decode parameter set (the reference's ``init`` tree, stacked layers and
+no copy axis: the port's decode layout) and a decode cache (``pos``,
+``k``/``v`` or ``conv``/``ssm``, the port's :func:`init_cache` layout)
+across and back: the layouts are the reference's, so only the arrays
+change hands.
 """
 from __future__ import annotations
 

@@ -18,6 +18,12 @@ and the card path differ only in what computes each step.  Its oracle is
 the SSD forward kernel and whose backward is the SSD backward kernel
 (dx, ddt, dA, dBm, dCm), with the same CPU rule.  Its oracle is
 ``kernels.ref.ssd_ref``.
+
+``flash_decode`` is one-token attention against a KV cache (the
+reference's ``kernels/ops.py::flash_decode``): the flash-decode kernel on
+CUDA, its plain version on the CPU.  Unlike the reference wrapper it
+resolves grouped-query heads by index — no repeated K/V, no transposed
+copy of the cache.  Its oracle is ``kernels.ref.decode_attention_ref``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.compression.sbc import group_scalars, n_keep, topk_threshold
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.sbc import sbc_apply, sbc_stats
 
@@ -91,3 +98,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     """x (B, S, H, P), dt (B, S, H), A (H,) or (copies, H), Bm and Cm (B,
     S, G, N) → y (B, S, H, P) (shapes as in :mod:`.ssd_scan`)."""
     return _SSD.apply(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, 1, Hq, hd); k, v caches: (B, ctx, Hkv, hd); ``pos`` the
+    decoded token's position, a one-element integer tensor on q's device
+    (or an int) → (B, 1, Hq, hd)."""
+    return fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                           pos, window=window)

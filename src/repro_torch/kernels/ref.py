@@ -6,6 +6,7 @@ from typing import Optional
 import torch
 
 from repro_torch.compression.sbc import sbc_tensor as sbc_ref  # noqa: F401
+from repro_torch.kernels.flash_decode import visible_slots
 from repro_torch.models.mamba2 import ssd_reference
 
 
@@ -30,3 +31,14 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk: int = 256):
     ``kernels/ref.py``."""
     y, _ = ssd_reference(x, dt, A, Bm, Cm, min(chunk, x.shape[1]))
     return y
+
+
+def decode_attention_ref(q, k, v, pos, *, window: Optional[int] = None):
+    """q: (BH, 1, hd); k, v: (BH, ctx, hd); ``pos`` an int or a 0-d
+    tensor — one-token attention over the visible cache slots (ring-buffer
+    aware when ``window``), as the reference's ``kernels/ref.py``."""
+    ctx, hd = k.shape[1], k.shape[2]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (1.0 / hd ** 0.5)
+    s = torch.where(visible_slots(pos, ctx, window, q.device), s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)

@@ -10,7 +10,12 @@ contiguous from 0 (full-sequence train/prefill):
 * ``impl="naive"`` → the plain PyTorch forward, differentiated by
   autograd.
 
-MLA, the chunked and flash-jnp variants and decode are not ported.
+:func:`gqa_decode` is the one-token step against a KV cache (the
+reference's ``gqa_decode``), whose attention goes through
+:func:`attend_decode`'s switch: ``"pallas"`` → the flash-decode kernel
+through :func:`repro_torch.kernels.ops.flash_decode`, ``"naive"`` → its
+plain PyTorch version (the reference's einsum formula).  MLA and the
+chunked and flash-jnp variants are not ported.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, linear
 
@@ -65,4 +71,35 @@ def gqa_forward(params, cfg: ArchConfig, x, *, window=None,
     positions = torch.arange(x.shape[2], device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
     out = attend(q, k, v, causal=True, window=window, impl=impl)
+    return linear(out.reshape(x.shape[:3] + (-1,)), params["wo"])
+
+
+def attend_decode(q, k, v, pos, *, window: Optional[int] = None,
+                  impl: str = "pallas"):
+    if impl == "pallas":
+        return ops.flash_decode(q, k, v, pos, window=window)
+    if impl == "naive":
+        return fd.flash_decode_plain(q, k, v, pos, window=window)
+    raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
+
+
+def gqa_decode(params, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
+               window=None, impl: str = "pallas"):
+    """One-token decode of one parameter set (leaves with a copy axis of
+    1), synchronized batch.
+
+    x: (1, B, 1, d); cache_k/v: (B, ctx, Hkv, hd), ring-buffered when
+    ``window`` is set, written in place at slot ``pos % ctx`` (window) or
+    ``pos`` — clamped to ``ctx - 1``, as the reference's
+    ``dynamic_update_slice`` clamps its start; ``pos``: a 0-d int32
+    tensor on x's device, the new token's absolute position.  Slot and
+    mask are computed on the device: nothing here waits for the card.
+    Returns out (1, B, 1, d)."""
+    ctx = cache_k.shape[1]
+    q, k, v = _qkv(params, cfg, x, pos[None])
+    slot = pos % ctx if window is not None else pos.clamp(max=ctx - 1)
+    slot = slot.reshape(1).long()
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
+    out = attend_decode(q, cache_k, cache_v, pos, window=window, impl=impl)
     return linear(out.reshape(x.shape[:3] + (-1,)), params["wo"])

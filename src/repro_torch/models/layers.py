@@ -7,12 +7,15 @@ activations ``(N, ..., d)`` whose leading axis picks the copy: the port
 writes out the reference's ``vmap`` over devices as that axis, so one
 batched product serves every (row, device) copy (:func:`linear`).
 
-Init draws from a CPU ``torch.Generator`` with the reference's shapes
-and scales; it is a different random stream from the reference's
+Init draws from a ``torch.Generator`` with the reference's shapes and
+scales, on the generator's own device (a CUDA generator draws a
+full-width model on the card; a CPU generator gives the same stream as
+ever); it is a different random stream from the reference's
 ``jax.random`` (parity tests carry the reference's weights across).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,12 +45,12 @@ def _per_copy(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
     std = scale / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=gen,
-                        dtype=torch.float32) * std).to(dtype)
+    return (torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
 
 
-def rmsnorm_init(d: int, dtype=torch.float32):
-    return {"scale": torch.ones((d,), dtype=dtype)}
+def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def padded_vocab(vocab: int) -> int:
@@ -57,7 +60,7 @@ def padded_vocab(vocab: int) -> int:
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32):
     table = torch.randn((padded_vocab(vocab), d), generator=gen,
-                        dtype=torch.float32) * 0.02
+                        dtype=torch.float32, device=gen.device) * 0.02
     return {"table": table.to(dtype)}
 
 
@@ -91,11 +94,19 @@ def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
                             / half))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` computed on the CPU and kept on ``device``: one
+    copy a device, so a decode loop does not copy (and wait) every layer."""
+    return rope_freqs(head_dim, theta).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-halves RoPE.  x: (..., S, heads, head_dim); positions:
     (..., S) integers."""
-    inv = rope_freqs(x.shape[-1], theta).to(x.device)
+    inv = _rope_freqs_on(x.shape[-1], theta, x.device)
     ang = positions[..., :, None].float() * inv          # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

@@ -11,7 +11,9 @@ CUDA, their plain versions on the CPU).
 
 :func:`ssd_reference` is the chunked SSD scan (intra-chunk quadratic
 block plus the inter-chunk state recurrence), the oracle of the kernels.
-Decode (``mamba2_decode``) is not ported.
+:func:`mamba2_decode` is the one-token step over one parameter set (a
+copy axis of 1): the rolling conv window and the per-head SSM state
+recurrence, both caches updated in place.
 """
 from __future__ import annotations
 
@@ -33,23 +35,25 @@ def dims(cfg: ArchConfig):
 
 def mamba2_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     """One mixer's parameters, drawn in_proj, conv_w, out_proj from
-    ``gen`` (the reference's shapes and scales); ``A_log = log(linspace(1,
-    16, H))``, ``D = 1`` and ``dt_bias = 0`` as in the reference."""
+    ``gen`` on its device (the reference's shapes and scales); ``A_log =
+    log(linspace(1, 16, H))`` (computed on the CPU), ``D = 1`` and
+    ``dt_bias = 0`` as in the reference."""
     s = cfg.ssm
     d_in, H, conv_ch = dims(cfg)
     proj_out = 2 * d_in + 2 * s.n_groups * s.d_state + H   # z, x, B, C, dt
+    dev = gen.device
     in_proj = dense_init(gen, cfg.d_model, proj_out, dtype)
     conv_w = (torch.randn((s.d_conv, conv_ch), generator=gen,
-                          dtype=torch.float32) * 0.1).to(dtype)
+                          dtype=torch.float32, device=dev) * 0.1).to(dtype)
     out_proj = dense_init(gen, d_in, cfg.d_model, dtype)
     return {"in_proj": in_proj,
             "conv_w": conv_w,
-            "conv_b": torch.zeros((conv_ch,), dtype=dtype),
+            "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
             "A_log": torch.log(torch.linspace(1.0, 16.0, H,
-                                              dtype=torch.float32)),
-            "D": torch.ones((H,), dtype=torch.float32),
-            "dt_bias": torch.zeros((H,), dtype=torch.float32),
-            "norm": rmsnorm_init(d_in, dtype),
+                                              dtype=torch.float32)).to(dev),
+            "D": torch.ones((H,), dtype=torch.float32, device=dev),
+            "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+            "norm": rmsnorm_init(d_in, dtype, dev),
             "out_proj": out_proj}
 
 
@@ -169,4 +173,44 @@ def mamba2_forward(params, cfg: ArchConfig, x):
         y.dtype)
     y = y.reshape(n, b, S, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z))
+    return linear(y, params["out_proj"])
+
+
+def mamba2_decode(params, cfg: ArchConfig, x, conv_state, ssm_state):
+    """One-token step of one parameter set (leaves with a copy axis of 1):
+    x (1, B, 1, d); conv_state (B, d_conv-1, CH) and ssm_state (B, H, P,
+    N) float32, both updated in place (the reference returns new ones).
+    Returns y (1, B, 1, d)."""
+    s = cfg.ssm
+    d_in, H, _ = dims(cfg)
+    b = x.shape[1]
+    proj = linear(x[:, :, 0], params["in_proj"])          # (1, B, ·)
+    z, xbc, dt = _split_proj(cfg, proj)
+
+    # rolling conv window
+    win = torch.cat([conv_state, xbc[0, :, None, :]], dim=1)   # (B, W, CH)
+    conv = F.silu(torch.einsum("bwc,wc->bc", win, params["conv_w"][0])
+                  + params["conv_b"][0])
+    conv_state.copy_(win[:, 1:])
+
+    gn = s.n_groups * s.d_state
+    xs, Bm, Cm = torch.split(conv, [d_in, gn, gn], dim=-1)
+    xs = xs.reshape(b, H, s.head_dim).float()
+    rep = H // s.n_groups
+    Bh = Bm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
+        rep, dim=1)                                        # (B, H, N)
+    Ch_ = Cm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
+        rep, dim=1)
+
+    # softplus as the reference's jax.nn.softplus: logaddexp(x, 0)
+    dt = dt[0].float() + params["dt_bias"][0]              # (B, H)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+    A = -torch.exp(params["A_log"][0])
+    dA = torch.exp(dt * A[None, :])
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xs, Bh)
+    ssm_state.mul_(dA[:, :, None, None]).add_(upd)
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch_)
+    y = y + xs * params["D"][0][None, :, None]
+    y = y.reshape(1, b, 1, d_in).to(x.dtype)
+    y = rmsnorm(params["norm"], y * F.silu(z[:, :, None, :]))
     return linear(y, params["out_proj"])

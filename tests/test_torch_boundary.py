@@ -36,7 +36,7 @@ print(len(names), bad)
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}).stdout.split(" ", 1)
-    assert int(out[0]) >= 20, out
+    assert int(out[0]) >= 46, out
     assert out[1].strip() == "[]", out
 
 

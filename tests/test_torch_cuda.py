@@ -18,7 +18,11 @@ agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
 tolerance of the float64 value; the backward is bitwise reproducible; a
-mamba2 ``Experiment.run`` on the card matches the CPU path."""
+mamba2 ``Experiment.run`` on the card matches the CPU path.  The
+flash-decode kernel must agree with its plain version to 2e-5 (bf16:
+2e-2) at every pos, window and group size it takes, bitwise from run to
+run; the decode driver on the card matches its CPU path (1e-4 in
+log-softmax) and runs every attention layer through the kernel."""
 import numpy as np
 import pytest
 import torch
@@ -349,3 +353,88 @@ def test_mamba2_run_on_the_card_matches_the_cpu_path(cuda):
     np.testing.assert_array_equal(card.global_batch, cpu.global_batch)
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4, atol=1e-4)
     assert np.abs(card.accs - cpu.accs).max() <= 2.0 / len(test.y) + 1e-7
+
+
+# ---------------------------------------------------------------------------
+# flash decode: 2e-5 (bf16 2e-2) against the plain version, bitwise
+# reproducible; the decode driver on the card against its CPU path
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_decode as kfd  # noqa: E402
+
+DECODE_CASES = [  # (B, ctx, Hq, Hkv, hd, pos, window)
+    (8, 2048, 32, 8, 128, 191, None),     # the decode cell's shape
+    (8, 2048, 32, 8, 128, 0, None),
+    (8, 2048, 32, 8, 128, 2047, None),
+    (2, 128, 8, 2, 64, 50, 128),          # ring buffer, pos < ctx
+    (2, 128, 8, 2, 64, 1000, 128),        # ring buffer, pos >> ctx
+    (2, 128, 8, 8, 64, 70, None),         # g = 1
+    (2, 128, 64, 8, 64, 70, 32),          # g = 8
+    (3, 100, 40, 1, 64, 99, None),        # ctx not a multiple of 32, g 40
+    (2, 64, 8, 2, 128, 500, None)]        # pos past ctx without a window
+
+
+def _decode_inputs(cuda, b, ctx, hq, hkv, hd, dtype=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(ctx + hq)
+    return tuple(torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                 for shape in ((b, 1, hq, hd), (b, ctx, hkv, hd),
+                               (b, ctx, hkv, hd)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_matches_plain(cuda, case, dtype, tol):
+    b, ctx, hq, hkv, hd, pos, window = case
+    q, k, v = _decode_inputs(cuda, b, ctx, hq, hkv, hd, dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kfd.flash_decode.launches
+    o = kfd.flash_decode(q, k, v, p, window=window)
+    assert kfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(
+        o.float(), kfd.flash_decode_plain(q, k, v, p, window=window).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(o, kfd.flash_decode(q, k, v, p, window=window))
+
+
+def test_flash_decode_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v = _decode_inputs(cuda, 2, 64, 8, 2, 64)
+    with pytest.raises(ValueError):                  # head dim 32: no kernel
+        kfd.flash_decode(*_decode_inputs(cuda, 2, 64, 8, 2, 32), 3)
+    with pytest.raises(ValueError):                  # pos on the CPU
+        kfd.flash_decode(q, k, v, torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(ValueError):                  # non-contiguous cache
+        kfd.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                         v, 3)
+
+
+@pytest.mark.parametrize("arch,window", [("mistral-nemo-12b", None),
+                                         ("mistral-nemo-12b", 8),
+                                         ("mamba2-2.7b", None)])
+def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as tm
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).reduced()
+    if window is not None:
+        cfg = dataclasses.replace(cfg, attn_window=window)
+    params = tm.init(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    caches = {"cpu": tm.init_cache(cfg, 2, 16),
+              "cuda": tm.init_cache(cfg, 2, 16, device=cuda)}
+    before = kfd.flash_decode.launches
+    for t in range(16):
+        cpu, caches["cpu"] = tm.decode_step(cfg, params, caches["cpu"],
+                                            toks[:, t:t + 1])
+        card, caches["cuda"] = tm.decode_step(cfg, on_card, caches["cuda"],
+                                              toks[:, t:t + 1].to(cuda))
+        torch.testing.assert_close(
+            torch.log_softmax(card[..., :cfg.vocab], -1).cpu(),
+            torch.log_softmax(cpu[..., :cfg.vocab], -1), rtol=1e-4,
+            atol=1e-4)
+    want = 16 * cfg.n_layers if cfg.family == "dense" else 0
+    assert kfd.flash_decode.launches - before == want
+    assert int(caches["cuda"]["pos"]) == 16
