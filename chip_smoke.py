@@ -25,10 +25,11 @@ those paths against its plain PyTorch version on the card:
      on the card against the port's CPU path, and the flash-attention
      forward and backward (against the plain versions and autograd of the
      oracle; the backward bitwise reproducible); 3c. the SSD scan
-     forward and backward at the mamba2 cell's shape and four edge shapes
-     (against the plain versions in float64, and in float32 wherever
-     those are within half the tolerance of float64; the backward
-     bitwise reproducible); 3d. flash decode at the decode cell's shape
+     forward and backward at the mamba2 cell's shape, four edge shapes and
+     six seams of the backward (against the plain versions in float64, and
+     in float32 wherever those are within half the tolerance of float64;
+     the backward bitwise reproducible, and a copy's gradients bitwise
+     alone and among 8); 3d. flash decode at the decode cell's shape
      and edge cases (pos 0, the last slot, ring buffers, head dim 64 at
      g 1/4/8, a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
   4. the main path, with launch counts read around it;
@@ -44,8 +45,10 @@ those paths against its plain PyTorch version on the card:
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
      port's full-sequence forward on the card (2e-3);
-  6. kernel times (CUDA events, cold L2) beside their bound, the plain
-     versions' times and, for attention and decode, one PyTorch call
+  6. the SSD backward's resources (registers, spills, shared memory,
+     resident warps an SM); kernel times (CUDA events, cold L2) beside
+     their bound, the plain versions' times and, for attention and
+     decode, one PyTorch call
      (``scaled_dot_product_attention``) as a yardstick (none computes the
      SBC pair or the SSD scan in one call); flash decode also at one
      layer of a 32k-token cache (B 16) in bf16 and f32.
@@ -106,6 +109,13 @@ M_SHAPE = (M_COPIES * 128, SEQ, 64, 8, 1, 16, 4)
 M_LAUNCHES = {"ssd_scan_fwd": 12, "ssd_scan_bwd": 3, "sbc_stats": 12,
               "sbc_apply": 12}
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+# the backward's seams (copies, B per copy, S, H, P, G, N, chunk): one
+# 16-token segment exactly; a ragged last segment (S 17, 40: the states
+# and carries across segments); G 4 at the admitted (H / G) * P (512 at N
+# 16, 128 at N 64); P 1 with rows that are not 16-byte aligned
+SSD_BWD_SEAMS = [(2, 2, 16, 8, 16, 2, 32, 16), (2, 2, 17, 8, 8, 1, 16, 17),
+                 (1, 3, 40, 4, 32, 2, 64, 40), (1, 2, 32, 256, 8, 4, 16, 16),
+                 (1, 2, 24, 16, 32, 4, 64, 24), (1, 2, 20, 6, 1, 2, 16, 20)]
 # the decode cell: launch.serve at full width, prefill by stepping the
 # decode path over the prompt, then greedy decode; mistral-nemo-12b's
 # cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
@@ -372,6 +382,7 @@ def ssd_checks(torch, kssd, kops):
     cases = [(M_COPIES, b // M_COPIES, s, h, p, g, n, chunk),
              (2, 1, 128, 4, 32, 2, 16, 32), (1, 1, 64, 2, 64, 1, 32, 16),
              (1, 2, 256, 8, 32, 4, 64, 64), (1, 1, 128, 4, 32, 4, 16, 128)]
+    cases += SSD_BWD_SEAMS
 
     def note(key, f64_key, got):
         errs[key] = max(errs[key], got[0])
@@ -411,43 +422,74 @@ def ssd_checks(torch, kssd, kops):
                                 dy) for _ in range(2)]
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError("the SSD backward is not bitwise reproducible")
+    # one copy launched alone against the same copy among 8: bitwise
+    _, _, s, h, p, g, n, chunk = cases[0]
+    k, per = 3, 16
+    ins, dy = ssd_inputs(torch, gen, 8, per, s, h, p, g, n)
+    among = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    seqs = slice(k * per, (k + 1) * per)
+    alone = kssd.ssd_scan_bwd(*(t[seqs] for t in ins[:2]), ins[2][k:k + 1],
+                              *(t[seqs] for t in ins[3:]), dy[seqs],
+                              chunk=chunk)
+    for name, a, m in zip(("dx", "ddt", "dA", "dBm", "dCm"), alone, among):
+        if not torch.equal(a, m[k:k + 1] if name == "dA" else m[seqs]):
+            raise AssertionError(f"the SSD backward of copy {k} alone is not "
+                                 f"bitwise the same copy among 8 ({name})")
     return errs
+
+
+def ssd_work(ins, dy):
+    """Bytes (each input read once, each output written once) and f32
+    operations of the SSD kernels at a one-segment shape (S <= 16): the
+    forward's per-token recurrence, 5N + 2 a (sequence, token, head, p)
+    row (the state update a*h + u*B and y = h.C); the backward's sums over
+    the token pairs s <= t of a sequence, 4P + 8 a (pair, head) (dy_t .
+    x_s, the dx update, the decay, W, W CB, the dx weight, the sums over
+    heads and pairs), 4N a (pair, group) (C_t . B_s, dB, dC) and P + 4 a
+    (token, head) (dx, ddt, dA)."""
+    x, dt, a, bm, cm = ins
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    read = 4 * (x.numel() + dt.numel() + a.numel() + bm.numel() + cm.numel())
+    pairs = b * s * (s + 1) // 2
+    return {"ssd_scan_fwd": (read + 4 * x.numel(), b * s * h * p * (5 * n + 2)),
+            "ssd_scan_bwd": (2 * read + 4 * dy.numel(),
+                             pairs * h * (4 * p + 8) + pairs * g * 4 * n
+                             + b * s * h * (p + 4))}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): bytes over 3.35 TB/s vs f32 operations over
+    67 TFLOP/s."""
+    bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound_ops = 1e3 * ops / F32_OPS_PER_S
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
 
 
 def ssd_times(torch, kssd):
     """Cold-L2 median times at the mamba2 cell's SSD shape (x, Bm, Cm
     slices of the conv output, as on the path): each kernel and its plain
-    version.  Bounds: bytes (each input read once, each output written
-    once) over 3.35 TB/s vs the f32 operations the function needs over
-    67 TFLOP/s — per (sequence, token, head, p) row: forward 5N + 2 (the
-    state update a*h + u*B and y = h.C), backward 14N + 8 (the state
-    again, dC, the adjoint update, dx, dB and d log a)."""
+    version, beside the bound of :func:`ssd_work`."""
     b, s, h, p, g, n, chunk = M_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(4)
     ins, dy = ssd_inputs(torch, gen, M_COPIES, b // M_COPIES, s, h, p, g, n)
-    x, dt, a, bm, cm = ins
-    rows = b * s * h * p
-    read = 4 * (x.numel() + dt.numel() + a.numel() + bm.numel() + cm.numel())
+    work = ssd_work(ins, dy)
     runs = {
         "ssd_scan_fwd": (lambda: kssd.ssd_scan_fwd(*ins, chunk=chunk),
-                         lambda: kssd.ssd_scan_fwd_plain(*ins, chunk=chunk),
-                         read + 4 * x.numel(), rows * (5 * n + 2)),
+                         lambda: kssd.ssd_scan_fwd_plain(*ins, chunk=chunk)),
         "ssd_scan_bwd": (lambda: kssd.ssd_scan_bwd(*ins, dy, chunk=chunk),
                          lambda: kssd.ssd_scan_bwd_plain(*ins, dy,
-                                                         chunk=chunk),
-                         2 * read + 4 * dy.numel(), rows * (14 * n + 8)),
+                                                         chunk=chunk)),
     }
     out = {}
-    for name, (kern, plain, nbytes, ops) in runs.items():
-        bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        bound_ops = 1e3 * ops / F32_OPS_PER_S
+    for name, (kern, plain) in runs.items():
+        nbytes, ops = work[name]
+        bound_ms, bound_by = bound(nbytes, ops)
         out[name] = {"ms": cold_ms(torch, kern),
                      "plain_ms": cold_ms(torch, plain),
-                     "library_ms": None,
-                     "bound_ms": max(bound_bytes, bound_ops),
-                     "bound_by": ("bytes" if bound_bytes >= bound_ops
-                                  else "operations"),
-                     "bytes": nbytes, "ops": ops}
+                     "library_ms": None, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     return out
 
 
@@ -970,7 +1012,9 @@ def main(argv=None) -> int:
     errs.update({k: v for k, v in ssd_errs.items() if k.startswith("ssd")})
     log(f"[3c kernels] SSD scan at {M_SHAPE} (B, S, H, P, G, N, chunk; "
         f"{M_COPIES} copies of A) + the reference's kernel-test shapes (S up "
-        f"to 256, P up to 64, N up to 64, G up to 4, chunk up to 128): fwd "
+        f"to 256, P up to 64, N up to 64, G up to 4, chunk up to 128) + the "
+        f"backward's seams {SSD_BWD_SEAMS} (copies, B per copy, S, H, P, G, "
+        f"N, chunk): fwd "
         f"max abs err {ssd_errs['ssd_scan_fwd']:.3g} vs the plain version, "
         f"{ssd_errs['fwd_vs_f64']:.3g} vs it in float64 (tol 2e-5; the "
         f"float32 plain version {ssd_errs['plain_fwd_vs_f64']:.3g}), bf16 "
@@ -980,7 +1024,8 @@ def main(argv=None) -> int:
         f"float32 plain version {ssd_errs['plain_bwd_vs_f64']:.3g}); "
         f"{ssd_errs['left_out']} elements where the float32 plain version "
         f"is itself beyond half the tolerance of float64; backward run "
-        f"twice bitwise equal")
+        f"twice bitwise equal, and a copy alone bitwise the same copy among "
+        f"8")
     report["ssd_errors"] = ssd_errs
     try:
         dec_errs = decode_checks(torch, kfd)
@@ -1228,6 +1273,17 @@ def main(argv=None) -> int:
             + ("forward" if name == "flash_attention_fwd"
                else "forward + backward")
             + f" {t['library_ms']:.4f} ms")
+    # what the backward's kernels take on this card at the cell's shape
+    res = kssd.bwd_resources(*M_SHAPE[2:6])
+    for name, r in res.items():
+        log(f"[6 resources] {name} at {M_SHAPE} (B, S, H, P, G, N, chunk): "
+            f"{r['registers']} registers and {r['local_bytes']} bytes of "
+            f"local memory (spills) a thread; "
+            f"{r['static_smem_bytes'] + r['dynamic_smem_bytes']} bytes of "
+            f"shared memory and {r['threads']} threads a CTA; "
+            f"{r['ctas_per_sm']} CTAs = {r['warps_per_sm']} warps resident "
+            f"an SM")
+    report["ssd_bwd_resources"] = res
     for name, t in ssd_times(torch, kssd).items():
         records.append({
             "name": name, "route": "cuda", "source": SSD_SOURCE,
@@ -1239,6 +1295,8 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+        if name == "ssd_scan_bwd":
+            records[-1]["resources"] = res
         log(f"[6 times] {name} at {M_SHAPE} (B, S, H, P, G, N, chunk): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "

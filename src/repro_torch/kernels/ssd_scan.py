@@ -23,9 +23,12 @@ tensor it runs the plain version beside it.  There is no fallback: a CUDA
 tensor either launches the kernel or raises.  The forward takes float32
 or bfloat16 (all but A in one type) and N up to 64; the backward takes
 float32, N up to 64, P a power of two and ``(H // G) * P`` up to 512
-(N <= 16), 256 (N <= 32) or 128.  The kernels run the per-token
-recurrence; the plain versions are the chunked
+(N <= 16), 256 (N <= 32) or 128.  The forward kernel runs the per-token
+recurrence; the backward kernel its gradient, summed over token pairs
+within 16-token segments (states cross segments only when S > 16); the
+plain versions are the chunked
 :func:`repro_torch.models.mamba2.ssd_reference` and its autograd.
+:func:`bwd_resources` says what the backward takes on the card.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from repro_torch.kernels import build
 from repro_torch.models.mamba2 import ssd_reference
 
 MAX_STATE = 64            # N the kernels take
-SEGMENT = 16              # tokens of one backward segment (csrc kTile)
+SEGMENT = 16              # tokens of one backward segment (csrc kSeg)
 
 
 @functools.cache
@@ -49,8 +52,10 @@ def _library():
     dims = [i32] * 7 + [i64] * 3     # B, S, H, P, G, N, per_copy, ld x/B/C
     c.ssd_scan_fwd_launch.argtypes = [ptr] * 6 + dims + [i32, ptr]
     c.ssd_scan_bwd_launch.argtypes = [ptr] * 13 + dims + [ptr]
+    c.ssd_scan_bwd_resources.argtypes = [i32] * 4 + [ptr]
     c.ssd_scan_fwd_launch.restype = i32
     c.ssd_scan_bwd_launch.restype = i32
+    c.ssd_scan_bwd_resources.restype = i32
     return c
 
 
@@ -189,8 +194,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
     if x.numel() == 0 or Bm.numel() == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
     part = torch.empty((b, h), dtype=torch.float64, device=x.device)
-    segments = -(-s // SEGMENT)
-    ws = new((max(b * g * (segments - 1) * n * rows, 1),))
+    segments = -(-s // SEGMENT)     # states and carries only across segments
+    ws = new((b * g * (segments + 1) * n * rows if segments > 1 else 1,))
     _raise_on(_library().ssd_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
@@ -201,3 +206,23 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
 
 
 ssd_scan_bwd.launches = 0
+
+
+_RESOURCE_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                  "dynamic_smem_bytes", "ctas_per_sm", "threads")
+
+
+def bwd_resources(h: int, p: int, g: int, n: int) -> dict:
+    """What the backward's two kernels take on the current card at a shape
+    (H, P, G, N): for ``ssd_bwd_kernel`` and ``ssd_dA_reduce_kernel``,
+    registers and local memory (spills) a thread, static and dynamic
+    shared memory a CTA, resident CTAs and warps an SM, threads a CTA."""
+    out = (ctypes.c_int * 12)()
+    _raise_on(_library().ssd_scan_bwd_resources(h, p, g, n, out),
+              "ssd_scan_bwd_resources")
+    res = {}
+    for i, name in enumerate(("ssd_bwd_kernel", "ssd_dA_reduce_kernel")):
+        rec = dict(zip(_RESOURCE_KEYS, out[6 * i:6 * i + 6]))
+        rec["warps_per_sm"] = rec["ctas_per_sm"] * rec["threads"] // 32
+        res[name] = rec
+    return res

@@ -17,8 +17,12 @@ wrappers raise on what the kernels do not take.  The SSD forward must
 agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
-tolerance of the float64 value; the backward is bitwise reproducible; a
-mamba2 ``Experiment.run`` on the card matches the CPU path.  The
+tolerance of the float64 value, also at the backward's seams (one
+segment, ragged segments, G 4 at the admitted widths, unaligned rows);
+the backward is bitwise reproducible, a copy's gradients are bitwise
+the same alone and among 8, and its kernel spills nothing and keeps 32
+warps resident an SM at the cell's shape; a mamba2 ``Experiment.run`` on the card matches
+the CPU path.  The
 flash-decode kernel must agree with its plain version to 2e-5 (bf16:
 2e-2) at every pos, window and group size it takes, bitwise from run to
 run; the decode driver on the card matches its CPU path (1e-4 in
@@ -247,6 +251,14 @@ SSD_CASES = [  # (copies, B per copy, S, H, P, G, N, chunk)
     (1, 2, 256, 8, 32, 4, 64, 64),
     (1, 1, 128, 4, 32, 4, 16, 128),
 ]
+SSD_BWD_SEAMS = [  # the backward's seams
+    (2, 2, 16, 8, 16, 2, 32, 16),          # one 16-token segment exactly
+    (2, 2, 17, 8, 8, 1, 16, 17),           # a last segment of one token
+    (1, 3, 40, 4, 32, 2, 64, 40),          # three segments, N 64
+    (1, 2, 32, 256, 8, 4, 16, 16),         # G 4, (H / G) * P = 512 at N 16
+    (1, 2, 24, 16, 32, 4, 64, 24),         # G 4, (H / G) * P = 128 at N 64
+    (1, 2, 20, 6, 1, 2, 16, 20),           # P 1: rows not 16-byte aligned
+]
 
 
 def _ssd_inputs(cuda, copies, per, s, h, p, g, n, seed=0):
@@ -296,7 +308,7 @@ def test_ssd_forward_matches_plain(cuda, case):
         rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_BWD_SEAMS)
 def test_ssd_backward_matches_plain(cuda, case):
     copies, per, s, h, p, g, n, chunk = case
     ins, dy = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
@@ -318,6 +330,36 @@ def test_ssd_backward_is_bitwise_reproducible(cuda):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [(8, 32, 16, 64, 8, 1, 16, 4),
+                                  (8, 2, 40, 4, 32, 2, 64, 40)])
+def test_ssd_backward_of_a_copy_is_bitwise_alone_and_among_8(cuda, case):
+    copies, per, s, h, p, g, n, chunk = case
+    ins, dy = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
+    among = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    for k in (0, 5):
+        seqs = slice(k * per, (k + 1) * per)
+        alone = kssd.ssd_scan_bwd(*(t[seqs] for t in ins[:2]),
+                                  ins[2][k:k + 1],
+                                  *(t[seqs] for t in ins[3:]), dy[seqs],
+                                  chunk=chunk)
+        for name, a, m in zip(("dx", "ddt", "dA", "dBm", "dCm"), alone,
+                              among):
+            assert torch.equal(a, m[k:k + 1] if name == "dA" else m[seqs]), \
+                (k, name)
+
+
+@pytest.mark.parametrize("h,p,g,n,warps", [
+    (64, 8, 1, 16, 32),        # the mamba2 cell's shape: 4 CTAs an SM
+    (6, 1, 2, 16, 32),         # the narrow instance (P < 8)
+    (16, 32, 4, 64, 24),       # N 64: 61 600 bytes of shared memory, 3 CTAs
+])
+def test_ssd_backward_spills_nothing_and_keeps_its_warps(cuda, h, p, g, n,
+                                                         warps):
+    res = kssd.bwd_resources(h, p, g, n)["ssd_bwd_kernel"]
+    assert res["local_bytes"] == 0, res
+    assert res["warps_per_sm"] >= warps, res
 
 
 def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
