@@ -30,8 +30,9 @@ those paths against its plain PyTorch version on the card:
      in float32 wherever those are within half the tolerance of float64;
      the backward bitwise reproducible, and a copy's gradients bitwise
      alone and among 8); 3d. flash decode at the decode cell's shape
-     and edge cases (pos 0, the last slot, ring buffers, head dim 64 at
-     g 1/4/8, a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
+     and edge cases (pos 0, the last slot, the runs' seams at pos 31, 32,
+     33 and where runs are empty, ring buffers, head dim 64 at g 1/4/8,
+     a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
@@ -51,7 +52,9 @@ those paths against its plain PyTorch version on the card:
      decode, one PyTorch call
      (``scaled_dot_product_attention``) as a yardstick (none computes the
      SBC pair or the SSD scan in one call); flash decode also at one
-     layer of a 32k-token cache (B 16) in bf16 and f32.
+     layer of a 32k-token cache (B 16) in bf16 and f32, with its time on
+     the card from the profiler, the kernels a call puts there (must be
+     1) and its resources (registers, spills, shared memory, runs).
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
@@ -128,6 +131,12 @@ D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0}   # attention layers
 D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)
 D_POS = D_PROMPT + D_GEN - 1
 D_LONG = (16, 32_768, 32, 8, 128)
+# the runs' seams (B, ctx, Hq, Hkv, hd, pos, window): the first tile's last
+# slot and the second's first; pos below 32 x the runs, where runs are
+# empty; a ring not yet wrapped; two tiles, the second ragged
+D_SEAMS = [D_SHAPE + (31, None), D_SHAPE + (32, None), D_SHAPE + (33, None),
+           D_SHAPE + (100, None), (2, 256, 8, 2, 64, 40, 256),
+           (2, 40, 8, 2, 64, 39, None)]
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 SOURCES = ("sbc", "flash_attention", "ssd_scan", "flash_decode")
 
@@ -186,6 +195,44 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, name: str, iters: int = 20):
+    """The card's own time of ``fn`` under torch.profiler, with the L2
+    flushed before every call as in :func:`cold_ms`, so that no host time
+    counts as kernel time: (milliseconds a call in the kernels whose names
+    hold ``name``, and medians over the calls of the kernels a call puts on
+    the card besides the flush and of its span there, from its first
+    kernel's start to its last kernel's end, gaps between them included)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    us, calls = 0.0, []             # calls: [first start, last end, count]
+    for e in kernels:
+        if "Fill" in e.name:                 # the flush opens the next call
+            calls.append(None)
+            continue
+        if name in e.name:
+            us += e.time_range.end - e.time_range.start
+        if not calls or calls[-1] is None:
+            calls.append([e.time_range.start, e.time_range.end, 0])
+        calls[-1][1:] = [e.time_range.end, calls[-1][2] + 1]
+    calls = [c for c in calls if c is not None]
+    if not calls:
+        return float("nan"), 0.0, float("nan")
+    median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return (us / 1e3 / iters, median([c[2] for c in calls]),
+            median([c[1] - c[0] for c in calls]) / 1e3)
 
 
 def attention_inputs(torch, gen, b, s, hq, hkv, hd, dtype=None):
@@ -505,7 +552,8 @@ def decode_inputs(torch, gen, b, ctx, hq, hkv, hd, dtype=None):
 def decode_checks(torch, kfd):
     """Flash decode against its plain version on the card: f32 2e-5,
     bf16 2e-2, at the decode cell's shape at the path's last position,
-    pos 0 and the last slot, ring buffers (pos < ctx and pos 1000), head
+    pos 0 and the last slot, the runs' seams (``D_SEAMS``), ring
+    buffers (pos < ctx and pos 1000), head
     dim 64 at g 1, 4 and 8, and a ctx that is not a multiple of the
     kernel's 32-slot tile; every case run twice and required bitwise
     equal.  Returns the max abs errors; raises AssertionError."""
@@ -513,8 +561,9 @@ def decode_checks(torch, kfd):
     errs = {"flash_decode": 0.0, "bf16": 0.0}
     b, ctx, hq, hkv, hd = D_SHAPE
     cases = [D_SHAPE + (D_POS, None), D_SHAPE + (0, None),
-             D_SHAPE + (ctx - 1, None), (4, 256, 8, 2, 64, 100, 256),
-             (4, 256, 8, 2, 64, 1000, 256), (4, 512, 16, 4, 128, 700, 128),
+             D_SHAPE + (ctx - 1, None), *D_SEAMS,
+             (4, 256, 8, 2, 64, 100, 256), (4, 256, 8, 2, 64, 1000, 256),
+             (4, 512, 16, 4, 128, 700, 128),
              (4, 256, 8, 8, 64, 200, None), (4, 256, 8, 2, 64, 200, None),
              (4, 256, 64, 8, 64, 255, 64), (3, 1000, 32, 8, 128, 999, None),
              (3, 1000, 32, 8, 128, 5000, None)]
@@ -623,15 +672,35 @@ def decode_contracts(torch, tm, get_arch, tree_map):
     return errs
 
 
+def decode_bound(torch, q, k, pos):
+    """(bound_ms, bound_by, bytes, ops) of one flash-decode call: the bytes
+    it needs (q and o once, the visible K/V slots once) over 3.35 TB/s vs
+    the f32 operations of the visible (row, slot) pairs (4 hd + 4 each)
+    over the peak rate of the inputs' type."""
+    b, _, hq, hd = q.shape
+    ctx, hkv = k.shape[1], k.shape[2]
+    esize = q.element_size()
+    visible = min(pos + 1, ctx)
+    nbytes = 2 * q.numel() * esize + 2 * b * visible * hkv * hd * esize
+    ops = b * hq * visible * (4 * hd + 4)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound_ops = 1e3 * ops / rate
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations", nbytes,
+            ops)
+
+
 def decode_times(torch, kfd, F):
     """Cold-L2 median times of flash decode, its plain version and
     ``scaled_dot_product_attention`` (a boolean mask of the visible
     slots, ``enable_gqa=True``, over the cache's (B, Hkv, ctx, hd) view)
     at the decode cell's shape at the path's last position (f32) and at
-    one layer of a full 32k-token cache (bf16 and f32).  Bounds: the
-    bytes the call needs (q and o once, the visible K/V slots once) over
-    3.35 TB/s vs the f32 operations of the visible (row, slot) pairs
-    (4 hd + 4 each) over the peak rate of the inputs' type."""
+    one layer of a full 32k-token cache (bf16 and f32), beside the bound
+    of :func:`decode_bound`.  Beside the
+    CUDA-event time (the wrapper's host work included): the card's own
+    time a call from the profiler and the kernels a call puts on the card,
+    and the kernel's resources at the shape."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for key, shape, pos, dtype in (
@@ -650,24 +719,21 @@ def decode_times(torch, kfd, F):
 
         want = kfd.flash_decode_plain(q, k, v, p).transpose(1, 2)
         lib_err = float((sdpa().float() - want.float()).abs().max())
-        esize = q.element_size()
-        visible = min(pos + 1, ctx)
-        nbytes = 2 * q.numel() * esize + 2 * b * visible * hkv * hd * esize
-        ops = b * hq * visible * (4 * hd + 4)
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        bound_ops = 1e3 * ops / rate
+        bound_ms, bound_by, nbytes, ops = decode_bound(torch, q, k, pos)
+        dev_ms, per_call, span_ms = device_ms(
+            torch, lambda: kfd.flash_decode(q, k, v, p), "decode_kernel")
         out[key] = {"shape": list(shape), "pos": pos,
                     "dtype": str(dtype).split(".")[-1],
                     "ms": cold_ms(torch, lambda: kfd.flash_decode(q, k, v,
                                                                   p)),
+                    "device_ms": dev_ms, "device_span_ms": span_ms,
+                    "kernels_per_call": per_call,
+                    "resources": kfd.resources(b, ctx, hq, hkv, hd, dtype),
                     "plain_ms": cold_ms(torch, lambda: kfd.flash_decode_plain(
                         q, k, v, p)),
                     "library_ms": cold_ms(torch, sdpa),
                     "library_max_abs_err": lib_err,
-                    "bound_ms": max(bound_bytes, bound_ops),
-                    "bound_by": ("bytes" if bound_bytes >= bound_ops
-                                 else "operations"),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
                     "bytes": nbytes, "ops": ops}
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
@@ -1034,8 +1100,9 @@ def main(argv=None) -> int:
         return fail(f"phase 3d: {exc}")
     errs["flash_decode"] = dec_errs["flash_decode"]
     log(f"[3d kernels] flash decode at {D_SHAPE} (B, ctx, Hq, Hkv, hd) at "
-        f"pos {D_POS}, 0 and {D_CTX - 1}, ring buffers (pos 100 and 1000 in "
-        f"256 slots, pos 700 with window 128), hd 64 at g 1, 4 and 8, ctx "
+        f"pos {D_POS}, 0 and {D_CTX - 1}, the runs' seams {D_SEAMS} "
+        f"(B, ctx, Hq, Hkv, hd, pos, window), ring buffers (pos 100 and 1000 "
+        f"in 256 slots, pos 700 with window 128), hd 64 at g 1, 4 and 8, ctx "
         f"1000 (pos 999 and 5000): max abs err {dec_errs['flash_decode']:.3g} "
         f"(tol 2e-5), bf16 {dec_errs['bf16']:.3g} (tol 2e-2); every case run "
         f"twice bitwise equal")
@@ -1313,19 +1380,41 @@ def main(argv=None) -> int:
         "max_abs_err": errs["flash_decode"], "ms": path["ms"],
         "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
         "bound_by": path["bound_by"], "library_ms": path["library_ms"],
+        "device_ms": path["device_ms"],
+        "device_span_ms": path["device_span_ms"],
+        "kernels_per_call": path["kernels_per_call"],
+        "resources": path["resources"],
         "at_32k": {k: {f: dt[k][f] for f in ("shape", "pos", "dtype", "ms",
-                                             "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}
+                                             "device_ms", "device_span_ms",
+                                             "kernels_per_call", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")}
                    for k in ("32k_bf16", "32k_f32")}})
     for key, t in dt.items():
+        r = t["resources"]
         log(f"[6 times] flash_decode {key} at {tuple(t['shape'])} (B, ctx, "
             f"Hq, Hkv, hd), pos {t['pos']}, {t['dtype']}: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['ms']:.4f} ms (CUDA events), {t['device_ms']:.4f} ms on the "
+            f"card (profiler; first kernel's start to last kernel's end "
+            f"{t['device_span_ms']:.4f} ms), {t['kernels_per_call']:g} "
+            f"kernel a call; "
+            f"plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
             f"{t['ops']} ops); scaled_dot_product_attention "
             f"{t['library_ms']:.4f} ms (max abs err vs plain "
             f"{t['library_max_abs_err']:.3g})")
+        log(f"[6 resources] flash_decode {key}: {r['registers']} registers "
+            f"and {r['local_bytes']} bytes of local memory (spills) a "
+            f"thread; {r['static_smem_bytes'] + r['dynamic_smem_bytes']} "
+            f"bytes of shared memory and {r['threads']} threads a CTA; "
+            f"{r['ctas_per_sm']} CTAs resident an SM; {r['splits']} runs a "
+            f"(sequence, KV head)")
     report["decode_times"] = dt
+    if any(t["kernels_per_call"] != 1 for t in dt.values()):
+        return fail("phase 6: a flash_decode call put "
+                    + ", ".join(f"{t['kernels_per_call']:g}"
+                                for t in dt.values())
+                    + " kernels on the card, not 1")
 
     if args.profile:
         report["profile_decode"] = decode_profile(torch, tm, get_arch,

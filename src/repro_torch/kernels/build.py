@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 class Library:
     """One compiled kernel source: the loaded ``ctypes`` library, the
     seconds its build took (0.0 when it was already built) and the
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills)."""
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills),
+    kept beside the library so that a later process reads it too."""
 
     def __init__(self, cdll: ctypes.CDLL, build_seconds: float, log: str):
         self.cdll = cdll
@@ -55,7 +57,8 @@ def load(name: str) -> Library:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{digest}.so"
-    seconds, log = 0.0, ""
+    report = so.with_suffix(".log")
+    seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -66,7 +69,34 @@ def load(name: str) -> Library:
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        report.write_text(log)
         os.replace(tmp, so)
+    log = report.read_text() if report.exists() else ""
     lib = Library(ctypes.CDLL(str(so)), seconds, log)
     _LOADED[name] = lib
     return lib
+
+
+def ptxas_report(log: str) -> dict:
+    """Each entry function of a build's ``-Xptxas -v`` report, by its
+    (mangled) name: registers a thread and spill stores and loads
+    (bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([^' ]+)", line)
+        if found:
+            name = found.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            out[name].update(spill_stores=int(found.group(1)),
+                             spill_loads=int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            out[name]["registers"] = int(found.group(1))
+    return out

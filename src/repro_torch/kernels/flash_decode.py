@@ -14,13 +14,15 @@ position ``pos - ((pos - i) mod ctx)`` (a floored modulo), visible when
 it lies in ``(pos - window, pos]`` and is not negative.  Any ctx is
 taken (the TPU kernel needs ``ctx % block_s == 0``).
 
-On a CUDA tensor :func:`flash_decode` launches the hand-written kernels
-in ``csrc/flash_decode.cu`` (a split pass over the cache and a combine
-pass, one entry point) and adds one to its ``launches`` count; on a CPU
-tensor it runs :func:`flash_decode_plain`.  There is no fallback: a CUDA
-tensor either launches the kernel or raises.  It takes float32 or
-bfloat16 (q, k, v in one type; accumulation in float32) and head dims 64
-and 128.
+On a CUDA tensor :func:`flash_decode` launches the hand-written kernel
+in ``csrc/flash_decode.cu`` (one launch a call: the cache split into
+runs over CTAs, the last CTA of each (sequence, KV head) merging the
+runs) and adds one to its ``launches`` count; on a CPU tensor it runs
+:func:`flash_decode_plain`.  There is no fallback: a CUDA tensor either
+launches the kernel or raises.  It takes float32 or bfloat16 (q, k, v in
+one type; accumulation in float32) and head dims 64 and 128.  A call
+allocates only its output: the runs' partials and the arrival counts
+live in a buffer kept per device and stream, allocated on first use.
 """
 from __future__ import annotations
 
@@ -34,7 +36,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-MAX_SPLITS = 32           # runs the kernel cuts the cache into, at most
+MAX_SPLITS = 32           # runs the kernel cuts a (sequence, head) into
+
+# (device index, stream) -> (partials, arrival counts): kept between calls
+# (the kernel leaves every count at 0), grown for a larger shape
+_scratch: dict = {}
 
 
 @functools.cache
@@ -42,10 +48,13 @@ def _library():
     """The built ``csrc/flash_decode.cu`` with its C signature."""
     c = build.load("flash_decode").cdll
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # q, k, v, pos, part, o; B, ctx, Hq, Hkv, hd, window; scale; bf16;
-    # stream
-    c.flash_decode_launch.argtypes = [ptr] * 6 + [i32] * 6 + [f32, i32, ptr]
+    # q, k, v, pos, part, arrivals, o; B, ctx, Hq, Hkv, hd, window; scale;
+    # bf16; stream
+    c.flash_decode_launch.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, ptr]
     c.flash_decode_launch.restype = i32
+    # B, ctx, Hq, Hkv, hd, bf16; out[7]
+    c.flash_decode_resources.argtypes = [i32] * 6 + [ptr]
+    c.flash_decode_resources.restype = i32
     return c
 
 
@@ -131,16 +140,16 @@ def flash_decode(q, k, v, pos, *, window: Optional[int] = None):
     o = torch.empty_like(q)
     if q.numel() == 0 or ctx == 0:
         return o.zero_()
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
-    # per-run partial (acc, m, l) of every row; the kernel picks the runs
-    part = torch.empty((b, hq, MAX_SPLITS, hd + 4), dtype=torch.float32,
-                       device=q.device)
+    if not (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32):
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, arrivals = _scratch_for(q.device, stream, b * hq * MAX_SPLITS
+                                  * (hd + 4), b * hkv)
     rc = _library().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        part.data_ptr(), o.data_ptr(), b, ctx, hq, hkv, hd,
-        0 if window is None else int(window), 1.0 / hd ** 0.5,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr(), arrivals.data_ptr(), o.data_ptr(), b, ctx, hq, hkv,
+        hd, 0 if window is None else int(window), 1.0 / hd ** 0.5,
+        int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -149,3 +158,34 @@ def flash_decode(q, k, v, pos, *, window: Optional[int] = None):
 
 
 flash_decode.launches = 0
+
+
+def _scratch_for(device, stream: int, n_part: int, n_arrivals: int):
+    """The partials (``n_part`` floats at least) and arrival counts
+    (``n_arrivals`` int32 at least, zero) the kernel uses on ``stream``."""
+    part, arrivals = _scratch.get((device.index, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if arrivals is None or arrivals.numel() < n_arrivals:
+        arrivals = torch.zeros(n_arrivals, dtype=torch.int32, device=device)
+    _scratch[(device.index, stream)] = (part, arrivals)
+    return part, arrivals
+
+
+_RESOURCE_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                  "dynamic_smem_bytes", "threads", "ctas_per_sm", "splits")
+
+
+def resources(b: int, ctx: int, hq: int, hkv: int, hd: int,
+              dtype=torch.float32) -> dict:
+    """What the kernel instance for a shape takes on the current card:
+    registers and local memory (spills) a thread, static and dynamic shared
+    memory a CTA, threads a CTA, resident CTAs an SM, and the runs the
+    launch cuts a (sequence, KV head) into."""
+    out = (ctypes.c_int * len(_RESOURCE_KEYS))()
+    rc = _library().flash_decode_resources(b, ctx, hq, hkv, hd,
+                                           int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_resources failed with CUDA error "
+                           f"{rc}")
+    return dict(zip(_RESOURCE_KEYS, out))

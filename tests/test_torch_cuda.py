@@ -25,8 +25,11 @@ warps resident an SM at the cell's shape; a mamba2 ``Experiment.run`` on the car
 the CPU path.  The
 flash-decode kernel must agree with its plain version to 2e-5 (bf16:
 2e-2) at every pos, window and group size it takes, bitwise from run to
-run; the decode driver on the card matches its CPU path (1e-4 in
-log-softmax) and runs every attention layer through the kernel."""
+run, also at the runs' seams (pos 31, 32, 33 and runs left empty);
+one call puts one kernel on the card and allocates nothing but its
+output, and no instance spills; the decode driver on the card matches
+its CPU path (1e-4 in log-softmax) and runs every attention layer
+through the kernel."""
 import numpy as np
 import pytest
 import torch
@@ -413,7 +416,16 @@ DECODE_CASES = [  # (B, ctx, Hq, Hkv, hd, pos, window)
     (2, 128, 8, 8, 64, 70, None),         # g = 1
     (2, 128, 64, 8, 64, 70, 32),          # g = 8
     (3, 100, 40, 1, 64, 99, None),        # ctx not a multiple of 32, g 40
-    (2, 64, 8, 2, 128, 500, None)]        # pos past ctx without a window
+    (2, 64, 8, 2, 128, 500, None),        # pos past ctx without a window
+    # the runs' seams: the first tile's last slot and the second's first,
+    # and pos below 32 x the runs, where the runs past pos are empty
+    (8, 2048, 32, 8, 128, 31, None),
+    (8, 2048, 32, 8, 128, 32, None),
+    (8, 2048, 32, 8, 128, 33, None),
+    (8, 2048, 32, 8, 128, 100, None),
+    (2, 256, 8, 2, 64, 40, 256),          # a ring not yet wrapped
+    (2, 40, 8, 2, 64, 39, None),          # two tiles, the second ragged
+    (1, 32768, 32, 8, 128, 32767, None)]  # a 32k cache: many tiles a run
 
 
 def _decode_inputs(cuda, b, ctx, hq, hkv, hd, dtype=torch.float32):
@@ -437,6 +449,42 @@ def test_flash_decode_matches_plain(cuda, case, dtype, tol):
         o.float(), kfd.flash_decode_plain(q, k, v, p, window=window).float(),
         rtol=tol, atol=tol)
     assert torch.equal(o, kfd.flash_decode(q, k, v, p, window=window))
+
+
+def test_flash_decode_puts_one_kernel_on_the_card_and_no_workspace(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _decode_inputs(cuda, 8, 2048, 32, 8, 128)
+    p = torch.tensor(191, dtype=torch.int32, device=cuda)
+    kfd.flash_decode(q, k, v, p)                     # build and warm up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = kfd.flash_decode(q, k, v, p)
+        torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert allocated - before == 1                   # o, nothing else
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+    assert torch.equal(o, kfd.flash_decode(q, k, v, p))
+
+
+@pytest.mark.parametrize("hd,dtype", [(128, torch.float32),
+                                      (128, torch.bfloat16),
+                                      (64, torch.float32),
+                                      (64, torch.bfloat16)])
+def test_flash_decode_spills_nothing(cuda, hd, dtype):
+    from repro_torch.kernels import build
+    kfd.flash_decode(*_decode_inputs(cuda, 2, 64, 8, 2, hd, dtype), 10)
+    report = build.ptxas_report(build.load("flash_decode").log)
+    instances = {n: r for n, r in report.items() if "decode_kernel" in n}
+    assert len(instances) == 16, report      # 2 types x 2 hd x 4 R
+    for name, r in instances.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+    # the path's instance on this card: no local memory, several runs
+    res = kfd.resources(8, 2048, 32, 8, hd, dtype)
+    assert res["local_bytes"] == 0, res
+    assert 1 < res["splits"] <= 32, res
 
 
 def test_flash_decode_wrapper_raises_instead_of_falling_back(cuda):
