@@ -24,7 +24,9 @@ those paths against its plain PyTorch version on the card:
      cases: the SBC pair (16 rows × 12 devices per leaf), ``compress_dense``
      on the card against the port's CPU path, and the flash-attention
      forward and backward (against the plain versions and autograd of the
-     oracle; the backward bitwise reproducible); 3c. the SSD scan
+     oracle; the forward also at 450 seams of S, window, group size and
+     head dim in f32 and bf16; the forward and backward bitwise
+     reproducible, the forward batch-invariant); 3c. the SSD scan
      forward and backward at the mamba2 cell's shape, four edge shapes and
      six seams of the backward (against the plain versions in float64, and
      in float32 wherever those are within half the tolerance of float64;
@@ -46,8 +48,10 @@ those paths against its plain PyTorch version on the card:
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
      port's full-sequence forward on the card (2e-3);
-  6. the SSD backward's resources (registers, spills, shared memory,
-     resident warps an SM); kernel times (CUDA events, cold L2) beside
+  6. the SSD backward's and the attention forward's resources
+     (registers, spills, shared memory, resident warps or CTAs an SM);
+     kernel times (CUDA events, cold L2; the attention forward also on
+     the card from the profiler) beside
      their bound, the plain versions' times and, for attention and
      decode, one PyTorch call
      (``scaled_dot_product_attention``) as a yardstick (none computes the
@@ -70,6 +74,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import subprocess
 import sys
@@ -102,6 +107,16 @@ T_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 3,
               "flash_attention_bwd_dkdv": 3, "sbc_stats": 12,
               "sbc_apply": 12}
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# the attention kernels' cases (B, S, Hq, Hkv, hd, causal, window): the
+# cell's shape, longer sequences, windows, a ragged S, non-causal
+ATTN_CASES = [T_SHAPE + (True, None), (4, 128, 4, 2, 64, True, None),
+              (4, 256, 4, 2, 128, True, 64), (4, 100, 4, 2, 64, True, 16),
+              (4, 100, 4, 2, 128, False, None),
+              (4, 256, 4, 1, 64, False, 16)]
+# the forward's seams, every combination at B 3 over 2 KV heads: S around
+# its 16-key tiles, windows around them, group sizes g and head dims
+ATTN_SEAMS = {"S": (1, 15, 16, 17, 33), "window": (None, 1, 8, 16, 17),
+              "causal": (True, False), "g": (1, 2, 4), "hd": (32, 64, 128)}
 # the mamba2 cell: the same rows and sequences; its SSD shape per forward
 # (copies = rows x devices, each with 128 sequences; B, S, H, P, G, N,
 # chunk) and its launches a period (the same 4 forwards and 1 backward
@@ -256,14 +271,18 @@ def attention_oracle(attention_ref, q, k, v, causal, window):
 
 def attention_checks(torch, kfa, kops, attention_ref):
     """The three attention kernels against their plain versions on the
-    card (forward 2e-5, bf16 forward 2e-2, backward 1e-4 against the plain
-    backward and autograd of the oracle) and the backward run twice
-    bitwise.  Returns the max abs errors of the f32 comparisons with the
-    plain versions; raises AssertionError on a disagreement."""
+    card (forward 2e-5, bf16 forward 2e-2, lse 2e-5, backward 1e-4 against
+    the plain backward and autograd of the oracle) at ``ATTN_CASES``; the
+    forward at every seam of ``ATTN_SEAMS`` in f32 and bf16, with the
+    backward from its lse in f32; the forward run twice bitwise; the first
+    and a middle sequence of the cell's batch alone bitwise the same rows
+    of the whole launch; and the backward run twice bitwise.  Returns the
+    max abs errors of the comparisons with the plain versions; raises
+    AssertionError on a disagreement."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
             "flash_attention_bwd_dkdv": 0.0, "bf16_fwd": 0.0,
-            "bwd_vs_autograd": 0.0}
+            "bwd_vs_autograd": 0.0, "seams": 0}
 
     def close(key, got, want, tol, label):
         got, want = got.float(), want.float()
@@ -273,23 +292,27 @@ def attention_checks(torch, kfa, kops, attention_ref):
                 f"{float((got - want).abs().max()):.3g})")
         errs[key] = max(errs[key], float((got - want).abs().max()))
 
-    cases = [T_SHAPE + (True, None), (4, 128, 4, 2, 64, True, None),
-             (4, 256, 4, 2, 128, True, 64), (4, 100, 4, 2, 64, True, 16),
-             (4, 100, 4, 2, 128, False, None),
-             (4, 256, 4, 1, 64, False, 16)]
-    for b, s, hq, hkv, hd, causal, window in cases:
-        label = (f"attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
-                 f"causal={causal} window={window}")
-        opts = dict(causal=causal, window=window)
-        q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
-        o, lse = kfa.flash_attention_fwd(q, k, v, **opts)
-        po, plse = kfa.flash_attention_fwd_plain(q, k, v, **opts)
-        close("flash_attention_fwd", o, po, 2e-5, label)
-        close("flash_attention_fwd", lse, plse, 2e-5, label + " lse")
-        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-        close("bf16_fwd", kfa.flash_attention_fwd(qb, kb, vb, **opts)[0],
-              kfa.flash_attention_fwd_plain(qb, kb, vb, **opts)[0], 2e-2,
-              label + " bf16")
+    def forward(q, k, v, opts, label, bf16_key="bf16_fwd"):
+        """The forward in f32 and bf16 against the plain version, each
+        run twice bitwise; returns the f32 (o, lse)."""
+        out = None
+        for dtype, key, tol in ((torch.float32, "flash_attention_fwd", 2e-5),
+                                (torch.bfloat16, bf16_key, 2e-2)):
+            qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+            o, lse = kfa.flash_attention_fwd(qq, kk, vv, **opts)
+            po, plse = kfa.flash_attention_fwd_plain(qq, kk, vv, **opts)
+            close(key, o, po, tol, f"{label} {dtype}")
+            close("flash_attention_fwd", lse, plse, 2e-5,
+                  f"{label} {dtype} lse")
+            o2, lse2 = kfa.flash_attention_fwd(qq, kk, vv, **opts)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"{label} {dtype}: the forward is not "
+                                     "bitwise reproducible")
+            if out is None:
+                out = (o, lse)
+        return out
+
+    def backward(q, k, v, o, lse, opts, label, autograd=True):
         do = torch.randn(q.shape, generator=gen, device="cuda")
         dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
         dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
@@ -298,13 +321,41 @@ def attention_checks(torch, kfa, kops, attention_ref):
         close("flash_attention_bwd_dq", dq, pdq, 1e-4, label)
         close("flash_attention_bwd_dkdv", dk, pdk, 1e-4, label + " dk")
         close("flash_attention_bwd_dkdv", dv, pdv, 1e-4, label + " dv")
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        auto = torch.autograd.grad(
-            attention_oracle(attention_ref, *leaves, causal, window),
-            leaves, do)
-        for got, want in zip((dq, dk, dv), auto):
-            close("bwd_vs_autograd", got, want, 1e-4, label + " autograd")
-        del q, k, v, o, lse, do, dq, dk, dv, auto, leaves
+        if autograd:
+            causal, window = opts["causal"], opts["window"]
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(
+                attention_oracle(attention_ref, *leaves, causal, window),
+                leaves, do)
+            for got, want in zip((dq, dk, dv), auto):
+                close("bwd_vs_autograd", got, want, 1e-4,
+                      label + " autograd")
+
+    for b, s, hq, hkv, hd, causal, window in ATTN_CASES:
+        label = (f"attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
+                 f"causal={causal} window={window}")
+        opts = dict(causal=causal, window=window)
+        q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
+        o, lse = forward(q, k, v, opts, label)
+        if (b, s, hq, hkv, hd) == T_SHAPE:     # batch-invariant, bitwise
+            for i in (0, b // 2):
+                oi, li = kfa.flash_attention_fwd(q[i:i + 1], k[i:i + 1],
+                                                 v[i:i + 1], **opts)
+                if not (torch.equal(oi, o[i:i + 1])
+                        and torch.equal(li, lse[i:i + 1])):
+                    raise AssertionError(
+                        f"{label}: sequence {i} alone differs from the "
+                        "same rows of the whole batch")
+        backward(q, k, v, o, lse, opts, label)
+        del q, k, v, o, lse
+    for s, window, causal, g, hd in itertools.product(*ATTN_SEAMS.values()):
+        label = (f"attention seam B=3 S={s} Hq={2 * g} Hkv=2 hd={hd} "
+                 f"causal={causal} window={window}")
+        opts = dict(causal=causal, window=window)
+        q, k, v = attention_inputs(torch, gen, 3, s, 2 * g, 2, hd)
+        o, lse = forward(q, k, v, opts, label)
+        backward(q, k, v, o, lse, opts, label, autograd=False)
+        errs["seams"] += 1
     q, k, v = (t.requires_grad_() for t in attention_inputs(
         torch, gen, *T_SHAPE[:5]))
     do = torch.randn(q.shape, generator=gen, device="cuda")
@@ -314,6 +365,49 @@ def attention_checks(torch, kfa, kops, attention_ref):
         raise AssertionError("the attention backward is not bitwise "
                              "reproducible")
     return errs
+
+
+def attention_bound(torch, q, k, causal, window):
+    """(bound_ms, bound_by, bytes, ops) of one attention forward: q, k, v
+    read once, o and the f32 lse written once, over 3.35 TB/s, against the
+    visible (query, key) pairs' 4 hd + 4 operations over the peak rate of
+    the inputs' type."""
+    b, s, hq, hd = q.shape
+    pos = torch.arange(s)
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    pairs = b * hq * int(mask.sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * hq * s
+    ops = pairs * (4 * hd + 4)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound_ops = 1e3 * ops / rate
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations", nbytes,
+            ops)
+
+
+def sdpa_call(torch, F, q, k, v, causal, window):
+    """``scaled_dot_product_attention`` on the (B, H, S, hd) views of the
+    same inputs (GQA by ``enable_gqa``; a window as a boolean mask): one
+    PyTorch call for the forward, the yardstick of the kernel."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    s = q.shape[1]
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=q.device)
+        mask = pos[None, :] > pos[:, None] - window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    return call
 
 
 def attention_times(torch, kfa, F):
@@ -332,10 +426,6 @@ def attention_times(torch, kfa, F):
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
     def sdpa_fwd_bwd():
         out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                              enable_gqa=True)
@@ -346,9 +436,9 @@ def attention_times(torch, kfa, F):
     runs = {
         "flash_attention_fwd": (
             lambda: kfa.flash_attention_fwd(q, k, v),
-            lambda: kfa.flash_attention_fwd_plain(q, k, v), sdpa,
-            2 * size["q"] + 2 * size["kv"] + size["stat"],
-            pairs * (4 * hd + 4)),
+            lambda: kfa.flash_attention_fwd_plain(q, k, v),
+            sdpa_call(torch, F, q, k, v, True, None),
+            *attention_bound(torch, q, k, True, None)[2:]),
         "flash_attention_bwd_dq": (
             lambda: kfa.flash_attention_bwd_dq(q, k, v, o, lse, do),
             lambda: kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do),
@@ -372,6 +462,8 @@ def attention_times(torch, kfa, F):
                      "bound_by": ("bytes" if bound_bytes >= bound_ops
                                   else "operations"),
                      "bytes": nbytes, "ops": ops}
+    out["flash_attention_fwd"]["device_ms"] = device_ms(
+        torch, runs["flash_attention_fwd"][0], "fwd_kernel")[0]
     return out
 
 
@@ -1062,13 +1154,17 @@ def main(argv=None) -> int:
         return fail(f"phase 3: {exc}")
     errs.update({k: v for k, v in attn_errs.items() if k.startswith("flash")})
     log(f"[3 kernels] attention at {T_SHAPE} (B, S, Hq, Hkv, hd) + S in "
-        f"(128, 256, 100), hd in (64, 128), windows (16, 64), non-causal: "
-        f"fwd max abs err {attn_errs['flash_attention_fwd']:.3g} (tol 2e-5), "
+        f"(128, 256, 100), hd in (64, 128), windows (16, 64), non-causal, "
+        f"and {attn_errs['seams']} seams {ATTN_SEAMS}: "
+        f"fwd max abs err {attn_errs['flash_attention_fwd']:.3g} (tol 2e-5; "
+        f"lse in f32 and bf16 too), "
         f"bf16 fwd {attn_errs['bf16_fwd']:.3g} (tol 2e-2), dq "
         f"{attn_errs['flash_attention_bwd_dq']:.3g}, dk/dv "
         f"{attn_errs['flash_attention_bwd_dkdv']:.3g} vs the plain backward, "
         f"{attn_errs['bwd_vs_autograd']:.3g} vs autograd of the oracle "
-        f"(tol 1e-4); backward run twice bitwise equal")
+        f"(tol 1e-4); every forward run twice bitwise equal; sequences 0 "
+        f"and {T_SHAPE[0] // 2} alone bitwise the same rows of the whole "
+        f"batch; backward run twice bitwise equal")
     report["attention_errors"] = attn_errs
     try:
         ssd_errs = ssd_checks(torch, kssd, kops)
@@ -1322,6 +1418,20 @@ def main(argv=None) -> int:
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
             f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}); "
             f"library_ms none (no single PyTorch call computes it)")
+    # the forward's six instances on this card
+    fwd_res = {f"{str(dt).split('.')[-1]}_hd{hd}": kfa.fwd_resources(hd, dt)
+               for hd in (32, 64, 128)
+               for dt in (torch.float32, torch.bfloat16)}
+    for key, r in fwd_res.items():
+        log(f"[6 resources] fwd_kernel {key}: {r['registers']} registers and "
+            f"{r['local_bytes']} bytes of local memory (spills) a thread; "
+            f"{r['static_smem_bytes'] + r['dynamic_smem_bytes']} bytes of "
+            f"shared memory and {r['threads']} threads a CTA; "
+            f"{r['ctas_per_sm']} CTAs resident an SM (the persistent grid)")
+    if any(r["local_bytes"] or r["static_smem_bytes"]
+           for r in fwd_res.values()):
+        return fail("phase 6: an attention forward instance spills or has "
+                    "static shared memory")
     for name, t in attention_times(torch, kfa, F).items():
         records.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
@@ -1333,6 +1443,11 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name == "flash_attention_fwd":
+            records[-1]["device_ms"] = t["device_ms"]
+            records[-1]["resources"] = fwd_res
+            log(f"[6 times] flash_attention_fwd at {T_SHAPE}: "
+                f"{t['device_ms']:.4f} ms on the card (profiler)")
         log(f"[6 times] {name} at {T_SHAPE} (B, S, Hq, Hkv, hd), causal: "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "

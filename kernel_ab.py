@@ -6,6 +6,8 @@ GPU, in one process.
     python3 kernel_ab.py --kernel ssd_bwd --old old_ssd.cu
     git show <rev>:src/repro_torch/kernels/csrc/flash_decode.cu > old_fd.cu
     python3 kernel_ab.py --kernel flash_decode --old old_fd.cu
+    git show <rev>:src/repro_torch/kernels/csrc/flash_attention.cu > old_fa.cu
+    python3 kernel_ab.py --kernel flash_attention_fwd --old old_fa.cu
 
 The old source is built with the port's nvcc flags into ``chiprun_out/``
 and called through its C entry point beside the current kernel, on the
@@ -29,6 +31,16 @@ the order old, new, new, old, beside the bound of ``chip_smoke``.
   the kernels a call launches;
   the new kernel's resources (registers, spills, shared memory, runs) at
   each shape.
+* ``flash_attention_fwd``: the attention forward at the transformer
+  cell's shape (``chip_smoke.T_SHAPE``, causal) in f32 and bf16 and at
+  chip_smoke's other attention cases (``ATTN_CASES``) in f32, both
+  sources called through their ``flash_attention_fwd_launch`` (the same
+  signature) on the same inputs: the largest differences of o and lse
+  between them and against the plain version; cold-L2 medians of 20 of
+  the profiler's kernel time and of the CUDA-event time;
+  ``scaled_dot_product_attention`` on the same inputs and the bound of
+  ``chip_smoke.attention_bound``; the new kernel's resources (registers,
+  spills, shared memory, CTAs an SM) for all six instances.
 
 Each compiler report's registers and spills are printed.  The last line
 is one JSON object with the times.
@@ -201,7 +213,99 @@ def flash_decode_ab(torch, cs, build, lib, log) -> dict:
     return {"cases": out, "old_build": old_report, "new_build": new_report}
 
 
-KERNELS = {"ssd_bwd": ssd_bwd_ab, "flash_decode": flash_decode_ab}
+# ---------------------------------------------------------------------------
+# the flash-attention forward
+# ---------------------------------------------------------------------------
+
+
+def old_attention_fwd(torch, lib, q, k, v, causal, window):
+    """The old source's (o, lse), through its flash_attention_fwd_launch."""
+    b, s, hq, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, s, hq, k.shape[2], hd, int(causal),
+        0 if window is None else window, 1.0 / hd ** 0.5,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"old flash_attention_fwd_launch returned {rc}")
+    return o, lse
+
+
+def flash_attention_fwd_ab(torch, cs, build, lib, log) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd_launch.argtypes = ([ptr] * 5 + [i32] * 7
+                                               + [f32, i32, ptr])
+    lib.flash_attention_fwd_launch.restype = i32
+    old_report = print_report(build, log, "old", "fwd_kernel")
+    new_report = print_report(build, build.load("flash_attention").log,
+                              "new", "fwd_kernel")
+    resources = {}
+    for hd in (32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{str(dtype).split('.')[-1]}_hd{hd}"
+            resources[key] = kfa.fwd_resources(hd, dtype)
+            print(f"[resources] fwd_kernel {key}: {resources[key]}")
+    cases = [("cell_f32", cs.ATTN_CASES[0], torch.float32),
+             ("cell_bf16", cs.ATTN_CASES[0], torch.bfloat16)]
+    cases += [(f"case{i}_f32", case, torch.float32)
+              for i, case in enumerate(cs.ATTN_CASES[1:], 1)]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for key, (b, s, hq, hkv, hd, causal, window), dtype in cases:
+        q, k, v = (t.to(dtype) for t in cs.attention_inputs(
+            torch, gen, b, s, hq, hkv, hd))
+        opts = dict(causal=causal, window=window)
+        runs = {"old": lambda: old_attention_fwd(torch, lib, q, k, v,
+                                                 causal, window),
+                "new": lambda: kfa.flash_attention_fwd(q, k, v, **opts)}
+        (o_old, l_old), (o_new, l_new) = runs["old"](), runs["new"]()
+        po, plse = kfa.flash_attention_fwd_plain(q, k, v, **opts)
+        diff = lambda a, c: float((a.float() - c.float()).abs().max())  # noqa
+        rec = {"shape": [b, s, hq, hkv, hd], "causal": causal,
+               "window": window, "dtype": str(dtype).split(".")[-1],
+               "o_new_vs_old": diff(o_new, o_old),
+               "lse_new_vs_old": diff(l_new, l_old),
+               "o_new_vs_plain": diff(o_new, po),
+               "o_old_vs_plain": diff(o_old, po),
+               "lse_new_vs_plain": diff(l_new, plse),
+               "old_ms": [], "new_ms": [], "old_device_ms": [],
+               "new_device_ms": []}
+        for who in ("old", "new", "new", "old"):
+            rec[f"{who}_ms"].append(cs.cold_ms(torch, runs[who]))
+            rec[f"{who}_device_ms"].append(
+                cs.device_ms(torch, runs[who], "fwd_kernel")[0])
+        sdpa = cs.sdpa_call(torch, F, q, k, v, causal, window)
+        rec["sdpa_ms"] = cs.cold_ms(torch, sdpa)
+        rec["sdpa_device_ms"] = cs.device_ms(torch, sdpa, "")[0]
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["ops"] = (
+            cs.attention_bound(torch, q, k, causal, window))
+        print(f"[times] flash_attention_fwd {key} at ({b}, {s}, {hq}, {hkv}, "
+              f"{hd}) (B, S, Hq, Hkv, hd), causal={causal} window={window}, "
+              f"{rec['dtype']}, cold L2, median of 20: on the card "
+              f"(profiler) old {rec['old_device_ms']} ms, new "
+              f"{rec['new_device_ms']} ms; CUDA events old {rec['old_ms']} "
+              f"ms, new {rec['new_ms']} ms; scaled_dot_product_attention "
+              f"{rec['sdpa_ms']:.4f} ms (card {rec['sdpa_device_ms']:.4f}); "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{rec['bytes']} bytes, {rec['ops']} ops); o new vs old "
+              f"{rec['o_new_vs_old']:.3g}, lse {rec['lse_new_vs_old']:.3g}; "
+              f"vs plain: o new {rec['o_new_vs_plain']:.3g}, old "
+              f"{rec['o_old_vs_plain']:.3g}, lse new "
+              f"{rec['lse_new_vs_plain']:.3g}")
+        out[key] = rec
+        del q, k, v, o_old, o_new, l_old, l_new, po, plse
+        torch.cuda.empty_cache()
+    return {"cases": out, "resources": resources, "old_build": old_report,
+            "new_build": new_report}
+
+
+KERNELS = {"ssd_bwd": ssd_bwd_ab, "flash_decode": flash_decode_ab,
+           "flash_attention_fwd": flash_attention_fwd_ab}
 
 
 def main(argv=None) -> int:

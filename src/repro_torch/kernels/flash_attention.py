@@ -22,8 +22,12 @@ On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/flash_attention.cu`` and adds one to its ``launches`` count; on a
 CPU tensor it runs the plain version beside it.  There is no fallback: a
 CUDA tensor either launches the kernel or raises.  The forward takes
-float32 or bfloat16 and head dims 32, 64 and 128; the backward takes
-float32 only.
+float32 or bfloat16, head dims 32, 64 and 128, any group size Hq / Hkv
+and tensors whose data start on a 16-byte boundary (its copies and
+stores are 16-byte vectors); it runs on a persistent grid of units
+(sequence, KV head, query tile) that cover a KV head's query heads
+together (:func:`fwd_resources` reports its instances).  The backward
+takes float32 only.
 """
 from __future__ import annotations
 
@@ -49,8 +53,11 @@ def _library():
     c.flash_attention_fwd_launch.argtypes = [ptr] * 5 + shape + [i32, ptr]
     c.flash_attention_bwd_dq_launch.argtypes = [ptr] * 8 + shape + [ptr]
     c.flash_attention_bwd_dkdv_launch.argtypes = [ptr] * 8 + shape + [ptr]
+    # hd, bf16; out[6]
+    c.flash_attention_fwd_resources.argtypes = [i32, i32, ptr]
     for fn in (c.flash_attention_fwd_launch, c.flash_attention_bwd_dq_launch,
-               c.flash_attention_bwd_dkdv_launch):
+               c.flash_attention_bwd_dkdv_launch,
+               c.flash_attention_fwd_resources):
         fn.restype = i32
     return c
 
@@ -208,6 +215,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: q, k and v must start on a "
+                         "16-byte boundary (the kernel copies 16-byte "
+                         "vectors)")
     o = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
@@ -222,6 +233,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
 
 flash_attention_fwd.launches = 0
+
+_RESOURCE_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                  "dynamic_smem_bytes", "threads", "ctas_per_sm")
+
+
+def fwd_resources(hd: int, dtype=torch.float32) -> dict:
+    """What the forward kernel's instance for a head dim and type takes on
+    the current card: registers and local memory (spills) a thread, static
+    and dynamic shared memory a CTA, threads a CTA and resident CTAs an SM
+    (its persistent grid is that many CTAs an SM)."""
+    out = (ctypes.c_int * len(_RESOURCE_KEYS))()
+    rc = _library().flash_attention_fwd_resources(
+        hd, int(dtype == torch.bfloat16), out)
+    _raise_on(rc, "flash_attention_fwd_resources")
+    return dict(zip(_RESOURCE_KEYS, out))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,

@@ -11,9 +11,13 @@ float64, in different orders); ``compress_dense`` on the card must keep
 the same survivors as the CPU path and agree with it to 2e-5; a chunked
 ``Experiment.run`` on the card must equal the monolithic one bitwise.
 The flash-attention forward must agree with its plain version to 2e-5
-(bf16: 2e-2) and the backward pair to 1e-4, against the plain backward
-and autograd of the oracle; the backward is bitwise reproducible; the
-wrappers raise on what the kernels do not take.  The SSD forward must
+(bf16: 2e-2; lse 2e-5) and the backward pair to 1e-4, against the plain
+backward and autograd of the oracle, also at the forward's seams (S
+around its 16-key tiles, windows around them, g 1, 2 and 4, hd 32, 64
+and 128); the forward and the backward are bitwise reproducible, the
+forward is batch-invariant at the cell's shape, none of its six
+instances spills; the wrappers raise on what the kernels do not take (a
+forward input off a 16-byte boundary too).  The SSD forward must
 agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
@@ -225,6 +229,79 @@ def test_attention_backward_is_bitwise_reproducible(cuda):
         assert torch.equal(a, b)
 
 
+# the forward's seams (B, S, Hq, Hkv, hd, causal, window): S around its
+# 16-key tiles, windows around them, g 1, 2 and 4, hd 32, 64 and 128; each
+# (S, window, causal) once, the (g, hd) pairs taken in turn
+ATTN_SEAMS = [
+    (3, s, 2 * g, 2, hd, causal, window)
+    for i, (s, window, causal) in enumerate(
+        (s, w, c) for s in (1, 15, 16, 17, 33)
+        for w in (None, 1, 8, 16, 17) for c in (True, False))
+    for g, hd in [((1, 2, 4)[i % 3], (32, 64, 128)[i // 3 % 3])]]
+# groups wider than a unit's 32 rows: 40 heads a KV head, cut into chunks
+ATTN_WIDE_GROUPS = [(2, 20, 80, 2, 64, True, None),
+                    (1, 9, 40, 1, 32, False, 4)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ATTN_SEAMS + ATTN_WIDE_GROUPS)
+def test_attention_forward_seams_match_plain_and_repeat_bitwise(cuda, case,
+                                                                dtype, tol):
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, dtype, seed=s + hd)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    o2, lse2 = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("case", ATTN_SEAMS[::3])
+def test_attention_backward_from_the_forward_at_seams(cuda, case):
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, seed=s)
+    do = torch.randn_like(q)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                          causal=causal, window=window)
+    dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum,
+                                          causal=causal, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(_oracle(*leaves, causal, window), leaves, do)
+    for got, want in zip((dq, dk, dv), auto):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forward_is_batch_invariant(cuda, dtype):
+    """The cell's shape: the first and a middle sequence alone give the
+    same bits as the same rows of the whole launch."""
+    b = 12288
+    q, k, v = _qkv(cuda, b, 16, 4, 2, 64, dtype)
+    o, lse = kfa.flash_attention_fwd(q, k, v)
+    for i in (0, b // 2):
+        oi, li = kfa.flash_attention_fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+        assert torch.equal(oi, o[i:i + 1]) and torch.equal(li, lse[i:i + 1])
+
+
+def test_attention_forward_spills_nothing(cuda):
+    from repro_torch.kernels import build
+    kfa.flash_attention_fwd(*_qkv(cuda, 2, 16, 4, 2, 64))
+    report = build.ptxas_report(build.load("flash_attention").log)
+    instances = {n: r for n, r in report.items() if "fwd_kernel" in n}
+    assert len(instances) == 6, report       # 2 types x 3 head dims
+    for name, r in instances.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+    for hd in (32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = kfa.fwd_resources(hd, dtype)
+            assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
+            assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
+
+
 def test_attention_wrappers_raise_instead_of_falling_back(cuda):
     q, k, v = _qkv(cuda, 2, 16, 4, 2, 64)
     o, lse = kfa.flash_attention_fwd(q, k, v)
@@ -238,6 +315,14 @@ def test_attention_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                  # non-contiguous q
         kfa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                                 k, v)
+
+
+def test_attention_forward_raises_on_unaligned_tensors(cuda):
+    q, k, v = _qkv(cuda, 2, 16, 4, 2, 64)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError):
+        kfa.flash_attention_fwd(shifted, k, v)
 
 
 # ---------------------------------------------------------------------------
