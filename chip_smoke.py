@@ -28,10 +28,12 @@ those paths against its plain PyTorch version on the card:
      head dim in f32 and bf16; the forward and backward bitwise
      reproducible, the forward batch-invariant); 3c. the SSD scan
      forward and backward at the mamba2 cell's shape, four edge shapes and
-     six seams of the backward (against the plain versions in float64, and
-     in float32 wherever those are within half the tolerance of float64;
-     the backward bitwise reproducible, and a copy's gradients bitwise
-     alone and among 8); 3d. flash decode at the decode cell's shape
+     six seams of the backward, the forward also at six seams of its
+     16-token tiles and at N 128 (against the plain versions in float64,
+     and in float32 wherever those are within half the tolerance of
+     float64; both bitwise reproducible, a sequence's y bitwise alone and
+     among the cell's 12 288, and a copy's gradients bitwise alone and
+     among 8); 3d. flash decode at the decode cell's shape
      and edge cases (pos 0, the last slot, the runs' seams at pos 31, 32,
      33 and where runs are empty, ring buffers, head dim 64 at g 1/4/8,
      a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
@@ -48,10 +50,11 @@ those paths against its plain PyTorch version on the card:
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
      port's full-sequence forward on the card (2e-3);
-  6. the SSD backward's and the attention forward's resources
-     (registers, spills, shared memory, resident warps or CTAs an SM);
-     kernel times (CUDA events, cold L2; the attention forward also on
-     the card from the profiler) beside
+  6. the SSD kernels' and the attention forward's resources (registers,
+     spills, shared memory, resident warps or CTAs an SM; the SSD forward
+     in every instance, failing on a spill); kernel times (CUDA events,
+     cold L2; the attention and SSD forwards also on the card from the
+     profiler) beside
      their bound, the plain versions' times and, for attention and
      decode, one PyTorch call
      (``scaled_dot_product_attention``) as a yardstick (none computes the
@@ -134,6 +137,20 @@ SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_BWD_SEAMS = [(2, 2, 16, 8, 16, 2, 32, 16), (2, 2, 17, 8, 8, 1, 16, 17),
                  (1, 3, 40, 4, 32, 2, 64, 40), (1, 2, 32, 256, 8, 4, 16, 16),
                  (1, 2, 24, 16, 32, 4, 64, 24), (1, 2, 20, 6, 1, 2, 16, 20)]
+# the forward's own seams: S around its 16-token tiles (1, 15; 33, 40: a
+# state across two and three tiles), P wider than a unit's 256 rows, P 3
+# with a state (one row a thread, rows not 16-byte aligned); and N 128,
+# mamba2-2.7b's heads (H 80, P 64), one tile and three
+SSD_FWD_SEAMS = [(2, 2, 1, 8, 8, 2, 32, 1), (2, 2, 15, 8, 8, 2, 32, 15),
+                 (2, 2, 33, 8, 8, 2, 32, 33), (2, 2, 40, 8, 8, 2, 32, 40),
+                 (1, 2, 16, 2, 320, 1, 16, 16), (1, 2, 40, 4, 3, 2, 16, 40)]
+SSD_FWD_N128 = [(1, 2, 16, 80, 64, 1, 128, 16),
+                (1, 2, 40, 80, 64, 1, 128, 40)]
+# (H, P, G, N) at which phase 6 reads the forward's resources: every
+# instance (N 16, 32, 64, 128; P % 4 == 0 or not), the cell's shape first
+SSD_FWD_RESOURCE_SHAPES = [(64, 8, 1, 16), (8, 16, 2, 32), (8, 32, 4, 64),
+                           (80, 64, 1, 128), (6, 1, 2, 16), (4, 3, 2, 32),
+                           (4, 3, 2, 64), (4, 3, 2, 128)]
 # the decode cell: launch.serve at full width, prefill by stepping the
 # decode path over the prompt, then greedy decode; mistral-nemo-12b's
 # cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
@@ -510,9 +527,12 @@ def close_to_plain(torch, got, plain, exact, tol, label):
 def ssd_checks(torch, kssd, kops):
     """The SSD kernels against their plain versions on the card: forward
     2e-5 (bf16 2e-2), backward 1e-4, each against the plain version in
-    float64 and in float32 (where sound), at the mamba2 cell's shape and
-    at the reference's four kernel-test shapes; the backward run twice
-    bitwise.  Returns the max abs errors; raises AssertionError."""
+    float64 and in float32 (where sound), at the mamba2 cell's shape, at
+    the reference's four kernel-test shapes and at the backward's seams;
+    the forward also at its own seams and at N 128.  The forward and the
+    backward run twice bitwise; a sequence's y, and a copy's gradients,
+    bitwise the same alone and among the rest.  Returns the max abs
+    errors; raises AssertionError."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = {"ssd_scan_fwd": 0.0, "ssd_scan_bwd": 0.0, "bf16_fwd": 0.0,
             "fwd_vs_f64": 0.0, "bwd_vs_f64": 0.0, "plain_fwd_vs_f64": 0.0,
@@ -522,6 +542,7 @@ def ssd_checks(torch, kssd, kops):
              (2, 1, 128, 4, 32, 2, 16, 32), (1, 1, 64, 2, 64, 1, 32, 16),
              (1, 2, 256, 8, 32, 4, 64, 64), (1, 1, 128, 4, 32, 4, 16, 128)]
     cases += SSD_BWD_SEAMS
+    fwd_only = SSD_FWD_SEAMS + SSD_FWD_N128
 
     def note(key, f64_key, got):
         errs[key] = max(errs[key], got[0])
@@ -529,7 +550,7 @@ def ssd_checks(torch, kssd, kops):
         errs[f"plain_{f64_key}"] = max(errs[f"plain_{f64_key}"], got[2])
         errs["left_out"] += got[3]
 
-    for copies, per, s, h, p, g, n, chunk in cases:
+    for copies, per, s, h, p, g, n, chunk in cases + fwd_only:
         label = (f"ssd copies={copies} B={copies * per} S={s} H={h} P={p} "
                  f"G={g} N={n} chunk={chunk}")
         ins, dy = ssd_inputs(torch, gen, copies, per, s, h, p, g, n)
@@ -546,6 +567,9 @@ def ssd_checks(torch, kssd, kops):
             raise AssertionError(f"{label}: bf16 forward beyond 2e-2")
         errs["bf16_fwd"] = max(errs["bf16_fwd"],
                                float((yb - pb).abs().max()))
+        if (copies, per, s, h, p, g, n, chunk) in fwd_only:
+            del ins, dy, y, exact_in, bf, yb, pb
+            continue
         got = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
         plain = kssd.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
         exact = kssd.ssd_scan_bwd_plain(*exact_in, dy.double(), chunk=chunk)
@@ -555,6 +579,28 @@ def ssd_checks(torch, kssd, kops):
                  close_to_plain(torch, a, pl, ex, 1e-4, f"{label} {name}"))
         del ins, dy, y, exact_in, bf, got, plain, exact
         torch.cuda.empty_cache()
+    # the forward at the cell's whole batch: twice bitwise (f32, bf16), and
+    # sequences alone bitwise the same rows among the 12 288
+    ins, _ = ssd_inputs(torch, gen, *cases[0][:7])
+    bf = [t.bfloat16() for t in ins]
+    bf[2] = ins[2]
+    for args in (ins, bf):
+        first = kssd.ssd_scan_fwd(*args, chunk=M_SHAPE[-1])
+        if not torch.equal(first, kssd.ssd_scan_fwd(*args,
+                                                    chunk=M_SHAPE[-1])):
+            raise AssertionError("the SSD forward is not bitwise "
+                                 "reproducible")
+        per = M_SHAPE[0] // M_COPIES
+        for k in (0, 5000, M_SHAPE[0] - 1):
+            alone = kssd.ssd_scan_fwd(
+                *(t[k:k + 1] for t in args[:2]),
+                args[2][k // per:k // per + 1],
+                *(t[k:k + 1] for t in args[3:]), chunk=M_SHAPE[-1])
+            if not torch.equal(alone, first[k:k + 1]):
+                raise AssertionError(f"the SSD forward of sequence {k} "
+                                     f"alone is not bitwise the same "
+                                     f"sequence among {M_SHAPE[0]}")
+    del ins, bf, first, alone
     ins, dy = ssd_inputs(torch, gen, *cases[0][:7])
     leaves = [t.detach().clone().requires_grad_() for t in ins]
     runs = [torch.autograd.grad(kops.ssd(*leaves, chunk=M_SHAPE[-1]), leaves,
@@ -580,8 +626,10 @@ def ssd_checks(torch, kssd, kops):
 def ssd_work(ins, dy):
     """Bytes (each input read once, each output written once) and f32
     operations of the SSD kernels at a one-segment shape (S <= 16): the
-    forward's per-token recurrence, 5N + 2 a (sequence, token, head, p)
-    row (the state update a*h + u*B and y = h.C); the backward's sums over
+    forward's as the per-token recurrence counts them, 5N + 2 a (sequence,
+    token, head, p) row (the state update a*h + u*B and y = h.C; kept for
+    the dual form too, so that both designs meet one bound, which bytes
+    set either way); the backward's sums over
     the token pairs s <= t of a sequence, 4P + 8 a (pair, head) (dy_t .
     x_s, the dx update, the decay, W, W CB, the dx weight, the sums over
     heads and pairs), 4N a (pair, group) (C_t . B_s, dB, dC) and P + 4 a
@@ -609,7 +657,8 @@ def bound(nbytes, ops):
 def ssd_times(torch, kssd):
     """Cold-L2 median times at the mamba2 cell's SSD shape (x, Bm, Cm
     slices of the conv output, as on the path): each kernel and its plain
-    version, beside the bound of :func:`ssd_work`."""
+    version, beside the bound of :func:`ssd_work`; the forward also on the
+    card from the profiler."""
     b, s, h, p, g, n, chunk = M_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(4)
     ins, dy = ssd_inputs(torch, gen, M_COPIES, b // M_COPIES, s, h, p, g, n)
@@ -629,6 +678,8 @@ def ssd_times(torch, kssd):
                      "plain_ms": cold_ms(torch, plain),
                      "library_ms": None, "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    out["ssd_scan_fwd"]["device_ms"] = device_ms(
+        torch, runs["ssd_scan_fwd"][0], "ssd_fwd_kernel")[0]
     return out
 
 
@@ -1175,8 +1226,9 @@ def main(argv=None) -> int:
     log(f"[3c kernels] SSD scan at {M_SHAPE} (B, S, H, P, G, N, chunk; "
         f"{M_COPIES} copies of A) + the reference's kernel-test shapes (S up "
         f"to 256, P up to 64, N up to 64, G up to 4, chunk up to 128) + the "
-        f"backward's seams {SSD_BWD_SEAMS} (copies, B per copy, S, H, P, G, "
-        f"N, chunk): fwd "
+        f"backward's seams {SSD_BWD_SEAMS} + the forward's seams "
+        f"{SSD_FWD_SEAMS} and N 128 {SSD_FWD_N128} (forward only) (copies, B "
+        f"per copy, S, H, P, G, N, chunk): fwd "
         f"max abs err {ssd_errs['ssd_scan_fwd']:.3g} vs the plain version, "
         f"{ssd_errs['fwd_vs_f64']:.3g} vs it in float64 (tol 2e-5; the "
         f"float32 plain version {ssd_errs['plain_fwd_vs_f64']:.3g}), bf16 "
@@ -1185,9 +1237,11 @@ def main(argv=None) -> int:
         f"{ssd_errs['bwd_vs_f64']:.3g} vs it in float64 (tol 1e-4; the "
         f"float32 plain version {ssd_errs['plain_bwd_vs_f64']:.3g}); "
         f"{ssd_errs['left_out']} elements where the float32 plain version "
-        f"is itself beyond half the tolerance of float64; backward run "
-        f"twice bitwise equal, and a copy alone bitwise the same copy among "
-        f"8")
+        f"is itself beyond half the tolerance of float64; forward (f32, "
+        f"bf16) run twice bitwise equal at {M_SHAPE[0]} sequences, and "
+        f"sequences 0, 5000 and {M_SHAPE[0] - 1} alone bitwise the same rows "
+        f"among them; backward run twice bitwise equal, and a copy alone "
+        f"bitwise the same copy among 8")
     report["ssd_errors"] = ssd_errs
     try:
         dec_errs = decode_checks(torch, kfd)
@@ -1466,6 +1520,23 @@ def main(argv=None) -> int:
             f"{r['ctas_per_sm']} CTAs = {r['warps_per_sm']} warps resident "
             f"an SM")
     report["ssd_bwd_resources"] = res
+    # the forward's instances: each (H, P, G, N) of the list in f32 and
+    # bf16, without a state (S <= 16) and with one
+    fwd_ssd_res = {"H{}_P{}_G{}_N{}".format(*shape): kssd.fwd_resources(
+        *shape) for shape in SSD_FWD_RESOURCE_SHAPES}
+    for shape, recs in fwd_ssd_res.items():
+        for key, r in recs.items():
+            log(f"[6 resources] ssd_fwd_kernel {shape} {key}: "
+                f"{r['registers']} registers and {r['local_bytes']} bytes of "
+                f"local memory (spills) a thread; "
+                f"{r['static_smem_bytes'] + r['dynamic_smem_bytes']} bytes of "
+                f"shared memory and {r['threads']} threads a CTA; "
+                f"{r['ctas_per_sm']} CTAs resident an SM (the persistent "
+                f"grid)")
+    report["ssd_fwd_resources"] = fwd_ssd_res
+    if any(r["local_bytes"] for recs in fwd_ssd_res.values()
+           for r in recs.values()):
+        return fail("phase 6: an SSD forward instance spills")
     for name, t in ssd_times(torch, kssd).items():
         records.append({
             "name": name, "route": "cuda", "source": SSD_SOURCE,
@@ -1479,6 +1550,11 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": None})
         if name == "ssd_scan_bwd":
             records[-1]["resources"] = res
+        else:
+            records[-1]["resources"] = fwd_ssd_res
+            records[-1]["device_ms"] = t["device_ms"]
+            log(f"[6 times] ssd_scan_fwd at {M_SHAPE}: {t['device_ms']:.4f} "
+                f"ms on the card (profiler)")
         log(f"[6 times] {name} at {M_SHAPE} (B, S, H, P, G, N, chunk): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "

@@ -4,6 +4,7 @@ GPU, in one process.
 
     git show <rev>:src/repro_torch/kernels/csrc/ssd_scan.cu > old_ssd.cu
     python3 kernel_ab.py --kernel ssd_bwd --old old_ssd.cu
+    python3 kernel_ab.py --kernel ssd_fwd --old old_ssd.cu
     git show <rev>:src/repro_torch/kernels/csrc/flash_decode.cu > old_fd.cu
     python3 kernel_ab.py --kernel flash_decode --old old_fd.cu
     git show <rev>:src/repro_torch/kernels/csrc/flash_attention.cu > old_fa.cu
@@ -19,6 +20,16 @@ the order old, new, new, old, beside the bound of ``chip_smoke``.
   ``ssd_scan_bwd_launch`` must take the current arguments, with the
   workspace of the recurrence-based backward: B * G * (ceil(S / 16) - 1)
   * N * (H / G) * P floats.
+* ``ssd_fwd``: the SSD-scan forward at the mamba2 cell's shape
+  (``chip_smoke.M_SHAPE``, x, Bm and Cm slices of the conv output as on
+  the path) in f32 and bf16, and at chip_smoke's other phase-3c shapes
+  that both sources take (N <= 64) in f32, both called through their
+  ``ssd_scan_fwd_launch`` (the same signature) on the same inputs: the
+  largest differences of y between them and against the plain version
+  in float64; cold-L2 medians of 20 of the profiler's kernel time and of
+  the CUDA-event time; the bound of ``chip_smoke.ssd_work`` (bytes at the
+  inputs' own widths); the new kernel's resources (registers, spills,
+  shared memory, CTAs an SM) at chip_smoke's resource shapes.
 * ``flash_decode``: flash decode at the decode cell's shape (B 8, ctx
   2048, 32 query / 8 KV heads of 128, f32) at pos 0, 31, 32, 191 and
   2047, and at one layer of a 32k-token cache (B 16) in bf16 and f32.
@@ -132,6 +143,90 @@ def ssd_bwd_ab(torch, cs, build, lib, log) -> dict:
     return {"shape": cs.M_SHAPE, "old_ms": times["old"],
             "new_ms": times["new"], "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_diff": diffs}
+
+
+# ---------------------------------------------------------------------------
+# the SSD-scan forward
+# ---------------------------------------------------------------------------
+
+
+def old_fwd(torch, kssd, lib, x, dt, A, Bm, Cm):
+    """The old source's y, through its ssd_scan_fwd_launch."""
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rc = lib.ssd_scan_fwd_launch(
+        *(t.data_ptr() for t in (x, dt, A, Bm, Cm, y)),
+        *kssd._dims("old ssd_scan_fwd", x, A, Bm, Cm),
+        int(x.dtype == torch.bfloat16), kssd._stream(x))
+    if rc != 0:
+        raise RuntimeError(f"old ssd_scan_fwd_launch returned {rc}")
+    return y
+
+
+def ssd_fwd_ab(torch, cs, build, lib, log) -> dict:
+    from repro_torch.kernels import ssd_scan as kssd
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_fwd_launch.argtypes = ([ptr] * 6 + [i32] * 7 + [i64] * 3
+                                        + [i32, ptr])
+    lib.ssd_scan_fwd_launch.restype = i32
+    old_report = print_report(build, log, "old", "fwd_kernel")
+    new_report = print_report(build, build.load("ssd_scan").log, "new",
+                              "fwd_kernel")
+    resources = {"H{}_P{}_G{}_N{}".format(*shape): kssd.fwd_resources(*shape)
+                 for shape in cs.SSD_FWD_RESOURCE_SHAPES}
+    for shape, recs in resources.items():
+        for key, r in recs.items():
+            print(f"[resources] ssd_fwd_kernel {shape} {key}: {r}")
+    b, s, h, p, g, n, chunk = cs.M_SHAPE
+    cell = (cs.M_COPIES, b // cs.M_COPIES, s, h, p, g, n, chunk)
+    others = [(2, 1, 128, 4, 32, 2, 16, 32), (1, 1, 64, 2, 64, 1, 32, 16),
+              (1, 2, 256, 8, 32, 4, 64, 64), (1, 1, 128, 4, 32, 4, 16, 128)]
+    others += cs.SSD_BWD_SEAMS + cs.SSD_FWD_SEAMS
+    cases = [("cell_f32", cell, torch.float32),
+             ("cell_bf16", cell, torch.bfloat16)]
+    cases += [(f"case{i}_f32", case, torch.float32)
+              for i, case in enumerate(others, 1)]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for key, (copies, per, s, h, p, g, n, chunk), dtype in cases:
+        ins, dy = cs.ssd_inputs(torch, gen, copies, per, s, h, p, g, n)
+        exact = kssd.ssd_scan_fwd_plain(*(t.double() for t in ins),
+                                        chunk=chunk)
+        if dtype == torch.bfloat16:
+            ins = tuple(t if i == 2 else t.bfloat16()
+                        for i, t in enumerate(ins))
+        runs = {"old": lambda: old_fwd(torch, kssd, lib, *ins),
+                "new": lambda: kssd.ssd_scan_fwd(*ins, chunk=chunk)}
+        y_old, y_new = runs["old"](), runs["new"]()
+        diff = lambda a, c: float((a.double() - c.double()).abs().max())  # noqa
+        rec = {"shape": [copies * per, s, h, p, g, n, chunk],
+               "dtype": str(dtype).split(".")[-1],
+               "y_new_vs_old": diff(y_new, y_old),
+               "y_new_vs_f64": diff(y_new, exact),
+               "y_old_vs_f64": diff(y_old, exact),
+               "old_ms": [], "new_ms": [], "old_device_ms": [],
+               "new_device_ms": []}
+        for who in ("old", "new", "new", "old"):
+            rec[f"{who}_ms"].append(cs.cold_ms(torch, runs[who]))
+            rec[f"{who}_device_ms"].append(
+                cs.device_ms(torch, runs[who], "ssd_fwd_kernel")[0])
+        nbytes = 2 * ins[0].numel() * ins[0].element_size() + sum(
+            t.numel() * t.element_size() for t in ins[1:])
+        ops = cs.ssd_work(ins, dy)["ssd_scan_fwd"][1]
+        rec["bound_ms"], rec["bound_by"] = cs.bound(nbytes, ops)
+        rec["bytes"], rec["ops"] = nbytes, ops
+        print(f"[times] ssd_scan_fwd {key} at {tuple(rec['shape'])} (B, S, "
+              f"H, P, G, N, chunk), {rec['dtype']}, cold L2, median of 20: "
+              f"on the card (profiler) old {rec['old_device_ms']} ms, new "
+              f"{rec['new_device_ms']} ms; CUDA events old {rec['old_ms']} "
+              f"ms, new {rec['new_ms']} ms; bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {nbytes} bytes, {ops} ops); y new vs old "
+              f"{rec['y_new_vs_old']:.3g}; vs float64: new "
+              f"{rec['y_new_vs_f64']:.3g}, old {rec['y_old_vs_f64']:.3g}")
+        out[key] = rec
+        del ins, dy, exact, y_old, y_new
+        torch.cuda.empty_cache()
+    return {"cases": out, "resources": resources, "old_build": old_report,
+            "new_build": new_report}
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +399,8 @@ def flash_attention_fwd_ab(torch, cs, build, lib, log) -> dict:
             "new_build": new_report}
 
 
-KERNELS = {"ssd_bwd": ssd_bwd_ab, "flash_decode": flash_decode_ab,
+KERNELS = {"ssd_bwd": ssd_bwd_ab, "ssd_fwd": ssd_fwd_ab,
+           "flash_decode": flash_decode_ab,
            "flash_attention_fwd": flash_attention_fwd_ab}
 
 

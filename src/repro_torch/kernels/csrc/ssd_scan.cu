@@ -12,13 +12,40 @@
 //
 // ssd_fwd_kernel (replaces kernels/ssd_scan.py::_ssd_kernel of the TPU
 // package)
-//   The per-token recurrence, exact like the TPU kernel's chunked dual form:
+//   y of the recurrence
 //     h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T   (P x N, from zero)
 //     y_t = h_t C_t
-//   One thread owns one (b, h, p) row of the state (N registers); the
-//   group's B and C rows are staged in shared memory a tile of tokens at a
-//   time.  f32 or bf16 inputs, f32 inside, y in the input type.  It needs
-//   no chunk size: any S runs (the TPU kernel asserts S % chunk == 0).
+//   in its dual (quadratic) form within tiles of kTile tokens, as the TPU
+//   kernel does within its chunk.  With a_t = exp(dt_t A_h), D(t, s) =
+//   a_{s+1} ... a_t (running products, as in the backward) and CB[t, s] =
+//   C_t . B_s (once a (sequence, group, tile) for all of the group's
+//   heads):
+//     W_h[t, s] = D(t, s) CB[t, s] dt_s          (s <= t)
+//     y[t, (h, p)] = sum_{s <= t} W_h[t, s] x[s, (h, p)]   (s in order).
+//   The state crosses tiles only when S > kTile: a tile first adds pre(t)
+//   C_t . h_in to y (pre(t) = a_{t0} ... a_t), then leaves h_out =
+//   pre(last) h_in + sum_s post(s) dt_s x_s B_s^T (post(s) = a_{s+1} ...
+//   a_last; s in order).  At the mamba2 cell's S 16 no state exists.
+//   Every term is a direct sum of products.  f32 or bf16 inputs, f32
+//   inside, y in the input type.  It needs no chunk size: any S runs (the
+//   TPU kernel asserts S % chunk == 0).  N up to 128.
+//
+//   Mapping.  A persistent grid (as many CTAs an SM as the occupancy query
+//   admits, asked once a device) walks units in a fixed stride: (sequence,
+//   group, a block of up to 32 heads, or of p values of one head where P
+//   is wide) of up to 256 (head, p) rows, a unit's tiles in order.  A
+//   two-stage shared-memory ring holds a step's x tile, dt, B and C,
+//   filled by 16-byte cp.async (4-byte, or plain copies of bf16, where a
+//   row is not aligned); the next step's copies are in flight while this
+//   one computes.  A step computes a and CB, then the heads' W,
+//   transposed and packed in 16-byte groups of t (rows at an odd count of
+//   groups, against bank conflicts), then y: a thread owns four rows of
+//   one head (one row where P % 4 != 0) at four consecutive tokens, and a
+//   source token s costs it one 16-byte read of x, one of W and 16 FMAs;
+//   y leaves in 16-byte stores.  A state (S >
+//   kTile) lives in registers, 16 values of N a thread (units of 4096 / N
+//   rows there).  No atomics, and a unit's arithmetic reads its own
+//   sequence alone: bitwise reproducible and batch-invariant.
 // ssd_bwd_kernel (no TPU counterpart: the TPU package has no backward)
 //   The gradient of that recurrence, given dy.  With u_t = dt_t x_t, a_t =
 //   exp(dt_t A_h), D(t, s) = a_{s+1} ... a_t and the adjoint g_t = dL/dh_t
@@ -76,7 +103,12 @@
 //
 // Bound.  At the port's shapes (S 16, H 64, P 8, N 16) both kernels are
 // bound by their bytes (each reads its inputs once and writes its outputs
-// once, 3.35 TB/s on an H100 SXM).  The backward's dual form does ~3 f32
+// once, 3.35 TB/s on an H100 SXM).  The forward's dual form does 136
+// FMAs a (head, p) row of a 16-token tile, against the recurrence's 528,
+// and keeps a CTA's next unit (20 KB at the cell's shape) in flight while
+// it computes; at 71 168 bytes of shared memory three CTAs share an SM.
+// The recurrence it replaced kept one 4-byte load of x a warp in flight,
+// behind a dependent loop.  The backward's dual form does ~3 f32
 // operations for each byte it must move; the recurrence it replaced did
 // ~17 and waited on shuffles, so it was latency-bound at one 512-thread
 // CTA an SM.  At 49 792 bytes of shared memory (N 16, 64 heads a group)
@@ -92,8 +124,7 @@
 
 namespace {
 
-constexpr int kTile = 16;          // tokens a forward tile stages
-constexpr int kFwdThreads = 256;
+constexpr int kTile = 16;          // tokens of a forward tile
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBadShape = -1;      // a shape the kernels do not take
 
@@ -115,14 +146,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Sum over aligned segments of `width` lanes (a power of two <= 32); every
 // lane of a segment gets the segment's sum.
@@ -130,60 +153,6 @@ __device__ __forceinline__ float seg_sum(float v, int width) {
   for (int off = width >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// Stage tokens t0 .. t0 + kTile - 1 of group g's B and C rows as f32 into
-// sB, sC (kTile x NMAX), zero past S and past N.
-template <int NMAX, typename T>
-__device__ void stage_bc(float* sB, float* sC, const T* __restrict__ Bm,
-                         const T* __restrict__ Cm, const Dims& d, int b,
-                         int g, int t0) {
-  for (int e = threadIdx.x; e < kTile * NMAX; e += blockDim.x) {
-    const int tt = e / NMAX, n = e % NMAX, t = t0 + tt;
-    const bool in = t < d.S && n < d.N;
-    const long long tok = static_cast<long long>(b) * d.S + t;
-    sB[e] = in ? to_f32(Bm[tok * d.ldb + g * d.N + n]) : 0.f;
-    sC[e] = in ? to_f32(Cm[tok * d.ldc + g * d.N + n]) : 0.f;
-  }
-}
-
-template <typename T, int NMAX>
-__global__ void __launch_bounds__(kFwdThreads)
-    ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                   const float* __restrict__ A, const T* __restrict__ Bm,
-                   const T* __restrict__ Cm, T* __restrict__ y, Dims d) {
-  __shared__ float sB[kTile * NMAX], sC[kTile * NMAX];
-  const int b = blockIdx.x / d.G, g = blockIdx.x % d.G;
-  const int hg = d.H / d.G;
-  const int row = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = row < hg * d.P;
-  const int h = g * hg + (live ? row / d.P : 0), p = live ? row % d.P : 0;
-  const float a_h = A[(b / d.per_copy) * d.H + h];
-  float st[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) st[n] = 0.f;
-  for (int t0 = 0; t0 < d.S; t0 += kTile) {
-    __syncthreads();
-    stage_bc<NMAX>(sB, sC, Bm, Cm, d, b, g, t0);
-    __syncthreads();
-    if (!live) continue;
-    const int n_t = min(kTile, d.S - t0);
-    for (int tt = 0; tt < n_t; ++tt) {
-      const long long tok = static_cast<long long>(b) * d.S + t0 + tt;
-      const float dtv = to_f32(dt[tok * d.H + h]);
-      const float a = expf(dtv * a_h);
-      const float u = dtv * to_f32(x[tok * d.ldx + h * d.P + p]);
-      const float* bt = sB + tt * NMAX;
-      const float* ct = sC + tt * NMAX;
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        st[n] = fmaf(a, st[n], u * bt[n]);
-        acc = fmaf(st[n], ct[n], acc);
-      }
-      y[(tok * d.H + h) * d.P + p] = from_f32<T>(acc);
-    }
-  }
 }
 
 // ---- backward ----------------------------------------------------------
@@ -606,6 +575,439 @@ __global__ void ssd_dA_reduce_kernel(const double* __restrict__ part,
   dA[i] = static_cast<float>(s);
 }
 
+// ---- forward -----------------------------------------------------------
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdRows = 256;        // (head, p) rows of a unit, at most
+constexpr int kFwdHeads = 32;        // heads of a unit, at most
+constexpr int kStateElems = 4096;    // rows x N of a unit with a state: 16
+                                     // values of N a thread
+// A head's W, transposed: row s holds W[t, s] for t from 4 floor(s / 4)
+// on (whole 16-byte groups of t, zeros at t < s), 160 floats in all,
+// padded to an odd count of 16-byte groups against bank conflicts.
+__host__ __device__ constexpr int w_row(int s) {
+  return 64 * (s / 4) - 8 * (s / 4) * (s / 4 - 1) + (s % 4) * (16 - s / 4 * 4);
+}
+constexpr int kWMat = 164;
+static_assert(w_row(kTile - 1) + 4 == 160 && kWMat % 8 == 4,
+              "W^T: 160 floats a head, an odd count of 16-byte groups");
+constexpr int kLdCB = kTile + 4;     // CB^T rows, padded
+constexpr int kLdA = kTile + 4;      // a's rows (a head each), padded
+constexpr int kFwdBlocksPerSM = 3;
+constexpr int kFwdMaxState = 128;    // N the forward takes
+static_assert(kTile * kTile == kFwdThreads, "CB: one token pair a thread");
+
+// n / d and n % d for 0 <= n, d < 2^31 by a multiply-high and a shift (the
+// divisor's magic number is made on the host).
+struct FastDiv {
+  unsigned d, m, s;
+};
+
+FastDiv fast_div(unsigned d) {
+  unsigned s = 0;
+  while ((1u << s) < d) ++s;
+  const unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return {d, static_cast<unsigned>(m), s};
+}
+
+__device__ __forceinline__ int div_of(int n, const FastDiv& f) {
+  const unsigned u = static_cast<unsigned>(n);
+  return static_cast<int>((__umulhi(u, f.m) + u) >> f.s);
+}
+
+// The partition of a shape into units, fixed by S, H, P, G and N (not by
+// B): a unit is nh heads of np p values each (np < P: one head's block of
+// p values), the (head, p) rows of a group in head order.
+struct FwdPlan {
+  int rows;      // rows of a unit, at most: 256, or 4096 / N with a state
+  int nh, np;
+  int hg;        // heads a group
+  int tiles;     // ceil(S / kTile)
+  int units;     // B * G * head blocks * p blocks
+  int carry;     // S > kTile: the state crosses tiles
+  FastDiv by_pb, by_hb, by_g, by_copy, by_p;
+};
+
+// A unit: its sequence, group, copy of A, first head (of all H), heads,
+// first p and rows.
+struct FwdUnit {
+  int b, g, copy, h0, nh, p0, rows;
+};
+
+__device__ __forceinline__ FwdUnit fwd_unit(const Dims& d, const FwdPlan& pl,
+                                            int u) {
+  FwdUnit w;
+  int rest = div_of(u, pl.by_pb);
+  const int pb = u - rest * static_cast<int>(pl.by_pb.d);
+  u = rest;
+  rest = div_of(u, pl.by_hb);
+  const int hb = u - rest * static_cast<int>(pl.by_hb.d);
+  w.b = div_of(rest, pl.by_g);
+  w.g = rest - w.b * d.G;
+  w.copy = div_of(w.b, pl.by_copy);
+  w.h0 = w.g * pl.hg + hb * pl.nh;
+  w.nh = min(pl.nh, pl.hg - hb * pl.nh);
+  w.p0 = pb * pl.np;
+  w.rows = w.nh * min(pl.np, d.P - w.p0);
+  return w;
+}
+
+// Shared memory of the forward (byte offsets): two stages of (x tile, dt,
+// B, C in the input type, the heads' A in f32), then a, pre, post, CB
+// (transposed), the heads' W (transposed, packed), and, with a state, its
+// term in y (f32).
+template <typename T, int NMAX> struct FwdSmem {
+  static constexpr int kE = static_cast<int>(sizeof(T));
+  static constexpr int kLdBC = NMAX + 16 / kE;      // B, C rows, padded
+  static constexpr int kX = kTile * kFwdRows * kE;
+  static constexpr int kDt = kTile * kFwdHeads * kE;
+  static constexpr int kBC = kTile * kLdBC * kE;
+  static constexpr int kAh = 4 * kFwdHeads;
+  static constexpr int kStage = kX + kDt + 2 * kBC + kAh;
+  static constexpr int kOffA = 2 * kStage;          // (head, token)
+  static constexpr int kOffPre = kOffA + 4 * kLdA * kFwdHeads;  // (t, h)
+  static constexpr int kOffPost = kOffPre + 4 * kTile * kFwdHeads;
+  static constexpr int kOffCB = kOffPost + 4 * kTile * kFwdHeads;  // (s, t)
+  static constexpr int kOffW = kOffCB + 4 * kTile * kLdCB;
+  static constexpr int kOffYc = kOffW + 4 * kFwdHeads * kWMat;
+  static constexpr int kStateRows =
+      kStateElems / NMAX < kFwdRows ? kStateElems / NMAX : kFwdRows;
+  static constexpr int bytes(int carry) {
+    return kOffYc + (carry ? 4 * kTile * kStateRows : 0);
+  }
+  static_assert(kStage % 16 == 0 && kX % 16 == 0 && kDt % 16 == 0 &&
+                    kBC % 16 == 0 && kOffYc % 16 == 0,
+                "every array stays 16-byte aligned");
+};
+
+// Copy `rows` rows of `cols` elements (row r at src + r * ld) into dst (row
+// stride dst_ld) as cp.async copies of BYTES each.
+template <int BYTES, typename T>
+__device__ __forceinline__ void copy_chunks(T* dst, int dst_ld, const T* src,
+                                            long long ld, int rows,
+                                            int cols) {
+  constexpr int PER = BYTES / static_cast<int>(sizeof(T));
+  const int q = cols / PER, tid = threadIdx.x;
+  auto one = [&](int r, int v) {
+    const unsigned to = smem_u32(dst + r * dst_ld + v * PER);
+    const T* from = src + r * ld + v * PER;
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                   "l"(from));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+                   "l"(from));
+  };
+  if (q > 0 && kFwdThreads % q == 0) {   // a fixed chunk of a row a thread
+    const int sh = __ffs(q) - 1;          // q is a power of two here
+    for (int r = tid >> sh; r < rows; r += kFwdThreads >> sh)
+      one(r, tid & (q - 1));
+  } else {
+    for (int e = tid; e < rows * q; e += kFwdThreads) one(e / q, e % q);
+  }
+}
+
+// The same, 16 bytes a copy where every row is 16-byte aligned in both
+// places, else 4, else (bf16 at odd offsets) plain copies.  The caller
+// commits and waits.
+template <typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, int dst_ld,
+                                                const T* src, long long ld,
+                                                int rows, int cols) {
+  constexpr long long kE = sizeof(T);
+  const long long lay =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(src) |
+                             reinterpret_cast<uintptr_t>(dst)) |
+      (ld * kE) | (dst_ld * kE) | (cols * kE);
+  if ((lay & 15) == 0) {
+    copy_chunks<16>(dst, dst_ld, src, ld, rows, cols);
+  } else if ((lay & 3) == 0) {
+    copy_chunks<4>(dst, dst_ld, src, ld, rows, cols);
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kFwdThreads)
+      dst[(e / cols) * dst_ld + e % cols] = src[(e / cols) * ld + e % cols];
+  }
+}
+
+// V consecutive elements as f32 from shared memory, and back to global
+// memory in T: one access of 4 V bytes (f32) or 2 V (bf16).
+template <int V>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_rows(const __nv_bfloat16* p,
+                                          float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+template <int V>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* p,
+                                           const float (&v)[V]) {
+  if constexpr (V == 4) {
+    uint2 raw;
+    *reinterpret_cast<__nv_bfloat162*>(&raw.x) =
+        __floats2bfloat162_rn(v[0], v[1]);
+    *reinterpret_cast<__nv_bfloat162*>(&raw.y) =
+        __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = raw;
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// V: rows a thread owns in the y step (4 where P % 4 == 0, else 1).
+template <typename T, int NMAX, int V>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+    ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                   const float* __restrict__ A, const T* __restrict__ Bm,
+                   const T* __restrict__ Cm, T* __restrict__ y, Dims d,
+                   FwdPlan pl) {
+  using L = FwdSmem<T, NMAX>;
+  constexpr int LDBC = L::kLdBC, SR = L::kStateRows;
+  constexpr int TPR = kFwdThreads / SR;   // threads a row's state (N / 16)
+  constexpr int NRG = kFwdRows / V;       // row groups of the y step
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem + L::kOffA);   // (head, t)
+  float* sPre = reinterpret_cast<float*>(smem + L::kOffPre);
+  float* sPost = reinterpret_cast<float*>(smem + L::kOffPost);
+  float* sCB = reinterpret_cast<float*>(smem + L::kOffCB);   // (s, t)
+  float* sW = reinterpret_cast<float*>(smem + L::kOffW);  // (head, s, t)
+  float* sYc = reinterpret_cast<float*>(smem + L::kOffYc); // (t, row)
+  auto stage = [&](int st, int off) {
+    return reinterpret_cast<T*>(smem + st * L::kStage + off);
+  };
+  const int tid = threadIdx.x;
+  const long long ldy = static_cast<long long>(d.H) * d.P;
+  // the head (within the unit) of row r
+  auto head_of = [&](int r) { return pl.np < d.P ? 0 : div_of(r, pl.by_p); };
+
+  // Start the copies of tile k of unit u into stage st.
+  auto fetch = [&](int u, int k, int st) {
+    const FwdUnit w = fwd_unit(d, pl, u);
+    const int n_t = min(kTile, d.S - k * kTile);
+    const long long tok = static_cast<long long>(w.b) * d.S + k * kTile;
+    const long long gn = static_cast<long long>(w.g) * d.N;
+    copy_tile_async(stage(st, 0), kFwdRows,
+                    x + tok * d.ldx + static_cast<long long>(w.h0) * d.P +
+                        w.p0,
+                    d.ldx, n_t, w.rows);
+    copy_tile_async(stage(st, L::kX), kFwdHeads, dt + tok * d.H + w.h0, d.H,
+                    n_t, w.nh);
+    copy_tile_async(stage(st, L::kX + L::kDt), LDBC, Bm + tok * d.ldb + gn,
+                    d.ldb, n_t, d.N);
+    copy_tile_async(stage(st, L::kX + L::kDt + L::kBC), LDBC,
+                    Cm + tok * d.ldc + gn, d.ldc, n_t, d.N);
+    // A with the tile: a load of it in the step would wait behind the
+    // next step's copies
+    copy_tile_async(reinterpret_cast<float*>(
+                        stage(st, L::kX + L::kDt + 2 * L::kBC)),
+                    kFwdHeads, A + static_cast<long long>(w.copy) * d.H + w.h0,
+                    d.H, 1, w.nh);
+  };
+
+  int u = blockIdx.x;
+  if (u >= pl.units) return;
+  int k = 0, st = 0;
+  fetch(u, 0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  float h[16];        // with a state: row tid / TPR, n = 16 (tid % TPR) + i
+  const int sr = tid / TPR, sc = tid % TPR;
+  while (true) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // this step's copies landed; the last step is done
+    int nu = u, nk = k + 1;
+    if (nk == pl.tiles) {
+      nu += gridDim.x;
+      nk = 0;
+    }
+    const bool more = nu < pl.units;
+    if (more) fetch(nu, nk, st ^ 1);    // in flight while this step runs
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const FwdUnit w = fwd_unit(d, pl, u);
+    const int n_t = min(kTile, d.S - k * kTile);
+    const T* sx = stage(st, 0);
+    const T* sdt = stage(st, L::kX);
+    const T* sbm = stage(st, L::kX + L::kDt);
+    const T* scm = stage(st, L::kX + L::kDt + L::kBC);
+    const float* sah = reinterpret_cast<const float*>(
+        stage(st, L::kX + L::kDt + 2 * L::kBC));
+
+    // a = exp(dt A) a (token, head); CB a token pair s <= t
+    for (int e = tid; e < kTile * kFwdHeads; e += kFwdThreads) {
+      const int t = e / kFwdHeads, j = e % kFwdHeads;
+      if (t < n_t && j < w.nh)
+        sA[j * kLdA + t] = expf(to_f32(sdt[e]) * sah[j]);
+    }
+    {
+      const int t = tid / kTile, s = tid % kTile;
+      if (s <= t && t < n_t) {
+        float v = 0.f;
+#pragma unroll
+        for (int n = 0; n < NMAX; n += 4) {
+          if (n >= d.N) break;
+          float cv[4], bv[4];
+          load_rows<4>(scm + t * LDBC + n, cv);
+          load_rows<4>(sbm + s * LDBC + n, bv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (n + i < d.N) v = fmaf(cv[i], bv[i], v);
+        }
+        sCB[s * kLdCB + t] = v;
+      }
+    }
+    __syncthreads();
+
+    // W of the unit's heads, a thread a (head, s): row s of W^T from its
+    // first 16-byte group on (s is uniform in a warp), D(t, s) as running
+    // products over t >= s; with a state, pre(t) = a_0 ... a_t and post(t)
+    // = a_{n_t - 1} ... a_{t + 1}
+    for (int e = tid; e < kFwdHeads * kTile; e += kFwdThreads) {
+      const int s = e / kFwdHeads, j = e % kFwdHeads;
+      if (j < w.nh && s < n_t) {
+        const float dts = to_f32(sdt[e]);
+        const float* aj = sA + j * kLdA;
+        const float* cbs = sCB + s * kLdCB;
+        float* row = sW + j * kWMat + w_row(s) - 4 * (s / 4);
+        float dcy = 1.f;
+#pragma unroll
+        for (int c = 0; c < kTile / 4; ++c) {
+          if (c < s / 4) continue;             // t < s: no term, dcy is 1
+          const float4 a4 = *reinterpret_cast<const float4*>(aj + 4 * c);
+          const float4 cb4 = *reinterpret_cast<const float4*>(cbs + 4 * c);
+          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const float cb[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+          float wv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int t = 4 * c + i;
+            dcy = t > s ? dcy * av[i] : 1.f;
+            wv[i] = t >= s ? dcy * cb[i] * dts : 0.f;
+          }
+          *reinterpret_cast<float4*>(row + 4 * c) =
+              make_float4(wv[0], wv[1], wv[2], wv[3]);
+        }
+      }
+    }
+    if (pl.carry) {
+      for (int e = tid; e < kTile * kFwdHeads; e += kFwdThreads) {
+        const int t = e / kFwdHeads, j = e % kFwdHeads;
+        if (t < n_t && j < w.nh) {
+          float pre = 1.f, post = 1.f;
+          for (int q = 0; q <= t; ++q) pre *= sA[j * kLdA + q];
+          for (int q = n_t - 1; q > t; --q) post *= sA[j * kLdA + q];
+          sPre[e] = pre;
+          sPost[e] = post;
+        }
+      }
+    }
+    __syncthreads();
+
+    // with a state: its term in y (from the state entering the tile), then
+    // the state leaving it; thread (row sr, n-chunk sc)
+    if (pl.carry) {
+      const bool live = sr < w.rows;
+      const int j = live ? head_of(sr) : 0;
+      if (k == 0) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) h[i] = 0.f;
+      } else {
+        for (int t = 0; t < n_t; ++t) {
+          float part = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int n = 16 * sc + i;
+            part = fmaf(n < d.N ? to_f32(scm[t * LDBC + n]) : 0.f, h[i],
+                        part);
+          }
+          if (TPR > 1) part = seg_sum(part, TPR);
+          if (live && sc == 0)
+            sYc[t * SR + sr] = sPre[t * kFwdHeads + j] * part;
+        }
+      }
+      if (k + 1 < pl.tiles) {
+        const float keep = sPre[(n_t - 1) * kFwdHeads + j];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) h[i] *= keep;
+        for (int s = 0; s < n_t; ++s) {
+          const float coef = sPost[s * kFwdHeads + j] *
+                             (to_f32(sdt[s * kFwdHeads + j]) *
+                              to_f32(sx[s * kFwdRows + sr]));
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int n = 16 * sc + i;
+            h[i] = fmaf(coef, n < d.N ? to_f32(sbm[s * LDBC + n]) : 0.f,
+                        h[i]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // y: V rows of a head at the four tokens 4 g .. 4 g + 3 a thread: a
+    // 16-byte read of x and one of W^T a source token s <= 4 g + 3
+    T* yu = y + (static_cast<long long>(w.b) * d.S + k * kTile) * ldy +
+            static_cast<long long>(w.h0) * d.P + w.p0;
+    const bool with_state = pl.carry && k > 0;
+    for (int e = tid; e < 4 * NRG; e += kFwdThreads) {
+      const int g4 = e / NRG, r = (e % NRG) * V;
+      if (r >= w.rows || 4 * g4 >= n_t) continue;
+      const float* wj = sW + head_of(r) * kWMat + 4 * g4;
+      float acc[4][V];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[i][v] = with_state && 4 * g4 + i < n_t
+                          ? sYc[(4 * g4 + i) * SR + r + v]
+                          : 0.f;
+#pragma unroll
+      for (int s = 0; s < kTile; ++s) {
+        if (s > 4 * g4 + 3 || s >= n_t) break;
+        float xv[V];
+        load_rows<V>(sx + s * kFwdRows + r, xv);
+        const float4 w4 =
+            *reinterpret_cast<const float4*>(wj + w_row(s) - 4 * (s / 4));
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[i][v] = fmaf(wv[i], xv[v], acc[i][v]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * g4 + i < n_t)
+          store_rows<V>(yu + (4 * g4 + i) * ldy + r, acc[i]);
+    }
+
+    if (!more) break;
+    u = nu;
+    k = nk;
+    st ^= 1;
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory when needed; 0 or a
 // cudaError_t.
 template <typename Kernel>
@@ -613,21 +1015,6 @@ int allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-int round_up32(int v) { return (v + 31) / 32 * 32; }
-
-template <typename T, int NMAX>
-int fwd(const void* x, const void* dt, const float* A, const void* Bm,
-        const void* Cm, void* y, const Dims& d, cudaStream_t stream) {
-  const int rows = d.H / d.G * d.P;
-  const int threads = min(round_up32(rows), kFwdThreads);
-  const dim3 grid(d.B * d.G, (rows + threads - 1) / threads);
-  ssd_fwd_kernel<T, NMAX><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), A,
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<T*>(y), d);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The shapes the backward takes: N <= 64, P a power of two, (H / G) * P
@@ -650,30 +1037,170 @@ int bwd_prepare(int hg, int P, int N, BwdKernel* kernel, int* bytes) {
   return allow_smem(*kernel, *bytes);
 }
 
+// The forward's instance, prepared once a device: its shared memory
+// allowed, and the bytes and resident CTAs an SM without and with a state.
+struct FwdPrepared {
+  const void* func = nullptr;
+  int bytes[2] = {0, 0};
+  int per_sm[2] = {0, 0};
+  int sms = 0;
+};
+
+constexpr int kMaxDevices = 64;
+
+// Returns a cudaError_t; points `out` at the current device's record.
+template <typename T, int NMAX, int V>
+int fwd_prepare(const FwdPrepared** out) {
+  static FwdPrepared by_device[kMaxDevices];
+  int device = 0;
+  if (const cudaError_t err = cudaGetDevice(&device))
+    return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return kBadShape;
+  FwdPrepared& inst = by_device[device];
+  *out = &inst;
+  if (inst.per_sm[0] > 0) return 0;
+  auto kernel = ssd_fwd_kernel<T, NMAX, V>;
+  inst.func = reinterpret_cast<const void*>(kernel);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  for (int m = 0; m < 2; ++m) inst.bytes[m] = FwdSmem<T, NMAX>::bytes(m);
+  if (const int err = allow_smem(kernel, inst.bytes[1])) return err;
+  cudaDeviceGetAttribute(&inst.sms, cudaDevAttrMultiProcessorCount, device);
+  int per_sm[2] = {0, 0};
+  for (int m = 0; m < 2; ++m)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[m], kernel,
+                                                  kFwdThreads, inst.bytes[m]);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  inst.per_sm[1] = max(1, per_sm[1]);
+  inst.per_sm[0] = max(1, per_sm[0]);
+  return 0;
+}
+
+// The units of a shape (see FwdPlan); units 0 when the count overflows.
+FwdPlan fwd_plan(const Dims& d, int nmax) {
+  FwdPlan pl;
+  pl.hg = d.H / d.G;
+  pl.carry = d.S > kTile;
+  pl.rows = pl.carry ? min(kFwdRows, kStateElems / nmax) : kFwdRows;
+  if (d.P <= pl.rows) {
+    pl.np = d.P;
+    pl.nh = min(min(kFwdHeads, pl.rows / d.P), pl.hg);
+  } else {
+    pl.np = pl.rows;
+    pl.nh = 1;
+  }
+  const int pb = (d.P + pl.np - 1) / pl.np, hb = (pl.hg + pl.nh - 1) / pl.nh;
+  pl.tiles = (d.S + kTile - 1) / kTile;
+  const long long units = static_cast<long long>(d.B) * d.G * hb * pb;
+  pl.units = units > 0x7fffffffLL ? 0 : static_cast<int>(units);
+  pl.by_pb = fast_div(pb);
+  pl.by_hb = fast_div(hb);
+  pl.by_g = fast_div(d.G);
+  pl.by_copy = fast_div(d.per_copy);
+  pl.by_p = fast_div(d.P);
+  return pl;
+}
+
+template <typename T, int NMAX, int V>
+int fwd(const void* x, const void* dt, const float* A, const void* Bm,
+        const void* Cm, void* y, const Dims& d, cudaStream_t stream) {
+  const FwdPrepared* inst = nullptr;
+  if (const int err = fwd_prepare<T, NMAX, V>(&inst)) return err;
+  const FwdPlan pl = fwd_plan(d, NMAX);
+  if (pl.units <= 0) return kBadShape;
+  const int grid = min(pl.units, inst->sms * inst->per_sm[pl.carry]);
+  ssd_fwd_kernel<T, NMAX, V><<<grid, kFwdThreads, inst->bytes[pl.carry],
+                               stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt), A,
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm),
+      static_cast<T*>(y), d, pl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the forward's instance takes on the current device, without (carry
+// 0) or with a state, into out[6]: registers a thread, local memory a
+// thread (spills; bytes), static and dynamic shared memory a CTA (bytes),
+// resident CTAs an SM, threads a CTA.
+template <typename T, int NMAX, int V>
+int fwd_resources(int carry, int* out) {
+  const FwdPrepared* inst = nullptr;
+  if (const int err = fwd_prepare<T, NMAX, V>(&inst)) return err;
+  cudaFuncAttributes fa;
+  if (const cudaError_t err = cudaFuncGetAttributes(&fa, inst->func))
+    return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = inst->bytes[carry];
+  out[4] = inst->per_sm[carry];
+  out[5] = kFwdThreads;
+  return 0;
+}
+
+// Call f with the forward's instance for a type, N and P: f(T{}, NMAX, V)
+// as a tag; -1 for N the forward does not take.
+template <int NMAX, int V> struct FwdTag {
+  static constexpr int n = NMAX, v = V;
+};
+
+template <typename F>
+int with_fwd_instance(int N, int P, F&& f) {
+  if (P % 4 == 0) {
+    if (N <= 16) return f(FwdTag<16, 4>{});
+    if (N <= 32) return f(FwdTag<32, 4>{});
+    if (N <= 64) return f(FwdTag<64, 4>{});
+    if (N <= kFwdMaxState) return f(FwdTag<128, 4>{});
+  } else {
+    if (N <= 16) return f(FwdTag<16, 1>{});
+    if (N <= 32) return f(FwdTag<32, 1>{});
+    if (N <= 64) return f(FwdTag<64, 1>{});
+    if (N <= kFwdMaxState) return f(FwdTag<128, 1>{});
+  }
+  return kBadShape;
+}
+
+bool fwd_takes(int H, int P, int G, int N) {
+  return N >= 1 && N <= kFwdMaxState && P >= 1 && G >= 1 && H >= G &&
+         H % G == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, y: (B, S, H, P); dt: (B, S, H); Bm, Cm: (B, S, G, N); A: (B /
 // per_copy, H) f32.  bf16 != 0: x, dt, Bm, Cm, y are bf16, else f32.
-// N <= 64.  Returns a cudaError_t, or -1 for a shape the kernel does not
+// N <= 128.  Returns a cudaError_t, or -1 for a shape the kernel does not
 // take.
 int ssd_scan_fwd_launch(const void* x, const void* dt, const float* A,
                         const void* Bm, const void* Cm, void* y, int B, int S,
                         int H, int P, int G, int N, int per_copy,
                         long long ldx, long long ldb, long long ldc, int bf16,
                         cudaStream_t stream) {
+  if (!fwd_takes(H, P, G, N) || B < 1 || S < 1 || per_copy < 1)
+    return kBadShape;
   const Dims d{B, S, H, P, G, N, per_copy, ldx, ldb, ldc};
-  if (bf16) {
-    if (N <= 16) return fwd<__nv_bfloat16, 16>(x, dt, A, Bm, Cm, y, d, stream);
-    if (N <= 32) return fwd<__nv_bfloat16, 32>(x, dt, A, Bm, Cm, y, d, stream);
-    if (N <= 64) return fwd<__nv_bfloat16, 64>(x, dt, A, Bm, Cm, y, d, stream);
-  } else {
-    if (N <= 16) return fwd<float, 16>(x, dt, A, Bm, Cm, y, d, stream);
-    if (N <= 32) return fwd<float, 32>(x, dt, A, Bm, Cm, y, d, stream);
-    if (N <= 64) return fwd<float, 64>(x, dt, A, Bm, Cm, y, d, stream);
-  }
-  return kBadShape;
+  return with_fwd_instance(N, P, [&](auto tag) {
+    using Tag = decltype(tag);
+    return bf16 ? fwd<__nv_bfloat16, Tag::n, Tag::v>(x, dt, A, Bm, Cm, y, d,
+                                                      stream)
+                : fwd<float, Tag::n, Tag::v>(x, dt, A, Bm, Cm, y, d, stream);
+  });
+}
+
+// The forward's resources at a shape, into out[6] (see fwd_resources): the
+// instance for bf16 or f32, N and P, without (S <= 16) or with a state (S
+// > 16).  Returns a cudaError_t, or -1 for a shape the kernel does not
+// take.
+int ssd_scan_fwd_resources(int H, int P, int G, int N, int S, int bf16,
+                           int* out) {
+  if (!fwd_takes(H, P, G, N) || S < 1) return kBadShape;
+  const int carry = S > kTile;
+  return with_fwd_instance(N, P, [&](auto tag) {
+    using Tag = decltype(tag);
+    return bf16 ? fwd_resources<__nv_bfloat16, Tag::n, Tag::v>(carry, out)
+                : fwd_resources<float, Tag::n, Tag::v>(carry, out);
+  });
 }
 
 // f32 throughout.  dx like x (contiguous), ddt like dt, dA like A, dBm and

@@ -21,14 +21,15 @@ On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/ssd_scan.cu`` and adds one to its ``launches`` count; on a CPU
 tensor it runs the plain version beside it.  There is no fallback: a CUDA
 tensor either launches the kernel or raises.  The forward takes float32
-or bfloat16 (all but A in one type) and N up to 64; the backward takes
+or bfloat16 (all but A in one type) and N up to 128; the backward takes
 float32, N up to 64, P a power of two and ``(H // G) * P`` up to 512
-(N <= 16), 256 (N <= 32) or 128.  The forward kernel runs the per-token
-recurrence; the backward kernel its gradient, summed over token pairs
-within 16-token segments (states cross segments only when S > 16); the
-plain versions are the chunked
+(N <= 16), 256 (N <= 32) or 128.  Both kernels sum over token pairs
+within 16-token tiles (the dual form; states cross tiles only when S >
+16): the forward y, the backward the gradient of the per-token
+recurrence; the plain versions are the chunked
 :func:`repro_torch.models.mamba2.ssd_reference` and its autograd.
-:func:`bwd_resources` says what the backward takes on the card.
+:func:`fwd_resources` and :func:`bwd_resources` say what the kernels take
+on the card.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models.mamba2 import ssd_reference
 
-MAX_STATE = 64            # N the kernels take
+FWD_MAX_STATE = 128       # N the forward kernel takes
+BWD_MAX_STATE = 64        # N the backward kernel takes
 SEGMENT = 16              # tokens of one backward segment (csrc kSeg)
 
 
@@ -52,9 +54,11 @@ def _library():
     dims = [i32] * 7 + [i64] * 3     # B, S, H, P, G, N, per_copy, ld x/B/C
     c.ssd_scan_fwd_launch.argtypes = [ptr] * 6 + dims + [i32, ptr]
     c.ssd_scan_bwd_launch.argtypes = [ptr] * 13 + dims + [ptr]
+    c.ssd_scan_fwd_resources.argtypes = [i32] * 6 + [ptr]
     c.ssd_scan_bwd_resources.argtypes = [i32] * 4 + [ptr]
     c.ssd_scan_fwd_launch.restype = i32
     c.ssd_scan_bwd_launch.restype = i32
+    c.ssd_scan_fwd_resources.restype = i32
     c.ssd_scan_bwd_resources.restype = i32
     return c
 
@@ -73,7 +77,8 @@ def _token_stride(what: str, name: str, t) -> int:
     return ld
 
 
-def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, *like_x):
+def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, max_state: int,
+           *like_x):
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Bm.shape != Cm.shape:
         raise ValueError(f"{what}: x must be (B, S, H, P), dt (B, S, H) and "
                          f"Bm, Cm one (B, S, G, N) shape")
@@ -101,8 +106,8 @@ def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, *like_x):
         if t.device != x.device:
             raise ValueError(f"{what}: tensors must be on one device")
     if x.device.type == "cuda":
-        if Bm.shape[3] > MAX_STATE:
-            raise ValueError(f"{what}: the kernels take N <= {MAX_STATE}, "
+        if Bm.shape[3] > max_state:
+            raise ValueError(f"{what}: the kernel takes N <= {max_state}, "
                              f"got {Bm.shape[3]}")
         for t in (dt, A, *like_x):
             if not t.is_contiguous():
@@ -154,7 +159,7 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
 def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """y (B, S, H, P) in x's dtype."""
     _check("ssd_scan_fwd", x, dt, A, Bm, Cm, chunk,
-           (torch.float32, torch.bfloat16))
+           (torch.float32, torch.bfloat16), FWD_MAX_STATE)
     if x.device.type == "cpu":
         return ssd_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
     dims = _dims("ssd_scan_fwd", x, A, Bm, Cm)
@@ -175,7 +180,8 @@ ssd_scan_fwd.launches = 0
 def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
     """``(dx, ddt, dA, dBm, dCm)``, each like its input (contiguous)."""
     what = "ssd_scan_bwd"
-    _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32,), dy)
+    _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32,), BWD_MAX_STATE,
+           dy)
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
     b, s, h, p = x.shape
@@ -225,4 +231,24 @@ def bwd_resources(h: int, p: int, g: int, n: int) -> dict:
         rec = dict(zip(_RESOURCE_KEYS, out[6 * i:6 * i + 6]))
         rec["warps_per_sm"] = rec["ctas_per_sm"] * rec["threads"] // 32
         res[name] = rec
+    return res
+
+
+def fwd_resources(h: int, p: int, g: int, n: int) -> dict:
+    """What the forward kernel takes on the current card at a shape (H, P,
+    G, N), for each of its instances there: float32 and bfloat16, each
+    without a state (S <= 16) and with one (S > 16, ``_carry``).  Each
+    record: registers and local memory (spills) a thread, static and
+    dynamic shared memory a CTA, resident CTAs and warps an SM (its
+    persistent grid is that many CTAs an SM), threads a CTA."""
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        for s, tag in ((SEGMENT, ""), (SEGMENT + 1, "_carry")):
+            out = (ctypes.c_int * len(_RESOURCE_KEYS))()
+            _raise_on(_library().ssd_scan_fwd_resources(
+                h, p, g, n, s, int(dtype == "bfloat16"), out),
+                "ssd_scan_fwd_resources")
+            rec = dict(zip(_RESOURCE_KEYS, out))
+            rec["warps_per_sm"] = rec["ctas_per_sm"] * rec["threads"] // 32
+            res[dtype + tag] = rec
     return res

@@ -22,11 +22,14 @@ agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
 tolerance of the float64 value, also at the backward's seams (one
-segment, ragged segments, G 4 at the admitted widths, unaligned rows);
-the backward is bitwise reproducible, a copy's gradients are bitwise
-the same alone and among 8, and its kernel spills nothing and keeps 32
-warps resident an SM at the cell's shape; a mamba2 ``Experiment.run`` on the card matches
-the CPU path.  The
+segment, ragged segments, G 4 at the admitted widths, unaligned rows)
+and, for the forward, at its own (S around its 16-token tiles, P wider
+than a unit, P 3, N 128); the forward is bitwise reproducible and
+batch-invariant, and none of its instances spills (3 CTAs an SM at the
+cell's shape); the backward is bitwise reproducible, a copy's gradients
+are bitwise the same alone and among 8, and its kernel spills nothing
+and keeps 32 warps resident an SM at the cell's shape; a mamba2
+``Experiment.run`` on the card matches the CPU path.  The
 flash-decode kernel must agree with its plain version to 2e-5 (bf16:
 2e-2) at every pos, window and group size it takes, bitwise from run to
 run, also at the runs' seams (pos 31, 32, 33 and runs left empty);
@@ -347,6 +350,16 @@ SSD_BWD_SEAMS = [  # the backward's seams
     (1, 2, 24, 16, 32, 4, 64, 24),         # G 4, (H / G) * P = 128 at N 64
     (1, 2, 20, 6, 1, 2, 16, 20),           # P 1: rows not 16-byte aligned
 ]
+SSD_FWD_SEAMS = [  # the forward's own: S around its 16-token tiles, wide P
+    (2, 2, 1, 8, 8, 2, 32, 1),
+    (2, 2, 15, 8, 8, 2, 32, 15),
+    (2, 2, 33, 8, 8, 2, 32, 33),           # a state across three tiles
+    (2, 2, 40, 8, 8, 2, 32, 40),
+    (1, 2, 16, 2, 320, 1, 16, 16),         # P wider than a unit's 256 rows
+    (1, 2, 40, 4, 3, 2, 16, 40),           # P 3 with a state
+    (1, 2, 16, 80, 64, 1, 128, 16),        # N 128: mamba2-2.7b's heads
+    (1, 2, 40, 80, 64, 1, 128, 40),
+]
 
 
 def _ssd_inputs(cuda, copies, per, s, h, p, g, n, seed=0):
@@ -377,7 +390,7 @@ def _close_to_plain(got, plain, exact, tol):
     torch.testing.assert_close(got[sound], plain[sound], rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_BWD_SEAMS + SSD_FWD_SEAMS)
 def test_ssd_forward_matches_plain(cuda, case):
     copies, per, s, h, p, g, n, chunk = case
     ins, _ = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
@@ -409,6 +422,39 @@ def test_ssd_backward_matches_plain(cuda, case):
     for a, pl, ex in zip(got, plain, exact):
         assert a.shape == pl.shape
         _close_to_plain(a, pl, ex, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_forward_is_bitwise_reproducible_and_batch_invariant(cuda,
+                                                                 dtype):
+    copies, per, s, h, p, g, n, chunk = SSD_CASES[0]
+    ins, _ = _ssd_inputs(cuda, copies, per, s, h, p, g, n)
+    ins = [t if i == 2 else t.to(dtype) for i, t in enumerate(ins)]
+    among = kssd.ssd_scan_fwd(*ins, chunk=chunk)
+    assert torch.equal(among, kssd.ssd_scan_fwd(*ins, chunk=chunk))
+    for k in (0, 77, copies * per - 1):
+        alone = kssd.ssd_scan_fwd(*(t[k:k + 1] for t in ins[:2]),
+                                  ins[2][k // per:k // per + 1],
+                                  *(t[k:k + 1] for t in ins[3:]),
+                                  chunk=chunk)
+        assert torch.equal(alone, among[k:k + 1]), k
+
+
+@pytest.mark.parametrize("h,p,g,n,ctas", [
+    (64, 8, 1, 16, 3),         # the mamba2 cell's shape: 3 CTAs an SM
+    (80, 64, 1, 128, 1),       # N 128
+    (6, 1, 2, 16, 1),          # one row a thread (P % 4 != 0)
+    (8, 32, 4, 64, 1),
+])
+def test_ssd_forward_spills_nothing(cuda, h, p, g, n, ctas):
+    res = kssd.fwd_resources(h, p, g, n)
+    assert set(res) == {"float32", "bfloat16", "float32_carry",
+                        "bfloat16_carry"}
+    for key, rec in res.items():
+        assert rec["local_bytes"] == 0 and rec["static_smem_bytes"] == 0, \
+            (key, rec)
+        assert rec["ctas_per_sm"] >= 1, (key, rec)
+    assert res["float32"]["ctas_per_sm"] >= ctas, res
 
 
 def test_ssd_backward_is_bitwise_reproducible(cuda):
@@ -452,9 +498,12 @@ def test_ssd_backward_spills_nothing_and_keeps_its_warps(cuda, h, p, g, n,
 
 def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
     ins, dy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 16)
-    with pytest.raises(ValueError):                  # N = 128: no kernel
-        big, _ = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 128)
+    with pytest.raises(ValueError):                  # N = 129: no kernel
+        big, _ = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 129)
         kssd.ssd_scan_fwd(*big, chunk=4)
+    with pytest.raises(ValueError):                  # N = 128: no backward
+        big, bdy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 128)
+        kssd.ssd_scan_bwd(*big, bdy, chunk=4)
     with pytest.raises(ValueError):                  # P = 12: not 2^k
         odd, ody = _ssd_inputs(cuda, 1, 2, 16, 4, 12, 1, 16)
         kssd.ssd_scan_bwd(*odd, ody, chunk=4)
