@@ -26,7 +26,7 @@ those paths against its plain PyTorch version on the card:
      forward and backward (against the plain versions and autograd of the
      oracle; the forward also at 450 seams of S, window, group size and
      head dim in f32 and bf16; the forward and backward bitwise
-     reproducible, the forward batch-invariant); 3c. the SSD scan
+     reproducible, the forward and dK/dV batch-invariant); 3c. the SSD scan
      forward and backward at the mamba2 cell's shape, four edge shapes and
      six seams of the backward, the forward also at six seams of its
      16-token tiles and at N 128 (against the plain versions in float64,
@@ -50,15 +50,18 @@ those paths against its plain PyTorch version on the card:
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
      port's full-sequence forward on the card (2e-3);
-  6. the SSD kernels' and the attention forward's resources (registers,
-     spills, shared memory, resident warps or CTAs an SM; the SSD forward
-     in every instance, failing on a spill); kernel times (CUDA events,
-     cold L2; the attention and SSD forwards also on the card from the
+  6. the SSD kernels', the attention forward's and the dK/dV kernel's
+     resources (registers, spills, shared memory, resident warps or CTAs
+     an SM; the SSD forward, attention forward and dK/dV in every
+     instance, failing on a spill); kernel times (CUDA events, cold L2;
+     the attention and SSD forwards and dK/dV also on the card from the
      profiler) beside
      their bound, the plain versions' times and, for attention and
      decode, one PyTorch call
-     (``scaled_dot_product_attention``) as a yardstick (none computes the
-     SBC pair or the SSD scan in one call); flash decode also at one
+     (``scaled_dot_product_attention``; for the attention backward its
+     forward + backward and its backward alone) as a yardstick (none
+     computes the SBC pair or the SSD scan in one call); flash decode
+     also at one
      layer of a 32k-token cache (B 16) in bf16 and f32, with its time on
      the card from the profiler, the kernels a call puts there (must be
      1) and its resources (registers, spills, shared memory, runs).
@@ -293,7 +296,8 @@ def attention_checks(torch, kfa, kops, attention_ref):
     forward at every seam of ``ATTN_SEAMS`` in f32 and bf16, with the
     backward from its lse in f32; the forward run twice bitwise; the first
     and a middle sequence of the cell's batch alone bitwise the same rows
-    of the whole launch; and the backward run twice bitwise.  Returns the
+    of the whole launch (forward and dK/dV); and the backward run twice
+    bitwise.  Returns the
     max abs errors of the comparisons with the plain versions; raises
     AssertionError on a disagreement."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -330,6 +334,8 @@ def attention_checks(torch, kfa, kops, attention_ref):
         return out
 
     def backward(q, k, v, o, lse, opts, label, autograd=True):
+        """The backward pair against the plain backward (and autograd of
+        the oracle); returns (dO, D, dk, dv)."""
         do = torch.randn(q.shape, generator=gen, device="cuda")
         dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
         dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
@@ -347,6 +353,7 @@ def attention_checks(torch, kfa, kops, attention_ref):
             for got, want in zip((dq, dk, dv), auto):
                 close("bwd_vs_autograd", got, want, 1e-4,
                       label + " autograd")
+        return do, dsum, dk, dv
 
     for b, s, hq, hkv, hd, causal, window in ATTN_CASES:
         label = (f"attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
@@ -354,17 +361,22 @@ def attention_checks(torch, kfa, kops, attention_ref):
         opts = dict(causal=causal, window=window)
         q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
         o, lse = forward(q, k, v, opts, label)
+        do, dsum, dk, dv = backward(q, k, v, o, lse, opts, label)
         if (b, s, hq, hkv, hd) == T_SHAPE:     # batch-invariant, bitwise
             for i in (0, b // 2):
-                oi, li = kfa.flash_attention_fwd(q[i:i + 1], k[i:i + 1],
-                                                 v[i:i + 1], **opts)
-                if not (torch.equal(oi, o[i:i + 1])
-                        and torch.equal(li, lse[i:i + 1])):
+                one = slice(i, i + 1)
+                oi, li = kfa.flash_attention_fwd(q[one], k[one], v[one],
+                                                 **opts)
+                dki, dvi = kfa.flash_attention_bwd_dkdv(
+                    q[one], k[one], v[one], lse[one], do[one], dsum[one],
+                    **opts)
+                if not (torch.equal(oi, o[one]) and torch.equal(li, lse[one])
+                        and torch.equal(dki, dk[one])
+                        and torch.equal(dvi, dv[one])):
                     raise AssertionError(
                         f"{label}: sequence {i} alone differs from the "
-                        "same rows of the whole batch")
-        backward(q, k, v, o, lse, opts, label)
-        del q, k, v, o, lse
+                        "same rows of the whole batch (o, lse, dk or dv)")
+        del q, k, v, o, lse, do, dsum, dk, dv
     for s, window, causal, g, hd in itertools.product(*ATTN_SEAMS.values()):
         label = (f"attention seam B=3 S={s} Hq={2 * g} Hkv=2 hd={hd} "
                  f"causal={causal} window={window}")
@@ -384,27 +396,48 @@ def attention_checks(torch, kfa, kops, attention_ref):
     return errs
 
 
-def attention_bound(torch, q, k, causal, window):
-    """(bound_ms, bound_by, bytes, ops) of one attention forward: q, k, v
-    read once, o and the f32 lse written once, over 3.35 TB/s, against the
-    visible (query, key) pairs' 4 hd + 4 operations over the peak rate of
-    the inputs' type."""
-    b, s, hq, hd = q.shape
+def visible_pairs(torch, q, causal, window) -> int:
+    """The (sequence, query head, query, key) pairs that the mask lets
+    through."""
+    b, s, hq, _ = q.shape
     pos = torch.arange(s)
     mask = torch.ones((s, s), dtype=torch.bool)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= pos[None, :] > pos[:, None] - window
-    pairs = b * hq * int(mask.sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * hq * s
-    ops = pairs * (4 * hd + 4)
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return b * hq * int(mask.sum())
+
+
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """(bound_ms, bound_by): bytes over 3.35 TB/s vs operations over the
+    peak rate of their type (f32: 67 TFLOP/s)."""
     bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    bound_ops = 1e3 * ops / rate
+    bound_ops = 1e3 * ops / ops_per_s
     return (max(bound_bytes, bound_ops),
-            "bytes" if bound_bytes >= bound_ops else "operations", nbytes,
-            ops)
+            "bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def attention_bound(torch, q, k, causal, window):
+    """(bound_ms, bound_by, bytes, ops) of one attention forward: q, k, v
+    read once, o and the f32 lse written once, over 3.35 TB/s, against the
+    visible (query, key) pairs' 4 hd + 4 operations over the peak rate of
+    the inputs' type."""
+    b, s, hq, hd = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * hq * s
+    ops = visible_pairs(torch, q, causal, window) * (4 * hd + 4)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return (*bound(nbytes, ops, rate), nbytes, ops)
+
+
+def dkdv_bound(torch, q, k, causal, window):
+    """(bound_ms, bound_by, bytes, ops) of one dK/dV call (f32): q, dO, k,
+    v, lse and D read once, dk and dv written once, over 3.35 TB/s, against
+    the visible pairs' 8 hd + 4 operations over 67 TFLOP/s."""
+    b, s, hq, hd = q.shape
+    nbytes = 4 * (2 * q.numel() + 4 * k.numel() + 2 * b * hq * s)
+    ops = visible_pairs(torch, q, causal, window) * (8 * hd + 4)
+    return (*bound(nbytes, ops), nbytes, ops)
 
 
 def sdpa_call(torch, F, q, k, v, causal, window):
@@ -430,10 +463,11 @@ def sdpa_call(torch, F, q, k, v, causal, window):
 def attention_times(torch, kfa, F):
     """Cold-L2 median times at the transformer cell's attention shape:
     each kernel, its plain version, and scaled_dot_product_attention
-    (forward; forward + backward for the backward kernels) as a
-    yardstick.  Bounds: bytes moved (each input read once, each output
-    written once) over 3.35 TB/s vs the visible pairs' f32 operations
-    over 67 TFLOP/s."""
+    (forward; forward + backward for the backward kernels, and its
+    backward alone on a graph built once) as a yardstick.  Bounds: bytes
+    moved (each input read once, each output written once) over 3.35 TB/s
+    vs the visible pairs' f32 operations over 67 TFLOP/s.  The forward
+    and the dK/dV kernel also on the card (profiler)."""
     b, s, hq, hkv, hd = T_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
@@ -443,13 +477,19 @@ def attention_times(torch, kfa, F):
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
 
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
-        return torch.autograd.grad(out, leaves, dot)
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
 
-    pairs = b * hq * s * (s + 1) // 2          # visible (query, key) pairs
-    size = {"q": q.numel() * 4, "kv": k.numel() * 4, "stat": lse.numel() * 4}
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), leaves, dot)
+
+    graph = sdpa_fwd()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(graph, leaves, dot, retain_graph=True)
+
+    pairs = visible_pairs(torch, q, True, None)
     runs = {
         "flash_attention_fwd": (
             lambda: kfa.flash_attention_fwd(q, k, v),
@@ -459,28 +499,29 @@ def attention_times(torch, kfa, F):
         "flash_attention_bwd_dq": (
             lambda: kfa.flash_attention_bwd_dq(q, k, v, o, lse, do),
             lambda: kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do),
-            sdpa_fwd_bwd, 4 * size["q"] + 2 * size["kv"] + 2 * size["stat"],
+            sdpa_fwd_bwd, 4 * (4 * q.numel() + 2 * k.numel()
+                               + 2 * lse.numel()),
             pairs * (6 * hd + 4) + b * hq * s * 2 * hd),
         "flash_attention_bwd_dkdv": (
             lambda: kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum),
             lambda: kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do,
                                                        dsum),
-            sdpa_fwd_bwd, 2 * size["q"] + 4 * size["kv"] + 2 * size["stat"],
-            pairs * (8 * hd + 4)),
+            sdpa_fwd_bwd, *dkdv_bound(torch, q, k, True, None)[2:]),
     }
     out = {}
     for name, (kern, plain, lib, nbytes, ops) in runs.items():
-        bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        bound_ops = 1e3 * ops / F32_OPS_PER_S
+        bound_ms, bound_by = bound(nbytes, ops)
         out[name] = {"ms": cold_ms(torch, kern),
                      "plain_ms": cold_ms(torch, plain),
                      "library_ms": cold_ms(torch, lib),
-                     "bound_ms": max(bound_bytes, bound_ops),
-                     "bound_by": ("bytes" if bound_bytes >= bound_ops
-                                  else "operations"),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": ops}
-    out["flash_attention_fwd"]["device_ms"] = device_ms(
-        torch, runs["flash_attention_fwd"][0], "fwd_kernel")[0]
+    library_bwd_ms = cold_ms(torch, sdpa_bwd)
+    for name, kernel in (("flash_attention_fwd", "fwd_kernel"),
+                         ("flash_attention_bwd_dkdv", "dkdv_kernel")):
+        out[name]["device_ms"] = device_ms(torch, runs[name][0], kernel)[0]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        out[name]["library_bwd_ms"] = library_bwd_ms
     return out
 
 
@@ -643,15 +684,6 @@ def ssd_work(ins, dy):
             "ssd_scan_bwd": (2 * read + 4 * dy.numel(),
                              pairs * h * (4 * p + 8) + pairs * g * 4 * n
                              + b * s * h * (p + 4))}
-
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): bytes over 3.35 TB/s vs f32 operations over
-    67 TFLOP/s."""
-    bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    bound_ops = 1e3 * ops / F32_OPS_PER_S
-    return (max(bound_bytes, bound_ops),
-            "bytes" if bound_bytes >= bound_ops else "operations")
 
 
 def ssd_times(torch, kssd):
@@ -1215,7 +1247,7 @@ def main(argv=None) -> int:
         f"{attn_errs['bwd_vs_autograd']:.3g} vs autograd of the oracle "
         f"(tol 1e-4); every forward run twice bitwise equal; sequences 0 "
         f"and {T_SHAPE[0] // 2} alone bitwise the same rows of the whole "
-        f"batch; backward run twice bitwise equal")
+        f"batch (forward and dK/dV); backward run twice bitwise equal")
     report["attention_errors"] = attn_errs
     try:
         ssd_errs = ssd_checks(torch, kssd, kops)
@@ -1472,20 +1504,29 @@ def main(argv=None) -> int:
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
             f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}); "
             f"library_ms none (no single PyTorch call computes it)")
-    # the forward's six instances on this card
-    fwd_res = {f"{str(dt).split('.')[-1]}_hd{hd}": kfa.fwd_resources(hd, dt)
-               for hd in (32, 64, 128)
-               for dt in (torch.float32, torch.bfloat16)}
-    for key, r in fwd_res.items():
-        log(f"[6 resources] fwd_kernel {key}: {r['registers']} registers and "
-            f"{r['local_bytes']} bytes of local memory (spills) a thread; "
-            f"{r['static_smem_bytes'] + r['dynamic_smem_bytes']} bytes of "
-            f"shared memory and {r['threads']} threads a CTA; "
-            f"{r['ctas_per_sm']} CTAs resident an SM (the persistent grid)")
-    if any(r["local_bytes"] or r["static_smem_bytes"]
-           for r in fwd_res.values()):
-        return fail("phase 6: an attention forward instance spills or has "
-                    "static shared memory")
+    # the forward's six instances and the dK/dV kernel's three on this card
+    attn_res = {
+        "flash_attention_fwd": (
+            "fwd_kernel",
+            {f"{str(dt).split('.')[-1]}_hd{hd}": kfa.fwd_resources(hd, dt)
+             for hd in (32, 64, 128)
+             for dt in (torch.float32, torch.bfloat16)}),
+        "flash_attention_bwd_dkdv": (
+            "dkdv_kernel",
+            {f"float32_hd{hd}": kfa.dkdv_resources(hd)
+             for hd in (32, 64, 128)})}
+    for kernel, recs in attn_res.values():
+        for key, r in recs.items():
+            log(f"[6 resources] {kernel} {key}: {r['registers']} registers "
+                f"and {r['local_bytes']} bytes of local memory (spills) a "
+                f"thread; {r['static_smem_bytes'] + r['dynamic_smem_bytes']} "
+                f"bytes of shared memory and {r['threads']} threads a CTA; "
+                f"{r['ctas_per_sm']} CTAs resident an SM (the persistent "
+                f"grid)")
+        if any(r["local_bytes"] or r["static_smem_bytes"]
+               for r in recs.values()):
+            return fail(f"phase 6: an attention {kernel} instance spills or "
+                        f"has static shared memory")
     for name, t in attention_times(torch, kfa, F).items():
         records.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
@@ -1497,18 +1538,22 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        if name == "flash_attention_fwd":
+        if name in attn_res:
             records[-1]["device_ms"] = t["device_ms"]
-            records[-1]["resources"] = fwd_res
-            log(f"[6 times] flash_attention_fwd at {T_SHAPE}: "
-                f"{t['device_ms']:.4f} ms on the card (profiler)")
+            records[-1]["resources"] = attn_res[name][1]
+            log(f"[6 times] {name} at {T_SHAPE}: {t['device_ms']:.4f} ms on "
+                f"the card (profiler)")
+        if "library_bwd_ms" in t:
+            records[-1]["library_bwd_ms"] = t["library_bwd_ms"]
         log(f"[6 times] {name} at {T_SHAPE} (B, S, Hq, Hkv, hd), causal: "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
             f"{t['ops']} f32 ops); scaled_dot_product_attention "
             + ("forward" if name == "flash_attention_fwd"
                else "forward + backward")
-            + f" {t['library_ms']:.4f} ms")
+            + f" {t['library_ms']:.4f} ms"
+            + (f", its backward alone {t['library_bwd_ms']:.4f} ms"
+               if "library_bwd_ms" in t else ""))
     # what the backward's kernels take on this card at the cell's shape
     res = kssd.bwd_resources(*M_SHAPE[2:6])
     for name, r in res.items():

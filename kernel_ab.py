@@ -9,6 +9,7 @@ GPU, in one process.
     python3 kernel_ab.py --kernel flash_decode --old old_fd.cu
     git show <rev>:src/repro_torch/kernels/csrc/flash_attention.cu > old_fa.cu
     python3 kernel_ab.py --kernel flash_attention_fwd --old old_fa.cu
+    python3 kernel_ab.py --kernel flash_attention_dkdv --old old_fa.cu
 
 The old source is built with the port's nvcc flags into ``chiprun_out/``
 and called through its C entry point beside the current kernel, on the
@@ -52,6 +53,16 @@ the order old, new, new, old, beside the bound of ``chip_smoke``.
   ``scaled_dot_product_attention`` on the same inputs and the bound of
   ``chip_smoke.attention_bound``; the new kernel's resources (registers,
   spills, shared memory, CTAs an SM) for all six instances.
+* ``flash_attention_dkdv``: the attention backward's dK/dV kernel at the
+  transformer cell's shape and at chip_smoke's other attention cases, in
+  f32 (the backward's only type), both sources called through their
+  ``flash_attention_bwd_dkdv_launch`` (the same signature) on the same
+  inputs (lse and D from the current forward and dQ kernels): the
+  largest differences of dk and dv between them and against the plain
+  version; cold-L2 medians of 20 of the profiler's kernel time and of the
+  CUDA-event time; the bound of ``chip_smoke.dkdv_bound`` (the one
+  ``chip_smoke.attention_times`` reports); the new kernel's resources for
+  its three instances.
 
 Each compiler report's registers and spills are printed.  The last line
 is one JSON object with the times.
@@ -399,9 +410,96 @@ def flash_attention_fwd_ab(torch, cs, build, lib, log) -> dict:
             "new_build": new_report}
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention dK/dV kernel
+# ---------------------------------------------------------------------------
+
+
+def old_attention_dkdv(torch, lib, q, k, v, lse, do, dsum, causal, window):
+    """The old source's (dk, dv), through its
+    flash_attention_bwd_dkdv_launch."""
+    b, s, hq, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = lib.flash_attention_bwd_dkdv_launch(
+        *(t.data_ptr() for t in (q, k, v, lse, do, dsum, dk, dv)), b, s, hq,
+        k.shape[2], hd, int(causal), 0 if window is None else window,
+        1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"old flash_attention_bwd_dkdv_launch returned "
+                           f"{rc}")
+    return dk, dv
+
+
+def flash_attention_dkdv_ab(torch, cs, build, lib, log) -> dict:
+    from repro_torch.kernels import flash_attention as kfa
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_dkdv_launch.argtypes = ([ptr] * 8 + [i32] * 7
+                                                    + [f32, ptr])
+    lib.flash_attention_bwd_dkdv_launch.restype = i32
+    old_report = print_report(build, log, "old", "dkdv_kernel")
+    new_report = print_report(build, build.load("flash_attention").log,
+                              "new", "dkdv_kernel")
+    resources = {f"float32_hd{hd}": kfa.dkdv_resources(hd)
+                 for hd in (32, 64, 128)}
+    for key, r in resources.items():
+        print(f"[resources] dkdv_kernel {key}: {r}")
+    cases = [("cell_f32" if i == 0 else f"case{i}_f32", case)
+             for i, case in enumerate(cs.ATTN_CASES)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for key, (b, s, hq, hkv, hd, causal, window) in cases:
+        q, k, v = cs.attention_inputs(torch, gen, b, s, hq, hkv, hd)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        opts = dict(causal=causal, window=window)
+        o, lse = kfa.flash_attention_fwd(q, k, v, **opts)
+        _, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
+        args = (q, k, v, lse, do, dsum)
+        runs = {"old": lambda: old_attention_dkdv(torch, lib, *args, causal,
+                                                  window),
+                "new": lambda: kfa.flash_attention_bwd_dkdv(*args, **opts)}
+        (dk_old, dv_old), (dk_new, dv_new) = runs["old"](), runs["new"]()
+        pdk, pdv = kfa.flash_attention_bwd_dkdv_plain(*args, **opts)
+        diff = lambda a, c: float((a - c).abs().max())  # noqa: E731
+        rec = {"shape": [b, s, hq, hkv, hd], "causal": causal,
+               "window": window, "dtype": "float32",
+               "dk_new_vs_old": diff(dk_new, dk_old),
+               "dv_new_vs_old": diff(dv_new, dv_old),
+               "dk_new_vs_plain": diff(dk_new, pdk),
+               "dv_new_vs_plain": diff(dv_new, pdv),
+               "dk_old_vs_plain": diff(dk_old, pdk),
+               "dv_old_vs_plain": diff(dv_old, pdv),
+               "old_ms": [], "new_ms": [], "old_device_ms": [],
+               "new_device_ms": []}
+        for who in ("old", "new", "new", "old"):
+            rec[f"{who}_ms"].append(cs.cold_ms(torch, runs[who]))
+            rec[f"{who}_device_ms"].append(
+                cs.device_ms(torch, runs[who], "dkdv_kernel")[0])
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["ops"] = (
+            cs.dkdv_bound(torch, q, k, causal, window))
+        print(f"[times] flash_attention_dkdv {key} at ({b}, {s}, {hq}, {hkv}, "
+              f"{hd}) (B, S, Hq, Hkv, hd), causal={causal} window={window}, "
+              f"float32, cold L2, median of 20: on the card (profiler) old "
+              f"{rec['old_device_ms']} ms, new {rec['new_device_ms']} ms; "
+              f"CUDA events old {rec['old_ms']} ms, new {rec['new_ms']} ms; "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{rec['bytes']} bytes, {rec['ops']} ops); new vs old: dk "
+              f"{rec['dk_new_vs_old']:.3g}, dv {rec['dv_new_vs_old']:.3g}; "
+              f"vs plain: dk new {rec['dk_new_vs_plain']:.3g}, old "
+              f"{rec['dk_old_vs_plain']:.3g}, dv new "
+              f"{rec['dv_new_vs_plain']:.3g}, old "
+              f"{rec['dv_old_vs_plain']:.3g}")
+        out[key] = rec
+        del q, k, v, do, o, lse, dsum, args, dk_old, dv_old, dk_new, dv_new
+        del pdk, pdv
+        torch.cuda.empty_cache()
+    return {"cases": out, "resources": resources, "old_build": old_report,
+            "new_build": new_report}
+
+
 KERNELS = {"ssd_bwd": ssd_bwd_ab, "ssd_fwd": ssd_fwd_ab,
            "flash_decode": flash_decode_ab,
-           "flash_attention_fwd": flash_attention_fwd_ab}
+           "flash_attention_fwd": flash_attention_fwd_ab,
+           "flash_attention_dkdv": flash_attention_dkdv_ab}
 
 
 def main(argv=None) -> int:

@@ -63,11 +63,35 @@
 // (batch-invariant).  o is stored as HD/16 consecutive elements a thread
 // (one 16-byte store for f32 at HD 64).
 //
-// The backward.  One CTA of four warps owns 16 rows (query rows for dQ, key
-// rows for dK/dV) and streams tiles of 32 rows of the other operand through
-// shared memory, one row per lane; scores are dot products over HD in
-// registers, rows are reduced with warp shuffles, and each lane carries
-// HD/32 columns of its accumulators.
+// The dQ kernel.  One CTA of four warps owns 16 query rows and streams
+// tiles of 32 key rows through shared memory, one row per lane; scores are
+// dot products over HD in registers, rows are reduced with warp shuffles,
+// and each lane carries HD/32 columns of its accumulator.
+//
+// The dK/dV kernel.  Its work unit is (sequence b, KV head, key tile of 16
+// rows aligned to 16) and covers every query head of the KV head's group,
+// so each dK/dV row is owned by one unit and written once.  A unit's steps
+// walk the query rows that its keys can see in the forward's 32-row layout
+// (row r = position q0 + r / hc, head r % hc of a head chunk): head chunks,
+// then query tiles from the first visible to the last.  At the transformer
+// cell's shape (S 16, g 2) a unit is one step of 32 query rows by 16 keys.
+// The grid is persistent, as the forward's (CTAs an SM from the occupancy
+// query, once a device); a two-stage ring in dynamic shared memory holds
+// each step's q and dO rows with their lse and D, and each unit's K and V
+// tiles, filled by cp.async (16-byte rows, 4-byte statistics): the next
+// step's copies (and the next unit's K and V) are in flight while this step
+// computes.  The math is FFMA in f32, and the CTA's two halves split it by
+// product, so that each 16-byte shared-memory read feeds more FMAs: in the
+// scores a thread of half 0 takes s = q.k, one of half 1 dp = dO.v, for
+// keys j, j + 8 against rows rg, rg + 16 (four partial sums over HD,
+// element d into sum d mod 4, then (s0 + s1) + (s2 + s3)); half 0 writes p
+// = exp(s scale - lse), half 1 dp - D, both 0 where masked, transposed to
+// shared memory.  Then a thread of half 0 owns HD/16 columns of dV of keys
+// jo, jo + 8 and adds p dO over the step's 32 rows in row order, one of
+// half 1 the same columns of dK with dS = p (dp - D) and q, reading the rows
+// as 16-byte vectors.  dK scale and dV are stored as 16-byte vectors at the
+// unit's last step.  A row's terms go in an order fixed by S, Hq, Hkv,
+// causal and window alone, so dK and dV are batch-invariant.
 //
 // In every kernel each sum runs in a fixed order and every output element
 // is written by one thread once — no atomics — so the results are bitwise
@@ -82,7 +106,7 @@
 
 namespace {
 
-// the backward's CTA: four warps owning 16 rows, streaming tiles of 32
+// the dQ kernel's CTA: four warps owning 16 rows, streaming tiles of 32
 constexpr int kThreads = 128;
 constexpr int kRows = 16;         // rows a CTA owns
 constexpr int kRowsPerWarp = kRows / (kThreads / 32);
@@ -140,12 +164,9 @@ __device__ __forceinline__ void query_range(const Shape& sh, int k0, int k1,
   hi = sh.window > 0 ? min(sh.S, k1 - 1 + sh.window) : sh.S;
 }
 
-// Shared memory of the backward kernels, in floats.
+// Shared memory of the dQ kernel, in floats.
 template <int HD> constexpr int dq_smem() {
   return 2 * kRows * HD + 2 * kCols * (HD + 1);
-}
-template <int HD> constexpr int dkdv_smem() {
-  return 2 * kRows * HD + 2 * kCols * (HD + 1) + 2 * kCols;
 }
 
 // ---------------------------------------------------------------------------
@@ -321,6 +342,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously, as cp_async16.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -669,92 +698,329 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, dK and dV: CTA (b, KV head, 16-row key tile)
+// backward, dK and dV: persistent CTAs over units (b, KV head, key tile)
 // ---------------------------------------------------------------------------
 
+constexpr int kDkdvThreads = 256;                       // eight warps
+// column groups of a half's 128 threads over 8 key pairs
+constexpr int kColGroups = (kDkdvThreads / 2) / (kKeyTile / 2);
+constexpr int kPld = kUnitRows + 4;                     // P^T rows
+
+// The partition of a shape into units, fixed by S, Hq and Hkv alone (not by
+// B): hc heads of a KV head's group by qt positions make a step's rows.
+struct DkdvPlan {
+  int g, hc, qt, nhc;   // as FwdPlan
+  int units;            // B * Hkv * nkt, nkt = ceil(S / 16) key tiles
+  FastDiv by_hc, by_nkt, by_hkv;
+};
+
+// Floats of a stage's q (or dO) rows and of a slot's K (or V) tile; rows
+// are padded by one 16-byte copy, as the forward's.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int dkdv_row_elems() {
+  return kUnitRows * (HD + 4);
+}
+template <int HD>
+__host__ __device__ constexpr int dkdv_key_elems() {
+  return kKeyTile * (HD + 4);
+}
+// Bytes: the ring of q and dO rows, lse and D, the K and V slots, then P^T
+// and (dP - D)^T.
+template <int HD>
+__host__ __device__ constexpr int dkdv_smem() {
+  return (kStages * (2 * dkdv_row_elems<HD>() + 2 * kUnitRows +
+                     2 * dkdv_key_elems<HD>()) +
+          2 * kKeyTile * kPld) *
+         static_cast<int>(sizeof(float));
+}
+// The CTAs an SM must hold, for the register budget: as many as the shared
+// memory admits, up to kMaxResident (2 at HD 128).
+template <int HD> struct DkdvResident {
+  static constexpr int by_smem =
+      kSmemPerSM / (dkdv_smem<HD>() + kSmemReserved);
+  static constexpr int value =
+      by_smem < 1 ? 1 : (by_smem < kMaxResident ? by_smem : kMaxResident);
+};
+
+// A unit: its sequence, KV head, first key, and the query tiles [qb, qb +
+// nq) that its keys are seen by; its steps are nhc * nq.
+struct DkUnit {
+  int b, hk, k0, qb, nq;
+};
+
+__device__ __forceinline__ DkUnit dkdv_unit(const Shape& sh,
+                                            const DkdvPlan& pl, int u) {
+  DkUnit x;
+  const int rest = div_of(u, pl.by_nkt);
+  x.k0 = (u - rest * static_cast<int>(pl.by_nkt.d)) * kKeyTile;
+  x.b = div_of(rest, pl.by_hkv);
+  x.hk = rest - x.b * sh.Hkv;
+  int lo, hi;
+  query_range(sh, x.k0, x.k0 + kKeyTile, lo, hi);
+  x.qb = lo / pl.qt;
+  x.nq = (hi + pl.qt - 1) / pl.qt - x.qb;
+  return x;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkdvThreads, DkdvResident<HD>::value)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ lse,
             const float* __restrict__ dout, const float* __restrict__ dsum,
-            float* __restrict__ dk, float* __restrict__ dv, Shape sh) {
-  constexpr int LD = HD + 1, PER = HD / 32;
-  extern __shared__ float smem[];
-  float* ks = smem;                       // [kRows][HD]
-  float* vs = ks + kRows * HD;            // [kRows][HD]
-  float* qs = vs + kRows * HD;            // [kCols][LD]
-  float* dos = qs + kCols * LD;           // [kCols][LD]
-  float* ls = dos + kCols * LD;           // [kCols]
-  float* dsm = ls + kCols;                // [kCols]
-  const int tiles = (sh.S + kRows - 1) / kRows;
-  const int tile = blockIdx.x % tiles;
-  const int hk = (blockIdx.x / tiles) % sh.Hkv;
-  const int b = blockIdx.x / tiles / sh.Hkv;
-  const int g = sh.Hq / sh.Hkv;
-  const int k0 = tile * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+            float* __restrict__ dk, float* __restrict__ dv, Shape sh,
+            DkdvPlan pl) {
+  constexpr int VEC = 4, LD = HD + VEC, CH = HD / VEC;
+  constexpr int RE = dkdv_row_elems<HD>(), KE = dkdv_key_elems<HD>();
+  constexpr int HALF = kDkdvThreads / 2;
+  constexpr int KH = kKeyTile / 2;            // keys j and j + KH a thread
+  constexpr int CPT = HD / kColGroups;        // columns a thread
+  constexpr int CW = CPT < VEC ? CPT : VEC;   // columns of one access
+  constexpr int NP = CPT / CW;                // accesses a row
+  // the score loop over HD unrolled by 4 (all of it at HD 128): fewer
+  // loads in flight keep the instance within its registers, without spills
+  constexpr int D_UNROLL = HD > 64 ? CH : 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // [kStages][rows][LD]
+  float* dos = qs + kStages * RE;         // [kStages][rows][LD]
+  float* stat = dos + kStages * RE;       // [kStages][lse, D][rows]
+  float* ks = stat + kStages * 2 * kUnitRows;   // [slots][16][LD]
+  float* vs = ks + kStages * KE;          // [slots][16][LD]
+  float* pt = vs + kStages * KE;          // [16][kPld]: P^T
+  float* et = pt + kKeyTile * kPld;       // [16][kPld]: (dP - D)^T
+  const int tid = threadIdx.x;
+  // The two halves of the CTA (four warps each) split the work by product:
+  // half 0 scores s = q.k and sums dV = P^T dO, half 1 scores dp = dO.v and
+  // sums dK = dS^T q.  Scores: keys j, j + 8 against rows rg, rg + 16;
+  // sums: keys jo, jo + 8, the columns of group cg.
+  const int half = tid / HALF, idx = tid % HALF;
+  const int j = idx % KH, rg = idx / KH;
+  const int jo = idx / kColGroups, cg = idx % kColGroups;
+  const int unit_rows = pl.qt * pl.hc;
 
-  stage<HD>(ks, HD, k, sh, sh.Hkv, b, k0, kRows, hk);
-  stage<HD>(vs, HD, v, sh, sh.Hkv, b, k0, kRows, hk);
-  float gk[kRowsPerWarp][PER], gv[kRowsPerWarp][PER];
+  // Step e of unit x: its head chunk c and first query position q0.
+  auto step_of = [&](const DkUnit& x, int e, int& q0) {
+    const int c = e / x.nq;
+    q0 = (x.qb + e - c * x.nq) * pl.qt;
+    return c;
+  };
+  // Row r of the step (c, q0): (query head in the group, and position, or
+  // -1 for a row of no (position, head)).
+  auto row_of = [&](int c, int q0, int r, int& hi) {
+    const int dp = div_of(r, pl.by_hc);
+    hi = c * pl.hc + r - dp * pl.hc;
+    const int pos = q0 + dp;
+    return r < unit_rows && pos < sh.S && hi < pl.g ? pos : -1;
+  };
+
+  // Start the copies of step e of unit x (its q and dO rows, lse and D)
+  // into stage `to`.  Rows of no (position, head) are zero-filled.
+  auto fetch_rows = [&](const DkUnit& x, int e, int to) {
+    int q0;
+    const int c = step_of(x, e, q0);
+    float* qd = qs + to * RE;
+    float* od = dos + to * RE;
+    constexpr int N = kUnitRows * CH;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+    for (int i = 0; i < (N + kDkdvThreads - 1) / kDkdvThreads; ++i) {
+      const int el = tid + i * kDkdvThreads;
+      if (N % kDkdvThreads != 0 && el >= N) break;
+      const int r = el / CH, col = (el % CH) * VEC;
+      int hi;
+      const int pos = row_of(c, q0, r, hi);
+      const size_t off =
+          ((static_cast<size_t>(x.b) * sh.S + pos) * sh.Hq + x.hk * pl.g +
+           hi) * HD + col;
+      cp_async16(qd + r * LD + col, pos >= 0 ? q + off : q,
+                 pos >= 0 ? 16 : 0);
+      cp_async16(od + r * LD + col, pos >= 0 ? dout + off : dout,
+                 pos >= 0 ? 16 : 0);
+    }
+    if (tid < 2 * kUnitRows) {
+      const int r = tid % kUnitRows;
+      const float* src = tid < kUnitRows ? lse : dsum;
+      int hi;
+      const int pos = row_of(c, q0, r, hi);
+      const size_t off =
+          (static_cast<size_t>(x.b) * sh.Hq + x.hk * pl.g + hi) * sh.S + pos;
+      cp_async4(stat + to * 2 * kUnitRows + tid, pos >= 0 ? src + off : src,
+                pos >= 0 ? 4 : 0);
+    }
+  };
+
+  // Start the copies of unit x's K and V tiles into slot `to`; keys past S
+  // are zero-filled.
+  auto fetch_kv = [&](const DkUnit& x, int to) {
+    constexpr int N = kKeyTile * CH;
 #pragma unroll
-    for (int c = 0; c < PER; ++c) gk[r][c] = gv[r][c] = 0.f;
-  int lo, hi;
-  query_range(sh, k0, k0 + kRows, lo, hi);
-  for (int h = hk * g; h < (hk + 1) * g; ++h) {
-    const size_t stat = (static_cast<size_t>(b) * sh.Hq + h) * sh.S;
-    for (int qb = lo; qb < hi; qb += kCols) {
-      const int n = min(kCols, sh.S - qb);
-      __syncthreads();
-      stage<HD>(qs, LD, q, sh, sh.Hq, b, qb, kCols, h);
-      stage<HD>(dos, LD, dout, sh, sh.Hq, b, qb, kCols, h);
-      if (threadIdx.x < kCols) {
-        const int pq = qb + threadIdx.x;
-        ls[threadIdx.x] = pq < sh.S ? lse[stat + pq] : 0.f;
-        dsm[threadIdx.x] = pq < sh.S ? dsum[stat + pq] : 0.f;
+    for (int i = 0; i < (N + kDkdvThreads - 1) / kDkdvThreads; ++i) {
+      const int el = tid + i * kDkdvThreads;
+      if (N % kDkdvThreads != 0 && el >= N) break;
+      const int jj = el / CH, col = (el % CH) * VEC, pk = x.k0 + jj;
+      const bool ok = pk < sh.S;
+      const size_t off =
+          ((static_cast<size_t>(x.b) * sh.S + pk) * sh.Hkv + x.hk) * HD + col;
+      cp_async16(ks + to * KE + jj * LD + col, ok ? k + off : k,
+                 ok ? 16 : 0);
+      cp_async16(vs + to * KE + jj * LD + col, ok ? v + off : v,
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[2][CPT];                      // dV (half 0) or dK (half 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+  int u = blockIdx.x;
+  if (u >= pl.units) return;
+  DkUnit x = dkdv_unit(sh, pl, u);
+  int e = 0, st = 0, slot = 0;
+  fetch_kv(x, slot);
+  fetch_rows(x, e, st);
+  cp_async_commit();
+  while (true) {
+    // the next step: the next of this unit, or the first of the next unit
+    // (with its K and V), copied while this step computes
+    const bool last = e + 1 >= pl.nhc * x.nq;   // this unit's last step
+    const int nu = last ? u + static_cast<int>(gridDim.x) : u;
+    const bool more = nu < pl.units;
+    if (more) {
+      if (last) {
+        const DkUnit nx = dkdv_unit(sh, pl, nu);
+        fetch_kv(nx, slot ^ 1);
+        fetch_rows(nx, 0, st ^ 1);
+      } else {
+        fetch_rows(x, e + 1, st ^ 1);
       }
-      __syncthreads();
-      const int pq = qb + lane;
-      const float* qi = qs + lane * LD;
-      const float* doi = dos + lane * LD;
+    }
+    cp_async_commit();
+    cp_async_wait_one();                  // this step's copies have landed
+    __syncthreads();
+
+    // scores: s = q.k (half 0) or dp = dO.v (half 1) of keys j, j + 8
+    // against rows rg, rg + 16, as four partial sums each
+    {
+      const float* rows = (half ? dos : qs) + st * RE;
+      const float* keys = (half ? vs : ks) + slot * KE;
+      float part[2][2][4];                // [key][row][partial sum]
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int j = warp * kRowsPerWarp + r, pk = k0 + j;
-        const float* kj = ks + j * HD;
-        const float* vj = vs + j * HD;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) {
-          s = fmaf(qi[d], kj[d], s);
-          dp = fmaf(doi[d], vj[d], dp);
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) part[a][i][w] = 0.f;
+#pragma unroll(D_UNROLL)
+      for (int d = 0; d < HD; d += VEC) {
+        float kv[2][VEC], rv[2][VEC];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) loadn<VEC>(keys + (j + a * KH) * LD + d,
+                                               kv[a]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          loadn<VEC>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int w = 0; w < VEC; ++w)
+              part[a][i][w] = fmaf(rv[i][w], kv[a][w], part[a][i][w]);
+      }
+      const float* sb = stat + st * 2 * kUnitRows + half * kUnitRows;
+      float* out = half ? et : pt;
+      int q0;
+      const int c = step_of(x, e, q0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + i * kRowGroups;
+        int hi;
+        const int pos = row_of(c, q0, r, hi);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int jj = j + a * KH, pk = x.k0 + jj;
+          const bool vis = pos >= 0 && pk < sh.S &&
+                           (!sh.causal || pk <= pos) &&
+                           (sh.window <= 0 || pk > pos - sh.window);
+          const float sum = (part[a][i][0] + part[a][i][1]) +
+                            (part[a][i][2] + part[a][i][3]);
+          // half 0: p = exp(s scale - lse); half 1: dP - D; 0 where masked
+          out[jj * kPld + r] =
+              !vis ? 0.f : half ? sum - sb[r] : expf(sum * sh.scale - sb[r]);
         }
-        const float p =
-            visible(sh, pq, pk) ? expf(s * sh.scale - ls[lane]) : 0.f;
-        const float ds = p * (dp - dsm[lane]);
-        for (int i = 0; i < n; ++i) {
-          const float pi = __shfl_sync(kFull, p, i);
-          const float dsi = __shfl_sync(kFull, ds, i);
+      }
+    }
+    __syncthreads();                      // P^T and (dP - D)^T are the CTA's
+
+    // dV += P^T dO (half 0) or dK += dS^T q with dS = P (dP - D) (half 1):
+    // keys jo, jo + 8, the columns of group cg, the step's rows in order
+    {
+      const float* rows = (half ? qs : dos) + st * RE;
 #pragma unroll
-          for (int c = 0; c < PER; ++c) {
-            gv[r][c] = fmaf(pi, dos[i * LD + c * 32 + lane], gv[r][c]);
-            gk[r][c] = fmaf(dsi, qs[i * LD + c * 32 + lane], gk[r][c]);
+      for (int r0 = 0; r0 < kUnitRows; r0 += 4) {
+        float coef[2][4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int jj = jo + a * KH;
+          loadn<4>(pt + jj * kPld + r0, coef[a]);
+          if (half) {
+            float ev[4];
+            loadn<4>(et + jj * kPld + r0, ev);
+#pragma unroll
+            for (int w = 0; w < 4; ++w) coef[a][w] *= ev[w];
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+#pragma unroll
+          for (int m = 0; m < NP; ++m) {
+            const int col = (m * kColGroups + cg) * CW;
+            float rv[CW];
+            loadn<CW>(rows + (r0 + w) * LD + col, rv);
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+              for (int cc = 0; cc < CW; ++cc)
+                acc[a][m * CW + cc] =
+                    fmaf(coef[a][w], rv[cc], acc[a][m * CW + cc]);
           }
         }
       }
     }
-  }
+
+    if (last) {                           // write the unit's rows out
+      float* dst = half ? dk : dv;
+      const float mul = half ? sh.scale : 1.f;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int pk = k0 + warp * kRowsPerWarp + r;
-    if (pk >= sh.S) continue;
-    const size_t off = row_off<HD>(sh, sh.Hkv, b, pk, hk);
+      for (int a = 0; a < 2; ++a) {
+        const int pk = x.k0 + jo + a * KH;
+        if (pk >= sh.S) continue;
+        const size_t off =
+            ((static_cast<size_t>(x.b) * sh.S + pk) * sh.Hkv + x.hk) * HD;
 #pragma unroll
-    for (int c = 0; c < PER; ++c) {
-      dk[off + c * 32 + lane] = gk[r][c] * sh.scale;
-      dv[off + c * 32 + lane] = gv[r][c];
+        for (int m = 0; m < NP; ++m) {
+          float o[CW];
+#pragma unroll
+          for (int cc = 0; cc < CW; ++cc) o[cc] = acc[a][m * CW + cc] * mul;
+          storen<CW>(dst + off + (m * kColGroups + cg) * CW, o);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) acc[a][cc] = 0.f;
     }
+    __syncthreads();                      // this stage may be refilled
+    if (!more) break;
+    if (last) {
+      u = nu;
+      x = dkdv_unit(sh, pl, u);
+      e = 0;
+      slot ^= 1;
+    } else {
+      ++e;
+    }
+    st ^= 1;
   }
 }
 
@@ -764,7 +1030,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kBadHeadDim = -1;
 constexpr int kBadShape = -2;     // no unit, or more than 2^31 of them
-constexpr int kUnaligned = -3;    // a forward pointer not 16-byte aligned
+constexpr int kUnaligned = -3;    // a pointer not 16-byte aligned
 
 // Allow a kernel the dynamic shared memory it needs above the 48 KB
 // default; returns a cudaError_t.
@@ -779,38 +1045,70 @@ int blocks(const Shape& sh, int heads) {
   return sh.B * heads * ((sh.S + kRows - 1) / kRows);
 }
 
-// The forward's instance, prepared once a device: its shared memory
-// allowed and the CTAs of it an SM holds at once.
-struct FwdPrepared {
+// A persistent kernel's instance, prepared once a device: its shared
+// memory allowed and the CTAs of it an SM holds at once.
+struct Prepared {
   const void* func = nullptr;
   int bytes = 0;
+  int threads = 0;
   int per_sm = 0;                 // resident CTAs an SM
   int sms = 0;
 };
 
 constexpr int kMaxDevices = 64;
 
-// Returns a cudaError_t; points `out` at the current device's record.
-template <typename T, int HD>
-int fwd_prepare(const FwdPrepared** out) {
-  static FwdPrepared by_device[kMaxDevices];
+// Returns a cudaError_t; points `out` at the current device's record in
+// by_device, the instance's own.
+template <typename Kernel>
+int prepare(Prepared (&by_device)[kMaxDevices], Kernel kernel, int bytes,
+            int threads, const Prepared** out) {
   int device = 0;
   if (const cudaError_t err = cudaGetDevice(&device))
     return static_cast<int>(err);
   if (device < 0 || device >= kMaxDevices) return kBadShape;
-  FwdPrepared& inst = by_device[device];
+  Prepared& inst = by_device[device];
   *out = &inst;
   if (inst.per_sm > 0) return 0;
-  auto kernel = fwd_kernel<T, HD>;
   inst.func = reinterpret_cast<const void*>(kernel);
-  inst.bytes = fwd_smem<T, HD>();
+  inst.bytes = bytes;
+  inst.threads = threads;
   if (const int err = allow_smem(kernel, inst.bytes)) return err;
   cudaDeviceGetAttribute(&inst.sms, cudaDevAttrMultiProcessorCount, device);
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                 inst.bytes);
   if (const int err = static_cast<int>(cudaGetLastError())) return err;
   inst.per_sm = max(1, per_sm);
+  return 0;
+}
+
+template <typename T, int HD>
+int fwd_prepare(const Prepared** out) {
+  static Prepared by_device[kMaxDevices];
+  return prepare(by_device, fwd_kernel<T, HD>, fwd_smem<T, HD>(),
+                 kFwdThreads, out);
+}
+
+template <int HD>
+int dkdv_prepare(const Prepared** out) {
+  static Prepared by_device[kMaxDevices];
+  return prepare(by_device, dkdv_kernel<HD>, dkdv_smem<HD>(), kDkdvThreads,
+                 out);
+}
+
+// What a prepared instance takes on the current device, into out[6]:
+// registers a thread, local memory a thread (spills; bytes), static and
+// dynamic shared memory a CTA (bytes), threads a CTA, resident CTAs an SM.
+int resources(const Prepared* inst, int* out) {
+  cudaFuncAttributes fa;
+  if (const cudaError_t err = cudaFuncGetAttributes(&fa, inst->func))
+    return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = inst->bytes;
+  out[4] = inst->threads;
+  out[5] = inst->per_sm;
   return 0;
 }
 
@@ -834,7 +1132,7 @@ FwdPlan fwd_plan(const Shape& sh) {
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         const Shape& sh, cudaStream_t stream) {
-  const FwdPrepared* inst = nullptr;
+  const Prepared* inst = nullptr;
   if (const int err = fwd_prepare<T, HD>(&inst)) return err;
   const FwdPlan pl = fwd_plan(sh);
   if (pl.units <= 0) return kBadShape;
@@ -845,23 +1143,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the forward's instance takes on the current device, into out[6]:
-// registers a thread, local memory a thread (spills; bytes), static and
-// dynamic shared memory a CTA (bytes), threads a CTA, resident CTAs an SM.
 template <typename T, int HD>
 int fwd_resources(int* out) {
-  const FwdPrepared* inst = nullptr;
+  const Prepared* inst = nullptr;
   if (const int err = fwd_prepare<T, HD>(&inst)) return err;
-  cudaFuncAttributes fa;
-  if (const cudaError_t err = cudaFuncGetAttributes(&fa, inst->func))
-    return static_cast<int>(err);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(fa.sharedSizeBytes);
-  out[3] = inst->bytes;
-  out[4] = kFwdThreads;
-  out[5] = inst->per_sm;
-  return 0;
+  return resources(inst, out);
 }
 
 template <int HD>
@@ -876,16 +1162,41 @@ int dq(const float* q, const float* k, const float* v, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The units of a shape (see DkdvPlan); units 0 when the count overflows.
+DkdvPlan dkdv_plan(const Shape& sh) {
+  DkdvPlan pl;
+  pl.g = sh.Hq / sh.Hkv;
+  pl.hc = min(pl.g, kUnitRows);
+  pl.qt = kUnitRows / pl.hc;
+  pl.nhc = (pl.g + pl.hc - 1) / pl.hc;
+  const int nkt = (sh.S + kKeyTile - 1) / kKeyTile;
+  const long long units = static_cast<long long>(sh.B) * sh.Hkv * nkt;
+  pl.units = units > 0x7fffffffLL ? 0 : static_cast<int>(units);
+  pl.by_hc = fast_div(pl.hc);
+  pl.by_nkt = fast_div(nkt);
+  pl.by_hkv = fast_div(sh.Hkv);
+  return pl;
+}
+
 template <int HD>
 int dkdv(const float* q, const float* k, const float* v, const float* lse,
          const float* dout, const float* dsum, float* dk, float* dv,
          const Shape& sh, cudaStream_t stream) {
-  auto kernel = dkdv_kernel<HD>;
-  const int bytes = dkdv_smem<HD>() * static_cast<int>(sizeof(float));
-  if (const int err = allow_smem(kernel, bytes)) return err;
-  kernel<<<blocks(sh, sh.Hkv), kThreads, bytes, stream>>>(
-      q, k, v, lse, dout, dsum, dk, dv, sh);
+  const Prepared* inst = nullptr;
+  if (const int err = dkdv_prepare<HD>(&inst)) return err;
+  const DkdvPlan pl = dkdv_plan(sh);
+  if (pl.units <= 0) return kBadShape;
+  const int grid = min(pl.units, inst->sms * inst->per_sm);
+  dkdv_kernel<HD><<<grid, kDkdvThreads, inst->bytes, stream>>>(
+      q, k, v, lse, dout, dsum, dk, dv, sh, pl);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dkdv_resources(int* out) {
+  const Prepared* inst = nullptr;
+  if (const int err = dkdv_prepare<HD>(&inst)) return err;
+  return resources(inst, out);
 }
 
 }  // namespace
@@ -920,8 +1231,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   return kBadHeadDim;
 }
 
-// The forward instance's resources on the current device (see
-// fwd_resources), into out[6]; returns a cudaError_t, or -1 for another hd.
+// The forward instance's resources on the current device (see resources),
+// into out[6]; returns a cudaError_t, or -1 for another hd.
 int flash_attention_fwd_resources(int hd, int bf16, int* out) {
   if (bf16) {
     if (hd == 32) return fwd_resources<__nv_bfloat16, 32>(out);
@@ -952,6 +1263,9 @@ int flash_attention_bwd_dq_launch(const float* q, const float* k,
 }
 
 // f32 throughout; dsum from flash_attention_bwd_dq_launch; dk, dv like k.
+// q, k, v, dout, dk and dv must be 16-byte aligned (the copies and stores
+// are 16-byte vectors); returns -3 otherwise, -1 for another hd, -2 for a
+// shape with no unit or too many.
 int flash_attention_bwd_dkdv_launch(const float* q, const float* k,
                                     const float* v, const float* lse,
                                     const float* dout, const float* dsum,
@@ -960,10 +1274,25 @@ int flash_attention_bwd_dkdv_launch(const float* q, const float* k,
                                     int window, float scale,
                                     cudaStream_t stream) {
   const Shape sh{B, S, Hq, Hkv, causal, window, scale};
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
+      15)
+    return kUnaligned;
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv) return kBadShape;
   if (hd == 32) return dkdv<32>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
   if (hd == 64) return dkdv<64>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
   if (hd == 128)
     return dkdv<128>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
+  return kBadHeadDim;
+}
+
+// The dK/dV instance's resources on the current device (see resources),
+// into out[6]; returns a cudaError_t, or -1 for another hd.
+int flash_attention_bwd_dkdv_resources(int hd, int* out) {
+  if (hd == 32) return dkdv_resources<32>(out);
+  if (hd == 64) return dkdv_resources<64>(out);
+  if (hd == 128) return dkdv_resources<128>(out);
   return kBadHeadDim;
 }
 

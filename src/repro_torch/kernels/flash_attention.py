@@ -27,7 +27,10 @@ and tensors whose data start on a 16-byte boundary (its copies and
 stores are 16-byte vectors); it runs on a persistent grid of units
 (sequence, KV head, query tile) that cover a KV head's query heads
 together (:func:`fwd_resources` reports its instances).  The backward
-takes float32 only.
+takes float32 only; its dK/dV kernel runs on a persistent grid of units
+(sequence, KV head, 16-key tile) that cover the KV head's query heads
+together, takes q, k, v and dO on a 16-byte boundary, and
+:func:`dkdv_resources` reports its instances.
 """
 from __future__ import annotations
 
@@ -55,9 +58,12 @@ def _library():
     c.flash_attention_bwd_dkdv_launch.argtypes = [ptr] * 8 + shape + [ptr]
     # hd, bf16; out[6]
     c.flash_attention_fwd_resources.argtypes = [i32, i32, ptr]
+    # hd; out[6]
+    c.flash_attention_bwd_dkdv_resources.argtypes = [i32, ptr]
     for fn in (c.flash_attention_fwd_launch, c.flash_attention_bwd_dq_launch,
                c.flash_attention_bwd_dkdv_launch,
-               c.flash_attention_fwd_resources):
+               c.flash_attention_fwd_resources,
+               c.flash_attention_bwd_dkdv_resources):
         fn.restype = i32
     return c
 
@@ -106,6 +112,12 @@ def _shape_args(q, k, causal: bool, window: Optional[int]):
 
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_aligned(what: str, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: inputs must start on a 16-byte boundary "
+                         f"(the kernel copies 16-byte vectors)")
 
 
 def _raise_on(rc: int, what: str):
@@ -215,10 +227,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_fwd: q, k and v must start on a "
-                         "16-byte boundary (the kernel copies 16-byte "
-                         "vectors)")
+    _check_aligned("flash_attention_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
@@ -238,16 +247,25 @@ _RESOURCE_KEYS = ("registers", "local_bytes", "static_smem_bytes",
                   "dynamic_smem_bytes", "threads", "ctas_per_sm")
 
 
+def _resources(entry: str, *args) -> dict:
+    out = (ctypes.c_int * len(_RESOURCE_KEYS))()
+    _raise_on(getattr(_library(), entry)(*args, out), entry)
+    return dict(zip(_RESOURCE_KEYS, out))
+
+
 def fwd_resources(hd: int, dtype=torch.float32) -> dict:
     """What the forward kernel's instance for a head dim and type takes on
     the current card: registers and local memory (spills) a thread, static
     and dynamic shared memory a CTA, threads a CTA and resident CTAs an SM
     (its persistent grid is that many CTAs an SM)."""
-    out = (ctypes.c_int * len(_RESOURCE_KEYS))()
-    rc = _library().flash_attention_fwd_resources(
-        hd, int(dtype == torch.bfloat16), out)
-    _raise_on(rc, "flash_attention_fwd_resources")
-    return dict(zip(_RESOURCE_KEYS, out))
+    return _resources("flash_attention_fwd_resources", hd,
+                      int(dtype == torch.bfloat16))
+
+
+def dkdv_resources(hd: int) -> dict:
+    """What the dK/dV kernel's instance for a head dim takes on the current
+    card, with :func:`fwd_resources`'s keys."""
+    return _resources("flash_attention_bwd_dkdv_resources", hd)
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
@@ -285,6 +303,7 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum,
                                               causal=causal, window=window)
+    _check_aligned("flash_attention_bwd_dkdv", q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if q.numel() == 0:

@@ -16,8 +16,11 @@ backward and autograd of the oracle, also at the forward's seams (S
 around its 16-key tiles, windows around them, g 1, 2 and 4, hd 32, 64
 and 128); the forward and the backward are bitwise reproducible, the
 forward is batch-invariant at the cell's shape, none of its six
-instances spills; the wrappers raise on what the kernels do not take (a
-forward input off a 16-byte boundary too).  The SSD forward must
+instances spills; the dK/dV kernel holds the same tolerance at every seam
+and at groups of 40 heads a KV head, is bitwise the same run twice and
+batch-invariant at the cell's shape, and none of its three instances
+spills; the wrappers raise on what the kernels do not take (a forward or
+dK/dV input off a 16-byte boundary too).  The SSD forward must
 agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
@@ -326,6 +329,78 @@ def test_attention_forward_raises_on_unaligned_tensors(cuda):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError):
         kfa.flash_attention_fwd(shifted, k, v)
+
+
+def _dkdv_inputs(cuda, case, seed):
+    """q, k, v, dO and the lse and D the dK/dV kernel reads (from the
+    forward and dQ kernels)."""
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, seed=seed)
+    do = torch.randn_like(q)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    _, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    return q, k, v, lse, do, dsum
+
+
+@pytest.mark.parametrize("case", ATTN_SEAMS + ATTN_WIDE_GROUPS)
+def test_attention_dkdv_seams_match_plain_and_autograd(cuda, case):
+    """The dK/dV kernel at every seam and at groups of 40 heads a KV head,
+    against its plain version and autograd of the oracle, bitwise the same
+    when run twice."""
+    causal, window = case[5:]
+    q, k, v, lse, do, dsum = _dkdv_inputs(cuda, case, seed=case[1] + 3)
+    opts = dict(causal=causal, window=window)
+    dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
+    pdk, pdv = kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum,
+                                                  **opts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _, adk, adv = torch.autograd.grad(_oracle(*leaves, causal, window),
+                                      leaves, do)
+    for got, plain, auto in ((dk, pdk, adk), (dv, pdv, adv)):
+        torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got, auto, rtol=1e-4, atol=1e-4)
+    dk2, dv2 = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_attention_dkdv_is_batch_invariant(cuda):
+    """The cell's shape: sequences 0 and B/2 alone give the same bits as
+    the same rows of the whole launch."""
+    b = 12288
+    q, k, v, lse, do, dsum = _dkdv_inputs(cuda, (b, 16, 4, 2, 64, True,
+                                                 None), seed=5)
+    dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum)
+    for i in (0, b // 2):
+        one = slice(i, i + 1)
+        dki, dvi = kfa.flash_attention_bwd_dkdv(q[one], k[one], v[one],
+                                                lse[one], do[one], dsum[one])
+        assert torch.equal(dki, dk[one]) and torch.equal(dvi, dv[one])
+
+
+def test_attention_dkdv_spills_nothing(cuda):
+    from repro_torch.kernels import build
+    kfa.flash_attention_bwd_dkdv(*_dkdv_inputs(cuda, (2, 16, 4, 2, 64, True,
+                                                      None), seed=0))
+    report = build.ptxas_report(build.load("flash_attention").log)
+    instances = {n: r for n, r in report.items() if "dkdv_kernel" in n}
+    assert len(instances) == 3, report       # 3 head dims
+    for name, r in instances.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+    for hd in (32, 64, 128):
+        res = kfa.dkdv_resources(hd)
+        assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
+        assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
+
+
+def test_attention_dkdv_raises_on_unaligned_tensors(cuda):
+    q, k, v, lse, do, dsum = _dkdv_inputs(cuda, (2, 16, 4, 2, 64, True,
+                                                 None), seed=0)
+    shifted = torch.empty(do.numel() + 1, device=cuda)[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bwd_dkdv(q, k, v, lse, shifted, dsum)
 
 
 # ---------------------------------------------------------------------------
