@@ -26,8 +26,9 @@ those paths against its plain PyTorch version on the card:
      forward and backward (against the plain versions and autograd of the
      oracle; the forward also at 450 seams of S, window, group size and
      head dim in f32 and bf16; the forward and backward bitwise
-     reproducible, the forward and dK/dV batch-invariant); 3c. the SSD scan
-     forward and backward at the mamba2 cell's shape, four edge shapes and
+     reproducible, the forward, dQ with D and dK/dV batch-invariant);
+     3c. the SSD scan forward and backward at the mamba2 cell's shape,
+     four edge shapes and
      six seams of the backward, the forward also at six seams of its
      16-token tiles and at N 128 (against the plain versions in float64,
      and in float32 wherever those are within half the tolerance of
@@ -50,12 +51,11 @@ those paths against its plain PyTorch version on the card:
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
      port's full-sequence forward on the card (2e-3);
-  6. the SSD kernels', the attention forward's and the dK/dV kernel's
-     resources (registers, spills, shared memory, resident warps or CTAs
-     an SM; the SSD forward, attention forward and dK/dV in every
-     instance, failing on a spill); kernel times (CUDA events, cold L2;
-     the attention and SSD forwards and dK/dV also on the card from the
-     profiler) beside
+  6. the SSD kernels' and the three attention kernels' resources
+     (registers, spills, shared memory, resident warps or CTAs an SM; the
+     SSD forward and the attention kernels in every instance, failing on a
+     spill); kernel times (CUDA events, cold L2; the attention kernels and
+     the SSD forward also on the card from the profiler) beside
      their bound, the plain versions' times and, for attention and
      decode, one PyTorch call
      (``scaled_dot_product_attention``; for the attention backward its
@@ -235,10 +235,12 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
 def device_ms(torch, fn, name: str, iters: int = 20):
     """The card's own time of ``fn`` under torch.profiler, with the L2
     flushed before every call as in :func:`cold_ms`, so that no host time
-    counts as kernel time: (milliseconds a call in the kernels whose names
-    hold ``name``, and medians over the calls of the kernels a call puts on
-    the card besides the flush and of its span there, from its first
-    kernel's start to its last kernel's end, gaps between them included)."""
+    counts as kernel time: (the median over the calls of the milliseconds
+    in the kernels whose names hold ``name``, taken over the calls in
+    which the trace holds such a kernel, and the medians over the calls of
+    the kernels a call puts on the card besides the flush and of its span
+    there, from its first kernel's start to its last kernel's end, gaps
+    between them included)."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
@@ -252,21 +254,23 @@ def device_ms(torch, fn, name: str, iters: int = 20):
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    us, calls = 0.0, []             # calls: [first start, last end, count]
+    calls = []          # [first start, last end, kernels, us in `name`]
     for e in kernels:
         if "Fill" in e.name:                 # the flush opens the next call
             calls.append(None)
             continue
-        if name in e.name:
-            us += e.time_range.end - e.time_range.start
         if not calls or calls[-1] is None:
-            calls.append([e.time_range.start, e.time_range.end, 0])
-        calls[-1][1:] = [e.time_range.end, calls[-1][2] + 1]
+            calls.append([e.time_range.start, e.time_range.end, 0, 0.0])
+        call = calls[-1]
+        call[1:3] = [e.time_range.end, call[2] + 1]
+        if name in e.name:
+            call[3] += e.time_range.end - e.time_range.start
     calls = [c for c in calls if c is not None]
-    if not calls:
-        return float("nan"), 0.0, float("nan")
     median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    return (us / 1e3 / iters, median([c[2] for c in calls]),
+    named = [c[3] for c in calls if c[3] > 0]
+    if not named:
+        return float("nan"), 0.0, float("nan")
+    return (median(named) / 1e3, median([c[2] for c in calls]),
             median([c[1] - c[0] for c in calls]) / 1e3)
 
 
@@ -296,8 +300,8 @@ def attention_checks(torch, kfa, kops, attention_ref):
     forward at every seam of ``ATTN_SEAMS`` in f32 and bf16, with the
     backward from its lse in f32; the forward run twice bitwise; the first
     and a middle sequence of the cell's batch alone bitwise the same rows
-    of the whole launch (forward and dK/dV); and the backward run twice
-    bitwise.  Returns the
+    of the whole launch (forward, dQ with D, and dK/dV); and the backward
+    run twice bitwise.  Returns the
     max abs errors of the comparisons with the plain versions; raises
     AssertionError on a disagreement."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -335,13 +339,17 @@ def attention_checks(torch, kfa, kops, attention_ref):
 
     def backward(q, k, v, o, lse, opts, label, autograd=True):
         """The backward pair against the plain backward (and autograd of
-        the oracle); returns (dO, D, dk, dv)."""
+        the oracle), D against the plain dQ kernel's; returns (dO, dq, D,
+        dk, dv)."""
         do = torch.randn(q.shape, generator=gen, device="cuda")
         dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
         dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
-        pdq, pdk, pdv = kfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+        pdq, pdsum = kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                      **opts)
+        pdk, pdv = kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do, pdsum,
                                                       **opts)
         close("flash_attention_bwd_dq", dq, pdq, 1e-4, label)
+        close("flash_attention_bwd_dq", dsum, pdsum, 1e-4, label + " D")
         close("flash_attention_bwd_dkdv", dk, pdk, 1e-4, label + " dk")
         close("flash_attention_bwd_dkdv", dv, pdv, 1e-4, label + " dv")
         if autograd:
@@ -353,7 +361,7 @@ def attention_checks(torch, kfa, kops, attention_ref):
             for got, want in zip((dq, dk, dv), auto):
                 close("bwd_vs_autograd", got, want, 1e-4,
                       label + " autograd")
-        return do, dsum, dk, dv
+        return do, dq, dsum, dk, dv
 
     for b, s, hq, hkv, hd, causal, window in ATTN_CASES:
         label = (f"attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} "
@@ -361,22 +369,28 @@ def attention_checks(torch, kfa, kops, attention_ref):
         opts = dict(causal=causal, window=window)
         q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
         o, lse = forward(q, k, v, opts, label)
-        do, dsum, dk, dv = backward(q, k, v, o, lse, opts, label)
+        do, dq, dsum, dk, dv = backward(q, k, v, o, lse, opts, label)
         if (b, s, hq, hkv, hd) == T_SHAPE:     # batch-invariant, bitwise
             for i in (0, b // 2):
                 one = slice(i, i + 1)
                 oi, li = kfa.flash_attention_fwd(q[one], k[one], v[one],
                                                  **opts)
+                dqi, dsi = kfa.flash_attention_bwd_dq(
+                    q[one], k[one], v[one], o[one], lse[one], do[one],
+                    **opts)
                 dki, dvi = kfa.flash_attention_bwd_dkdv(
                     q[one], k[one], v[one], lse[one], do[one], dsum[one],
                     **opts)
                 if not (torch.equal(oi, o[one]) and torch.equal(li, lse[one])
+                        and torch.equal(dqi, dq[one])
+                        and torch.equal(dsi, dsum[one])
                         and torch.equal(dki, dk[one])
                         and torch.equal(dvi, dv[one])):
                     raise AssertionError(
                         f"{label}: sequence {i} alone differs from the "
-                        "same rows of the whole batch (o, lse, dk or dv)")
-        del q, k, v, o, lse, do, dsum, dk, dv
+                        "same rows of the whole batch (o, lse, dq, D, dk or "
+                        "dv)")
+        del q, k, v, o, lse, do, dq, dsum, dk, dv
     for s, window, causal, g, hd in itertools.product(*ATTN_SEAMS.values()):
         label = (f"attention seam B=3 S={s} Hq={2 * g} Hkv=2 hd={hd} "
                  f"causal={causal} window={window}")
@@ -430,6 +444,18 @@ def attention_bound(torch, q, k, causal, window):
     return (*bound(nbytes, ops, rate), nbytes, ops)
 
 
+def dq_bound(torch, q, k, causal, window):
+    """(bound_ms, bound_by, bytes, ops) of one dQ call (f32): q, o, dO, k,
+    v and lse read once, dq and D written once, over 3.35 TB/s, against the
+    visible pairs' 6 hd + 4 operations and D's 2 hd a row over 67
+    TFLOP/s."""
+    b, s, hq, hd = q.shape
+    nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * b * hq * s)
+    ops = (visible_pairs(torch, q, causal, window) * (6 * hd + 4)
+           + b * hq * s * 2 * hd)
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
 def dkdv_bound(torch, q, k, causal, window):
     """(bound_ms, bound_by, bytes, ops) of one dK/dV call (f32): q, dO, k,
     v, lse and D read once, dk and dv written once, over 3.35 TB/s, against
@@ -466,8 +492,8 @@ def attention_times(torch, kfa, F):
     (forward; forward + backward for the backward kernels, and its
     backward alone on a graph built once) as a yardstick.  Bounds: bytes
     moved (each input read once, each output written once) over 3.35 TB/s
-    vs the visible pairs' f32 operations over 67 TFLOP/s.  The forward
-    and the dK/dV kernel also on the card (profiler)."""
+    vs the visible pairs' f32 operations over 67 TFLOP/s.  Each kernel
+    also on the card (profiler)."""
     b, s, hq, hkv, hd = T_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
@@ -489,7 +515,6 @@ def attention_times(torch, kfa, F):
     def sdpa_bwd():
         return torch.autograd.grad(graph, leaves, dot, retain_graph=True)
 
-    pairs = visible_pairs(torch, q, True, None)
     runs = {
         "flash_attention_fwd": (
             lambda: kfa.flash_attention_fwd(q, k, v),
@@ -499,9 +524,7 @@ def attention_times(torch, kfa, F):
         "flash_attention_bwd_dq": (
             lambda: kfa.flash_attention_bwd_dq(q, k, v, o, lse, do),
             lambda: kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do),
-            sdpa_fwd_bwd, 4 * (4 * q.numel() + 2 * k.numel()
-                               + 2 * lse.numel()),
-            pairs * (6 * hd + 4) + b * hq * s * 2 * hd),
+            sdpa_fwd_bwd, *dq_bound(torch, q, k, True, None)[2:]),
         "flash_attention_bwd_dkdv": (
             lambda: kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum),
             lambda: kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do,
@@ -518,6 +541,7 @@ def attention_times(torch, kfa, F):
                      "bytes": nbytes, "ops": ops}
     library_bwd_ms = cold_ms(torch, sdpa_bwd)
     for name, kernel in (("flash_attention_fwd", "fwd_kernel"),
+                         ("flash_attention_bwd_dq", "dq_kernel"),
                          ("flash_attention_bwd_dkdv", "dkdv_kernel")):
         out[name]["device_ms"] = device_ms(torch, runs[name][0], kernel)[0]
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
@@ -1242,12 +1266,13 @@ def main(argv=None) -> int:
         f"fwd max abs err {attn_errs['flash_attention_fwd']:.3g} (tol 2e-5; "
         f"lse in f32 and bf16 too), "
         f"bf16 fwd {attn_errs['bf16_fwd']:.3g} (tol 2e-2), dq "
-        f"{attn_errs['flash_attention_bwd_dq']:.3g}, dk/dv "
+        f"{attn_errs['flash_attention_bwd_dq']:.3g} (D too), dk/dv "
         f"{attn_errs['flash_attention_bwd_dkdv']:.3g} vs the plain backward, "
         f"{attn_errs['bwd_vs_autograd']:.3g} vs autograd of the oracle "
         f"(tol 1e-4); every forward run twice bitwise equal; sequences 0 "
         f"and {T_SHAPE[0] // 2} alone bitwise the same rows of the whole "
-        f"batch (forward and dK/dV); backward run twice bitwise equal")
+        f"batch (forward, dQ with D, dK/dV); backward run twice bitwise "
+        f"equal")
     report["attention_errors"] = attn_errs
     try:
         ssd_errs = ssd_checks(torch, kssd, kops)
@@ -1504,13 +1529,17 @@ def main(argv=None) -> int:
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
             f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}); "
             f"library_ms none (no single PyTorch call computes it)")
-    # the forward's six instances and the dK/dV kernel's three on this card
+    # the forward's six instances, the dQ and dK/dV kernels' three each
     attn_res = {
         "flash_attention_fwd": (
             "fwd_kernel",
             {f"{str(dt).split('.')[-1]}_hd{hd}": kfa.fwd_resources(hd, dt)
              for hd in (32, 64, 128)
              for dt in (torch.float32, torch.bfloat16)}),
+        "flash_attention_bwd_dq": (
+            "dq_kernel",
+            {f"float32_hd{hd}": kfa.dq_resources(hd)
+             for hd in (32, 64, 128)}),
         "flash_attention_bwd_dkdv": (
             "dkdv_kernel",
             {f"float32_hd{hd}": kfa.dkdv_resources(hd)

@@ -10,6 +10,7 @@ GPU, in one process.
     git show <rev>:src/repro_torch/kernels/csrc/flash_attention.cu > old_fa.cu
     python3 kernel_ab.py --kernel flash_attention_fwd --old old_fa.cu
     python3 kernel_ab.py --kernel flash_attention_dkdv --old old_fa.cu
+    python3 kernel_ab.py --kernel flash_attention_dq --old old_fa.cu
 
 The old source is built with the port's nvcc flags into ``chiprun_out/``
 and called through its C entry point beside the current kernel, on the
@@ -63,6 +64,14 @@ the order old, new, new, old, beside the bound of ``chip_smoke``.
   CUDA-event time; the bound of ``chip_smoke.dkdv_bound`` (the one
   ``chip_smoke.attention_times`` reports); the new kernel's resources for
   its three instances.
+* ``flash_attention_dq``: the attention backward's dQ kernel at the
+  transformer cell's shape and at chip_smoke's other attention cases, in
+  f32, both sources called through their ``flash_attention_bwd_dq_launch``
+  (the same signature) on the same inputs (o and lse from the current
+  forward): the largest differences of dq and D between them and against
+  the plain version; cold-L2 medians of 20 of the profiler's kernel time
+  and of the CUDA-event time; the bound of ``chip_smoke.dq_bound``; the
+  new kernel's resources for its three instances.
 
 Each compiler report's registers and spills are printed.  The last line
 is one JSON object with the times.
@@ -496,10 +505,92 @@ def flash_attention_dkdv_ab(torch, cs, build, lib, log) -> dict:
             "new_build": new_report}
 
 
+# ---------------------------------------------------------------------------
+# the flash-attention dQ kernel
+# ---------------------------------------------------------------------------
+
+
+def old_attention_dq(torch, lib, q, k, v, o, lse, do, causal, window):
+    """The old source's (dq, D), through its flash_attention_bwd_dq_launch."""
+    b, s, hq, hd = q.shape
+    dq, dsum = torch.empty_like(q), torch.empty_like(lse)
+    rc = lib.flash_attention_bwd_dq_launch(
+        *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dsum)), b, s, hq,
+        k.shape[2], hd, int(causal), 0 if window is None else window,
+        1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"old flash_attention_bwd_dq_launch returned {rc}")
+    return dq, dsum
+
+
+def flash_attention_dq_ab(torch, cs, build, lib, log) -> dict:
+    from repro_torch.kernels import flash_attention as kfa
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_dq_launch.argtypes = ([ptr] * 8 + [i32] * 7
+                                                  + [f32, ptr])
+    lib.flash_attention_bwd_dq_launch.restype = i32
+    old_report = print_report(build, log, "old", "dq_kernel")
+    new_report = print_report(build, build.load("flash_attention").log,
+                              "new", "dq_kernel")
+    resources = {f"float32_hd{hd}": kfa.dq_resources(hd)
+                 for hd in (32, 64, 128)}
+    for key, r in resources.items():
+        print(f"[resources] dq_kernel {key}: {r}")
+    cases = [("cell_f32" if i == 0 else f"case{i}_f32", case)
+             for i, case in enumerate(cs.ATTN_CASES)]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for key, (b, s, hq, hkv, hd, causal, window) in cases:
+        q, k, v = cs.attention_inputs(torch, gen, b, s, hq, hkv, hd)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        opts = dict(causal=causal, window=window)
+        o, lse = kfa.flash_attention_fwd(q, k, v, **opts)
+        args = (q, k, v, o, lse, do)
+        runs = {"old": lambda: old_attention_dq(torch, lib, *args, causal,
+                                                window),
+                "new": lambda: kfa.flash_attention_bwd_dq(*args, **opts)}
+        (dq_old, d_old), (dq_new, d_new) = runs["old"](), runs["new"]()
+        pdq, pd = kfa.flash_attention_bwd_dq_plain(*args, **opts)
+        diff = lambda a, c: float((a - c).abs().max())  # noqa: E731
+        rec = {"shape": [b, s, hq, hkv, hd], "causal": causal,
+               "window": window, "dtype": "float32",
+               "dq_new_vs_old": diff(dq_new, dq_old),
+               "D_new_vs_old": diff(d_new, d_old),
+               "dq_new_vs_plain": diff(dq_new, pdq),
+               "D_new_vs_plain": diff(d_new, pd),
+               "dq_old_vs_plain": diff(dq_old, pdq),
+               "D_old_vs_plain": diff(d_old, pd),
+               "old_ms": [], "new_ms": [], "old_device_ms": [],
+               "new_device_ms": []}
+        for who in ("old", "new", "new", "old"):
+            rec[f"{who}_ms"].append(cs.cold_ms(torch, runs[who]))
+            rec[f"{who}_device_ms"].append(
+                cs.device_ms(torch, runs[who], "dq_kernel")[0])
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["ops"] = (
+            cs.dq_bound(torch, q, k, causal, window))
+        print(f"[times] flash_attention_dq {key} at ({b}, {s}, {hq}, {hkv}, "
+              f"{hd}) (B, S, Hq, Hkv, hd), causal={causal} window={window}, "
+              f"float32, cold L2, median of 20: on the card (profiler) old "
+              f"{rec['old_device_ms']} ms, new {rec['new_device_ms']} ms; "
+              f"CUDA events old {rec['old_ms']} ms, new {rec['new_ms']} ms; "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{rec['bytes']} bytes, {rec['ops']} ops); new vs old: dq "
+              f"{rec['dq_new_vs_old']:.3g}, D {rec['D_new_vs_old']:.3g}; "
+              f"vs plain: dq new {rec['dq_new_vs_plain']:.3g}, old "
+              f"{rec['dq_old_vs_plain']:.3g}, D new "
+              f"{rec['D_new_vs_plain']:.3g}, old {rec['D_old_vs_plain']:.3g}")
+        out[key] = rec
+        del q, k, v, do, o, lse, args, dq_old, d_old, dq_new, d_new, pdq, pd
+        torch.cuda.empty_cache()
+    return {"cases": out, "resources": resources, "old_build": old_report,
+            "new_build": new_report}
+
+
 KERNELS = {"ssd_bwd": ssd_bwd_ab, "ssd_fwd": ssd_fwd_ab,
            "flash_decode": flash_decode_ab,
            "flash_attention_fwd": flash_attention_fwd_ab,
-           "flash_attention_dkdv": flash_attention_dkdv_ab}
+           "flash_attention_dkdv": flash_attention_dkdv_ab,
+           "flash_attention_dq": flash_attention_dq_ab}
 
 
 def main(argv=None) -> int:

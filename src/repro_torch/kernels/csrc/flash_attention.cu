@@ -63,10 +63,32 @@
 // (batch-invariant).  o is stored as HD/16 consecutive elements a thread
 // (one 16-byte store for f32 at HD 64).
 //
-// The dQ kernel.  One CTA of four warps owns 16 query rows and streams
-// tiles of 32 key rows through shared memory, one row per lane; scores are
-// dot products over HD in registers, rows are reduced with warp shuffles,
-// and each lane carries HD/32 columns of its accumulator.
+// The dQ kernel.  Its work unit is the forward's (sequence b, KV head, head
+// chunk, query tile of 32 rows over the group's query heads), so each K/V
+// tile is read once for all g query heads and each dQ row is owned by one
+// unit; a step is one 16-key tile aligned to 16, from the tile of the
+// unit's first visible key to that of its last.  The grid is persistent
+// (CTAs an SM from the occupancy query, once a device).  A two-stage ring
+// in dynamic shared memory holds each step's K and V tiles and each unit's
+// q and dO rows with their lse, filled by cp.async (16-byte rows, 4-byte
+// lse): the next step's copies (and the next unit's rows) are in flight
+// while this step computes.  o is read once a unit: into a slot of its own
+// where the shared memory admits 3 CTAs an SM with it (hd 32, 64), else
+// into the ring's stage ahead of the unit's first key tile, as a step of
+// its own (hd 128); the slot is free once D is taken.  D = rowsum(dO o) is
+// taken from shared memory once a unit, before its first key tile: eight
+// threads a row, each over every eighth 16-byte chunk in order, then a
+// fixed xor butterfly; one store a row.  The CTA's halves split the scores
+// by product: a thread of half 0 takes s = q.k, one of half 1 dp = dO.v,
+// for keys j, j + 8 against rows rg, rg + 16 (four partial sums over HD,
+// element d into sum d mod 4, then (s0 + s1) + (s2 + s3)).  Half 0 writes p
+// = exp(s scale - lse) to shared memory and signals a named barrier; half
+// 1 waits on it and overwrites p with dS = p (dp - D), both 0 where masked.
+// Then every thread adds dS K over the tile's keys in order into two rows
+// by HD/16 columns in registers.  dQ is scaled once and stored as 16-byte
+// vectors at the unit's last step.  A masked (row, key) has dS = 0 exactly,
+// so a row's result does not depend on the unit it falls in or on B
+// (batch-invariant).
 //
 // The dK/dV kernel.  Its work unit is (sequence b, KV head, key tile of 16
 // rows aligned to 16) and covers every query head of the KV head's group,
@@ -106,11 +128,6 @@
 
 namespace {
 
-// the dQ kernel's CTA: four warps owning 16 rows, streaming tiles of 32
-constexpr int kThreads = 128;
-constexpr int kRows = 16;         // rows a CTA owns
-constexpr int kRowsPerWarp = kRows / (kThreads / 32);
-constexpr int kCols = 32;         // rows of the streamed tile, one per lane
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -120,35 +137,6 @@ struct Shape {
   int window;                     // <= 0: no window
   float scale;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ bool visible(const Shape& sh, int pq, int pk) {
-  return pq < sh.S && pk < sh.S && (!sh.causal || pk <= pq) &&
-         (sh.window <= 0 || pk > pq - sh.window);
-}
-
-// Element offset of row (b, s, head h) in a (B, S, H, HD) tensor.
-template <int HD>
-__device__ __forceinline__ size_t row_off(const Shape& sh, int H, int b,
-                                          int s, int h) {
-  return ((static_cast<size_t>(b) * sh.S + s) * H + h) * HD;
-}
-
-// Stage n rows (s0 .. s0+n-1, head h) of a (B, S, H, HD) f32 tensor into
-// shared memory with row stride ld; rows past S are zero.
-template <int HD>
-__device__ void stage(float* dst, int ld, const float* __restrict__ src,
-                      const Shape& sh, int H, int b, int s0, int n, int h) {
-  for (int e = threadIdx.x; e < n * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD, s = s0 + r;
-    dst[r * ld + c] = s < sh.S ? src[row_off<HD>(sh, H, b, s, h) + c] : 0.f;
-  }
-}
 
 // The key range [lo, hi) that query rows [q0, q1) can see.
 __device__ __forceinline__ void key_range(const Shape& sh, int q0, int q1,
@@ -162,11 +150,6 @@ __device__ __forceinline__ void query_range(const Shape& sh, int k0, int k1,
                                             int& lo, int& hi) {
   lo = sh.causal ? k0 : 0;
   hi = sh.window > 0 ? min(sh.S, k1 - 1 + sh.window) : sh.S;
-}
-
-// Shared memory of the dQ kernel, in floats.
-template <int HD> constexpr int dq_smem() {
-  return 2 * kRows * HD + 2 * kCols * (HD + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -358,6 +341,27 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// threadIdx.x read anew (a volatile read): what a block of code derives
+// from it is recomputed there and not held in registers across the loop.
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// Named barrier `id` over n threads: arrive signals it without waiting,
+// sync waits until n threads have arrived or synced; the shared-memory
+// writes made before either are seen by the threads that pass it.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // The row max and sum over the 16 lanes of a half-warp (xor offsets below
@@ -611,89 +615,328 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, dQ (and D): CTA (b, h, 16-row query tile)
+// backward, dQ (and D): persistent CTAs over the forward's units (b, KV
+// head, head chunk, query tile)
 // ---------------------------------------------------------------------------
 
+constexpr int kDqThreads = 256;                      // eight warps
+constexpr int kDLanes = kDqThreads / kUnitRows;      // threads a row for D
+// dS rows: the score phase's writes (4 rows x 8 keys a warp) hit distinct
+// banks, and rows stay 16-byte aligned
+constexpr int kDsLd = 24;
+
+// Floats of 32 rows padded by one 16-byte copy: a unit's q, dO or o rows,
+// or a stage of the ring (a K tile, then a V tile, 16 rows each).
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int dq_row_elems() {
+  return kUnitRows * (HD + 4);
+}
+// Bytes: `blocks` blocks of 32 rows (q and dO in two slots, the ring's two
+// stages, and o where it has a slot of its own), lse in two slots, D, and
+// p / dS.
+template <int HD>
+__host__ __device__ constexpr int dq_bytes(int blocks) {
+  return (blocks * dq_row_elems<HD>() + 3 * kUnitRows + kUnitRows * kDsLd) *
+         static_cast<int>(sizeof(float));
+}
+// o has a slot of its own where the shared memory admits kMaxResident CTAs
+// an SM with it (hd 32, 64); else it takes the ring's stage ahead of a
+// unit's first key tile (hd 128: 2 CTAs an SM).  The CTAs an SM must hold,
+// for the register budget: as many as the shared memory admits, up to
+// kMaxResident.
+template <int HD> struct DqLayout {
+  static constexpr bool o_slot =
+      kSmemPerSM / (dq_bytes<HD>(7) + kSmemReserved) >= kMaxResident;
+  static constexpr int smem = dq_bytes<HD>(o_slot ? 7 : 6);
+  static constexpr int by_smem = kSmemPerSM / (smem + kSmemReserved);
+  static constexpr int resident =
+      by_smem < 1 ? 1 : (by_smem < kMaxResident ? by_smem : kMaxResident);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, DqLayout<HD>::resident)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ o,
           const float* __restrict__ lse, const float* __restrict__ dout,
-          float* __restrict__ dq, float* __restrict__ dsum, Shape sh) {
-  constexpr int LD = HD + 1, PER = HD / 32;
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [kRows][HD]
-  float* dos = qs + kRows * HD;           // [kRows][HD]
-  float* ks = dos + kRows * HD;           // [kCols][LD]
-  float* vs = ks + kCols * LD;            // [kCols][LD]
-  const int tiles = (sh.S + kRows - 1) / kRows;
-  const int tile = blockIdx.x % tiles;
-  const int h = (blockIdx.x / tiles) % sh.Hq;
-  const int b = blockIdx.x / tiles / sh.Hq;
-  const int hk = h / (sh.Hq / sh.Hkv);
-  const int q0 = tile * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t stat = (static_cast<size_t>(b) * sh.Hq + h) * sh.S;
+          float* __restrict__ dq, float* __restrict__ dsum, Shape sh,
+          FwdPlan pl) {
+  constexpr int VEC = 4, LD = HD + VEC, CH = HD / VEC;
+  constexpr int RE = dq_row_elems<HD>(), KE = kKeyTile * LD;
+  constexpr bool O_SLOT = DqLayout<HD>::o_slot;
+  constexpr int RING = O_SLOT ? 0 : 1;        // steps a unit before its
+                                              // first key tile (o's)
+  constexpr int HALF = kDqThreads / 2;
+  constexpr int KH = kKeyTile / 2;            // keys j and j + KH a thread
+  constexpr int CPT = HD / kKeyTile;          // dQ columns a thread
+  // the score loop over HD unrolled by 4 (all of it at HD 128), as dK/dV's
+  constexpr int D_UNROLL = HD > 64 ? CH : 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                           // [2][rows][LD]
+  float* dos = qs + 2 * RE;                   // [2][rows][LD]
+  float* ring = dos + 2 * RE;                 // [kStages][K 16, V 16][LD]
+  float* os = ring + kStages * RE;            // [rows][LD], where o has a
+                                              // slot
+  float* lses = os + (O_SLOT ? RE : 0);       // [2][rows]
+  float* dr = lses + 2 * kUnitRows;           // [rows]: D
+  float* pds = dr + kUnitRows;                // [rows][kDsLd]: p, then dS
+  const int tid = threadIdx.x;
+  // Scores: the CTA's two halves (four warps each) split them by product,
+  // half 0 s = q.k and half 1 dp = dO.v, keys j, j + 8 against rows rg, rg
+  // + 16.  dQ: every thread, rows rr, rr + 16 and columns cg * CPT ...
+  const int half = tid / HALF, idx = tid % HALF;
+  const int j = idx % KH, rg = idx / KH;
+  const int cg = tid % kKeyTile, rr = tid / kKeyTile;
+  const int unit_rows = pl.qt * pl.hc;
 
-  stage<HD>(qs, HD, q, sh, sh.Hq, b, q0, kRows, h);
-  stage<HD>(dos, HD, dout, sh, sh.Hq, b, q0, kRows, h);
-  __syncthreads();
-  float dr[kRowsPerWarp], lr[kRowsPerWarp], acc[kRowsPerWarp][PER];
+  // Row r of unit x: (query head in the group, and position, or -1 for a
+  // row of no (position, head)).
+  auto row_of = [&](const Unit& x, int r, int& hi) {
+    const int dp = div_of(r, pl.by_hc);
+    hi = x.hc * pl.hc + r - dp * pl.hc;
+    const int pos = x.q0 + dp;
+    return r < unit_rows && pos < sh.S && hi < pl.g ? pos : -1;
+  };
+
+  // Start the copies of step e of unit x into stage `to`: at e == 0 the
+  // unit's q and dO rows and lse into slot `slot` and its o rows (into o's
+  // slot, or into the stage, which then holds nothing else); at a key tile
+  // its K and V.  Rows of no (position, head) and keys past S are
+  // zero-filled.
+  auto fetch = [&](const Unit& x, int e, int to, int slot) {
+    // read anew, so the copies' addresses are not hoisted out of the loop
+    // into registers (at 80 a thread they spilled)
+    const int ft = fresh_tid();
+    float* stage = ring + to * RE;
+    if (e == 0) {
+      float* qd = qs + slot * RE;
+      float* od = dos + slot * RE;
+      float* oo = O_SLOT ? os : stage;
+      constexpr int N = kUnitRows * CH;       // a multiple of kDqThreads
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = warp * kRowsPerWarp + r, pq = q0 + i;
-    float part = 0.f;
-    if (pq < sh.S) {
-      const float* orow = o + row_off<HD>(sh, sh.Hq, b, pq, h);
-#pragma unroll
-      for (int c = 0; c < PER; ++c)
-        part = fmaf(dos[i * HD + c * 32 + lane], orow[c * 32 + lane], part);
-    }
-    dr[r] = warp_sum(part);
-    lr[r] = pq < sh.S ? lse[stat + pq] : 0.f;
-    if (lane == 0 && pq < sh.S) dsum[stat + pq] = dr[r];
-#pragma unroll
-    for (int c = 0; c < PER; ++c) acc[r][c] = 0.f;
-  }
-  int lo, hi;
-  key_range(sh, q0, q0 + kRows, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += kCols) {
-    const int n = min(kCols, sh.S - k0);
-    __syncthreads();
-    stage<HD>(ks, LD, k, sh, sh.Hkv, b, k0, kCols, hk);
-    stage<HD>(vs, LD, v, sh, sh.Hkv, b, k0, kCols, hk);
-    __syncthreads();
-    const int pk = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int i = warp * kRowsPerWarp + r, pq = q0 + i;
-      const float* qi = qs + i * HD;
-      const float* doi = dos + i * HD;
-      const float* kj = ks + lane * LD;
-      const float* vj = vs + lane * LD;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
-        s = fmaf(qi[d], kj[d], s);
-        dp = fmaf(doi[d], vj[d], dp);
+      for (int i = 0; i < N / kDqThreads; ++i) {
+        const int el = ft + i * kDqThreads;
+        const int r = el / CH, col = (el % CH) * VEC;
+        int hi;
+        const int pos = row_of(x, r, hi);
+        const bool ok = pos >= 0;
+        const size_t off =
+            ((static_cast<size_t>(x.b) * sh.S + (ok ? pos : 0)) * sh.Hq +
+             x.hk * pl.g + hi) * HD + col;
+        cp_async16(qd + r * LD + col, ok ? q + off : q, ok ? 16 : 0);
+        cp_async16(od + r * LD + col, ok ? dout + off : dout, ok ? 16 : 0);
+        cp_async16(oo + r * LD + col, ok ? o + off : o, ok ? 16 : 0);
       }
-      const float p = visible(sh, pq, pk) ? expf(s * sh.scale - lr[r]) : 0.f;
-      const float ds = p * (dp - dr[r]);
-      for (int j = 0; j < n; ++j) {
-        const float dsj = __shfl_sync(kFull, ds, j);
+      if (ft < kUnitRows) {
+        int hi;
+        const int pos = row_of(x, ft, hi);
+        const bool ok = pos >= 0;
+        const size_t off =
+            (static_cast<size_t>(x.b) * sh.Hq + x.hk * pl.g + hi) * sh.S +
+            (ok ? pos : 0);
+        cp_async4(lses + slot * kUnitRows + ft, ok ? lse + off : lse,
+                  ok ? 4 : 0);
+      }
+      if (RING) return;
+    }
+    const int t = x.t_begin + e - RING;
+    constexpr int N = kKeyTile * CH;
 #pragma unroll
-        for (int c = 0; c < PER; ++c)
-          acc[r][c] = fmaf(dsj, ks[j * LD + c * 32 + lane], acc[r][c]);
+    for (int i = 0; i < (N + kDqThreads - 1) / kDqThreads; ++i) {
+      const int el = ft + i * kDqThreads;
+      if (N % kDqThreads != 0 && el >= N) break;
+      const int jj = el / CH, col = (el % CH) * VEC, pk = t * kKeyTile + jj;
+      const bool ok = pk < sh.S;
+      const size_t off =
+          ((static_cast<size_t>(x.b) * sh.S + (ok ? pk : 0)) * sh.Hkv +
+           x.hk) * HD + col;
+      cp_async16(stage + jj * LD + col, ok ? k + off : k, ok ? 16 : 0);
+      cp_async16(stage + KE + jj * LD + col, ok ? v + off : v, ok ? 16 : 0);
+    }
+  };
+
+  float acc[2][CPT];                          // dQ of rows rr, rr + 16
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+  // Only the unit's index and its steps stay live across a step; the rest
+  // of a unit is decoded again where it is needed.
+  int u = blockIdx.x;
+  if (u >= pl.units) return;
+  int e = 0, steps, st = 0, slot = 0;
+  {
+    const Unit x = unit_of(sh, pl, u);
+    steps = x.t_end - x.t_begin + RING;
+    fetch(x, 0, st, slot);
+  }
+  cp_async_commit();
+  while (true) {
+    cp_async_wait_all();                  // this step's copies have landed
+    __syncthreads();                      // and the last step is done
+    const bool last = e + 1 >= steps;
+
+    if (e == 0) {
+      const Unit x = unit_of(sh, pl, u);
+      // D = rowsum(dO o) of the unit's rows: kDLanes threads a row, each
+      // over every kDLanes-th 16-byte chunk in order, then a butterfly
+      const int dt = fresh_tid(), r = dt / kDLanes, lane = dt % kDLanes;
+      const float* dor = dos + slot * RE + r * LD;
+      const float* orow = (O_SLOT ? os : ring + st * RE) + r * LD;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < CH / kDLanes; ++i) {
+        float a[VEC], b[VEC];
+        loadn<VEC>(dor + (lane + i * kDLanes) * VEC, a);
+        loadn<VEC>(orow + (lane + i * kDLanes) * VEC, b);
+#pragma unroll
+        for (int w = 0; w < VEC; ++w) sum = fmaf(a[w], b[w], sum);
+      }
+#pragma unroll
+      for (int off = kDLanes / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, off);
+      if (lane == 0) {
+        dr[r] = sum;
+        int hi;
+        const int pos = row_of(x, r, hi);
+        if (pos >= 0)
+          dsum[(static_cast<size_t>(x.b) * sh.Hq + x.hk * pl.g + hi) *
+                   sh.S + pos] = sum;
+      }
+      __syncthreads();                    // D is the CTA's; o's slot (or
+                                          // stage) may be refilled
+    }
+
+    // the next step: the next of this unit, or the first of the next unit
+    // (with its rows), copied while this step computes
+    const int nu = last ? u + static_cast<int>(gridDim.x) : u;
+    const bool more = nu < pl.units;
+    if (more)
+      fetch(unit_of(sh, pl, nu), last ? 0 : e + 1, st ^ 1,
+            last ? slot ^ 1 : slot);
+    cp_async_commit();
+
+    if (!RING || e > 0) {
+      const Unit x = unit_of(sh, pl, u);
+      const int t = x.t_begin + e - RING;
+      // scores: s = q.k (half 0) or dp = dO.v (half 1) of keys j, j + 8
+      // against rows rg, rg + 16, as four partial sums each
+      const float* rows = (half ? dos : qs) + slot * RE;
+      const float* keys = ring + st * RE + half * KE;
+      float part[2][2][4];                // [key][row][partial sum]
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) part[a][i][w] = 0.f;
+#pragma unroll(D_UNROLL)
+      for (int d = 0; d < HD; d += VEC) {
+        float kv[2][VEC], rv[2][VEC];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) loadn<VEC>(keys + (j + a * KH) * LD + d,
+                                               kv[a]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          loadn<VEC>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int w = 0; w < VEC; ++w)
+              part[a][i][w] = fmaf(rv[i][w], kv[a][w], part[a][i][w]);
+      }
+      // half 0: p = exp(s scale - lse) into pds, then signal half 1;
+      // half 1: dp - D, then, once p is there, dS = p (dp - D) over it;
+      // each 0 where masked
+      float e1[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + i * kRowGroups;
+        int hi;
+        const int pos = row_of(x, r, hi);
+        const float stat = half ? dr[r] : lses[slot * kUnitRows + r];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int pk = t * kKeyTile + j + a * KH;
+          const bool vis = pos >= 0 && pk < sh.S &&
+                           (!sh.causal || pk <= pos) &&
+                           (sh.window <= 0 || pk > pos - sh.window);
+          const float sum = (part[a][i][0] + part[a][i][1]) +
+                            (part[a][i][2] + part[a][i][3]);
+          if (half)
+            e1[i][a] = vis ? sum - stat : 0.f;
+          else
+            pds[r * kDsLd + j + a * KH] =
+                vis ? expf(sum * sh.scale - stat) : 0.f;
+        }
+      }
+      if (half) {
+        named_bar_sync(1, kDqThreads);    // half 0's p are there
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            float* pa = pds + (rg + i * kRowGroups) * kDsLd + j + a * KH;
+            *pa = *pa * e1[i][a];
+          }
+      } else {
+        named_bar_arrive(1, kDqThreads);
+      }
+      __syncthreads();                    // dS is the CTA's
+
+      // dQ += dS K: rows rr, rr + 16, columns cg * CPT .., keys in order
+      const float* kc = ring + st * RE + cg * CPT;
+#pragma unroll
+      for (int j0 = 0; j0 < kKeyTile; j0 += 4) {
+        float dsv[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          loadn<4>(pds + (rr + i * kRowGroups) * kDsLd + j0, dsv[i]);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          float kk[CPT];
+          loadn<CPT>(kc + (j0 + w) * LD, kk);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < CPT; ++c)
+              acc[i][c] = fmaf(dsv[i][w], kk[c], acc[i][c]);
+        }
       }
     }
-  }
+
+    if (last) {                           // write the unit's rows out
+      const Unit x = unit_of(sh, pl, u);
+      const int wt = fresh_tid(), wr = wt / kKeyTile, wc = wt % kKeyTile;
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int pq = q0 + warp * kRowsPerWarp + r;
-    if (pq >= sh.S) continue;
-    float* row = dq + row_off<HD>(sh, sh.Hq, b, pq, h);
+      for (int i = 0; i < 2; ++i) {
+        int hi;
+        const int pos = row_of(x, wr + i * kRowGroups, hi);
+        if (pos >= 0) {
+          float out[CPT];
 #pragma unroll
-    for (int c = 0; c < PER; ++c) row[c * 32 + lane] = acc[r][c] * sh.scale;
+          for (int c = 0; c < CPT; ++c) out[c] = acc[i][c] * sh.scale;
+          storen<CPT>(dq + ((static_cast<size_t>(x.b) * sh.S + pos) *
+                                sh.Hq + x.hk * pl.g + hi) * HD + wc * CPT,
+                      out);
+        }
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+      }
+    }
+    if (!more) break;
+    if (last) {
+      u = nu;
+      const Unit x = unit_of(sh, pl, u);
+      steps = x.t_end - x.t_begin + RING;
+      e = 0;
+      slot ^= 1;
+    } else {
+      ++e;
+    }
+    st ^= 1;
   }
 }
 
@@ -1041,10 +1284,6 @@ int allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-int blocks(const Shape& sh, int heads) {
-  return sh.B * heads * ((sh.S + kRows - 1) / kRows);
-}
-
 // A persistent kernel's instance, prepared once a device: its shared
 // memory allowed and the CTAs of it an SM holds at once.
 struct Prepared {
@@ -1087,6 +1326,13 @@ int fwd_prepare(const Prepared** out) {
   static Prepared by_device[kMaxDevices];
   return prepare(by_device, fwd_kernel<T, HD>, fwd_smem<T, HD>(),
                  kFwdThreads, out);
+}
+
+template <int HD>
+int dq_prepare(const Prepared** out) {
+  static Prepared by_device[kMaxDevices];
+  return prepare(by_device, dq_kernel<HD>, DqLayout<HD>::smem, kDqThreads,
+                 out);
 }
 
 template <int HD>
@@ -1154,12 +1400,21 @@ template <int HD>
 int dq(const float* q, const float* k, const float* v, const float* o,
        const float* lse, const float* dout, float* dq_, float* dsum,
        const Shape& sh, cudaStream_t stream) {
-  auto kernel = dq_kernel<HD>;
-  const int bytes = dq_smem<HD>() * static_cast<int>(sizeof(float));
-  if (const int err = allow_smem(kernel, bytes)) return err;
-  kernel<<<blocks(sh, sh.Hq), kThreads, bytes, stream>>>(
-      q, k, v, o, lse, dout, dq_, dsum, sh);
+  const Prepared* inst = nullptr;
+  if (const int err = dq_prepare<HD>(&inst)) return err;
+  const FwdPlan pl = fwd_plan(sh);
+  if (pl.units <= 0) return kBadShape;
+  const int grid = min(pl.units, inst->sms * inst->per_sm);
+  dq_kernel<HD><<<grid, kDqThreads, inst->bytes, stream>>>(
+      q, k, v, o, lse, dout, dq_, dsum, sh, pl);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dq_resources(int* out) {
+  const Prepared* inst = nullptr;
+  if (const int err = dq_prepare<HD>(&inst)) return err;
+  return resources(inst, out);
 }
 
 // The units of a shape (see DkdvPlan); units 0 when the count overflows.
@@ -1246,7 +1501,10 @@ int flash_attention_fwd_resources(int hd, int bf16, int* out) {
   return kBadHeadDim;
 }
 
-// f32 throughout; dout, dq like q; dsum: (B, Hq, S) f32 output.
+// f32 throughout; dout, dq like q; dsum: (B, Hq, S) f32 output.  q, k,
+// v, o, dout and dq must be 16-byte aligned (the copies and stores are
+// 16-byte vectors); returns -3 otherwise, -1 for another hd, -2 for a
+// shape with no unit or too many.
 int flash_attention_bwd_dq_launch(const float* q, const float* k,
                                   const float* v, const float* o,
                                   const float* lse, const float* dout,
@@ -1255,10 +1513,25 @@ int flash_attention_bwd_dq_launch(const float* q, const float* k,
                                   int window, float scale,
                                   cudaStream_t stream) {
   const Shape sh{B, S, Hq, Hkv, causal, window, scale};
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq_)) &
+      15)
+    return kUnaligned;
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv) return kBadShape;
   if (hd == 32) return dq<32>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
   if (hd == 64) return dq<64>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
   if (hd == 128)
     return dq<128>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
+  return kBadHeadDim;
+}
+
+// The dQ instance's resources on the current device (see resources), into
+// out[6]; returns a cudaError_t, or -1 for another hd.
+int flash_attention_bwd_dq_resources(int hd, int* out) {
+  if (hd == 32) return dq_resources<32>(out);
+  if (hd == 64) return dq_resources<64>(out);
+  if (hd == 128) return dq_resources<128>(out);
   return kBadHeadDim;
 }
 

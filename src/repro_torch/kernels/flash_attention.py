@@ -27,10 +27,11 @@ and tensors whose data start on a 16-byte boundary (its copies and
 stores are 16-byte vectors); it runs on a persistent grid of units
 (sequence, KV head, query tile) that cover a KV head's query heads
 together (:func:`fwd_resources` reports its instances).  The backward
-takes float32 only; its dK/dV kernel runs on a persistent grid of units
-(sequence, KV head, 16-key tile) that cover the KV head's query heads
-together, takes q, k, v and dO on a 16-byte boundary, and
-:func:`dkdv_resources` reports its instances.
+takes float32 only and q, k, v, o and dO on a 16-byte boundary; its dQ
+kernel runs on the forward's units, its dK/dV kernel on a persistent grid
+of units (sequence, KV head, 16-key tile) that cover the KV head's query
+heads together, and :func:`dq_resources` and :func:`dkdv_resources`
+report their instances.
 """
 from __future__ import annotations
 
@@ -59,10 +60,12 @@ def _library():
     # hd, bf16; out[6]
     c.flash_attention_fwd_resources.argtypes = [i32, i32, ptr]
     # hd; out[6]
+    c.flash_attention_bwd_dq_resources.argtypes = [i32, ptr]
     c.flash_attention_bwd_dkdv_resources.argtypes = [i32, ptr]
     for fn in (c.flash_attention_fwd_launch, c.flash_attention_bwd_dq_launch,
                c.flash_attention_bwd_dkdv_launch,
                c.flash_attention_fwd_resources,
+               c.flash_attention_bwd_dq_resources,
                c.flash_attention_bwd_dkdv_resources):
         fn.restype = i32
     return c
@@ -262,6 +265,12 @@ def fwd_resources(hd: int, dtype=torch.float32) -> dict:
                       int(dtype == torch.bfloat16))
 
 
+def dq_resources(hd: int) -> dict:
+    """What the dQ kernel's instance for a head dim takes on the current
+    card, with :func:`fwd_resources`'s keys."""
+    return _resources("flash_attention_bwd_dq_resources", hd)
+
+
 def dkdv_resources(hd: int) -> dict:
     """What the dK/dV kernel's instance for a head dim takes on the current
     card, with :func:`fwd_resources`'s keys."""
@@ -277,6 +286,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
                                             causal=causal, window=window)
+    _check_aligned("flash_attention_bwd_dq", q, k, v, o, do)
     dq = torch.empty_like(q)
     dsum = torch.empty_like(lse)
     if q.numel() == 0:

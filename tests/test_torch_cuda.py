@@ -16,11 +16,15 @@ backward and autograd of the oracle, also at the forward's seams (S
 around its 16-key tiles, windows around them, g 1, 2 and 4, hd 32, 64
 and 128); the forward and the backward are bitwise reproducible, the
 forward is batch-invariant at the cell's shape, none of its six
-instances spills; the dK/dV kernel holds the same tolerance at every seam
-and at groups of 40 heads a KV head, is bitwise the same run twice and
-batch-invariant at the cell's shape, and none of its three instances
-spills; the wrappers raise on what the kernels do not take (a forward or
-dK/dV input off a 16-byte boundary too).  The SSD forward must
+instances spills; the dQ kernel holds dq and D to 1e-4 of its plain
+version at the cases, at all 450 combinations of the seams and at groups
+of 40 heads a KV head, bitwise the same run twice and batch-invariant at
+the cell's shape, and none of its three instances spills; the dK/dV
+kernel holds the same tolerance at every seam and at groups of 40 heads a
+KV head, is bitwise the same run twice and batch-invariant at the cell's
+shape, and none of its three instances spills; the wrappers raise on what
+the kernels do not take (a forward, dQ or dK/dV input off a 16-byte
+boundary too).  The SSD forward must
 agree with its plain version to 2e-5 (bf16: 2e-2) and the backward to
 1e-4 — against the plain version run in float64 everywhere, and against
 the float32 plain version wherever that is itself within half the
@@ -40,6 +44,8 @@ one call puts one kernel on the card and allocates nothing but its
 output, and no instance spills; the decode driver on the card matches
 its CPU path (1e-4 in log-softmax) and runs every attention layer
 through the kernel."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -329,6 +335,80 @@ def test_attention_forward_raises_on_unaligned_tensors(cuda):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError):
         kfa.flash_attention_fwd(shifted, k, v)
+
+
+def _dq_matches_plain_twice(cuda, case, seed):
+    """dq and D of the dQ kernel against its plain version (1e-4), and the
+    same bits when run again."""
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, seed=seed)
+    do = torch.randn_like(q)
+    opts = dict(causal=causal, window=window)
+    o, lse = kfa.flash_attention_fwd(q, k, v, **opts)
+    dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
+    pdq, pdsum = kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                  **opts)
+    torch.testing.assert_close(dq, pdq, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dsum, pdsum, rtol=1e-4, atol=1e-4)
+    dq2, dsum2 = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
+    assert torch.equal(dq, dq2) and torch.equal(dsum, dsum2)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + ATTN_WIDE_GROUPS)
+def test_attention_dq_matches_plain_and_repeats_bitwise(cuda, case):
+    _dq_matches_plain_twice(cuda, case, seed=case[1] + 11)
+
+
+@pytest.mark.parametrize("s", (1, 15, 16, 17, 33))
+def test_attention_dq_at_every_seam_combination(cuda, s):
+    """All 450 combinations of the seams (B 3 over 2 KV heads): S, window
+    around the 16-key tiles, causal or not, g 1, 2 and 4, hd 32, 64 and
+    128; this S's 90."""
+    for window, causal, g, hd in itertools.product(
+            (None, 1, 8, 16, 17), (True, False), (1, 2, 4), (32, 64, 128)):
+        _dq_matches_plain_twice(cuda, (3, s, 2 * g, 2, hd, causal, window),
+                                seed=s + hd + g)
+
+
+def test_attention_dq_is_batch_invariant(cuda):
+    """The cell's shape: sequences 0 and B/2 alone give the same bits of
+    dq and D as the same rows of the whole launch."""
+    b = 12288
+    q, k, v = _qkv(cuda, b, 16, 4, 2, 64, seed=6)
+    do = torch.randn_like(q)
+    o, lse = kfa.flash_attention_fwd(q, k, v)
+    dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    for i in (0, b // 2):
+        one = slice(i, i + 1)
+        dqi, dsi = kfa.flash_attention_bwd_dq(q[one], k[one], v[one], o[one],
+                                              lse[one], do[one])
+        assert torch.equal(dqi, dq[one]) and torch.equal(dsi, dsum[one])
+
+
+def test_attention_dq_spills_nothing(cuda):
+    from repro_torch.kernels import build
+    q, k, v = _qkv(cuda, 2, 16, 4, 2, 64)
+    o, lse = kfa.flash_attention_fwd(q, k, v)
+    kfa.flash_attention_bwd_dq(q, k, v, o, lse, torch.randn_like(q))
+    report = build.ptxas_report(build.load("flash_attention").log)
+    instances = {n: r for n, r in report.items() if "dq_kernel" in n}
+    assert len(instances) == 3, report       # 3 head dims
+    for name, r in instances.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
+    for hd in (32, 64, 128):
+        res = kfa.dq_resources(hd)
+        assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
+        assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
+
+
+def test_attention_dq_raises_on_unaligned_tensors(cuda):
+    q, k, v = _qkv(cuda, 2, 16, 4, 2, 64)
+    o, lse = kfa.flash_attention_fwd(q, k, v)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bwd_dq(shifted, k, v, o, lse, torch.randn_like(q))
 
 
 def _dkdv_inputs(cuda, case, seed):
