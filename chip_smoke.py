@@ -44,8 +44,13 @@ those paths against its plain PyTorch version on the card:
      PERF.md; 4d. ``launch.serve.main`` on mistral-nemo-12b (batch 8,
      prompt 128, 64 generated tokens, ctx 2048: 40 x 192 = 7 680 flash
      decode launches) and on mamba2-2.7b (none), each with its launch
-     count, tokens/s and peak memory;
-  5. the card against the port's CPU path (three periods of one row),
+     count, tokens/s and peak memory; 4e. ``Experiment(data, test,
+     grid(...))`` over the main cell (4 policies x 2 SBC ratios x 2
+     partitions x 2 seeds: 32 rows in two buckets) under the serial,
+     async (plain, chunked, capped) and mesh executors, each run bitwise
+     the serial one, with its launch counts, wall and planning split;
+  5. the card against the port's CPU path (three periods of one row,
+     and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
      its solo twin; 5b. the same for the transformer, 5c. for mamba2;
      5d. decode at the reduced configs (and a window of 8) over 12
@@ -102,6 +107,14 @@ BF16_OPS_PER_S = 989e12
 LEAF_LENGTHS = (786_432, 256, 65_536, 256, 2_560, 10)
 ROWS, DEVICES, RATIO = 16, 12, 0.005
 PERIODS = 20
+
+# the grid cell (phase 4e): the main cell's model, data and fleet swept
+# over the four batchsize policies x two SBC ratios x two partitions, 2
+# seeds: 32 rows in two buckets (one a ratio) of 16, under each executor
+G_POLICIES = ("online", "full", "random", "proposed")
+G_RATIOS = (0.005, 0.02)
+G_TARGET = 0.6
+G_SERIAL = "SerialExecutor()"
 
 # the transformer cell: 8 rows x 12 devices x 128 slots of 16-token
 # sequences per gradient forward; its attention shape per forward
@@ -1070,6 +1083,121 @@ def family_cell(env, tag, family, rows, periods, per_period, counted):
         "loss_last": res.losses[:, -1].tolist(), "launches": launches}}
 
 
+def grid_cell(env, api, counted):
+    """Phase 4e: ``Experiment(data, test, grid(...)).run(PERIODS)`` at the
+    main cell's full width under each executor below (the serial one first
+    and again last, for the spread of its wall), after a 1-period
+    warm-up.  Around each run the SBC counts are set to 0 and read
+    (expected: six leaves x PERIODS x two buckets), peak memory is reset
+    and read, and the executor's timings (host planning, enqueue,
+    collect) are kept.  Every run must equal the
+    serial one bitwise (losses, accuracies, times, global batch).  Raises
+    AssertionError."""
+    torch, np = env.torch, env.np
+    base = env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES),
+                            name="K12", b_max=128, base_lr=0.05,
+                            seeds=(0, 1))
+    study = api.grid(base, policy=list(G_POLICIES),
+                     compression=list(G_RATIOS), partition=["iid", "noniid"])
+    exp = env.Experiment(env.data, env.test, study)
+    buckets = exp.lower()
+    if (len(buckets) != 2 or [len(b.rows) for b in buckets] != [16, 16]):
+        raise AssertionError(f"4e: the grid lowered to "
+                             f"{[len(b.rows) for b in buckets]} rows a "
+                             "bucket, expected two buckets of 16")
+    t0 = time.perf_counter()
+    exp.run(1)                                           # warm-up period
+    torch.cuda.synchronize()
+    log(f"[4e grid] {study!r}: {sum(len(b.rows) for b in buckets)} rows in "
+        f"{len(buckets)} buckets of 16 x {DEVICES} devices; warm-up run of "
+        f"1 period {time.perf_counter() - t0:.2f} s")
+    want = {name: len(LEAF_LENGTHS) * PERIODS * len(buckets)
+            for name in counted}
+    executors = [
+        (G_SERIAL, api.SerialExecutor()),
+        ("AsyncExecutor()", api.AsyncExecutor()),
+        ("AsyncExecutor(chunk_periods=5)", api.AsyncExecutor(chunk_periods=5)),
+        ("AsyncExecutor(max_in_flight=1, chunk_periods=5)",
+         api.AsyncExecutor(max_in_flight=1, chunk_periods=5)),
+        ("MeshExecutor()", api.MeshExecutor()),
+        (G_SERIAL + " again", api.SerialExecutor())]
+    runs, out = {}, {}
+    for label, executor in executors:
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = exp.run(PERIODS, executor=executor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tm = dict(executor.timings)
+        runs[label] = res
+        log(f"[4e grid] {label}: {res.rows} rows x {PERIODS} periods in "
+            f"{wall:.3f} s = {1e3 * wall / PERIODS:.1f} ms/period; host "
+            f"planning {tm['plan']:.3f} s, enqueue {tm['dispatch']:.3f} s, "
+            f"collect {tm['collect']:.3f} s; peak device memory {peak:.2f} GiB; launches {launches} "
+            f"(expected {want})")
+        if launches != want:
+            raise AssertionError(f"4e: {label}: kernel launches {launches}, "
+                                 f"expected {want}")
+        out[label] = {"wall_s": wall, "ms_per_period": 1e3 * wall / PERIODS,
+                      "timings_s": tm, "peak_gib": peak,
+                      "launches": launches}
+    serial = runs[G_SERIAL]
+    fields = ("losses", "accs", "times", "global_batch")
+    for label, res in runs.items():
+        if not all(np.array_equal(getattr(res, f), getattr(serial, f))
+                   for f in fields):
+            raise AssertionError(f"4e: {label} differs from {G_SERIAL}")
+    if not (np.isfinite(serial.losses).all()
+            and np.isfinite(serial.accs).all()):
+        raise AssertionError("4e: non-finite series")
+    if not serial.losses[:, -1].mean() < serial.losses[:, 0].mean():
+        raise AssertionError("4e: the mean loss did not fall over the run")
+    speed = {}
+    for policy in G_POLICIES:
+        sub = serial.sel(policy=policy)
+        speed[policy] = {"speed_s": sub.speed(G_TARGET).tolist(),
+                         "final_acc": sub.final_acc.tolist(),
+                         "final_time_s": sub.times[:, -1].tolist()}
+        log(f"[4e grid] policy={policy}: speed({G_TARGET}) "
+            f"{np.round(sub.speed(G_TARGET), 3).tolist()} simulated s; "
+            f"final accuracy mean {sub.final_acc.mean():.4f}; simulated "
+            f"time at period {PERIODS} mean {sub.times[:, -1].mean():.3f} s")
+    log(f"[4e grid] all {len(runs) - 1} other runs bitwise equal to "
+        f"{G_SERIAL} (losses, accuracies, times, global batch)")
+    return {"rows": serial.rows, "buckets": len(buckets),
+            "periods": PERIODS, "executors": out, "speed": speed}
+
+
+def policy_contracts(env, api):
+    """Phase 5, per policy: one row of each of the four batchsize
+    policies (the main cell's K = 12, iid) for 3 periods on the card and
+    on the port's CPU path: ledgers bitwise, losses 1e-4, accuracies two
+    test predictions.  Raises AssertionError."""
+    np, data, test = env.np, env.data, env.test
+    base = env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES),
+                            name="K12", partition="iid", seeds=(0,))
+    study = api.grid(base, policy=list(G_POLICIES))
+    card = env.Experiment(data, test, study).run(3)
+    cpu = env.Experiment(data, test, study, device="cpu").run(3)
+    loss_err = float(np.abs(card.losses - cpu.losses).max())
+    acc_err = float(np.abs(card.accs - cpu.accs).max())
+    log(f"[5 card vs cpu] one row per policy {G_POLICIES}, 3 periods: "
+        f"global batch {card.global_batch[:, -1].tolist()}; losses max abs "
+        f"err {loss_err:.3g}; accs max abs err {acc_err:.3g}")
+    if not (np.array_equal(card.times, cpu.times)
+            and np.array_equal(card.global_batch, cpu.global_batch)
+            and np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=1e-4)
+            and acc_err <= 2.0 / len(test.y) + 1e-7):
+        raise AssertionError("5: per policy, card and CPU path disagree "
+                             "beyond ledgers bitwise, losses 1e-4, "
+                             "accuracies two test predictions")
+    return {"loss_max_abs_err": loss_err, "acc_max_abs_err": acc_err}
+
+
 def family_contracts(env, tag, family, specs):
     """The card against the port's CPU path (1 row, slot 16, 3 periods:
     ledgers bitwise, losses 1e-4, accuracies two test predictions),
@@ -1139,6 +1267,7 @@ def main(argv=None) -> int:
                     "needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch import api
         from repro_torch.api import Experiment, ScenarioSpec, SerialExecutor
         from repro_torch.compression import sbc as csbc
         from repro_torch.core.latency import DeviceProfile
@@ -1420,6 +1549,14 @@ def main(argv=None) -> int:
     d_launches = {arch: report[f"decode_{arch}"]["launches"]["flash_decode"]
                   for arch in D_ARCHS}
 
+    # ---- 4e. the grid through the executors at full width -----------------
+    try:
+        report["grid"] = grid_cell(env, api, {"sbc_stats": ksbc.sbc_stats,
+                                              "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    g_launches = report["grid"]["executors"][G_SERIAL]["launches"]
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -1438,6 +1575,10 @@ def main(argv=None) -> int:
                     "1e-4, accuracies two test predictions")
     report["card_vs_cpu"] = {"loss_max_abs_err": loss_err,
                              "acc_max_abs_err": acc_err}
+    try:
+        report["card_vs_cpu_policies"] = policy_contracts(env, api)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
 
     # within the port on the card: chunked == monolithic bitwise, and a
     # padded row against its solo twin (K = 9 padded to 12 in a bucket)
@@ -1519,7 +1660,9 @@ def main(argv=None) -> int:
             "launches": launches[name],
             "launches_by_path": {"feel_mlp": launches[name],
                                  "transformer": t_launches[name],
-                                 "mamba2": m_launches[name]},
+                                 "mamba2": m_launches[name],
+                                 "feel_mlp grid, each executor":
+                                     g_launches[name]},
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),

@@ -2,35 +2,102 @@
 
 The lowering (``api.lowering``) splits every bucket into three phases —
 host-side *plan*, asynchronous device *dispatch*, blocking *collect* —
-and an :class:`Executor` is a composition policy over them.
+and an :class:`Executor` is a composition policy over them.  Every bucket
+runs through a :class:`~repro_torch.api.lowering.BucketRun`: one chunk of
+the whole horizon, or ``chunk_periods``-period chunks carrying the engine
+state between them (bitwise equal to the monolithic run).  All executors
+are bitwise equal in results; they differ only in wall time.
 
-* :class:`SerialExecutor` — plan → dispatch → collect one bucket at a
-  time.  With ``chunk_periods=C`` each bucket runs as C-period chunks
-  through :class:`~repro_torch.api.lowering.BucketRun`, carrying the
-  engine state between chunks (bitwise equal to the monolithic run).
+* :class:`SerialExecutor` — plan → dispatch → collect one chunk at a
+  time, one bucket at a time.  The reference schedule and the default.
+* :class:`AsyncExecutor` — the reference's pipelined schedule on the
+  caller's thread: every chunk of a bucket is planned and dispatched back
+  to back, and results are collected only when the ``max_in_flight``
+  window is full or at the end.  In eager PyTorch the dispatch is a
+  Python loop that enqueues every launch, so planning never runs while
+  the caller enqueues; what the schedule hides is the card's queued tail,
+  which runs on while the host plans the next chunk instead of waiting in
+  a per-chunk collect.
+* :class:`MeshExecutor` — the serial schedule over a one-device
+  ``launch.mesh`` batch mesh, built over the experiment's device type when
+  none is given: the bucket runs on that device.
+
+A mesh (``mesh=`` on any executor) must be a ``"batch"`` mesh of one
+device, the experiment's own: a mesh of several devices raises
+``NotImplementedError`` (sharding the batch axis over several cards waits
+for a multi-card path), and a mesh on another device raises
+``ValueError`` — an executor does not move data behind the caller's back.
 
 Executors yield ``(bucket, (losses, accs, times, global_batch))`` in
 bucket order, which is what lets ``Experiment.stream`` hand back
-incrementally collected ``Results``.
+incrementally collected ``Results``.  After a run, ``executor.timings``
+holds its seconds: ``plan`` (host planning), ``dispatch`` (enqueue) and
+``collect`` (waiting for the device).  What the pipeline hides shows as
+the wall against :class:`SerialExecutor`'s at the same chunking.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Iterator, Optional, Sequence, Tuple
 
-from repro_torch.api.lowering import (Bucket, BucketRun, collect_bucket,
-                                      dispatch_bucket, plan_bucket)
+import torch
+
+from repro_torch.api.lowering import Bucket, BucketRun
+from repro_torch.launch.mesh import ensure_batch_mesh, make_batch_mesh
 
 BucketSeries = Tuple[Bucket, tuple]
+
+
+def _canonical(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_mesh(mesh, device):
+    """A validated one-device batch mesh on ``device``."""
+    mesh = ensure_batch_mesh(mesh)
+    if len(mesh.devices) != 1:
+        raise NotImplementedError(
+            f"a batch mesh of {len(mesh.devices)} devices: sharding the "
+            "batch axis over several cards is not ported; pass "
+            "max_devices=1 or a one-device mesh")
+    if _canonical(mesh.devices[0]) != _canonical(device):
+        raise ValueError(
+            f"the mesh's device {mesh.devices[0]} is not the experiment's "
+            f"device {device}; build the Experiment on the mesh's device")
+    return mesh
 
 
 class Executor:
     """Composition policy over the plan/dispatch/collect bucket phases."""
 
-    def __init__(self, chunk_periods: Optional[int] = None):
+    def __init__(self, mesh=None, chunk_periods: Optional[int] = None):
         if chunk_periods is not None and chunk_periods < 1:
             raise ValueError(
                 f"chunk_periods must be >= 1, got {chunk_periods}")
+        self.mesh = mesh
         self.chunk_periods = chunk_periods
+        self.timings = {}
+
+    def _resolve_mesh(self, device):
+        return None if self.mesh is None else _check_mesh(self.mesh, device)
+
+    def _chunk_for(self, bucket: Bucket) -> Optional[int]:
+        """The bucket's chunk size, or ``None`` for one monolithic chunk
+        (the spec refuses closed-loop ``replan=`` buckets in this port, so
+        the executor's ``chunk_periods`` always applies)."""
+        return self.chunk_periods
+
+    def _run(self, bucket: Bucket, data, arrays, periods: int) -> BucketRun:
+        chunk = self._chunk_for(bucket)
+        return BucketRun(bucket, data, periods,
+                         periods if chunk is None else chunk, arrays)
+
+    def _bank(self, run: BucketRun) -> None:
+        for key, sec in run.seconds.items():
+            self.timings[key] = self.timings.get(key, 0.0) + sec
 
     def execute(self, buckets: Sequence[Bucket], data, arrays,
                 periods: int) -> Iterator[BucketSeries]:
@@ -42,15 +109,75 @@ class Executor:
 
 
 class SerialExecutor(Executor):
-    """One bucket at a time, blocking at each collection."""
+    """One bucket at a time, plan → dispatch → collect per chunk."""
 
     def execute(self, buckets, data, arrays, periods):
+        self._resolve_mesh(arrays.device)
+        self.timings = {}
         for bucket in buckets:
-            if self.chunk_periods is None:
-                handle = dispatch_bucket(plan_bucket(bucket, data, periods),
-                                         arrays)
-                yield bucket, collect_bucket(handle)
-            else:
-                run = BucketRun(bucket, data, periods, self.chunk_periods,
-                                arrays)
-                yield bucket, run.run_serial()
+            run = self._run(bucket, data, arrays, periods)
+            series = run.run_serial()
+            self._bank(run)
+            yield bucket, series
+
+
+class AsyncExecutor(Executor):
+    """Plan and dispatch back to back, collect afterwards.
+
+    Each bucket's chunks are all planned and dispatched as soon as the
+    bucket starts, so the host plans chunk c+1 while the card still runs
+    what chunk c enqueued.  ``max_in_flight`` bounds how many dispatched
+    buckets' device values stay resident: once the window is full, the
+    oldest bucket is collected (blocking) before the next one is planned
+    and dispatched.  A chunked bucket counts as one unit.  ``None`` keeps
+    every bucket in flight; ``max_in_flight=1`` is the serial schedule
+    across buckets with every chunk of a bucket still dispatched before
+    its first collect.  Capped or not, chunked or not, the results are
+    bitwise :class:`SerialExecutor`'s: every phase is a pure function of
+    its bucket and the carried state, and each planner consumes its rng
+    streams in chunk order as a serial run does."""
+
+    def __init__(self, mesh=None, max_in_flight: Optional[int] = None,
+                 chunk_periods: Optional[int] = None):
+        super().__init__(mesh=mesh, chunk_periods=chunk_periods)
+        if max_in_flight is not None and max_in_flight < 1:
+            raise ValueError(
+                f"max_in_flight must be >= 1, got {max_in_flight}")
+        self.max_in_flight = max_in_flight
+
+    def _finish(self, run: BucketRun) -> BucketSeries:
+        series = run.drain()
+        self._bank(run)
+        return run.bucket, series
+
+    def execute(self, buckets, data, arrays, periods):
+        self._resolve_mesh(arrays.device)
+        self.timings = {}
+        cap = self.max_in_flight or len(buckets)
+        pending: deque = deque()
+        for bucket in buckets:
+            if len(pending) >= cap:
+                yield self._finish(pending.popleft())
+            run = self._run(bucket, data, arrays, periods)
+            while run.can_advance:
+                run.advance()
+            pending.append(run)
+        while pending:
+            yield self._finish(pending.popleft())
+
+
+class MeshExecutor(SerialExecutor):
+    """The serial schedule over a one-device batch mesh; builds
+    ``make_batch_mesh(max_devices)`` over the experiment's device type
+    when no mesh is given."""
+
+    def __init__(self, mesh=None, max_devices: Optional[int] = None,
+                 chunk_periods: Optional[int] = None):
+        super().__init__(mesh=mesh, chunk_periods=chunk_periods)
+        self.max_devices = max_devices
+
+    def _resolve_mesh(self, device):
+        if self.mesh is None:
+            self.mesh = make_batch_mesh(self.max_devices,
+                                        device=torch.device(device).type)
+        return _check_mesh(self.mesh, device)

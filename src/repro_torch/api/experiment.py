@@ -1,17 +1,22 @@
 """The declarative experiment driver: specs in, named Results out.
 
-    from repro_torch.api import Experiment, ScenarioSpec
+    from repro_torch.api import AsyncExecutor, Experiment, ScenarioSpec, grid
 
-    specs = [ScenarioSpec(fleet=fleet, name="cpu6", partition=p,
-                          seeds=range(8)) for p in ("iid", "noniid")]
-    res = Experiment(data, test, specs).run(periods=100)
-    res.sel(partition="noniid").speed(0.6)
+    study = grid(ScenarioSpec(fleet=fleet, name="cpu6", seeds=range(8)),
+                 policy=("proposed", "online", "full"),
+                 **{"cell.radius_m": [100.0, 200.0, 400.0]})
+    res = Experiment(data, test, study).run(periods=100,
+                                            executor=AsyncExecutor())
+    res.sel(policy="proposed", cell_radius_m=200.0).speed(0.6)
 
 ``run`` lowers the whole grid through ``api.lowering``: rows (spec ×
 seed) are deduplicated and grouped into shape-compatible buckets, each
 running as ONE batched device loop over its (scenario × seed) rows.
+*How* buckets are scheduled is the executor's policy (``api.executor``):
+serial, pipelined or on a one-device mesh, all bitwise equal in results.
 ``stream`` yields cumulative partial ``Results`` as each bucket
-collects.
+collects.  ``specs`` may be a :class:`~repro_torch.api.study.Study`: its
+swept axes then surface as extra ``Results`` coordinates.
 
 The experiment runs on the GPU: ``device=None`` resolves to ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
@@ -27,7 +32,7 @@ import torch
 
 from repro_torch.api.executor import Executor, SerialExecutor
 from repro_torch.api.lowering import Bucket, DeviceData, group_rows
-from repro_torch.api.results import (Results, ResultsBuilder,
+from repro_torch.api.results import (COORD_NAMES, Results, ResultsBuilder,
                                      assign_row_coords, empty_coords)
 from repro_torch.api.spec import ScenarioSpec
 from repro_torch.data.pipeline import ClassificationData
@@ -100,9 +105,19 @@ class Experiment:
         return sum(len(r.indices) for b in buckets for r in b.rows)
 
     def _coords(self, buckets: Sequence[Bucket]):
-        coords = empty_coords(self._n_rows(buckets))
+        """Per-output-row coordinate columns: the standard labels plus, for
+        Study specs, one column per swept axis (``axis_coords``)."""
+        n_rows = self._n_rows(buckets)
+        axis_coords = getattr(self.specs, "axis_coords", None)
+        extra = [n for n in getattr(self.specs, "coord_names", ())
+                 if n not in COORD_NAMES] if axis_coords else []
+        coords = empty_coords(n_rows, extra=extra)
         for bucket in buckets:
             for row in bucket.rows:
+                axes = axis_coords(row.spec) if axis_coords else {}
                 for i in row.indices:
                     assign_row_coords(coords, i, row.spec, row.seed)
+                    for name in extra:
+                        if name in axes:
+                            coords[name][i] = axes[name]
         return coords

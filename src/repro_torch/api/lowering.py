@@ -28,10 +28,13 @@ a per-row ``active`` mask keeps padded users out of every reduction.
 :class:`BucketRun` runs the same phases per chunk of ``chunk`` periods,
 carrying the planner's rng streams and time offsets and the engine's
 :class:`~repro_torch.fed.engine.EngineState` between chunks; a chunked run
-is bitwise equal to the monolithic one.
+is bitwise equal to the monolithic one.  Its planning step touches no
+torch, so a pipelined executor plans the next chunk while the card still
+runs what the current one enqueued.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field, replace
 from functools import cached_property
@@ -292,28 +295,44 @@ class BucketRun:
     ``chunk``-period pieces, each planned (host), dispatched (device, with
     the engine carry threaded through) and collected in turn.
 
-    :meth:`advance` plans and dispatches the next chunk without waiting
-    for the device, so the host plans chunk *c+1* while the device runs
-    chunk *c*; :meth:`collect` waits for the oldest chunk in flight.  Any
-    chunk size, and any interleaving of the two, is bitwise equal to the
-    monolithic three-phase path."""
+    * :meth:`plan_next` plans the next chunk: host work only (numpy, no
+      torch call), so an executor may run it off the caller's thread — one
+      thread at a time, in chunk order, which consumes every rng stream
+      exactly as a serial run does.  The planner itself is built at the
+      first plan.
+    * :meth:`dispatch` enqueues a planned chunk on the caller's thread
+      without waiting for the device; chunks are dispatched in the order
+      they were planned.
+    * :meth:`advance` is the two in one; :meth:`collect` waits for the
+      oldest chunk in flight.
+
+    ``seconds`` sums the host clock spent in each of the three.
+
+    Any chunk size, and any interleaving of the three, is bitwise equal to
+    the monolithic three-phase path."""
     bucket: Bucket
     data: object
     periods: int
     chunk: int
     arrays: DeviceData
     planned: int = 0
+    dispatched: int = 0
     collected: int = 0
     _planner: object = None
     _state: object = None
     _pending: deque = field(default_factory=deque)
     _chunks: list = field(default_factory=list)
+    seconds: dict = field(default_factory=lambda: dict.fromkeys(
+        ("plan", "dispatch", "collect"), 0.0))
 
     def __post_init__(self):
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         self.chunk = min(self.chunk, self.periods)
-        self._planner = _FeelPlanner(self.bucket, self.data)
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.periods // self.chunk)
 
     @property
     def done(self) -> bool:
@@ -321,28 +340,57 @@ class BucketRun:
 
     @property
     def can_advance(self) -> bool:
-        return self.planned < self.periods
+        """Whether a next chunk is left to plan and dispatch."""
+        return self.dispatched < self.periods
+
+    def plan_next(self) -> BucketPlan:
+        """Plan the next chunk (host only)."""
+        if self.planned >= self.periods:
+            raise RuntimeError("cannot plan: horizon fully planned")
+        t0 = time.perf_counter()
+        if self._planner is None:
+            self._planner = _FeelPlanner(self.bucket, self.data)
+        p_c = min(self.chunk, self.periods - self.planned)
+        plan = self._planner.plan(p_c)
+        self.planned += p_c
+        self.seconds["plan"] += time.perf_counter() - t0
+        return plan
+
+    def dispatch(self, plan: BucketPlan) -> None:
+        """Enqueue a planned chunk's device loop (async on CUDA), resuming
+        the previous chunk's engine carry."""
+        if self.dispatched >= self.planned:
+            raise RuntimeError("no planned chunk awaits dispatch")
+        t0 = time.perf_counter()
+        handle = dispatch_bucket(plan, self.arrays, state=self._state)
+        # the carry lives on in the next chunk; a handle in flight keeps
+        # only its series
+        self._state, handle.state = handle.state, None
+        p_c = plan.times.shape[1]
+        self._pending.append((p_c, handle))
+        self.dispatched += p_c
+        self.seconds["dispatch"] += time.perf_counter() - t0
 
     def advance(self) -> None:
         """Plan and dispatch the next chunk (host work + async enqueue)."""
         if not self.can_advance:
             raise RuntimeError("cannot advance: horizon fully dispatched")
-        p_c = min(self.chunk, self.periods - self.planned)
-        handle = dispatch_bucket(self._planner.plan(p_c), self.arrays,
-                                 state=self._state)
-        self.planned += p_c
-        self._state = handle.state
-        self._pending.append((p_c, handle))
+        if self.planned != self.dispatched:
+            raise RuntimeError("cannot advance: a planned chunk awaits "
+                               "dispatch")
+        self.dispatch(self.plan_next())
 
     def collect(self) -> tuple:
         """Wait for the oldest chunk in flight and bank its host series;
         returns that chunk's ``(losses, accs, times, global_batch)``."""
         if not self._pending:
             raise RuntimeError("no chunk in flight to collect")
+        t0 = time.perf_counter()
         p_c, handle = self._pending.popleft()
         chunk = collect_bucket(handle)
         self._chunks.append(chunk)
         self.collected += p_c
+        self.seconds["collect"] += time.perf_counter() - t0
         return chunk
 
     def result(self):
@@ -358,5 +406,14 @@ class BucketRun:
         """Strictly plan → dispatch → collect one chunk at a time."""
         while not self.done:
             self.advance()
+            self.collect()
+        return self.result()
+
+    def drain(self):
+        """Finish the bucket with maximal plan-ahead: dispatch every chunk
+        left, then collect.  Returns :meth:`result`."""
+        while not self.done:
+            while self.can_advance:
+                self.advance()
             self.collect()
         return self.result()

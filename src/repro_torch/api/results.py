@@ -17,6 +17,13 @@ differing only in, say, ``base_lr`` or ``b_max`` share every label.  The
 isolates exactly one scenario's seed rows, and :meth:`Results.cells`
 groups by it (never merging distinct scenarios, whatever their labels).
 
+Experiments built from a :func:`repro_torch.api.study.grid` additionally
+carry one coordinate per swept axis (dotted geometry axes sanitized:
+``cell.radius_m`` → ``cell_radius_m``; the fleet-size axis ``users``
+surfaces as ``num_users``), so ``res.sel(cell_radius_m=200.0)`` selects an
+operating point without any string parsing, and :meth:`Results.unique`
+walks an axis in declaration order.
+
 :class:`ResultsBuilder` assembles a ``Results`` incrementally from
 per-bucket chunks as executors collect them — there is no preallocated
 full block, and :meth:`ResultsBuilder.partial` exposes the rows collected

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 from repro_torch.channels.model import CellConfig
 from repro_torch.core.latency import DeviceProfile
-from repro_torch.core.scheduler import POLICIES
+from repro_torch.core.baselines import POLICIES
 
 SCHEMES = ("feel", "gradient_fl", "model_fl", "individual")
 MODEL_FAMILIES = ("feel_mlp", "transformer", "mamba2")
@@ -73,7 +73,8 @@ class ScenarioSpec:
         if self.partition not in ("iid", "noniid"):
             raise ValueError(f"partition {self.partition!r}")
         if self.policy not in POLICIES:
-            raise ValueError(f"policy {self.policy!r} not in {POLICIES}")
+            raise ValueError(
+                f"policy {self.policy!r} not in {tuple(POLICIES)}")
         if not self.seeds:
             raise ValueError("seeds must be non-empty")
         if self.model_family not in MODEL_FAMILIES:

@@ -31,6 +31,14 @@ def path_loss_db(dist_km: np.ndarray) -> np.ndarray:
     return 128.1 + 37.6 * np.log10(np.maximum(dist_km, 1e-4))
 
 
+def wired_latency(bits: float, rate_bps: float) -> float:
+    """Deterministic wired-link transfer time (the edge→cloud backhaul of
+    a hierarchy: no fading, hence no Monte-Carlo stream)."""
+    if rate_bps <= 0:
+        raise ValueError(f"wired rate must be positive, got {rate_bps!r}")
+    return float(bits) / float(rate_bps)
+
+
 @dataclass
 class Cell:
     cfg: CellConfig
@@ -45,11 +53,26 @@ class Cell:
         r = self.cfg.radius_m * np.sqrt(self.rng.uniform(size=k))
         return np.maximum(r, 1.0) / 1000.0
 
+    def avg_rate(self, dist_km: np.ndarray) -> np.ndarray:
+        """eqs. (5)/(6) via Monte-Carlo over Rayleigh fading: one
+        ``(S, K)`` draw, bits/s per user."""
+        c = self.cfg
+        pl = path_loss_db(dist_km)                          # (K,)
+        p_rx_dbm = c.tx_power_dbm - pl                      # mean rx power
+        noise_dbm = c.noise_dbm_per_hz + 10 * np.log10(c.bandwidth_hz)
+        snr_lin = 10 ** ((p_rx_dbm - noise_dbm) / 10)       # (K,)
+        h2 = self.rng.exponential(size=(c.fading_samples, len(dist_km)))
+        rate = c.bandwidth_hz * np.mean(np.log2(1 + snr_lin[None, :] * h2),
+                                        axis=0)
+        return rate                                          # bits/s
+
     def avg_rate_updown_rows(self, dist_km: np.ndarray, periods: int,
                              pad_to: int | None = None):
-        """``periods`` consecutive (uplink, downlink) rate draws, eqs.
-        (5)/(6) by Monte-Carlo over Rayleigh fading, in ONE rng
-        consumption: one ``(P, 2, S, K)`` exponential draw.
+        """``periods`` consecutive (uplink, downlink) rate draws in ONE rng
+        consumption: one ``(P, 2, S, K)`` exponential draw consumes the
+        stream exactly like the per-period loop ``up = avg_rate(d); down =
+        avg_rate(d)``, since ``Generator`` fills arrays variate by variate
+        in C order.
 
         ``pad_to`` appends padded-user columns for the ragged-fleet
         lowering: the K active users draw exactly as without padding (the
@@ -72,3 +95,10 @@ class Cell:
             up = np.concatenate([up, fill], axis=1)
             down = np.concatenate([down, fill], axis=1)
         return up, down
+
+    def sample_rates(self, k: int):
+        """Drop K users, return (dist_km, uplink rates, downlink rates)."""
+        d = self.drop_users(k)
+        up = self.avg_rate(d)
+        down = self.avg_rate(d)
+        return d, up, down

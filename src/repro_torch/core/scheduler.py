@@ -6,11 +6,18 @@ simulated latency ledger.  Baseline policies are drop-in replacements via
 ``policy=``.
 
 A copy of the reference's static-world planner: :class:`FeelScheduler`
-(``plan_horizon`` for the proposed and the fixed-batch policies) and
-:func:`plan_horizons_batch`, consuming the same rng streams in the same
-order with the same arithmetic, so every horizon is bitwise the
-reference's.  Participation sampling, hierarchies, fading, faults, energy
-budgets and closed-loop re-planning are not part of this port yet.
+(``plan`` for one period through the ``core.baselines`` policies,
+``plan_horizon`` for a whole horizon of the proposed or a fixed-batch
+policy) and :func:`plan_horizons_batch`, consuming the same rng streams
+in the same order with the same arithmetic, so every plan is bitwise the
+reference's.  ``plan`` draws each period's rates with two
+``Cell.avg_rate`` calls (uplink, then downlink) and ``plan_horizon`` a
+horizon's with one ``avg_rate_updown_rows`` draw, which consume the cell's
+stream alike; but the proposed policy searches B* by golden section in
+``plan`` and on an integer grid in ``plan_horizon``, and both carry it in
+``_b_cache``, so one scheduler serves one of the two paths.
+Participation sampling, hierarchies, fading, faults, energy budgets and
+closed-loop re-planning are not part of this port yet.
 """
 from __future__ import annotations
 
@@ -21,14 +28,24 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from repro_torch.channels.model import Cell, CellConfig
+from repro_torch.core.baselines import POLICIES
 from repro_torch.core.efficiency import XiEstimator, lr_scale
 from repro_torch.core.latency import DeviceProfile, gradient_bits
 from repro_torch.core.solver import (FleetRows, fixed_slot_rows,
                                      optimize_batch_rows, solve_period_rows)
 
-# batchsize policies (paper §VI-C): Algorithm 1, and the three
-# allocation-unaware baselines with equal TDMA slots
-POLICIES = ("online", "full", "random", "proposed")
+
+@dataclass(frozen=True)
+class PeriodPlan:
+    period: int
+    batch: np.ndarray            # B_k per device (int)
+    tau_up: np.ndarray
+    tau_down: np.ndarray
+    lr: float
+    predicted_latency: float     # seconds (simulated wall-clock)
+    global_batch: int
+    rates_up: np.ndarray
+    rates_down: np.ndarray
 
 
 @dataclass(frozen=True)
@@ -69,7 +86,8 @@ class FeelScheduler:
 
     def __post_init__(self):
         if self.policy not in POLICIES:
-            raise ValueError(f"policy {self.policy!r} not in {POLICIES}")
+            raise ValueError(
+                f"policy {self.policy!r} not in {tuple(POLICIES)}")
         if self.cell is None:
             self.cell = Cell.make(self.seed, self.cell_cfg)
         self.rng = np.random.default_rng(self.seed + 1)
@@ -168,6 +186,34 @@ class FeelScheduler:
             lr=np.array([lr_scale(self.base_lr, g, self.ref_batch)
                          for g in gb], np.float64),
             latency=sol["latency"], global_batch=gb.astype(np.int64))
+
+    def plan(self) -> PeriodPlan:
+        """Plan one period: draw the uplink then the downlink rates, solve
+        with the policy (the proposed policy re-optimizes B* on the
+        ``reopt_every`` cadence and carries it in between)."""
+        c = self.cell.cfg
+        rates_up = self.cell.avg_rate(self._dist_km)
+        rates_down = self.cell.avg_rate(self._dist_km)
+        kw = dict(rng=self.rng)
+        if self.policy == "proposed":
+            kw["xi"] = self.xi_est.xi
+            if self._b_cache is not None and self._period % self.reopt_every:
+                kw["B"] = self._b_cache
+        res = POLICIES[self.policy](
+            self.devices, rates_up, rates_down, self.payload_bits,
+            c.frame_up_s, c.frame_down_s, self.b_max, **kw)
+        if self.policy == "proposed":
+            self._b_cache = res.global_batch
+        batch = np.maximum(np.round(res.batch).astype(int), 1)
+        gb = int(batch.sum())
+        plan = PeriodPlan(
+            period=self._period, batch=batch, tau_up=res.tau_up,
+            tau_down=res.tau_down,
+            lr=lr_scale(self.base_lr, gb, self.ref_batch),
+            predicted_latency=res.latency, global_batch=gb,
+            rates_up=rates_up, rates_down=rates_down)
+        self._period += 1
+        return plan
 
 
 def plan_horizons_batch(schedulers: Sequence[FeelScheduler],

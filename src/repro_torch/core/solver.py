@@ -1,5 +1,5 @@
-"""Joint batchsize selection + communication resource allocation, the
-lockstep rows form of the paper's Algorithm 1.
+"""Joint batchsize selection + communication resource allocation: the
+paper's Algorithm 1 per period, and its lockstep rows form.
 
 Unified affine latency ``t^L_k = a_k + b_k·B_k`` covers both the CPU and
 the GPU device scenario; the KKT system of Appendix A then gives
@@ -8,23 +8,223 @@ the GPU device scenario; the KKT system of Appendix A then gives
     B_k*  = clip[(ΔL·E^U − a_k − sqrt(ΔL·s·T_f·μ/(ρ'_k·R_k))) / b_k]
     τ_k*  = (s/R_k) / (ΔL·E^U − a_k − b_k·B_k*) · T_f
 
-(Theorem 1 when a=0, b=1/V_k).  The functions below run Algorithm 1's
-two-dimensional bisection over (E^U*, μ*) and Theorem 2's downlink
-bisection for M independent periods ("rows") at once, with fixed
-iteration counts.
+(Theorem 1 when a=0, b=1/V_k).  The scalar functions implement Theorem
+1's and Theorem 2's closed forms, Corollary 1's and 2's bounds, Algorithm
+1's two-dimensional bisection over (E^U*, μ*) (:func:`solve_uplink`),
+Theorem 2's downlink bisection (:func:`solve_downlink`) and the outer
+golden-section search over the global batch B (:func:`solve_period`).
+The ``*_rows`` functions run the same bisections for M independent
+periods ("rows") at once, with fixed iteration counts.
 
-A copy of the reference's rows solver: the same operations in the same
-order, so every plan is bitwise the reference's.
+A copy of the reference's solver: the same operations in the same order,
+so every plan is bitwise the reference's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core.latency import (DeviceProfile, downlink_latency,
-                                      uplink_latency)
+                                      period_latency, uplink_latency)
+
+
+@dataclass(frozen=True)
+class UplinkSolution:
+    batch: np.ndarray          # B_k*
+    tau: np.ndarray            # τ_k^U*  (seconds of each frame)
+    e_up: float                # E^U* = max_k (t^L+t^U)/ΔL  (reciprocal eff.)
+    mu: float
+
+
+@dataclass(frozen=True)
+class DownlinkSolution:
+    tau: np.ndarray
+    e_down: float
+
+
+@dataclass(frozen=True)
+class PeriodSolution:
+    global_batch: float
+    batch: np.ndarray
+    tau_up: np.ndarray
+    tau_down: np.ndarray
+    latency: float             # predicted T (s)
+    efficiency: float          # predicted E = ΔL/T
+    e_up: float
+    e_down: float
+
+
+def _affine(devices: Sequence[DeviceProfile]):
+    ab = np.array([d.affine() for d in devices])
+    return ab[:, 0], ab[:, 1]
+
+
+def _rho_prime(b: np.ndarray) -> np.ndarray:
+    inv = 1.0 / b
+    return inv / inv.sum()
+
+
+# ---------------------------------------------------------------------------
+# Theorem 1 closed forms
+# ---------------------------------------------------------------------------
+
+
+def batch_closed_form(e_up, mu, devices, rates, s_bits, frame, dl,
+                      b_max: int) -> np.ndarray:
+    """Theorem 1, first line (affine-generalized)."""
+    a, b = _affine(devices)
+    rho = _rho_prime(b)
+    lo = np.array([d.batch_lo() for d in devices], float)
+    raw = (dl * e_up - a - np.sqrt(dl * s_bits * frame * mu / (rho * rates))) / b
+    return np.clip(raw, lo, b_max)
+
+
+def tau_closed_form(e_up, mu, devices, rates, s_bits, frame, dl,
+                    b_max: int) -> np.ndarray:
+    """Theorem 1, second line: slots making every device finish at ΔL·E^U."""
+    a, b = _affine(devices)
+    bt = batch_closed_form(e_up, mu, devices, rates, s_bits, frame, dl, b_max)
+    denom = dl * e_up - a - b * bt
+    return np.where(denom > 0,
+                    s_bits / rates / np.maximum(denom, 1e-30) * frame,
+                    np.inf)
+
+
+# ---------------------------------------------------------------------------
+# Corollary 1 / 2 bounds
+# ---------------------------------------------------------------------------
+
+
+def e_up_bounds(B, devices, rates, s_bits, frame, dl):
+    """Corollary 1 (affine-generalized).
+
+    Lower: infinite-memory KKT point.  Upper: equal-share allocation.
+    """
+    a, b = _affine(devices)
+    K = len(devices)
+    rho = _rho_prime(b)
+    # lower bound: relax batch bounds; E = (Σ-weighted local + comm) / ΔL
+    t_comp = (B / (1.0 / b).sum()) + float(np.dot(rho, a))
+    t_comm = s_bits * (np.sqrt(rho / rates).sum()) ** 2
+    lo = (t_comp + t_comm) / dl
+    # upper bound: B_k = B/K, τ_k = T_f/K
+    hi = np.max(a + b * (B / K) + K * s_bits / rates) / dl
+    return max(lo, 1e-12), max(hi * 1.0000001, lo * 1.001)
+
+
+def mu_bounds(e_up, devices, rates, s_bits, frame, dl, b_max):
+    """Corollary 2 (affine-generalized)."""
+    a, b = _affine(devices)
+    rho = _rho_prime(b)
+    lo_k = np.array([d.batch_lo() for d in devices], float)
+    up = (dl * e_up - a - b * lo_k)
+    dn = (dl * e_up - a - b * b_max)
+    mu_hi = np.max(np.maximum(up, 0.0) ** 2 * rho * rates / (dl * s_bits * frame))
+    mu_lo = np.min(np.maximum(dn, 0.0) ** 2 * rho * rates / (dl * s_bits * frame))
+    return mu_lo, max(mu_hi, mu_lo + 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 1: two-dimensional search
+# ---------------------------------------------------------------------------
+
+
+def solve_uplink(devices: Sequence[DeviceProfile], rates: np.ndarray,
+                 s_bits: float, frame: float, B: float, dl: float,
+                 b_max: int, tol: float = 1e-9,
+                 iters: int = 200) -> UplinkSolution:
+    """Subproblem 𝒫₂ for fixed global batch B (Algorithm 1).
+
+    Inner bisection: μ ↦ ΣB_k(E,μ) is decreasing; find μ with ΣB_k = B.
+    Outer bisection: E ↦ Στ_k(E, μ(E)) is decreasing; find E with Στ = T_f.
+    """
+    rates = np.asarray(rates, float)
+    a, b = _affine(devices)
+
+    def batches(e_up, mu):
+        return batch_closed_form(e_up, mu, devices, rates, s_bits, frame, dl,
+                                 b_max)
+
+    def mu_for(e_up):
+        m_lo, m_hi = mu_bounds(e_up, devices, rates, s_bits, frame, dl, b_max)
+        m_lo = max(m_lo * 0.5, 0.0)
+        m_hi = max(m_hi * 2.0, 1e-30)
+        # ΣB_k decreasing in μ
+        for _ in range(iters):
+            m = 0.5 * (m_lo + m_hi)
+            if batches(e_up, m).sum() > B:
+                m_lo = m
+            else:
+                m_hi = m
+            if m_hi - m_lo < tol * max(m_hi, 1.0):
+                break
+        return 0.5 * (m_lo + m_hi)
+
+    def tau_sum(e_up):
+        mu = mu_for(e_up)
+        bt = batches(e_up, mu)
+        denom = dl * e_up - a - b * bt
+        tau = np.where(denom > 1e-30, s_bits / rates / denom * frame, np.inf)
+        return tau.sum(), mu, bt, tau
+
+    e_lo, e_hi = e_up_bounds(B, devices, rates, s_bits, frame, dl)
+    # ensure bracketing: Στ(e_lo) >= T_f >= Στ(e_hi)
+    for _ in range(60):
+        if tau_sum(e_hi)[0] <= frame:
+            break
+        e_hi *= 2.0
+    for _ in range(iters):
+        e_m = 0.5 * (e_lo + e_hi)
+        ts, mu, bt, tau = tau_sum(e_m)
+        if ts >= frame:
+            e_lo = e_m
+        else:
+            e_hi = e_m
+        if (e_hi - e_lo) < tol * e_hi:
+            break
+    e_star = e_hi
+    ts, mu, bt, tau = tau_sum(e_star)
+    # normalize slots onto the frame (numerical slack)
+    if np.isfinite(tau).all() and tau.sum() > 0:
+        tau = tau * (frame / tau.sum())
+    return UplinkSolution(batch=bt, tau=tau, e_up=float(e_star), mu=float(mu))
+
+
+def solve_downlink(devices: Sequence[DeviceProfile], rates: np.ndarray,
+                   s_bits: float, frame: float, dl: float,
+                   tol: float = 1e-9, iters: int = 200) -> DownlinkSolution:
+    """Subproblem 𝒫₃ / Theorem 2: τ_k^D = (s/R)/(ΔL·E^D − t^M) with Στ = T_f."""
+    rates = np.asarray(rates, float)
+    t_up = np.array([d.update_latency() for d in devices])
+
+    def tau_sum(e_d):
+        denom = dl * e_d - t_up
+        tau = np.where(denom > 1e-30, s_bits / rates / denom * frame, np.inf)
+        return tau, tau.sum()
+
+    e_lo = float(np.max(t_up) / dl) * (1 + 1e-12)
+    e_hi = float(np.max(t_up + len(devices) * s_bits / rates) / dl) + 1e-12
+    while tau_sum(e_hi)[1] > frame:
+        e_hi *= 2.0
+    for _ in range(iters):
+        e_m = 0.5 * (e_lo + e_hi)
+        if tau_sum(e_m)[1] >= frame:
+            e_lo = e_m
+        else:
+            e_hi = e_m
+        if (e_hi - e_lo) < tol * e_hi:
+            break
+    tau, _ = tau_sum(e_hi)
+    if np.isfinite(tau).all() and tau.sum() > 0:
+        tau = tau * (frame / tau.sum())
+    return DownlinkSolution(tau=tau, e_down=float(e_hi))
+
+
+# ---------------------------------------------------------------------------
+# Lockstep rows form: the same bisections for M independent periods at once
+# ---------------------------------------------------------------------------
 
 
 def _profile_cols(devices: Sequence[DeviceProfile]) -> np.ndarray:
@@ -121,6 +321,17 @@ class FleetRows:
     def take(self, idx) -> "FleetRows":
         """Row subset (boolean or integer index along axis 0)."""
         return self._map(lambda x: np.asarray(x)[idx])
+
+    def with_mask(self, mask: np.ndarray) -> "FleetRows":
+        """Compose a further activity mask (per-round participation, cell
+        membership) onto this one.  Multiplicative, so a participation
+        mask can never resurrect a padded column, and an all-ones mask is
+        a bitwise no-op (``mask * 1.0 == mask``)."""
+        extra = np.broadcast_to(np.asarray(mask, float),
+                                self.mask.shape)
+        return FleetRows(**{f: getattr(self, f) for f in (
+            "a", "b", "lo", "t_upd", "is_cpu", "cps", "f_cpu",
+            "g_t_low", "g_slope", "g_b_th")}, mask=self.mask * extra)
 
     # ---- masked reductions / per-element latency --------------------------
     def mmax(self, x: np.ndarray) -> np.ndarray:
@@ -369,3 +580,58 @@ def optimize_batch_rows(devices,
     obj = sol["e_total"].reshape(M, C)
     best = np.argmin(obj, axis=1)
     return cand[np.arange(M), best]
+
+
+# ---------------------------------------------------------------------------
+# Outer problem: optimize the global batchsize B (𝒫₁)
+# ---------------------------------------------------------------------------
+
+
+def solve_period(devices: Sequence[DeviceProfile],
+                 rates_up: np.ndarray, rates_down: np.ndarray,
+                 s_bits: float, frame_up: float, frame_down: float,
+                 xi: float, b_max: int,
+                 B: Optional[float] = None) -> PeriodSolution:
+    """Full 𝒫₁: golden-section over B of  E^U*(B) + E^D*(B)  (= T/ΔL)."""
+    K = len(devices)
+
+    def objective(Bv):
+        dl = xi * np.sqrt(Bv)
+        up = solve_uplink(devices, rates_up, s_bits, frame_up, Bv, dl, b_max)
+        down = solve_downlink(devices, rates_down, s_bits, frame_down, dl)
+        return up.e_up + down.e_down, up, down
+
+    if B is None:
+        lo = float(sum(d.batch_lo() for d in devices))
+        hi = float(K * b_max)
+        phi = (np.sqrt(5) - 1) / 2
+        x1 = hi - phi * (hi - lo)
+        x2 = lo + phi * (hi - lo)
+        f1, f2 = objective(x1)[0], objective(x2)[0]
+        for _ in range(60):
+            if f1 <= f2:
+                hi, x2, f2 = x2, x1, f1
+                x1 = hi - phi * (hi - lo)
+                f1 = objective(x1)[0]
+            else:
+                lo, x1, f1 = x1, x2, f2
+                x2 = lo + phi * (hi - lo)
+                f2 = objective(x2)[0]
+            if hi - lo < 1.0:
+                break
+        B = round(0.5 * (lo + hi))
+
+    total, up, down = objective(float(B))
+    dl = xi * np.sqrt(B)
+    # predicted wall latency: both subperiods at their equalized finish times
+    t_local = np.array([d.local_grad_latency(bk) for d, bk
+                        in zip(devices, up.batch)])
+    t_up = s_bits * frame_up / (np.maximum(up.tau, 1e-30) * rates_up)
+    t_upd = np.array([d.update_latency() for d in devices])
+    t_down = s_bits * frame_down / (np.maximum(down.tau, 1e-30) * rates_down)
+    T = period_latency(t_local, t_up, t_down, t_upd)
+    return PeriodSolution(
+        global_batch=float(B), batch=up.batch, tau_up=up.tau,
+        tau_down=down.tau, latency=T,
+        efficiency=float(dl / T) if T > 0 else 0.0,
+        e_up=up.e_up, e_down=down.e_down)

@@ -1,2 +1,3 @@
 """Launch drivers (port of the reference's ``launch``): ``serve``, the
-batched token-decode driver."""
+batched token-decode driver, and ``mesh``, the sweep-batch mesh of the
+experiment executors."""

@@ -42,7 +42,8 @@ print(len(names), bad)
 
 def test_port_sources_and_chip_smoke_name_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+              ROOT / "executor_ab.py"]
     assert len(files) > 20
     offenders = [(str(f.relative_to(ROOT)), m.group(0).strip())
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]

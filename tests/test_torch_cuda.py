@@ -43,14 +43,19 @@ run, also at the runs' seams (pos 31, 32, 33 and runs left empty);
 one call puts one kernel on the card and allocates nothing but its
 output, and no instance spills; the decode driver on the card matches
 its CPU path (1e-4 in log-softmax) and runs every attention layer
-through the kernel."""
+through the kernel.  ``AsyncExecutor`` (capped or not, chunked or not)
+and ``MeshExecutor`` on the card equal ``SerialExecutor`` bitwise on a
+two-bucket grid, launching the SBC pair as often, and a planning error
+stops the run and reaches the caller."""
 import itertools
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import Experiment, ScenarioSpec, SerialExecutor
+from repro_torch.api import (AsyncExecutor, Experiment, MeshExecutor,
+                             ScenarioSpec, SerialExecutor, grid)
+from repro_torch.api import lowering
 from repro_torch.compression import sbc as csbc
 from repro_torch.core.latency import DeviceProfile
 from repro_torch.data.pipeline import ClassificationData
@@ -154,6 +159,54 @@ def test_chunked_run_equals_monolithic_bitwise_on_the_card(cuda):
     for f in ("losses", "accs", "times", "global_batch"):
         np.testing.assert_array_equal(getattr(chunked, f), getattr(mono, f))
 
+
+
+def _two_bucket_grid():
+    data, test = ClassificationData.synthetic(n=600, dim=64,
+                                              spread=6.0).split(100)
+    fleet = tuple(DeviceProfile(kind="cpu", f_cpu=f * 1e9)
+                  for f in (0.7, 1.4, 2.1, 0.7))
+    study = grid(ScenarioSpec(fleet=fleet, hidden=32, b_max=16,
+                              seeds=(0, 1)),
+                 policy=["online", "full", "random", "proposed"],
+                 compression=[0.02, 0.05], partition=["iid", "noniid"])
+    return data, test, study
+
+
+@pytest.mark.parametrize("executor", [
+    AsyncExecutor(), AsyncExecutor(chunk_periods=2),
+    AsyncExecutor(max_in_flight=1, chunk_periods=2), MeshExecutor()],
+    ids=["async", "async-chunk2", "async-cap1-chunk2", "mesh"])
+def test_executors_equal_serial_bitwise_on_the_card(cuda, executor):
+    data, test, study = _two_bucket_grid()
+    exp = Experiment(data, test, study, device=cuda)
+    assert [len(b.rows) for b in exp.lower()] == [16, 16]
+    serial = exp.run(5, executor=SerialExecutor())
+    before = (ksbc.sbc_stats.launches, ksbc.sbc_apply.launches)
+    got = exp.run(5, executor=executor)
+    assert (ksbc.sbc_stats.launches - before[0],
+            ksbc.sbc_apply.launches - before[1]) == (6 * 5 * 2, 6 * 5 * 2)
+    for f in ("losses", "accs", "times", "global_batch"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(serial, f))
+
+
+def test_planning_exception_reaches_the_caller_on_the_card(cuda,
+                                                           monkeypatch):
+    data, test, study = _two_bucket_grid()
+    plan = lowering._FeelPlanner.plan
+    calls = []
+
+    def failing_plan(self, periods):
+        calls.append(periods)
+        if len(calls) == 2:
+            raise FloatingPointError("planner failed")
+        return plan(self, periods)
+
+    monkeypatch.setattr(lowering._FeelPlanner, "plan", failing_plan)
+    with pytest.raises(FloatingPointError, match="planner failed"):
+        Experiment(data, test, study, device=cuda).run(
+            4, executor=AsyncExecutor(chunk_periods=2))
+    assert calls == [2, 2]
 
 # ---------------------------------------------------------------------------
 # flash attention: forward at 2e-5 (bf16 2e-2), backward at 1e-4 against
