@@ -49,13 +49,26 @@ those paths against its plain PyTorch version on the card:
      partitions x 2 seeds: 32 rows in two buckets) under the serial,
      async (plain, chunked, capped) and mesh executors, each run bitwise
      the serial one, with its launch counts, wall and planning split;
+     4f. the main cell in the dynamic worlds: bucket 1 (static,
+     ``Sampling(size=6)``, weighted, ``Faults``, an ``EnergyBudget`` that
+     binds; 20 rows) and bucket 2 (``Fading`` with sampling and faults; 4
+     rows), 20 periods each, with the budget's shed and dropped counts,
+     the planning cost of the solo-planned dynamic schedulers against the
+     fused ones, each bucket's launch counts, wall, planning split and
+     peak memory, and the bitwise pins on the card (identity dynamics ==
+     static, full cohort == unsampled, chunked == monolithic, a poisoned
+     sampled-out column changes nothing);
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
      its solo twin; 5b. the same for the transformer, 5c. for mamba2;
      5d. decode at the reduced configs (and a window of 8) over 12
      tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
-     port's full-sequence forward on the card (2e-3);
+     port's full-sequence forward on the card (2e-3); 5e. the dynamic
+     worlds, card vs CPU path: one feel-mlp row each of sampling,
+     weighted sampling, fading with faults and the budget, and a
+     weighted-sampled transformer row (through B4, B4′ and B4″), 3
+     periods: ledgers bitwise, losses 1e-4;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -187,6 +200,16 @@ D_SEAMS = [D_SHAPE + (31, None), D_SHAPE + (32, None), D_SHAPE + (33, None),
            (2, 40, 8, 2, 64, 39, None)]
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 SOURCES = ("sbc", "flash_attention", "ssd_scan", "flash_decode")
+# the dynamic-worlds cell (phase 4f): the main cell's model, data and
+# fleet, seeds (0, 1), iid and noniid, under five value-only worlds (one
+# bucket of 20 rows) and under fading with sampling and faults (one
+# bucket of 4: the chain's state count is structural).  The budget, in J
+# a user a period at the default 1 W compute and 1 W radio, binds on the
+# Table-II fleet: it sheds and drops (user, period) pairs and empties no
+# period (the plan's own counts are printed and checked)
+F_BUDGET_J = 0.5
+F_SEEDS = (0, 1)
+F_PIN_PERIODS = 5
 
 
 class _Log:
@@ -1005,7 +1028,7 @@ def decode_profile(torch, tm, get_arch, make_serve_step):
 
 
 Env = namedtuple("Env", "torch np Experiment ScenarioSpec SerialExecutor "
-                        "DeviceProfile lowering data test")
+                        "DeviceProfile lowering data test engine tree_leaves")
 
 
 def family_cell(env, tag, family, rows, periods, per_period, counted):
@@ -1253,6 +1276,301 @@ def family_contracts(env, tag, family, specs):
             "padded_vs_solo_loss_max_abs_err": pad_err}
 
 
+def dynamic_worlds(api):
+    """Phase 4f's worlds: bucket 1's five value-only ones and bucket 2's
+    fading world, each as a label and the spec fields that make it."""
+    faults = api.Faults(slow_prob=0.1, slow_factor=4.0, drop_prob=0.1)
+    bucket1 = {
+        "static": {},
+        "Sampling(size=6)": {"sampling": api.Sampling(size=6)},
+        "Sampling(size=6, weighted=True)": {
+            "sampling": api.Sampling(size=6, weighted=True)},
+        "Faults(0.1, x4, drop 0.1)": {"faults": faults},
+        f"EnergyBudget({F_BUDGET_J} J)": {
+            "energy": api.EnergyBudget(budget_j=F_BUDGET_J)}}
+    bucket2 = {"Fading(3, 0.6, 0.9) + Sampling(size=6) + Faults": {
+        "fading": api.Fading(states=3, spread=0.6, stickiness=0.9),
+        "sampling": api.Sampling(size=6), "faults": faults}}
+    return bucket1, bucket2
+
+
+def world_specs(env, worlds, partitions=("iid", "noniid"), seeds=F_SEEDS,
+                **kw):
+    """The main cell's spec in each world, each partition."""
+    kw = dict(dict(b_max=128, base_lr=0.05), **kw)
+    return [env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES),
+                             name="K12", partition=p, seeds=seeds,
+                             **fields, **kw)
+            for fields in worlds.values() for p in partitions]
+
+
+def budget_counts(env, specs):
+    """The budget's (user, period) pairs over the cell's horizon from the
+    lowering's plan: shed (a smaller batch than the static twin's, same
+    partition and seed) and dropped, and the periods left empty."""
+    np = env.np
+    (bucket,) = env.lowering.group_rows(specs)
+    plan = env.lowering.plan_bucket(bucket, env.data, PERIODS)
+    twin = {(r.spec.partition, r.seed): i for i, r in enumerate(bucket.rows)
+            if r.spec.energy is None and r.spec.sampling is None
+            and r.spec.faults is None}
+    shed = dropped = empty = 0
+    for i, r in enumerate(bucket.rows):
+        if r.spec.energy is None:
+            continue
+        batch = plan.schedules[i].batch
+        static = plan.schedules[twin[(r.spec.partition, r.seed)]].batch
+        shed += int(((batch < static) & (batch > 0)).sum())
+        dropped += int((plan.active[i] < 0.5).sum())
+        empty += int((plan.active[i].sum(-1) == 0).sum())
+    return {"shed": shed, "dropped": dropped, "empty_periods": empty,
+            "rows": sum(r.spec.energy is not None for r in bucket.rows)}
+
+
+def planning_costs(env, specs):
+    """Host planning of bucket 1's schedulers over the cell's horizon, ms
+    a scheduler-period: the fused non-dynamic ones (``plan_horizons_batch``
+    on them alone, and one by one) against the dynamic ones, which plan
+    solo by design."""
+    from repro_torch.core.scheduler import plan_horizons_batch
+    (bucket,) = env.lowering.group_rows(specs)
+
+    def schedulers():
+        return env.lowering._FeelPlanner(bucket, env.data).schedulers
+
+    fused = [s for s in schedulers() if not s.dynamic]
+    t0 = time.perf_counter()
+    plan_horizons_batch(fused, PERIODS)
+    t_fused = time.perf_counter() - t0
+    one_by_one = [s for s in schedulers() if not s.dynamic]
+    t0 = time.perf_counter()
+    for s in one_by_one:
+        s.plan_horizon(PERIODS)
+    t_one = time.perf_counter() - t0
+    dynamic = [s for s in schedulers() if s.dynamic]
+    t0 = time.perf_counter()
+    for s in dynamic:
+        s.plan_horizon(PERIODS)
+    t_dyn = time.perf_counter() - t0
+    per = lambda t, n: 1e3 * t / (n * PERIODS)           # noqa: E731
+    return {"fused_schedulers": len(fused),
+            "dynamic_schedulers": len(dynamic),
+            "fused_ms_per_scheduler_period": per(t_fused, len(fused)),
+            "fused_one_by_one_ms_per_scheduler_period":
+                per(t_one, len(one_by_one)),
+            "dynamic_solo_ms_per_scheduler_period":
+                per(t_dyn, len(dynamic))}
+
+
+def dynamics_cell(env, api, counted):
+    """Phase 4f: the main cell in the dynamic worlds at full width, each
+    bucket through ``Experiment.run(PERIODS, executor=SerialExecutor())``
+    after a 1-period warm-up, with the SBC counts set to 0 just before and
+    read just after (expected: six leaves x PERIODS a bucket), its wall,
+    the executor's planning / enqueue / collect split and peak memory.
+    Then the bitwise pins on the card: identity dynamics == static,
+    Sampling(size=12) == unsampled, bucket 2 under
+    AsyncExecutor(chunk_periods=5) == monolithic, and a sampled-out column
+    poisoned with garbage weights and batches changes nothing.  Raises
+    AssertionError."""
+    torch, np, lowering = env.torch, env.np, env.lowering
+    Experiment, data, test = env.Experiment, env.data, env.test
+    worlds1, worlds2 = dynamic_worlds(api)
+    cells = {"bucket 1": world_specs(env, worlds1),
+             "bucket 2": world_specs(env, worlds2)}
+    out = {"worlds": {"bucket 1": list(worlds1), "bucket 2": list(worlds2)},
+           "budget_j": F_BUDGET_J}
+    for tag, specs in cells.items():
+        buckets = Experiment(data, test, specs).lower()
+        want_rows = 2 * len(F_SEEDS) * (5 if tag == "bucket 1" else 1)
+        if [len(b.rows) for b in buckets] != [want_rows]:
+            raise AssertionError(f"4f: {tag} lowered to "
+                                 f"{[len(b.rows) for b in buckets]} rows a "
+                                 f"bucket, expected one of {want_rows}")
+    counts = budget_counts(env, cells["bucket 1"])
+    log(f"[4f dynamics] EnergyBudget(budget_j={F_BUDGET_J}) on the Table-II "
+        f"fleet over {PERIODS} periods, {counts['rows']} rows: "
+        f"{counts['shed']} (user, period) pairs shed, {counts['dropped']} "
+        f"dropped, {counts['empty_periods']} empty periods")
+    if not (counts["shed"] > 0 and counts["dropped"] > 0
+            and counts["empty_periods"] == 0):
+        raise AssertionError(f"4f: the budget does not bind as stated: "
+                             f"{counts}")
+    out["budget"] = counts
+    costs = planning_costs(env, cells["bucket 1"])
+    log(f"[4f dynamics] bucket 1 host planning, ms a scheduler-period: "
+        f"{costs['fused_schedulers']} fused schedulers "
+        f"{costs['fused_ms_per_scheduler_period']:.3f} (one by one "
+        f"{costs['fused_one_by_one_ms_per_scheduler_period']:.3f}); "
+        f"{costs['dynamic_schedulers']} dynamic schedulers, solo "
+        f"{costs['dynamic_solo_ms_per_scheduler_period']:.3f}")
+    out["planning"] = costs
+    want = {name: len(LEAF_LENGTHS) * PERIODS for name in counted}
+    runs = {}
+    for tag, specs in cells.items():
+        exp = Experiment(data, test, specs)
+        t0 = time.perf_counter()
+        exp.run(1)                                       # warm-up period
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        executor = env.SerialExecutor()
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = exp.run(PERIODS, executor=executor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tm = dict(executor.timings)
+        runs[tag] = res
+        log(f"[4f dynamics] {tag} ({', '.join(out['worlds'][tag])}; iid and "
+            f"noniid x seeds {F_SEEDS}): {res.rows} rows x {PERIODS} periods "
+            f"in {wall:.3f} s = {1e3 * wall / PERIODS:.1f} ms/period "
+            f"(warm-up run of 1 period {t_warm:.2f} s); host planning "
+            f"{tm['plan']:.3f} s, enqueue {tm['dispatch']:.3f} s, collect "
+            f"{tm['collect']:.3f} s; peak device memory {peak:.2f} GiB; "
+            f"launches {launches} (expected {want})")
+        log(f"[4f dynamics] {tag}: mean accuracy period 1 "
+            f"{res.accs[:, 0].mean():.4f} -> period {PERIODS} "
+            f"{res.final_acc.mean():.4f}; mean loss "
+            f"{res.losses[:, 0].mean():.4f} -> {res.losses[:, -1].mean():.4f}"
+            f"; simulated time at period {PERIODS} per row "
+            f"{np.round(res.times[:, -1], 3).tolist()} s")
+        if launches != want:
+            raise AssertionError(f"4f: {tag}: kernel launches {launches}, "
+                                 f"expected {want}")
+        if not (np.isfinite(res.losses).all() and np.isfinite(res.accs).all()
+                and np.isfinite(res.times).all()):
+            raise AssertionError(f"4f: {tag}: non-finite series")
+        if not res.losses[:, -1].mean() < res.losses[:, 0].mean():
+            raise AssertionError(f"4f: {tag}: the mean loss did not fall")
+        out[tag] = {"rows": res.rows, "periods": PERIODS, "wall_s": wall,
+                    "ms_per_period": 1e3 * wall / PERIODS, "timings_s": tm,
+                    "peak_gib": peak, "launches": launches,
+                    "final_acc": res.final_acc.tolist(),
+                    "final_time_s": res.times[:, -1].tolist()}
+
+    fields = ("losses", "accs", "times", "global_batch")
+
+    def same(a, b):
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in fields)
+
+    def pin_run(worlds):
+        return Experiment(data, test, world_specs(
+            env, worlds, partitions=("iid",))).run(F_PIN_PERIODS)
+
+    static = pin_run({"static": {}})
+    identity = pin_run({"identity": {
+        "fading": api.Fading(spread=0.0),
+        "faults": api.Faults(slow_prob=0.0, drop_prob=0.0),
+        "energy": api.EnergyBudget()}})
+    full = pin_run({"full": {"sampling": api.Sampling(size=DEVICES)}})
+    chunked = Experiment(data, test, cells["bucket 2"]).run(
+        PERIODS, executor=api.AsyncExecutor(chunk_periods=5))
+    pins = {"identity dynamics == static": same(identity, static),
+            "Sampling(size=12) == unsampled": same(full, static),
+            "bucket 2 AsyncExecutor(chunk_periods=5) == monolithic":
+                same(chunked, runs["bucket 2"])}
+    # a sampled-out column poisoned: the engine on the lowering's plan
+    (bucket,) = lowering.group_rows(world_specs(
+        env, {"s6": {"sampling": api.Sampling(size=6)}},
+        partitions=("iid",)))
+    plan = lowering.plan_bucket(bucket, data, F_PIN_PERIODS)
+    features = lowering.DeviceData(data, test, "cuda").features
+
+    def engine_run(schedules):
+        params0 = lowering._init_params_batch(bucket.rows, plan.input_dim,
+                                              "cuda")
+        state = env.engine.EngineState(
+            params0, env.engine.zero_residual(params0, DEVICES))
+        state, series = env.engine.run_trajectory_batch(
+            state, schedules, features, ratio=RATIO, active=plan.active)
+        return [t.cpu() for t in series] + [
+            t.cpu() for t in env.tree_leaves(state.params)
+            + env.tree_leaves(state.residual)]
+
+    clean = engine_run(plan.schedules)
+    poisoned = []
+    for i, s in enumerate(plan.schedules):
+        dead = plan.active[i] < 0.5
+        weight, batch = s.weight.copy(), s.batch.copy()
+        weight[dead] = 1e6
+        batch[dead] = 9.9e5
+        poisoned.append(dataclasses.replace(s, weight=weight, batch=batch))
+    pins["a poisoned sampled-out column changes nothing"] = all(
+        torch.equal(a, b) for a, b in zip(clean, engine_run(poisoned)))
+    log(f"[4f dynamics] on the card, bitwise ({F_PIN_PERIODS} periods, iid, "
+        f"seeds {F_SEEDS}; bucket 2 over {PERIODS}): "
+        + "; ".join(f"{k}: {'yes' if v else 'NO'}" for k, v in pins.items()))
+    if not all(pins.values()):
+        raise AssertionError(f"4f: a bitwise pin fails: {pins}")
+    out["pins"] = pins
+    return out
+
+
+def dynamics_contracts(env, api, counted_attn):
+    """Phase 5e: one row each of Sampling(size=6), weighted sampling,
+    fading with faults and the budget (the main cell, iid, seed 0) for 3
+    periods on the card and on the port's CPU path: ledgers bitwise,
+    losses 1e-4, accuracies two test predictions.  Then one transformer
+    row with Sampling(size=6, weighted=True) (slot 16) the same way, with
+    the attention kernels' launches counted around its card run.  Raises
+    AssertionError."""
+    np, Experiment, data, test = env.np, env.Experiment, env.data, env.test
+    _, worlds2 = dynamic_worlds(api)
+    worlds = {"Sampling(size=6)": {"sampling": api.Sampling(size=6)},
+              "Sampling(size=6, weighted=True)": {
+                  "sampling": api.Sampling(size=6, weighted=True)},
+              "Fading + Faults": {
+                  k: v for k, v in next(iter(worlds2.values())).items()
+                  if k != "sampling"},
+              f"EnergyBudget({F_BUDGET_J} J)": {
+                  "energy": api.EnergyBudget(budget_j=F_BUDGET_J)}}
+    out = {}
+
+    def compare(tag, specs, counted=None):
+        if counted:
+            for fn in counted.values():
+                fn.launches = 0
+        card = Experiment(data, test, specs).run(3)
+        launches = ({name: fn.launches for name, fn in counted.items()}
+                    if counted else None)
+        cpu = Experiment(data, test, specs, device="cpu").run(3)
+        loss_err = float(np.abs(card.losses - cpu.losses).max())
+        acc_err = float(np.abs(card.accs - cpu.accs).max())
+        log(f"[5e card vs cpu] {tag}, 3 periods: global batch "
+            f"{card.global_batch[:, -1].tolist()}; losses max abs err "
+            f"{loss_err:.3g}; accs max abs err {acc_err:.3g}"
+            + (f"; launches on the card {launches}" if counted else ""))
+        if not (np.array_equal(card.times, cpu.times)
+                and np.array_equal(card.global_batch, cpu.global_batch)
+                and np.allclose(card.losses, cpu.losses, rtol=1e-4,
+                                atol=1e-4)
+                and acc_err <= 2.0 / len(test.y) + 1e-7):
+            raise AssertionError(f"5e: {tag}: card and CPU path disagree "
+                                 "beyond ledgers bitwise, losses 1e-4, "
+                                 "accuracies two test predictions")
+        if counted and not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"5e: {tag}: a kernel was not launched: "
+                                 f"{launches}")
+        return {"loss_max_abs_err": loss_err, "acc_max_abs_err": acc_err,
+                "launches": launches}
+
+    out["feel_mlp"] = compare(
+        "one feel-mlp row each of " + ", ".join(worlds),
+        world_specs(env, worlds, partitions=("iid",), seeds=(0,)))
+    out["transformer"] = compare(
+        "transformer, Sampling(size=6, weighted=True), slot 16",
+        world_specs(env, {"w": {"sampling": api.Sampling(size=6,
+                                                         weighted=True)}},
+                    partitions=("iid",), seeds=(0,), b_max=16,
+                    model_family="transformer"), counted_attn)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1284,7 +1602,8 @@ def main(argv=None) -> int:
         from repro_torch.fed.train_step import make_serve_step
         from repro_torch.launch import serve
         from repro_torch.models import model as tm
-        from repro_torch.tree import tree_map
+        from repro_torch.fed import engine
+        from repro_torch.tree import tree_leaves, tree_map
     except ImportError as exc:
         return fail(f"the port is not importable from {ROOT}: {exc}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1519,7 +1838,7 @@ def main(argv=None) -> int:
 
     # ---- 4b/4c. the transformer and mamba2 cells at full width ------------
     env = Env(torch, np, Experiment, ScenarioSpec, SerialExecutor,
-              DeviceProfile, lowering, data, test)
+              DeviceProfile, lowering, data, test, engine, tree_leaves)
     cells = {}
     for tag, family, rows, periods, per_period, counted in (
             ("4b transformer", "transformer", T_ROWS, T_PERIODS, T_LAUNCHES,
@@ -1556,6 +1875,16 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
     g_launches = report["grid"]["executors"][G_SERIAL]["launches"]
+
+    # ---- 4f. the main cell in the dynamic worlds ---------------------------
+    try:
+        report["dynamics"] = dynamics_cell(
+            env, api, {"sbc_stats": ksbc.sbc_stats,
+                       "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    f_launches = {tag: report["dynamics"][tag]["launches"]
+                  for tag in ("bucket 1", "bucket 2")}
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
@@ -1623,6 +1952,17 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
+    # ---- 5e. the dynamic worlds: card vs CPU --------------------------------
+    try:
+        report["dynamics_contracts"] = dynamics_contracts(
+            env, api, {"flash_attention_fwd": kfa.flash_attention_fwd,
+                       "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+                       "flash_attention_bwd_dkdv":
+                           kfa.flash_attention_bwd_dkdv})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    e_launches = report["dynamics_contracts"]["transformer"]["launches"]
+
     # ---- 6. times ----------------------------------------------------------
     records = []
     for name, kern, plain in (("sbc_stats", ksbc.sbc_stats,
@@ -1662,7 +2002,11 @@ def main(argv=None) -> int:
                                  "transformer": t_launches[name],
                                  "mamba2": m_launches[name],
                                  "feel_mlp grid, each executor":
-                                     g_launches[name]},
+                                     g_launches[name],
+                                 "feel_mlp dynamics, bucket 1":
+                                     f_launches["bucket 1"][name],
+                                 "feel_mlp dynamics, bucket 2":
+                                     f_launches["bucket 2"][name]},
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
@@ -1706,7 +2050,9 @@ def main(argv=None) -> int:
                          if name == "flash_attention_fwd"
                          else "none: backward of B4, C-ref-3"),
             "launches": t_launches[name],
-            "launches_by_path": {"transformer": t_launches[name]},
+            "launches_by_path": {"transformer": t_launches[name],
+                                 "transformer weighted-sampled, 3 periods":
+                                     e_launches[name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

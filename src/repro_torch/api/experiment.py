@@ -60,29 +60,35 @@ class Experiment:
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
-    def lower(self) -> List[Bucket]:
+    def lower(self, bands: bool = False) -> List[Bucket]:
         """The bucketed row plan: which rows share a device loop, in
-        execution order."""
-        return group_rows(self.specs)
+        execution order.  ``bands`` applies the power-of-two K-band
+        sub-bucketing (see :meth:`run`)."""
+        return group_rows(self.specs, bands=bands)
 
-    def run(self, periods: int,
-            executor: Optional[Executor] = None) -> Results:
-        """Run the whole grid and return the complete ``Results``."""
+    def run(self, periods: int, executor: Optional[Executor] = None,
+            bands: bool = False) -> Results:
+        """Run the whole grid and return the complete ``Results``.
+
+        ``bands=True`` splits each bucket by power-of-two K band
+        (``repro_torch.topology.band_width``), so a mixed-K grid pads each
+        row to its band instead of the grid's largest fleet: one device
+        loop per band, host ledgers bitwise the unbanded run's."""
         builder = None
-        for builder in self._collected(periods, executor):
+        for builder in self._collected(periods, executor, bands):
             pass
         return builder.build()
 
-    def stream(self, periods: int, executor: Optional[Executor] = None
-               ) -> Iterator[Results]:
+    def stream(self, periods: int, executor: Optional[Executor] = None,
+               bands: bool = False) -> Iterator[Results]:
         """Yield a cumulative partial ``Results`` after each bucket
         collection (the final yield is the complete result)."""
-        for builder in self._collected(periods, executor):
+        for builder in self._collected(periods, executor, bands):
             yield builder.partial()
 
-    def _collected(self, periods: int, executor: Optional[Executor]
-                   ) -> Iterator[ResultsBuilder]:
-        buckets = self.lower()
+    def _collected(self, periods: int, executor: Optional[Executor],
+                   bands: bool = False) -> Iterator[ResultsBuilder]:
+        buckets = self.lower(bands=bands)
         if not buckets:
             raise ValueError("Experiment has no specs")
         if executor is None:

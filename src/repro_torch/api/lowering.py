@@ -24,6 +24,10 @@ consumed in exactly the reference's order, so the host ledgers are bitwise
 the reference's.  Fleet size is not structural: planning runs at each
 row's true K, then schedules are zero-padded to the bucket's ``k_pad`` and
 a per-row ``active`` mask keeps padded users out of every reduction.
+When a row samples, faults or has an energy budget, the mask is
+time-varying, (n, P, k_pad): each period's realized cohort, padded
+columns exactly 0.  ``group_rows(..., bands=True)`` splits a bucket by
+the power-of-two band of its rows' K, each band padded to its width.
 
 :class:`BucketRun` runs the same phases per chunk of ``chunk`` periods,
 carrying the planner's rng streams and time offsets and the engine's
@@ -38,7 +42,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field, replace
 from functools import cached_property
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +52,7 @@ from repro_torch.core.scheduler import FeelScheduler, plan_horizons_batch
 from repro_torch.data.pipeline import (FederatedBatcher, partition_iid,
                                        partition_noniid)
 from repro_torch.fed import engine, feel_model, model_engine
+from repro_torch.topology import band_width
 from repro_torch.tree import tree_map
 
 
@@ -64,12 +69,17 @@ class Row:
 @dataclass
 class Bucket:
     """All rows sharing one ``bucket_key`` → one batched device loop.
-    Rows may carry fleets of different sizes, padded to :attr:`k_pad`."""
+    Rows may carry fleets of different sizes, padded to :attr:`k_pad`:
+    the largest K, or the power-of-two ``band`` when the lowering
+    sub-buckets by K band."""
     key: tuple
     rows: List[Row]
+    band: Optional[int] = None
 
     @property
     def k_pad(self) -> int:
+        if self.band is not None:
+            return self.band
         return max(r.spec.k for r in self.rows)
 
     def active_mask(self) -> np.ndarray:
@@ -80,26 +90,34 @@ class Bucket:
         return mask
 
 
-def group_rows(specs: Sequence[ScenarioSpec]) -> List[Bucket]:
+def group_rows(specs: Sequence[ScenarioSpec],
+               bands: bool = False) -> List[Bucket]:
     """Flatten specs × seeds into rows, grouped into first-seen-order
     buckets by shape compatibility; duplicate (spec, seed) pairs collapse
-    onto one row carrying every output index."""
+    onto one row carrying every output index.
+
+    ``bands=True`` further splits each bucket by the power-of-two K band
+    (:func:`~repro_torch.topology.band_width`) of its rows: one bucket per
+    band, padded to the band width instead of the grid's largest fleet.
+    Host ledgers are bitwise the unbanded lowering's (no row's plan
+    depends on its neighbours' padding)."""
     entries: Dict[tuple, List[list]] = {}
     seen: Dict[tuple, list] = {}
     index = 0
     for spec in specs:
         key = spec.bucket_key()
+        band = band_width(spec.k) if bands else None
         for seed in spec.seeds:
             if (spec, seed) in seen:
                 seen[(spec, seed)].append(index)
             else:
                 entry = [spec, seed, [index]]
                 seen[(spec, seed)] = entry[2]
-                entries.setdefault(key, []).append(entry)
+                entries.setdefault((key, band), []).append(entry)
             index += 1
     return [Bucket(key=key, rows=[Row(spec=s, seed=sd, indices=tuple(ix))
-                                  for s, sd, ix in rows])
-            for key, rows in entries.items()]
+                                  for s, sd, ix in rows], band=band)
+            for (key, band), rows in entries.items()]
 
 
 @dataclass
@@ -161,12 +179,15 @@ def _plan_key(r: Row) -> tuple:
     """Scheduler identity modulo ``base_lr``: rows with equal keys consume
     identical rng streams and produce identical horizons (the partition
     only affects the batcher, base_lr only rescales the lr row), so the
-    lowering plans each unique key once.  ``model_family`` is part of the
-    key as in the reference's; ``bucket_key`` already keeps the families
-    in separate buckets, so it changes no plan."""
+    lowering plans each unique key once.  Sampling and the dynamics
+    processes are part of the key: they change the plan.
+    ``model_family`` is part of the key as in the reference's;
+    ``bucket_key`` already keeps the families in separate buckets, so it
+    changes no plan."""
     s = r.spec
     return (s.fleet, s.effective_policy, s.b_max, s.compression, s.cell,
-            s.hidden, s.depth, r.seed, s.model_family)
+            s.hidden, s.depth, r.seed, s.sampling, s.fading, s.faults,
+            s.energy, s.model_family)
 
 
 def _rescale_lr(horizon, base_lr: float, ref_batch: float):
@@ -179,13 +200,18 @@ def _rescale_lr(horizon, base_lr: float, ref_batch: float):
 @dataclass
 class BucketPlan:
     """Phase-1 output: host ledgers (one row per computed row) and the
-    padded schedules + active mask the dispatch phase feeds the device."""
+    padded schedules + active mask the dispatch phase feeds the device.
+    ``active`` is the static (n, k_pad) padding mask, or (n, P, k_pad)
+    when a row sampled, faulted or has a budget; ``energy`` the host-only
+    per-user joules ledger when a row has a budget (padded columns and
+    unbudgeted rows exactly 0), else None."""
     bucket: Bucket
     input_dim: int
     times: np.ndarray            # (n, P) cumulative simulated seconds
     global_batch: np.ndarray     # (n, P) int64
     schedules: list
-    active: np.ndarray           # (n, k_pad) f32
+    active: np.ndarray           # (n, k_pad) or (n, P, k_pad) f32
+    energy: Optional[np.ndarray] = None   # (n, P, k_pad) joules
 
 
 @dataclass
@@ -198,6 +224,7 @@ class BucketHandle:
     times: np.ndarray
     global_batch: np.ndarray
     state: engine.EngineState
+    energy: Optional[np.ndarray] = None   # (n, P, k_pad) host joules
 
 
 class _FeelPlanner:
@@ -222,7 +249,9 @@ class _FeelPlanner:
                     devices=r.spec.fleet, n_params=n_params,
                     policy=r.spec.effective_policy, b_max=r.spec.b_max,
                     base_lr=r.spec.base_lr, compression=r.spec.compression,
-                    cell_cfg=r.spec.cell, seed=r.seed))
+                    cell_cfg=r.spec.cell, seed=r.seed,
+                    sampling=r.spec.sampling, fading=r.spec.fading,
+                    faults=r.spec.faults, energy=r.spec.energy))
             self._sched_of.append(unique[key])
         self.batchers = [
             FederatedBatcher(_partition(r.spec, data, r.seed),
@@ -230,24 +259,42 @@ class _FeelPlanner:
         self._offsets = np.zeros(len(rows))
 
     def plan(self, periods: int) -> BucketPlan:
+        rows = self.bucket.rows
+        k_pad = self.bucket.k_pad
         planned = plan_horizons_batch(self.schedulers, periods)
-        schedules = []
-        for i, r in enumerate(self.bucket.rows):
+        schedules, parts, energies = [], [], []
+        for i, r in enumerate(rows):
             sched = self.schedulers[self._sched_of[i]]
             horizon = planned[self._sched_of[i]]
             if r.spec.base_lr != sched.base_lr:
                 horizon = _rescale_lr(horizon, r.spec.base_lr,
                                       sched.ref_batch)
+            parts.append(horizon.participation)
+            energies.append(horizon.energy)
             s = engine.build_schedule(sched, self.batchers[i], periods,
                                       horizon=horizon,
                                       time_offset=float(self._offsets[i]))
             self._offsets[i] = s.times[-1]
-            schedules.append(engine.pad_schedule(s, self.bucket.k_pad))
+            schedules.append(engine.pad_schedule(s, k_pad))
+        # the static (n, k_pad) padding mask, unless a row's cohort varies
+        # by period: then an (n, P, k_pad) mask, padded columns exactly 0
+        active = self.bucket.active_mask()
+        if any(p is not None for p in parts):
+            active = np.repeat(active[:, None, :], periods, axis=1)
+            for i, (r, p) in enumerate(zip(rows, parts)):
+                if p is not None:
+                    active[i, :, :r.spec.k] = p
+        energy = None
+        if any(e is not None for e in energies):
+            energy = np.zeros((len(rows), periods, k_pad))
+            for i, (r, e) in enumerate(zip(rows, energies)):
+                if e is not None:
+                    energy[i, :, :r.spec.k] = e
         return BucketPlan(
             bucket=self.bucket, input_dim=self.input_dim,
             times=np.stack([s.times for s in schedules]),
             global_batch=np.stack([s.global_batch for s in schedules]),
-            schedules=schedules, active=self.bucket.active_mask())
+            schedules=schedules, active=active, energy=energy)
 
 
 def plan_bucket(bucket: Bucket, data, periods: int) -> BucketPlan:
@@ -279,7 +326,7 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
             ratio=spec0.compression, active=plan.active)
     return BucketHandle(bucket=plan.bucket, losses=losses, accs=accs,
                         times=plan.times, global_batch=plan.global_batch,
-                        state=state)
+                        state=state, energy=plan.energy)
 
 
 def collect_bucket(handle: BucketHandle):
@@ -322,6 +369,7 @@ class BucketRun:
     _state: object = None
     _pending: deque = field(default_factory=deque)
     _chunks: list = field(default_factory=list)
+    _energy: list = field(default_factory=list)
     seconds: dict = field(default_factory=lambda: dict.fromkeys(
         ("plan", "dispatch", "collect"), 0.0))
 
@@ -389,9 +437,21 @@ class BucketRun:
         p_c, handle = self._pending.popleft()
         chunk = collect_bucket(handle)
         self._chunks.append(chunk)
+        if handle.energy is not None:
+            self._energy.append(handle.energy)
         self.collected += p_c
         self.seconds["collect"] += time.perf_counter() - t0
         return chunk
+
+    @property
+    def energy_ledger(self) -> Optional[np.ndarray]:
+        """(n, collected, k_pad) per-user joules spent per period, banked
+        chunk by chunk (None unless the bucket's specs set an
+        ``EnergyBudget``).  A host ledger like ``times``: it never
+        reaches the device."""
+        if not self._energy:
+            return None
+        return np.concatenate(self._energy, axis=1)
 
     def result(self):
         """The full-horizon ``(losses, accs, times, global_batch)``."""

@@ -8,20 +8,27 @@ hashable value.
 
 This port runs the FEEL scheme with one local step per period, on the
 feel-mlp model or the big-model families (``model_family=
-"transformer"`` or ``"mamba2"``).  The fields of what later slices bring
-stay on the spec so that a spec written for the reference is rejected
-with a clear error instead of being run differently: schemes other than
-``"feel"``, ``local_steps > 1``, ``replan``, ``sampling``, ``topology``,
-``fading``, ``faults``, ``energy`` and ``adapt_tau``.  A big-model family
-is validated as the reference validates it (FEEL only, flat, one local
-step, ``hidden`` divisible by 4) before any of these.
+"transformer"`` or ``"mamba2"``), in the static world or the
+time-varying one: per-round participation ``sampling``
+(:class:`~repro_torch.topology.Sampling`), channel drift ``fading``,
+stragglers and dropout ``faults`` and per-user ``energy`` budgets
+(:mod:`repro_torch.dynamics`), each type-checked and cross-checked as the
+reference checks it.  The fields of what later slices bring stay on the
+spec so that a spec written for the reference is rejected with a clear
+error instead of being run differently: schemes other than ``"feel"``,
+``local_steps > 1``, ``replan``, ``topology`` and ``adapt_tau``
+(``NotImplementedError``).  The reference's ``TypeError`` and
+``ValueError`` rules run first, so a spec the reference refuses is
+refused here the same way.
 
 Two specs share a bucket — one batched device loop — iff
 :meth:`ScenarioSpec.bucket_key` matches: slot width (``b_max``),
 ``local_steps``, ``compress`` and (when compressing) ``compression``,
-and the model dims.  The fleet is not structural: rows are padded to the
-bucket's max K and an active mask keeps padded users out of every
-reduction.
+the model dims and the fading chain's state count.  The fleet is not
+structural: rows are padded to the bucket's max K and an active mask
+keeps padded users out of every reduction.  Sampling, faults, budgets
+and a fading chain's gains are values: they reach the device loop as the
+time-varying active mask and the schedules.
 """
 from __future__ import annotations
 
@@ -31,12 +38,13 @@ from typing import Optional, Tuple
 from repro_torch.channels.model import CellConfig
 from repro_torch.core.latency import DeviceProfile
 from repro_torch.core.baselines import POLICIES
+from repro_torch.dynamics import EnergyBudget, Fading, Faults
+from repro_torch.topology import Sampling
 
 SCHEMES = ("feel", "gradient_fl", "model_fl", "individual")
 MODEL_FAMILIES = ("feel_mlp", "transformer", "mamba2")
 # fields whose non-default values later slices of the port bring
-_LATER = ("replan", "sampling", "topology", "fading", "faults", "energy",
-          "adapt_tau")
+_LATER = ("replan", "topology", "adapt_tau")
 
 
 @dataclass(frozen=True)
@@ -57,11 +65,11 @@ class ScenarioSpec:
     hidden: int = 256
     depth: int = 3
     replan: Optional[int] = None
-    sampling: Optional[object] = None
+    sampling: Optional[Sampling] = None  # per-round S-of-K participation
     topology: Optional[object] = None
-    fading: Optional[object] = None
-    faults: Optional[object] = None
-    energy: Optional[object] = None
+    fading: Optional[Fading] = None      # block-fading Markov channel drift
+    faults: Optional[Faults] = None      # straggler slowdowns + dropout
+    energy: Optional[EnergyBudget] = None  # per-user per-period energy caps
     adapt_tau: Optional[object] = None
     model_family: str = "feel_mlp"
 
@@ -77,6 +85,29 @@ class ScenarioSpec:
                 f"policy {self.policy!r} not in {tuple(POLICIES)}")
         if not self.seeds:
             raise ValueError("seeds must be non-empty")
+        if self.sampling is not None and \
+                not isinstance(self.sampling, Sampling):
+            raise TypeError(
+                f"sampling= expects a repro_torch.topology.Sampling, got "
+                f"{type(self.sampling).__name__}")
+        for fld, typ in (("fading", Fading), ("faults", Faults),
+                         ("energy", EnergyBudget)):
+            val = getattr(self, fld)
+            if val is not None and not isinstance(val, typ):
+                raise TypeError(
+                    f"{fld}= expects a repro_torch.dynamics."
+                    f"{typ.__name__}, got {type(val).__name__}")
+        if self.has_dynamics:
+            if self.is_dev_scheme:
+                raise ValueError(
+                    "dynamics (fading/faults/energy/adapt_tau) act through "
+                    f"the FEEL planner; the {self.scheme!r} scheme has no "
+                    "planner to perturb")
+            if self.topology is not None:
+                raise ValueError(
+                    "dynamics are not threaded through the hierarchical "
+                    "per-cell solves yet; drop topology= or the dynamics "
+                    "fields")
         if self.model_family not in MODEL_FAMILIES:
             raise ValueError(
                 f"model_family {self.model_family!r} not in {MODEL_FAMILIES}")
@@ -99,6 +130,16 @@ class ScenarioSpec:
                     f"model_family={self.model_family!r} derives its "
                     f"ArchConfig from hidden={self.hidden}, which must be "
                     "divisible by 4 (attention heads / SSM head grouping)")
+        if self.sampling is not None and self.sampling.weighted:
+            if self.topology is not None:
+                raise ValueError(
+                    "weighted (1/p) sampling corrects the flat server "
+                    "aggregation; the hierarchical path does not support it")
+            if self.energy is not None:
+                raise ValueError(
+                    "weighted (1/p) sampling needs probabilistic "
+                    "inclusion; deterministic energy drops break the "
+                    "Horvitz-Thompson correction")
         if self.scheme != "feel":
             raise NotImplementedError(
                 f"scheme {self.scheme!r} is not ported yet; the PyTorch "
@@ -111,12 +152,18 @@ class ScenarioSpec:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"{name}= is not ported yet; the PyTorch port runs the "
-                    "static, flat, open-loop FEEL world")
+                    "flat, open-loop FEEL world with one local step")
 
     @property
     def is_dev_scheme(self) -> bool:
         """True for the per-device-parameter schemes (no gradient fusion)."""
         return self.scheme in ("individual", "model_fl")
+
+    @property
+    def has_dynamics(self) -> bool:
+        """True when any time-varying-world process is configured."""
+        return (self.fading is not None or self.faults is not None
+                or self.energy is not None or self.adapt_tau is not None)
 
     @property
     def k(self) -> int:
@@ -134,10 +181,13 @@ class ScenarioSpec:
         return f"{base}/{self.partition}/{self.scheme}/{self.effective_policy}"
 
     def bucket_key(self) -> tuple:
-        """Shape-compatibility class: the reference's FEEL-family key,
-        whose topology, fading-state and adaptive-τ entries are always
-        None in this port."""
+        """Shape-compatibility class: the reference's FEEL-family key.
+        A fading chain's state count is a structural coordinate as in the
+        reference; sampling, faults, budgets and the gains are values.
+        The topology and adaptive-τ entries are always None in this
+        port."""
         return ("feel", self.b_max, self.local_steps,
                 self.compress, self.compression if self.compress else None,
-                self.hidden, self.depth, self.replan, None, None, None,
-                self.model_family)
+                self.hidden, self.depth, self.replan, None,
+                None if self.fading is None else self.fading.states,
+                None, self.model_family)

@@ -16,8 +16,14 @@ horizon's with one ``avg_rate_updown_rows`` draw, which consume the cell's
 stream alike; but the proposed policy searches B* by golden section in
 ``plan`` and on an integer grid in ``plan_horizon``, and both carry it in
 ``_b_cache``, so one scheduler serves one of the two paths.
-Participation sampling, hierarchies, fading, faults, energy budgets and
-closed-loop re-planning are not part of this port yet.
+
+``plan_horizon`` also plans the time-varying world: per-round
+participation sampling (``sampling``), block-fading channel drift
+(``fading``), stragglers and dropout (``faults``) and per-user energy
+budgets (``energy``).  Each process draws from its own tagged rng stream,
+after the participation draw and before the channel draw, so a static
+scheduler's streams are untouched by them.  Hierarchies, adaptive local
+steps and closed-loop re-planning are not part of this port yet.
 """
 from __future__ import annotations
 
@@ -33,6 +39,10 @@ from repro_torch.core.efficiency import XiEstimator, lr_scale
 from repro_torch.core.latency import DeviceProfile, gradient_bits
 from repro_torch.core.solver import (FleetRows, fixed_slot_rows,
                                      optimize_batch_rows, solve_period_rows)
+from repro_torch.dynamics import (EnergyBudget, Fading, FadingProcess,
+                                  Faults, FaultProcess)
+from repro_torch.dynamics.energy import batch_caps, energy_spend
+from repro_torch.topology import ParticipationSampler, Sampling
 
 
 @dataclass(frozen=True)
@@ -51,13 +61,24 @@ class PeriodPlan:
 @dataclass(frozen=True)
 class PlanHorizon:
     """``periods`` stacked period plans — one array per field, leading
-    period axis — in the form the trajectory engine consumes."""
+    period axis — in the form the trajectory engine consumes.
+
+    ``participation`` is the realized per-period user mask (sampling ∧
+    dropout ∧ energy drops) when the scheduler samples, faults or has a
+    budget (None: everyone takes part every period); ``aggden`` the
+    Horvitz-Thompson fixed aggregation denominator of weighted sampling;
+    ``energy`` the realized per-user joules under a budget; ``slowdown``
+    the straggler factors under faults."""
     batch: np.ndarray            # (P, K) int
     tau_up: np.ndarray           # (P, K)
     tau_down: np.ndarray         # (P, K)
     lr: np.ndarray               # (P,) float
     latency: np.ndarray          # (P,) predicted seconds per period
     global_batch: np.ndarray     # (P,) int
+    participation: Optional[np.ndarray] = None   # (P, K) {0,1}
+    aggden: Optional[np.ndarray] = None          # (P,) HT fixed denominator
+    energy: Optional[np.ndarray] = None          # (P, K) realized spend (J)
+    slowdown: Optional[np.ndarray] = None        # (P, K) straggler factors
 
     @property
     def periods(self) -> int:
@@ -80,6 +101,10 @@ class FeelScheduler:
     xi_est: XiEstimator = field(default_factory=XiEstimator)
     reopt_every: int = 5         # outer B* search cadence (channel stats
                                  # are stationary; carried in between)
+    sampling: Optional[Sampling] = None    # per-round S-of-K participation
+    fading: Optional[Fading] = None        # block-fading Markov drift
+    faults: Optional[Faults] = None        # stragglers + dropout
+    energy: Optional[EnergyBudget] = None  # per-user per-period caps
     _period: int = 0
     _dist_km: Optional[np.ndarray] = None
     _b_cache: Optional[float] = None
@@ -94,6 +119,130 @@ class FeelScheduler:
         # user positions are fixed for a training run; fading varies per
         # period
         self._dist_km = self.cell.drop_users(len(self.devices))
+        k = len(self.devices)
+        # participation and dynamics draw from dedicated tagged streams
+        # (0x5A17, 0xFAD1, 0xFA17), so they perturb no other draw
+        self._participation = (
+            None if self.sampling is None else
+            ParticipationSampler(self.sampling, k, self.seed))
+        self._fading_proc = (
+            None if self.fading is None else
+            FadingProcess(self.fading, k, self.seed))
+        self._faults_proc = (
+            None if self.faults is None else
+            FaultProcess(self.faults, k, self.seed))
+
+    @property
+    def dynamic(self) -> bool:
+        """True when this scheduler's world is time-varying (or its
+        aggregation is importance-weighted): such horizons plan solo in
+        :func:`plan_horizons_batch`."""
+        return (self.fading is not None or self.faults is not None
+                or self.energy is not None
+                or (self.sampling is not None and self.sampling.weighted))
+
+    def _draw_participation(self, periods: int) -> Optional[np.ndarray]:
+        """The next ``periods`` cohort masks (None when unsampled); one
+        draw per planned period, so chunked horizons consume the stream
+        as the monolithic plan does."""
+        if self._participation is None:
+            return None
+        return self._participation.draw(periods)
+
+    def _draw_dynamics(self, periods: int):
+        """Advance the fading and fault streams by ``periods`` (a fixed
+        number of variates per period on each).  Returns ``(gains,
+        slowdown, keep)``, each ``(P, K)`` or None."""
+        gains = (None if self._fading_proc is None
+                 else self._fading_proc.draw(periods))
+        slow = keep = None
+        if self._faults_proc is not None:
+            slow, keep = self._faults_proc.draw(periods)
+        return gains, slow, keep
+
+    def _compose_avail(self, part: Optional[np.ndarray],
+                       keep: Optional[np.ndarray],
+                       periods: int) -> Optional[np.ndarray]:
+        """Participation ∧ dropout.  An array whenever faults or a budget
+        are *configured* (mask presence is a function of the spec, never
+        of realized values, so every chunk lowers alike), None only in
+        the static-mask world.  A period nobody would survive keeps its
+        cohort instead of starving the aggregation."""
+        if keep is None and self.energy is None:
+            return part
+        base = (np.ones((periods, len(self.devices)))
+                if part is None else np.asarray(part, float))
+        if keep is None:
+            return base
+        avail = base * keep
+        dead = avail.sum(1) <= 0
+        if dead.any():
+            avail = np.where(dead[:, None], base, avail)
+        return avail
+
+    def _shed_energy(self, batch_f: np.ndarray, avail: np.ndarray,
+                     tau_up: np.ndarray, rates_up_p: np.ndarray,
+                     periods: int):
+        """Budget enforcement after the per-period solve: clip each user
+        to the batch it can afford at its uplink slot; a user that cannot
+        afford its minimum batch drops for the period, unless that would
+        empty the round (then the period runs at the minimum batch).  An
+        unreachable budget is the exact identity (``min(B, inf) == B``,
+        nobody drops)."""
+        c = self.cell.cfg
+        fr = FleetRows.from_devices(self.devices, periods)
+        cap = batch_caps(self.energy, fr, tau_up, rates_up_p,
+                         self.payload_bits, c.frame_up_s)
+        floor_cap = np.floor(cap)
+        active = avail > 0.5
+        drop = active & (floor_cap < fr.lo)
+        dead = ~((active & ~drop).any(1))
+        drop &= ~dead[:, None]
+        batch_f = np.where(drop, 0.0,
+                           np.minimum(batch_f, np.maximum(floor_cap, fr.lo)))
+        avail = np.where(drop, 0.0, avail)
+        return batch_f, avail
+
+    def _realize(self, batch_f: np.ndarray, avail: Optional[np.ndarray],
+                 tau_up: np.ndarray, tau_down: np.ndarray,
+                 rates_up: np.ndarray, rates_down: np.ndarray,
+                 gains: Optional[np.ndarray], slow: Optional[np.ndarray],
+                 periods: int):
+        """Re-price the horizon at the REALIZED world (per-period fading
+        gains, straggler slowdowns, the post-shed cohort), with the
+        solver's ledger arithmetic operand for operand: identity dynamics
+        give the solver's own latency bitwise.  Returns ``(latency,
+        energy)``; ``energy`` is the per-user spend under a budget, else
+        None."""
+        c = self.cell.cfg
+        s = self.payload_bits
+        fr = FleetRows.from_devices(self.devices, periods)
+        if avail is not None:
+            fr = fr.with_mask(avail)
+        ru = rates_up if gains is None else rates_up * gains
+        rd = rates_down if gains is None else rates_down * gains
+        t_local = fr.local_latency(batch_f)
+        if slow is not None:
+            t_local = t_local * slow
+        t_up = s * c.frame_up_s / (np.maximum(tau_up, 1e-30) * ru)
+        t_down = s * c.frame_down_s / (np.maximum(tau_down, 1e-30) * rd)
+        latency = fr.mmax(t_local + t_up) + fr.mmax(t_down + fr.t_upd)
+        energy = None
+        if self.energy is not None:
+            energy = np.where(fr.active,
+                              energy_spend(self.energy, t_local, t_up), 0.0)
+        return latency, energy
+
+    def _aggden(self, full_batch: np.ndarray) -> Optional[np.ndarray]:
+        """Weighted sampling's Horvitz-Thompson fixed denominator
+        p·Σ_all b̄_k from the full-fleet plan (None unweighted); dropout
+        folds its survival probability into p."""
+        if self.sampling is None or not self.sampling.weighted:
+            return None
+        p_inc = self.sampling.p_of(len(self.devices))
+        if self.faults is not None:
+            p_inc *= self.faults.keep_prob
+        return p_inc * full_batch.sum(1).astype(np.float64)
 
     @property
     def payload_bits(self) -> float:
@@ -116,20 +265,43 @@ class FeelScheduler:
 
         Channel fading is re-drawn per period; ξ is frozen at its current
         estimate for the whole horizon.  Successive calls continue the rng
-        streams, so N chunked calls equal one monolithic call bitwise."""
-        if self.policy == "proposed":
-            return self._plan_horizon_proposed(periods)
-        return self._plan_horizon_fixed(periods)
+        streams, so N chunked calls equal one monolithic call bitwise.
 
-    def _plan_horizon_fixed(self, periods: int) -> PlanHorizon:
+        The draw order is participation, then dynamics (fading, faults),
+        then one interleaved rate draw for all K users: a sampled horizon
+        still draws rates, and random-policy batches, for every user."""
+        part = self._draw_participation(periods)
+        dyn = self._draw_dynamics(periods)
+        if self.policy == "proposed":
+            return self._plan_horizon_proposed(periods, part, dyn)
+        return self._plan_horizon_fixed(periods, part, dyn)
+
+    def _belief(self, rates_up, rates_down, gains):
+        """Rates as the open-loop planner prices them: at the horizon's
+        first realized fading gain (the paper's static assumption)."""
+        if gains is None:
+            return rates_up, rates_down
+        pg = self._fading_proc.planning_gain(False)[None, :]
+        return rates_up * pg, rates_down * pg
+
+    def _plan_horizon_fixed(self, periods: int,
+                            part: Optional[np.ndarray] = None,
+                            dyn=(None, None, None)) -> PlanHorizon:
         """Fixed-batch baselines, whole horizon in one lockstep evaluation:
         one batched interleaved (up, down) channel draw, one (P, K)
         integer block for the random policy, and the equal-slot latency
-        math of ``solver.fixed_slot_rows``."""
+        math of ``solver.fixed_slot_rows``.
+
+        ``part`` (cohort masks) and dropout restrict the equal slots to
+        the period's cohort; the random policy still draws its full
+        (P, K) block first.  A budget sheds load after the slot math, and
+        any dynamics re-price the ledger at the realized world."""
         c = self.cell.cfg
         K = len(self.devices)
+        gains, slow, keep = dyn
         rates_up, rates_down = self.cell.avg_rate_updown_rows(
             self._dist_km, periods)
+        pup, pdown = self._belief(rates_up, rates_down, gains)
         if self.policy == "online":
             batch = np.ones((periods, K))
         elif self.policy == "full":
@@ -137,22 +309,65 @@ class FeelScheduler:
         else:                                    # random
             batch = self.rng.integers(
                 1, self.b_max + 1, size=(periods, K)).astype(float)
-        tau_up, tau_down, latency = fixed_slot_rows(
-            self.devices, batch, rates_up, rates_down,
-            self.payload_bits, c.frame_up_s, c.frame_down_s)
-        ib = np.maximum(np.round(batch).astype(int), 1)
+        avail = self._compose_avail(part, keep, periods)
+        if avail is None:
+            tau_up, tau_down, latency = fixed_slot_rows(
+                self.devices, batch, pup, pdown,
+                self.payload_bits, c.frame_up_s, c.frame_down_s)
+            batch_f = batch
+        else:
+            fr = FleetRows.from_devices(self.devices,
+                                        periods).with_mask(avail)
+            tau_up, tau_down, latency = fixed_slot_rows(
+                fr, batch * avail, pup, pdown,
+                self.payload_bits, c.frame_up_s, c.frame_down_s)
+            batch_f = batch * avail
+        mask_now = avail
+        if self.energy is not None:
+            batch_f, mask_now = self._shed_energy(batch_f, mask_now,
+                                                  tau_up, pup, periods)
+        if mask_now is None:
+            ib = np.maximum(np.round(batch).astype(int), 1)
+        else:
+            ib = np.where(mask_now > 0.5,
+                          np.maximum(np.round(batch_f).astype(int), 1), 0)
+        # the policy batch is the full-fleet plan here
+        aggden = self._aggden(np.maximum(np.round(batch).astype(int), 1))
+        energy_led = None
+        if gains is not None or slow is not None or self.energy is not None:
+            latency, energy_led = self._realize(
+                batch_f, mask_now, tau_up, tau_down,
+                rates_up, rates_down, gains, slow, periods)
         gb = ib.sum(1)
         self._period += periods
         return PlanHorizon(
             batch=ib, tau_up=tau_up, tau_down=tau_down,
             lr=self.base_lr * np.sqrt(gb / self.ref_batch),
-            latency=latency, global_batch=gb.astype(np.int64))
+            latency=latency, global_batch=gb.astype(np.int64),
+            participation=mask_now, aggden=aggden, energy=energy_led,
+            slowdown=slow)
 
-    def _plan_horizon_proposed(self, periods: int) -> PlanHorizon:
+    def _plan_horizon_proposed(self, periods: int,
+                               part: Optional[np.ndarray] = None,
+                               dyn=(None, None, None)) -> PlanHorizon:
         c = self.cell.cfg
-        # one batched interleaved (up, down) channel draw
+        gains, slow, keep = dyn
+        # one batched interleaved (up, down) channel draw, for ALL K users
+        # even when sampled (the cohort mask selects)
         rates_up, rates_down = self.cell.avg_rate_updown_rows(
             self._dist_km, periods)
+        pup, pdown = self._belief(rates_up, rates_down, gains)
+        weighted = self.sampling is not None and self.sampling.weighted
+        avail = self._compose_avail(part, keep, periods)
+        # no mask keeps the plain devices path; a cohort mask routes
+        # through the masked rows solver.  Weighted (Horvitz-Thompson)
+        # aggregation plans the FULL fleet instead, so every user owns a
+        # planned share for the fixed denominator, and the mask applies
+        # only to the executed schedule.
+        solve_mask = None if weighted else avail
+        rows = (self.devices if solve_mask is None else
+                FleetRows.from_devices(self.devices, periods)
+                .with_mask(solve_mask))
         xi = self.xi_est.xi
         # B* re-optimized on the reopt cadence; rows are independent given
         # their rates, so every reopt period solves in one batched call
@@ -163,9 +378,10 @@ class FeelScheduler:
         carry = self._b_cache
         if reopt.any():
             b_star = optimize_batch_rows(
-                self.devices, rates_up[reopt], rates_down[reopt],
+                rows if solve_mask is None else rows.take(reopt),
+                pup[reopt], pdown[reopt],
                 self.payload_bits, c.frame_up_s, c.frame_down_s, xi,
-                self.b_max)
+                self.b_max, energy=self.energy)
             j = 0
             for p in range(periods):
                 if reopt[p]:
@@ -174,18 +390,39 @@ class FeelScheduler:
                 B[p] = carry
         else:
             B[:] = carry
-        sol = solve_period_rows(self.devices, rates_up, rates_down,
+        sol = solve_period_rows(rows, pup, pdown,
                                 self.payload_bits, c.frame_up_s,
                                 c.frame_down_s, xi, B, self.b_max)
         self._b_cache = float(B[-1])
         self._period += periods
-        batch = np.maximum(np.round(sol["batch"]).astype(int), 1)
+        batch_f = sol["batch"]
+        mask_now = avail
+        if self.energy is not None:
+            batch_f, mask_now = self._shed_energy(batch_f, mask_now,
+                                                  sol["tau_up"], pup,
+                                                  periods)
+        batch = np.maximum(np.round(batch_f).astype(int), 1)
+        # the fixed denominator comes from the full-fleet plan, BEFORE the
+        # cohort mask zeroes the absentees
+        aggden = self._aggden(batch)
+        if mask_now is not None:
+            batch = np.where(mask_now > 0.5, batch, 0)
         gb = batch.sum(1)
+        latency, energy_led = sol["latency"], None
+        if (gains is not None or slow is not None
+                or self.energy is not None or weighted):
+            # the realized-world ledger; the static world keeps the
+            # solver's own latency
+            latency, energy_led = self._realize(
+                batch_f, mask_now, sol["tau_up"], sol["tau_down"],
+                rates_up, rates_down, gains, slow, periods)
         return PlanHorizon(
             batch=batch, tau_up=sol["tau_up"], tau_down=sol["tau_down"],
             lr=np.array([lr_scale(self.base_lr, g, self.ref_batch)
                          for g in gb], np.float64),
-            latency=sol["latency"], global_batch=gb.astype(np.int64))
+            latency=latency, global_batch=gb.astype(np.int64),
+            participation=mask_now, aggden=aggden, energy=energy_led,
+            slowdown=slow)
 
     def plan(self) -> PeriodPlan:
         """Plan one period: draw the uplink then the downlink rates, solve
@@ -221,6 +458,10 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
     """Plan many schedulers' horizons with proposed-policy rows fused —
     across fleets of any size or composition.
 
+    Dynamic schedulers (``FeelScheduler.dynamic``: fading, faults, a
+    budget or weighted sampling) plan solo; unweighted sampling fuses,
+    its cohort masks drawn first as ``plan_horizon`` draws them.
+
     Bitwise equal to ``[s.plan_horizon(periods) for s in schedulers]``:
     each scheduler's rng streams are consumed in the per-call order, but
     the Algorithm-1 / Theorem-2 bisections of every proposed-policy
@@ -234,7 +475,7 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
     out: List[Optional[PlanHorizon]] = [None] * len(schedulers)
     groups = defaultdict(list)
     for i, s in enumerate(schedulers):
-        if s.policy != "proposed":
+        if s.policy != "proposed" or s.dynamic:
             out[i] = s.plan_horizon(periods)
         else:
             key = (s.payload_bits, s.cell.cfg.frame_up_s,
@@ -252,6 +493,8 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
         K = max(ks)
         fleet_rows = FleetRows.from_fleets(
             [tuple(s.devices) for s in scheds], k_pad=K)
+        # participation first, as plan_horizon draws it
+        parts = [s._draw_participation(P) for s in scheds]
         rates_up = np.empty((M, P, K))
         rates_down = np.empty((M, P, K))
         for m, s in enumerate(scheds):           # per-scheduler rng streams
@@ -264,6 +507,12 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
         flat_up = rates_up.reshape(M * P, K)
         flat_down = rates_down.reshape(M * P, K)
         flat_fleets = fleet_rows.repeat(P)       # row m*P+p = scheduler m
+        if any(p_m is not None for p_m in parts):
+            pm = np.ones((M, P, K))
+            for m, p_m in enumerate(parts):
+                if p_m is not None:              # pad columns stay 1; the
+                    pm[m, :, :ks[m]] = p_m       # fleet mask zeroes them
+            flat_fleets = flat_fleets.with_mask(pm.reshape(M * P, K))
         xi_rows = np.repeat(xi, P)
         B = np.empty((M, P))
         if reopt.any():
@@ -286,7 +535,8 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
         sol = solve_period_rows(flat_fleets, flat_up, flat_down,
                                 s0.payload_bits, c.frame_up_s, c.frame_down_s,
                                 xi_rows, B.reshape(M * P), s0.b_max)
-        # round active batches up to >= 1; padded columns stay exactly 0
+        # round active batches up to >= 1; padded columns and sampled-out
+        # users stay exactly 0
         batch = np.where(flat_fleets.active.reshape(M, P, K),
                          np.maximum(np.round(sol["batch"]).astype(int)
                                     .reshape(M, P, K), 1), 0)
@@ -302,5 +552,6 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
                 lr=np.array([lr_scale(s.base_lr, g, s.ref_batch)
                              for g in gb[m]], np.float64),
                 latency=sol["latency"].reshape(M, P)[m],
-                global_batch=gb[m].astype(np.int64))
+                global_batch=gb[m].astype(np.int64),
+                participation=parts[m])
     return out

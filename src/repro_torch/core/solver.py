@@ -551,7 +551,8 @@ def optimize_batch_rows(devices,
                         rates_up: np.ndarray, rates_down: np.ndarray,
                         s_bits: float, frame_up: float, frame_down: float,
                         xi, b_max: int,
-                        n_candidates: int = 97) -> np.ndarray:
+                        n_candidates: int = 97,
+                        energy=None) -> np.ndarray:
     """Outer 𝒫₁ for M rows at once: integer-grid argmin of E^U*+E^D* over B
     (every row and every candidate evaluated in one lockstep solve; B is
     rounded to an integer downstream anyway).
@@ -561,7 +562,16 @@ def optimize_batch_rows(devices,
     and hi bounds scale with the row's active users); rows with narrower
     grids repeat their last candidate so the lockstep solve stays
     rectangular — a repeated candidate ties its original and argmin keeps
-    the first, so padding never changes a row's argmin."""
+    the first, so padding never changes a row's argmin.
+
+    ``energy`` (optional :class:`repro_torch.dynamics.EnergyBudget`, read
+    through ``budget_j``/``comp_w``/``tx_w``) discounts candidates the
+    fleet cannot afford: each candidate's allocation is clipped to the
+    per-user affordable batch (the affine local-latency model inverted
+    against the residual budget after the uplink spend) and the objective
+    is multiplied by √(ΣB/ΣB_affordable), so a candidate gets √B credit
+    only for the batch its users can power.  An unbinding budget
+    multiplies every objective by exactly 1.0."""
     M = rates_up.shape[0]
     fr = as_fleet_rows(devices, M)
     lo_rows = _ssum(np.where(fr.active, fr.lo, 0.0))
@@ -573,11 +583,29 @@ def optimize_batch_rows(devices,
     cand = np.stack([np.concatenate([c, np.full(C - len(c), c[-1])])
                      for c in per_row])           # (M, C)
     xi_rows = np.broadcast_to(np.asarray(xi, float), (M,))
+    rup_c = np.repeat(rates_up, C, axis=0)
+    frc = fr.repeat(C)
     sol = solve_period_rows(
-        fr.repeat(C), np.repeat(rates_up, C, axis=0),
+        frc, rup_c,
         np.repeat(rates_down, C, axis=0), s_bits, frame_up, frame_down,
         np.repeat(xi_rows, C), cand.reshape(-1), b_max)
     obj = sol["e_total"].reshape(M, C)
+    if energy is not None:
+        t_up = s_bits * frame_up / (np.maximum(sol["tau_up"], 1e-30)
+                                    * rup_c)
+        residual = (energy.budget_j - energy.tx_w * t_up
+                    - energy.comp_w * frc.a)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cap = np.where(energy.comp_w * frc.b > 0,
+                           residual / np.maximum(energy.comp_w * frc.b,
+                                                 1e-30),
+                           np.where(residual >= 0, np.inf, -np.inf))
+        cap = np.clip(cap, 0.0, float(b_max))
+        b_all = _ssum(np.where(frc.active, sol["batch"], 0.0))
+        b_aff = _ssum(np.where(frc.active,
+                               np.minimum(sol["batch"], cap), 0.0))
+        factor = np.sqrt(b_all / np.maximum(b_aff, 1e-30))
+        obj = obj * factor.reshape(M, C)
     best = np.argmin(obj, axis=1)
     return cand[np.arange(M), best]
 

@@ -23,7 +23,7 @@ off for matmuls and for cuDNN (:func:`full_f32`).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,6 +79,11 @@ class Schedule:
     lr: np.ndarray            # (P,) f32 — η per period
     times: np.ndarray         # (P,) f64 — cumulative simulated seconds
     global_batch: np.ndarray  # (P,) int
+    # (P,) f32 fixed aggregation denominator, or None.  Weighted
+    # (Horvitz-Thompson) sampling divides each cohort's eq. (1) sum by
+    # p·Σ_all b̄_k instead of the realized Σ_cohort b_k; zero entries (the
+    # None default) fall back to the realized sum inside the step.
+    aggden: Optional[np.ndarray] = None
 
     @property
     def periods(self) -> int:
@@ -91,7 +96,9 @@ def slice_schedule(schedule: Schedule, lo: int, hi: int) -> Schedule:
     return Schedule(idx=schedule.idx[lo:hi], weight=schedule.weight[lo:hi],
                     batch=schedule.batch[lo:hi], lr=schedule.lr[lo:hi],
                     times=schedule.times[lo:hi],
-                    global_batch=schedule.global_batch[lo:hi])
+                    global_batch=schedule.global_batch[lo:hi],
+                    aggden=None if schedule.aggden is None
+                    else schedule.aggden[lo:hi])
 
 
 def pad_schedule(schedule: Schedule, k: int) -> Schedule:
@@ -106,7 +113,8 @@ def pad_schedule(schedule: Schedule, k: int) -> Schedule:
                     weight=np.pad(schedule.weight, pad3),
                     batch=np.pad(schedule.batch, ((0, 0), (0, k - kk))),
                     lr=schedule.lr, times=schedule.times,
-                    global_batch=schedule.global_batch)
+                    global_batch=schedule.global_batch,
+                    aggden=schedule.aggden)
 
 
 def build_schedule(scheduler, batcher, periods: int, horizon=None,
@@ -128,7 +136,9 @@ def build_schedule(scheduler, batcher, periods: int, horizon=None,
     return Schedule(idx=idx, weight=w,
                     batch=horizon.batch.astype(np.float32),
                     lr=horizon.lr.astype(np.float32),
-                    times=times, global_batch=horizon.global_batch)
+                    times=times, global_batch=horizon.global_batch,
+                    aggden=None if horizon.aggden is None
+                    else horizon.aggden.astype(np.float32))
 
 
 @dataclass
@@ -148,12 +158,36 @@ def zero_residual(params, k: int):
                     params)
 
 
+def _aggden_of(schedule: Schedule) -> np.ndarray:
+    """A schedule's ``aggden``, zeros when unset, so it always crosses."""
+    if schedule.aggden is None:
+        return np.zeros(schedule.periods, np.float32)
+    return schedule.aggden
+
+
 def stack_schedules(schedules: Sequence[Schedule], device):
     """Stack per-row schedules along a leading row axis, on ``device``:
-    ``idx``/``weight`` (R, P, K, slot), ``batch`` (R, P, K), ``lr`` (R, P)."""
-    return host_to_device({
-        key: np.stack([getattr(s, key) for s in schedules])
-        for key in ("idx", "weight", "batch", "lr")}, device)
+    ``idx``/``weight`` (R, P, K, slot), ``batch`` (R, P, K), ``lr`` and
+    ``aggden`` (R, P).  ``aggden`` always crosses (zeros when unset), so
+    weighted and unweighted rows share one bucket."""
+    xs = {key: np.stack([getattr(s, key) for s in schedules])
+          for key in ("idx", "weight", "batch", "lr")}
+    xs["aggden"] = np.stack([_aggden_of(s) for s in schedules])
+    return host_to_device(xs, device)
+
+
+def normalize_active(active, rows: int, periods: int, k: int, device):
+    """A batched ``active`` mask as the (R, P, K) float32 tensor the loop
+    reads: ``None`` is all ones; a static (R, K) mask (ragged-fleet
+    padding) broadcasts over periods; a time-varying (R, P, K) mask
+    (participation, dropout, energy drops) passes through."""
+    if active is None:
+        return torch.ones((rows, periods, k), dtype=torch.float32,
+                          device=device)
+    active = host_to_device(np.asarray(active, np.float32), device)
+    if active.dim() == 2:
+        active = active[:, None, :].expand(rows, periods, k)
+    return active
 
 
 # ---------------------------------------------------------------------------
@@ -168,13 +202,22 @@ _row_accuracy = vmap(feel_model.accuracy, in_dims=(0, None, None))
 _device_grads = vmap(vmap(grad(feel_model.loss_fn), in_dims=(None, 0, 0, 0)))
 
 
+def aggregation_weights(bk, aggden):
+    """eq. (1)'s weights B_k / den over (R, K): den is the row's
+    ``aggden`` where positive (weighted sampling's fixed denominator),
+    else the realized Σ_k B_k (inactive and padded users carry B_k = 0),
+    which is bitwise the plain eq. (1) step."""
+    den = aggden[:, None]
+    return bk / torch.where(den > 0, den, bk.sum(-1, keepdim=True))
+
+
 def _period_step(arrays, active, compress: bool, ratio: float,
                  carry: EngineState, xs: dict):
     data_x, data_y, test_x, test_y = arrays
     params, residual = carry.params, carry.residual
-    # active: (R, K) {0,1} user mask; the schedule already carries zero
-    # weights/batch for padded users, and multiplying keeps that invariant
-    # for hand-built schedules too (x * 1.0 == x bitwise)
+    # active: the period's (R, K) {0,1} user mask; the schedule already
+    # carries zero weights/batch for inactive users, and multiplying keeps
+    # that invariant for hand-built schedules too (x * 1.0 == x bitwise)
     w = xs["weight"] * active[..., None]
     bk = xs["batch"] * active
     lr = xs["lr"]
@@ -190,11 +233,12 @@ def _period_step(arrays, active, compress: bool, ratio: float,
     grads = _device_grads(params, x, y, w)       # leaves (R, K, ...)
     if compress:
         # per-device SBC: every device sparsifies its OWN upload, so a
-        # padded (all-zero-gradient) user compresses to exact zeros
+        # padded (all-zero-gradient) user compresses to exact zeros.  An
+        # inactive user still compresses and updates its residual, as in
+        # the reference: only its aggregation weight is zero.
         grads, residual = compress_dense(grads, ratio, residual,
                                          batch_dims=2)
-    # eq. (1): weighted average by B_k (padded users carry B_k = 0)
-    wk = bk / bk.sum(-1, keepdim=True)
+    wk = aggregation_weights(bk, xs["aggden"])
     agg = tree_map(lambda g: torch.einsum("rk,rk...->r...", wk, g), grads)
     params = tree_map(
         lambda p, g: p - lr.reshape((-1,) + (1,) * (p.dim() - 1)) * g,
@@ -218,8 +262,9 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     ``state`` holds the row-batched params (R, ...) and residuals
     (R, K, ...); ``schedules`` is one :class:`Schedule` per row, padded to
     a common K (:func:`pad_schedule`); ``arrays`` is
-    :func:`dataset_to_device`'s tuple; ``active`` an optional (R, K)
-    {0,1} user mask (default all-active) whose zeros are padded users.
+    :func:`dataset_to_device`'s tuple; ``active`` an optional {0,1} user
+    mask (default all-active), static (R, K) — padded users — or
+    time-varying (R, P, K) — per-period participation.
 
     Returns ``(EngineState, (losses, accs, decays))``, each series
     (R, P) on the device.  The work is enqueued and not waited for."""
@@ -227,11 +272,11 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     full_f32(device)
     xs = stack_schedules(schedules, device)
     rows, periods, k = xs["batch"].shape
-    active = (torch.ones((rows, k), dtype=torch.float32, device=device)
-              if active is None else host_to_device(active, device))
+    active = normalize_active(active, rows, periods, k, device)
     series = []
     for p in range(periods):
-        state, out = _period_step(arrays, active, compress, ratio, state,
+        state, out = _period_step(arrays, active[:, p], compress, ratio,
+                                  state,
                                   {key: v[:, p] for key, v in xs.items()})
         series.append(out)
     losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))

@@ -39,8 +39,9 @@ import torch
 
 from repro_torch.compression.sbc import compress_dense
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.fed.engine import (EngineState, full_f32, host_to_device,
-                                    stack_schedules)
+from repro_torch.fed.engine import (EngineState, aggregation_weights,
+                                    full_f32, host_to_device,
+                                    normalize_active, stack_schedules)
 from repro_torch.fed.train_step import TrainState, make_loss_fn
 from repro_torch.models.model import Runtime, forward
 from repro_torch.models.model import init as model_init
@@ -163,11 +164,11 @@ def _model_period_step(cfg, rt, loss_fn, opt, compress: bool, ratio: float,
     residual = state.residual
     if compress:
         # per-device SBC with per-device error feedback: every stacked
-        # leaf of every device is one upload
+        # leaf of every device is one upload (inactive users' too)
         grads, residual = compress_dense(grads, ratio, residual,
                                          batch_dims=2)
-    # eq. (1): weighted average by B_k (padded users carry B_k = 0)
-    wk = bk / bk.sum(-1, keepdim=True)
+    # eq. (1), over aggden where positive as in the feel-mlp step
+    wk = aggregation_weights(bk, xs["aggden"])
     agg = tree_map(lambda g: torch.einsum("rk,rk...->r...", wk, g), grads)
     updates, opt_state = opt.update(agg, state.opt, state.params, lr)
     params = apply_updates(state.params, updates)
@@ -202,15 +203,14 @@ def run_model_trajectory_batch(state: EngineState, schedules: Sequence,
     opt = sgd()
     xs = stack_schedules(schedules, device)
     rows, periods, k = xs["batch"].shape
-    active = (torch.ones((rows, k), dtype=torch.float32, device=device)
-              if active is None else host_to_device(active, device))
+    active = normalize_active(active, rows, periods, k, device)
     train = TrainState(state.params, opt.init(state.params), 0,
                        state.residual)
     series = []
     for p in range(periods):
         train, out = _model_period_step(
-            cfg, KERNEL_RT, loss_fn, opt, compress, ratio, arrays, active,
-            train, {key: v[:, p] for key, v in xs.items()})
+            cfg, KERNEL_RT, loss_fn, opt, compress, ratio, arrays,
+            active[:, p], train, {key: v[:, p] for key, v in xs.items()})
         series.append(out)
     losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
     return EngineState(train.params, train.residual), (losses, accs, decays)

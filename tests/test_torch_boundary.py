@@ -1,6 +1,8 @@
 """The PyTorch port's boundaries: it imports neither jax nor any module of
-the JAX reference package, its spec rejects what later slices bring, and
-its entry point runs on the GPU unless the caller asks for the CPU."""
+the JAX reference package (its ``topology`` and ``dynamics`` packages are
+copies), its spec rejects what later slices bring and type-checks the
+time-varying world's fields as the reference does, and its entry point
+runs on the GPU unless the caller asks for the CPU."""
 import pathlib
 import re
 import subprocess
@@ -45,6 +47,8 @@ def test_port_sources_and_chip_smoke_name_no_jax_and_no_repro():
     files += [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
               ROOT / "executor_ab.py"]
     assert len(files) > 20
+    # the copies of the reference's jax-free modules are scanned too
+    assert {"topology", "dynamics"} <= {f.parent.name for f in files}
     offenders = [(str(f.relative_to(ROOT)), m.group(0).strip())
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert offenders == []
@@ -58,11 +62,19 @@ def _fleet(k=3):
 @pytest.mark.parametrize("field,value", [
     ("scheme", "model_fl"), ("scheme", "individual"),
     ("scheme", "gradient_fl"), ("local_steps", 2), ("replan", 5),
-    ("sampling", object()), ("topology", object()), ("fading", object()),
-    ("faults", object()), ("energy", object()), ("adapt_tau", object())])
+    ("topology", object()), ("adapt_tau", object())])
 def test_spec_rejects_what_later_slices_bring(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ScenarioSpec(fleet=_fleet(), **{field: value})
+
+
+@pytest.mark.parametrize("field", ["sampling", "fading", "faults",
+                                   "energy"])
+def test_spec_type_checks_the_time_varying_world(field):
+    """As the reference's ``ScenarioSpec``: a value of the wrong type for
+    a sampling or dynamics field is a ``TypeError``."""
+    with pytest.raises(TypeError, match=f"{field}= expects"):
+        ScenarioSpec(fleet=_fleet(), **{field: object()})
 
 
 def test_spec_accepts_the_transformer_family():

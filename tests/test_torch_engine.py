@@ -58,7 +58,7 @@ def test_period_step_matches_reference(step_case, compress):
                                params_from_numpy(batched(residual)))
     txs = engine.host_to_device(
         {k: np.asarray(v)[None] for k, v in xs.items()
-         if k in ("idx", "weight", "batch", "lr")}, "cpu")
+         if k in ("idx", "weight", "batch", "lr", "aggden")}, "cpu")
     state, (loss, acc, decay) = engine._period_step(
         engine.host_to_device(arrays, "cpu"),
         torch.from_numpy(xs["active"][None]), compress, 0.05, state, txs)

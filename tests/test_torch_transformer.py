@@ -174,7 +174,7 @@ def test_period_step_matches_reference(case, ref_grads):
         torch.from_numpy(xs["active"])[None],
         TrainState(start, popt.init(start), 0, pres),
         engine.host_to_device({k: np.asarray(xs[k])[None] for k in
-                               ("idx", "weight", "batch", "lr")}, "cpu"))
+                               ("idx", "weight", "batch", "lr", "aggden")}, "cpu"))
     err = max(_max_err(state.params, rstate.params),
               _max_err(state.residual, rres))
     np.testing.assert_allclose(float(loss[0]), float(rl), **TOL)
