@@ -4,9 +4,11 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown
 
-It drives the port's FEEL paths through ``repro_torch.api.Experiment.run``
-on the FEEL scheme with the Table-II fleet at K = 12 — the main path with
+It drives the port's paths through ``repro_torch.api.Experiment.run``
+with the Table-II fleet at K = 12 — the main path, the FEEL scheme with
 feel-mlp at full width (3072→256→256→10, 855 050 parameters, 16 rows),
+the four Table-II schemes, τ local steps and the cell→edge→cloud
+hierarchy on the same model,
 the transformer family at the spec's defaults (feel-transformer-h256-d3:
 d_model 256, 4 query / 2 KV heads of 64, SwiGLU 512, 16-token sequences,
 1 836 800 parameters, 8 rows) and the mamba2 family at the spec's
@@ -58,6 +60,16 @@ those paths against its plain PyTorch version on the card:
      peak memory, and the bitwise pins on the card (identity dynamics ==
      static, full cohort == unsampled, chunked == monolithic, a poisoned
      sampled-out column changes nothing);
+     4g. the main cell as the Table-II schemes (``grid(base, scheme=[4],
+     partition=[2])``, seeds (0, 1): 16 rows in 3 buckets — individual,
+     model_fl, gradient_fl + feel), at ``local_steps`` 2 and 4 (8 rows in
+     2 buckets) and under ``Topology(cells=4, edges=2, agg_every=3)`` (4
+     rows), 20 periods each, with each bucket's wall, planning split,
+     peak memory and SBC launches (120 where the rows compress, 0 in a
+     dev bucket), the Table-II report (final accuracy, simulated time,
+     time to 0.6, speedup against individual), and the bitwise pins on
+     the card (chunked == monolithic for a dev, a τ and the hierarchical
+     bucket; a sampled-out individual user holds still);
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -68,7 +80,10 @@ those paths against its plain PyTorch version on the card:
      worlds, card vs CPU path: one feel-mlp row each of sampling,
      weighted sampling, fading with faults and the budget, and a
      weighted-sampled transformer row (through B4, B4′ and B4″), 3
-     periods: ledgers bitwise, losses 1e-4;
+     periods: ledgers bitwise, losses 1e-4; 5f. the schemes, card vs
+     CPU path: one row each of individual, model_fl (and one sampled),
+     gradient_fl, τ 2 (compressed and not) and the hierarchy, 3 periods,
+     the same tolerances;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -210,6 +225,16 @@ SOURCES = ("sbc", "flash_attention", "ssd_scan", "flash_decode")
 F_BUDGET_J = 0.5
 F_SEEDS = (0, 1)
 F_PIN_PERIODS = 5
+# the schemes cell (phase 4g): the main cell's model, data and fleet,
+# seeds (0, 1), iid and noniid, as the four Table-II schemes (16 rows in
+# 3 buckets: individual, model_fl, gradient_fl + feel), at τ local steps
+# (8 rows in 2 buckets) and under a cell→edge→cloud topology (4 rows);
+# the B1/B2 launches a bucket: 6 leaves x PERIODS where the rows
+# compress (once a period whatever τ), none in a dev bucket
+S_SCHEMES = ("individual", "model_fl", "gradient_fl", "feel")
+S_TAUS = (2, 4)
+S_TOPOLOGY = dict(cells=4, edges=2, agg_every=3)
+S_CHUNK = 5
 
 
 class _Log:
@@ -1571,6 +1596,235 @@ def dynamics_contracts(env, api, counted_attn):
     return out
 
 
+def schemes_base(env, **kw):
+    """The main cell's spec (K = 12, b_max 128, SBC 0.005) with ``kw``."""
+    kw = dict(dict(name="K12", b_max=128, base_lr=0.05, seeds=F_SEEDS), **kw)
+    return env.ScenarioSpec(fleet=fleet(env.DeviceProfile, DEVICES), **kw)
+
+
+def schemes_cell(env, api, counted):
+    """Phase 4g: the main cell at full width as the Table-II schemes, at τ
+    local steps and under a topology, each grid through
+    ``Experiment.stream(PERIODS, executor=SerialExecutor())`` after a
+    1-period warm-up.  After each bucket's collection the SBC counts
+    (expected 6 leaves x PERIODS where the rows compress, 0 in a dev
+    bucket) and peak memory are read and reset, with the bucket's wall
+    and the executor's planning / enqueue / collect split.  Then the
+    Table-II report (per scheme and partition: final accuracy, simulated
+    time, time to G_TARGET, speedup against ``individual``) and the
+    bitwise pins on the card: chunked (S_CHUNK) == monolithic for a dev,
+    a τ and the hierarchical bucket, and a sampled-out ``individual``
+    user's parameters held still.  Returns the report and, for
+    ``--profile``, the ``model_fl``, τ 4 and hierarchical buckets.
+    Raises AssertionError."""
+    torch, np, lowering = env.torch, env.np, env.lowering
+    Experiment, data, test = env.Experiment, env.data, env.test
+    parts = ["iid", "noniid"]
+    leaves = len(LEAF_LENGTHS) * PERIODS
+    topo = api.Topology(**S_TOPOLOGY)
+    cells = {
+        "Table II": (api.grid(schemes_base(env), scheme=list(S_SCHEMES),
+                              partition=parts),
+                     [4, 4, 8], [0, 0, leaves]),
+        "local steps": (api.grid(schemes_base(env),
+                                 local_steps=list(S_TAUS), partition=parts),
+                        [4, 4], [leaves, leaves]),
+        f"hierarchy {topo}": (api.grid(schemes_base(env, topology=topo),
+                                       partition=parts), [4], [leaves])}
+    out, results, profiled = {}, {}, {}
+    for tag, (study, want_rows, want_launches) in cells.items():
+        exp = Experiment(data, test, study)
+        buckets = exp.lower()
+        # the buckets --profile traces: model_fl, τ 4, the hierarchy
+        b = buckets[1] if tag == "Table II" else buckets[-1]
+        spec0 = b.rows[0].spec
+        profiled[spec0.scheme if b.kind == "dev" else
+                 tag if spec0.topology is not None else
+                 f"local_steps={spec0.local_steps}"] = b
+        if [len(b.rows) for b in buckets] != want_rows:
+            raise AssertionError(f"4g: {tag} lowered to "
+                                 f"{[len(b.rows) for b in buckets]} rows a "
+                                 f"bucket, expected {want_rows}")
+        t0 = time.perf_counter()
+        exp.run(1)                                       # warm-up period
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        executor = env.SerialExecutor()
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        per_bucket, before = [], {"plan": 0.0, "dispatch": 0.0,
+                                  "collect": 0.0}
+        t0 = t_start = time.perf_counter()
+        for bucket, res in zip(buckets, exp.stream(PERIODS,
+                                                   executor=executor)):
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counted.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tm = {k: v - before[k] for k, v in executor.timings.items()}
+            before = dict(executor.timings)
+            spec0 = bucket.rows[0].spec
+            label = (f"{bucket.kind} {sorted({r.spec.scheme for r in bucket.rows})}"
+                     f" local_steps={spec0.local_steps}"
+                     + ("" if spec0.topology is None
+                        else f" topology={spec0.topology}"))
+            want = {name: want_launches[len(per_bucket)] for name in counted}
+            log(f"[4g schemes] {tag}, bucket {len(per_bucket) + 1} ({label}):"
+                f" {len(bucket.rows)} rows x {PERIODS} periods in {wall:.3f}"
+                f" s = {1e3 * wall / PERIODS:.1f} ms/period; host planning "
+                f"{1e3 * tm['plan'] / PERIODS:.1f} ms/period, enqueue "
+                f"{1e3 * tm['dispatch'] / PERIODS:.1f}, collect "
+                f"{1e3 * tm['collect'] / PERIODS:.2f}; peak device memory "
+                f"{peak:.2f} GiB; launches {launches} (expected {want})")
+            if launches != want:
+                raise AssertionError(f"4g: {tag} bucket {label}: kernel "
+                                     f"launches {launches}, expected {want}")
+            per_bucket.append({"bucket": label, "rows": len(bucket.rows),
+                               "wall_s": wall,
+                               "ms_per_period": 1e3 * wall / PERIODS,
+                               "timings_s": tm, "peak_gib": peak,
+                               "launches": launches})
+            for fn in counted.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        total = time.perf_counter() - t_start
+        log(f"[4g schemes] {tag}: {res.rows} rows in {len(buckets)} buckets"
+            f" in {total:.3f} s = {1e3 * total / PERIODS:.1f} ms/period "
+            f"(warm-up run of 1 period {t_warm:.2f} s)")
+        if not (np.isfinite(res.losses).all() and np.isfinite(res.accs).all()
+                and np.isfinite(res.times).all()):
+            raise AssertionError(f"4g: {tag}: non-finite series")
+        if not res.losses[:, -1].mean() < res.losses[:, 0].mean():
+            raise AssertionError(f"4g: {tag}: the mean loss did not fall")
+        results[tag] = res
+        out[tag] = {"rows": res.rows, "buckets": per_bucket,
+                    "wall_s": total, "warmup_s": t_warm}
+
+    table2 = results["Table II"]
+    report = {}
+    for part in parts:
+        base_t = None
+        for scheme in S_SCHEMES:
+            sub = table2.sel(partition=part, scheme=scheme)
+            t_reach = float(np.median(sub.speed(G_TARGET)))
+            if scheme == "individual":
+                base_t = t_reach
+            speedup = (base_t / t_reach if np.isfinite(t_reach)
+                       and np.isfinite(base_t) else 0.0)
+            row = {"final_acc": float(sub.final_acc.mean()),
+                   "sim_time_s": float(sub.times[:, -1].mean()),
+                   "time_to_target_s": t_reach, "speedup": speedup}
+            report[f"{part}/{scheme}"] = row
+            log(f"[4g Table II] {part} {scheme:>11}: final accuracy "
+                f"{row['final_acc']:.4f}; simulated time at period "
+                f"{PERIODS} {row['sim_time_s']:.3f} s; time to "
+                f"{G_TARGET} (median) {t_reach:.3f} s; speedup vs "
+                f"individual {speedup:.2f}x")
+    for tag in list(cells)[1:]:
+        res = results[tag]
+        for part in parts:
+            sub = res.sel(partition=part)
+            log(f"[4g {tag}] {part}: final accuracy "
+                f"{[round(float(a), 4) for a in sub.final_acc]}; simulated "
+                f"time at period {PERIODS} "
+                f"{[round(float(t), 3) for t in sub.times[:, -1]]} s")
+    out["table2"] = report
+
+    # the bitwise pins on the card
+    fields = ("losses", "accs", "times", "global_batch")
+    pins = {}
+    hier = f"hierarchy {topo}"
+    for tag, mono, specs in (
+            ("model_fl", results["Table II"].sel(scheme="model_fl"),
+             api.grid(schemes_base(env, scheme="model_fl"),
+                      partition=parts)),
+            (f"local_steps={S_TAUS[0]}",
+             results["local steps"].sel(local_steps=S_TAUS[0]),
+             api.grid(schemes_base(env, local_steps=S_TAUS[0]),
+                      partition=parts)),
+            (f"topology={topo}", results[hier], cells[hier][0])):
+        chunked = Experiment(data, test, specs).run(
+            PERIODS, executor=env.SerialExecutor(chunk_periods=S_CHUNK))
+        pins[f"{tag} chunk_periods={S_CHUNK} == monolithic"] = (
+            chunked.rows == mono.rows == 4 and all(
+                np.array_equal(getattr(chunked, f), getattr(mono, f))
+                for f in fields))
+    # a sampled-out individual user holds still, period by period
+    (bucket,) = lowering.group_rows([schemes_base(
+        env, scheme="individual", partition="iid", seeds=(0,),
+        sampling=api.Sampling(size=6))])
+    plan = lowering.plan_bucket(bucket, data, F_PIN_PERIODS)
+    features = lowering.DeviceData(data, test, "cuda").features
+    params0 = lowering._init_params_batch(bucket.rows, plan.input_dim, "cuda")
+    state = env.engine.EngineState(lowering._broadcast_rows(params0,
+                                                            DEVICES))
+    held = True
+    for p in range(F_PIN_PERIODS):
+        before_p = state.params
+        state, _ = env.engine.run_dev_trajectory_batch(
+            state, plan.idx[:, p:p + 1], plan.lr, features, average=False,
+            active=plan.active[:, p:p + 1])
+        out_users = torch.from_numpy(plan.active[0, p] < 0.5).cuda()
+        pairs = list(zip(env.tree_leaves(before_p),
+                         env.tree_leaves(state.params)))
+        held &= (bool(out_users.any()) and all(
+            torch.equal(a[0, out_users], b[0, out_users]) for a, b in pairs)
+            and all(not torch.equal(a[0, ~out_users], b[0, ~out_users])
+                    for a, b in pairs))
+    pins["a sampled-out individual user holds still"] = held
+    log(f"[4g schemes] on the card, bitwise ({PERIODS} periods, iid and "
+        f"noniid x seeds {F_SEEDS}; the held user over {F_PIN_PERIODS}): "
+        + "; ".join(f"{k}: {'yes' if v else 'NO'}" for k, v in pins.items()))
+    if not all(pins.values()):
+        raise AssertionError(f"4g: a bitwise pin fails: {pins}")
+    out["pins"] = pins
+    return out, profiled
+
+
+def schemes_contracts(env, api):
+    """Phase 5f: one row each of ``individual``, ``model_fl`` (and one
+    with ``Sampling(size=6)``), ``gradient_fl``, ``feel`` at τ 2 (and
+    the same uncompressed, which shows what SBC's keep set adds to the
+    gap of the τ row's (p0 − pτ)/lr upload) and ``feel`` under phase
+    4g's topology (the main cell, iid, seed 0) for 3 periods on the card
+    and on the port's CPU path: ledgers bitwise, losses 1e-4, accuracies
+    two test predictions.  Raises AssertionError."""
+    np, data, test = env.np, env.data, env.test
+    rows = {"individual": {"scheme": "individual"},
+            "model_fl": {"scheme": "model_fl"},
+            "model_fl, Sampling(size=6)": {
+                "scheme": "model_fl", "sampling": api.Sampling(size=6)},
+            "gradient_fl": {"scheme": "gradient_fl"},
+            f"local_steps={S_TAUS[0]}": {"local_steps": S_TAUS[0]},
+            f"local_steps={S_TAUS[0]}, compress=False": {
+                "local_steps": S_TAUS[0], "compress": False},
+            f"topology={api.Topology(**S_TOPOLOGY)}": {
+                "topology": api.Topology(**S_TOPOLOGY)}}
+    specs = [schemes_base(env, partition="iid", seeds=(0,), **kw)
+             for kw in rows.values()]
+    card = env.Experiment(data, test, specs).run(3)
+    cpu = env.Experiment(data, test, specs, device="cpu").run(3)
+    loss_err = np.abs(card.losses - cpu.losses).max(1)
+    acc_err = float(np.abs(card.accs - cpu.accs).max())
+    for (tag, _), err in zip(rows.items(), loss_err):
+        log(f"[5f card vs cpu] {tag}, 3 periods: losses max abs err "
+            f"{err:.3g}")
+    log(f"[5f card vs cpu] {len(specs)} rows: global batch "
+        f"{card.global_batch[:, -1].tolist()}; accs max abs err "
+        f"{acc_err:.3g}; ledgers "
+        f"{'bitwise' if np.array_equal(card.times, cpu.times) else 'DIFFER'}")
+    if not (np.array_equal(card.times, cpu.times)
+            and np.array_equal(card.global_batch, cpu.global_batch)
+            and np.allclose(card.losses, cpu.losses, rtol=1e-4, atol=1e-4)
+            and acc_err <= 2.0 / len(test.y) + 1e-7):
+        raise AssertionError("5f: card and CPU path disagree beyond ledgers "
+                             "bitwise, losses 1e-4, accuracies two test "
+                             "predictions")
+    return {"rows": list(rows), "loss_max_abs_err": loss_err.tolist(),
+            "acc_max_abs_err": acc_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1886,6 +2140,14 @@ def main(argv=None) -> int:
     f_launches = {tag: report["dynamics"][tag]["launches"]
                   for tag in ("bucket 1", "bucket 2")}
 
+    # ---- 4g. the Table-II schemes, τ local steps, the hierarchy -----------
+    try:
+        report["schemes"], schemes_buckets = schemes_cell(
+            env, api, {"sbc_stats": ksbc.sbc_stats,
+                       "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -1962,6 +2224,12 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
     e_launches = report["dynamics_contracts"]["transformer"]["launches"]
+
+    # ---- 5f. the schemes, τ and the hierarchy: card vs CPU ----------------
+    try:
+        report["schemes_contracts"] = schemes_contracts(env, api)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
 
     # ---- 6. times ----------------------------------------------------------
     records = []
@@ -2179,7 +2447,9 @@ def main(argv=None) -> int:
         for path, pbucket, form in (
                 ("feel_mlp", bucket, "features"),
                 ("transformer", cells["transformer"]["bucket"], "tokens"),
-                ("mamba2", cells["mamba2"]["bucket"], "tokens")):
+                ("mamba2", cells["mamba2"]["bucket"], "tokens"),
+                *((f"4g {tag}", b, "features")
+                  for tag, b in schemes_buckets.items())):
             plan = lowering.plan_bucket(pbucket, data, 2)
             arrays = lowering.DeviceData(data, test, "cuda")
             getattr(arrays, form)

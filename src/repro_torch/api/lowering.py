@@ -10,11 +10,15 @@ batched device loop over its rows via three phases:
   Algorithm-1 bisections (``core.scheduler.plan_horizons_batch``, rows
   fused into one lockstep solve), horizon dedup across rows that are
   scheduler-identical modulo partition/base_lr (``_plan_key``), batcher
-  sampling, the cumulative latency ledger.
+  sampling, the cumulative latency ledger; for a dev-scheme bucket
+  (``individual`` / ``model_fl``) one ``core.scheduler.DevScheduler`` a
+  row instead.
 * :func:`dispatch_bucket` — init the rows' parameters (fresh run) and
-  enqueue ``engine.run_trajectory_batch`` (feel-mlp) or
-  ``model_engine.run_model_trajectory_batch`` (the transformer family)
-  over the (scenario × seed) rows;
+  enqueue the bucket's device loop over the (scenario × seed) rows:
+  ``engine.run_trajectory_batch`` (feel-mlp, any ``local_steps``),
+  ``engine.run_hier_trajectory_batch`` (feel-mlp under a ``topology``),
+  ``engine.run_dev_trajectory_batch`` (the dev schemes) or
+  ``model_engine.run_model_trajectory_batch`` (the big-model families);
   CUDA work is asynchronous, so this returns before the device finishes.
 * :func:`collect_bucket` — wait for the device values and return host
   ``(losses, accs, times, global_batch)`` series, one row per computed row.
@@ -48,7 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.spec import ScenarioSpec
-from repro_torch.core.scheduler import FeelScheduler, plan_horizons_batch
+from repro_torch.core.scheduler import (DevScheduler, FeelScheduler,
+                                        plan_horizons_batch)
 from repro_torch.data.pipeline import (FederatedBatcher, partition_iid,
                                        partition_noniid)
 from repro_torch.fed import engine, feel_model, model_engine
@@ -75,6 +80,10 @@ class Bucket:
     key: tuple
     rows: List[Row]
     band: Optional[int] = None
+
+    @property
+    def kind(self) -> str:
+        return self.key[0]      # "feel" | "dev"
 
     @property
     def k_pad(self) -> int:
@@ -181,13 +190,14 @@ def _plan_key(r: Row) -> tuple:
     only affects the batcher, base_lr only rescales the lr row), so the
     lowering plans each unique key once.  Sampling and the dynamics
     processes are part of the key: they change the plan.
+    So is the topology (the per-cell solves and the backhaul ledger).
     ``model_family`` is part of the key as in the reference's;
     ``bucket_key`` already keeps the families in separate buckets, so it
     changes no plan."""
     s = r.spec
     return (s.fleet, s.effective_policy, s.b_max, s.compression, s.cell,
-            s.hidden, s.depth, r.seed, s.sampling, s.fading, s.faults,
-            s.energy, s.model_family)
+            s.hidden, s.depth, r.seed, s.sampling, s.topology, s.fading,
+            s.faults, s.energy, s.model_family)
 
 
 def _rescale_lr(horizon, base_lr: float, ref_batch: float):
@@ -199,19 +209,29 @@ def _rescale_lr(horizon, base_lr: float, ref_batch: float):
 
 @dataclass
 class BucketPlan:
-    """Phase-1 output: host ledgers (one row per computed row) and the
-    padded schedules + active mask the dispatch phase feeds the device.
-    ``active`` is the static (n, k_pad) padding mask, or (n, P, k_pad)
-    when a row sampled, faulted or has a budget; ``energy`` the host-only
-    per-user joules ledger when a row has a budget (padded columns and
-    unbudgeted rows exactly 0), else None."""
+    """Phase-1 output: host ledgers (one row per computed row) and what
+    the dispatch phase feeds the device.
+
+    A FEEL bucket carries the padded ``schedules``; a hierarchical one
+    also the (n, E, k_pad) user→edge ``member`` one-hot
+    (``Topology.member_matrix``, padded users in no edge) and the (n, P)
+    ``cloud`` flags.  A dev bucket carries ``idx`` (n, P, k_pad, batch)
+    and the per-row ``lr`` (n,) instead of schedules.  ``active`` is the
+    static (n, k_pad) padding mask, or (n, P, k_pad) when a row sampled,
+    faulted or has a budget; ``energy`` the host-only per-user joules
+    ledger when a row has a budget (padded columns and unbudgeted rows
+    exactly 0), else None."""
     bucket: Bucket
     input_dim: int
     times: np.ndarray            # (n, P) cumulative simulated seconds
     global_batch: np.ndarray     # (n, P) int64
-    schedules: list
+    schedules: Optional[list]
     active: np.ndarray           # (n, k_pad) or (n, P, k_pad) f32
     energy: Optional[np.ndarray] = None   # (n, P, k_pad) joules
+    member: Optional[np.ndarray] = None   # (n, E, k_pad) f32, hierarchy
+    cloud: Optional[np.ndarray] = None    # (n, P) f32 {0,1}, hierarchy
+    idx: Optional[np.ndarray] = None      # (n, P, k_pad, batch), dev
+    lr: Optional[np.ndarray] = None       # (n,) f32, dev
 
 
 @dataclass
@@ -250,8 +270,9 @@ class _FeelPlanner:
                     policy=r.spec.effective_policy, b_max=r.spec.b_max,
                     base_lr=r.spec.base_lr, compression=r.spec.compression,
                     cell_cfg=r.spec.cell, seed=r.seed,
-                    sampling=r.spec.sampling, fading=r.spec.fading,
-                    faults=r.spec.faults, energy=r.spec.energy))
+                    sampling=r.spec.sampling, topology=r.spec.topology,
+                    fading=r.spec.fading, faults=r.spec.faults,
+                    energy=r.spec.energy))
             self._sched_of.append(unique[key])
         self.batchers = [
             FederatedBatcher(_partition(r.spec, data, r.seed),
@@ -262,7 +283,7 @@ class _FeelPlanner:
         rows = self.bucket.rows
         k_pad = self.bucket.k_pad
         planned = plan_horizons_batch(self.schedulers, periods)
-        schedules, parts, energies = [], [], []
+        schedules, parts, clouds, energies = [], [], [], []
         for i, r in enumerate(rows):
             sched = self.schedulers[self._sched_of[i]]
             horizon = planned[self._sched_of[i]]
@@ -270,10 +291,12 @@ class _FeelPlanner:
                 horizon = _rescale_lr(horizon, r.spec.base_lr,
                                       sched.ref_batch)
             parts.append(horizon.participation)
+            clouds.append(horizon.cloud)
             energies.append(horizon.energy)
             s = engine.build_schedule(sched, self.batchers[i], periods,
                                       horizon=horizon,
-                                      time_offset=float(self._offsets[i]))
+                                      time_offset=float(self._offsets[i]),
+                                      local_steps=r.spec.local_steps)
             self._offsets[i] = s.times[-1]
             schedules.append(engine.pad_schedule(s, k_pad))
         # the static (n, k_pad) padding mask, unless a row's cohort varies
@@ -290,31 +313,127 @@ class _FeelPlanner:
             for i, (r, e) in enumerate(zip(rows, energies)):
                 if e is not None:
                     energy[i, :, :r.spec.k] = e
+        member = cloud = None
+        if rows[0].spec.topology is not None:   # structural: all rows agree
+            member = np.stack([r.spec.topology.member_matrix(r.spec.k, k_pad)
+                               for r in rows])
+            cloud = np.stack(clouds).astype(np.float32)
         return BucketPlan(
             bucket=self.bucket, input_dim=self.input_dim,
             times=np.stack([s.times for s in schedules]),
             global_batch=np.stack([s.global_batch for s in schedules]),
-            schedules=schedules, active=active, energy=energy)
+            schedules=schedules, active=active, energy=energy,
+            member=member, cloud=cloud)
+
+
+class _DevPlanner:
+    """Host planning state for one dev-scheme bucket, resumable chunk by
+    chunk: one :class:`~repro_torch.core.scheduler.DevScheduler` a row,
+    its rng streams and time offset carried between ``plan()`` calls."""
+
+    def __init__(self, bucket: Bucket, data):
+        rows = bucket.rows
+        spec0 = rows[0].spec
+        self.bucket = bucket
+        self.input_dim = data.x.shape[1]
+        self.batch = spec0.dev_epoch_batch
+        n_params = _n_params(spec0, self.input_dim)
+        self.schedulers = [
+            DevScheduler(
+                devices=r.spec.fleet, parts=_partition(r.spec, data, r.seed),
+                batch=self.batch,
+                # model-based FL uploads the raw parameters: d·p bits
+                payload_bits=32.0 * n_params,
+                upload=(r.spec.scheme == "model_fl"),
+                seed=r.seed, cell_cfg=r.spec.cell,
+                sampling=r.spec.sampling)
+            for r in rows]
+        self._offsets = np.zeros(len(rows))
+
+    def plan(self, periods: int) -> BucketPlan:
+        rows = self.bucket.rows
+        k_pad = self.bucket.k_pad
+        horizons = []
+        for i, s in enumerate(self.schedulers):
+            h = s.plan_horizon(periods, time_offset=float(self._offsets[i]))
+            self._offsets[i] = h.times[-1]
+            horizons.append(h)
+        # rows plan at their true K; padded users read index 0 and the
+        # active mask keeps them out of every update and mean
+        idx = np.zeros((len(rows), periods, k_pad, self.batch), np.int64)
+        for i, (r, h) in enumerate(zip(rows, horizons)):
+            idx[i, :, :r.spec.k] = h.idx
+        active = self.bucket.active_mask()
+        gb = [np.full(periods, self.batch * r.spec.k, np.int64)
+              for r in rows]
+        if any(h.participation is not None for h in horizons):
+            active = np.repeat(active[:, None, :], periods, axis=1)
+            for i, (r, h) in enumerate(zip(rows, horizons)):
+                if h.participation is not None:
+                    active[i, :, :r.spec.k] = h.participation
+                    gb[i] = (self.batch
+                             * h.participation.astype(np.int64).sum(1))
+        return BucketPlan(
+            bucket=self.bucket, input_dim=self.input_dim,
+            times=np.stack([h.times for h in horizons]),
+            global_batch=np.stack(gb), schedules=None, active=active,
+            idx=idx, lr=np.array([r.spec.base_lr for r in rows],
+                                 np.float32))
+
+
+def _make_planner(bucket: Bucket, data):
+    cls = _FeelPlanner if bucket.kind == "feel" else _DevPlanner
+    return cls(bucket, data)
 
 
 def plan_bucket(bucket: Bucket, data, periods: int) -> BucketPlan:
     """Host-side planning for one bucket (no device work)."""
-    return _FeelPlanner(bucket, data).plan(periods)
+    return _make_planner(bucket, data).plan(periods)
+
+
+def _broadcast_rows(params, n: int):
+    """Row-batched leaves (R, ...) → (R, n, ...): every copy starts from
+    its row's parameters."""
+    return tree_map(lambda a: a[:, None].expand(
+        (a.shape[0], n) + a.shape[1:]).contiguous(), params)
 
 
 def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
                     state=None) -> BucketHandle:
-    """Enqueue one planned bucket's device loop (the reference's
-    ``_dispatch_feel``): the feel-mlp engine, or the big-model engine for
-    a ``model_family`` bucket.  ``state`` resumes a previous chunk's carry
-    (``None``: fresh init params and zero residuals)."""
+    """Enqueue one planned bucket's device loop: the dev loop for a dev
+    bucket (the reference's ``_dispatch_dev``); else, as the reference's
+    ``_dispatch_feel``, the hierarchical loop under a topology, the
+    big-model engine for a ``model_family`` bucket, or the flat feel-mlp
+    loop.  ``state`` resumes a previous chunk's carry (``None``: fresh
+    init params — broadcast over the devices of a dev row and over the
+    edge replicas of a hierarchical row — and zero residuals)."""
     spec0 = plan.bucket.rows[0].spec
+    k_pad = plan.bucket.k_pad
+    if plan.bucket.kind == "dev":
+        if state is None:
+            params0 = _init_params_batch(plan.bucket.rows, plan.input_dim,
+                                         arrays.device)
+            state = engine.EngineState(_broadcast_rows(params0, k_pad))
+        state, (losses, accs) = engine.run_dev_trajectory_batch(
+            state, plan.idx, plan.lr, arrays.features,
+            average=(spec0.scheme == "model_fl"), active=plan.active)
+        return BucketHandle(bucket=plan.bucket, losses=losses, accs=accs,
+                            times=plan.times,
+                            global_batch=plan.global_batch, state=state)
     if state is None:
         params0 = _init_params_batch(plan.bucket.rows, plan.input_dim,
                                      arrays.device)
-        state = engine.EngineState(
-            params0, engine.zero_residual(params0, plan.bucket.k_pad))
-    if spec0.model_family != "feel_mlp":
+        residual0 = engine.zero_residual(params0, k_pad)
+        if plan.member is not None:
+            params0 = _broadcast_rows(params0, plan.member.shape[1])
+        state = engine.EngineState(params0, residual0)
+    if plan.member is not None:
+        state, (losses, accs, _) = engine.run_hier_trajectory_batch(
+            state, plan.member, plan.cloud, plan.schedules,
+            arrays.features, compress=spec0.compress,
+            ratio=spec0.compression, active=plan.active,
+            local_steps=spec0.local_steps)
+    elif spec0.model_family != "feel_mlp":
         state, (losses, accs, _) = model_engine.run_model_trajectory_batch(
             state, plan.schedules, arrays.tokens,
             model_family=spec0.model_family, hidden=spec0.hidden,
@@ -323,7 +442,8 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
     else:
         state, (losses, accs, _) = engine.run_trajectory_batch(
             state, plan.schedules, arrays.features, compress=spec0.compress,
-            ratio=spec0.compression, active=plan.active)
+            ratio=spec0.compression, active=plan.active,
+            local_steps=spec0.local_steps)
     return BucketHandle(bucket=plan.bucket, losses=losses, accs=accs,
                         times=plan.times, global_batch=plan.global_batch,
                         state=state, energy=plan.energy)
@@ -397,7 +517,7 @@ class BucketRun:
             raise RuntimeError("cannot plan: horizon fully planned")
         t0 = time.perf_counter()
         if self._planner is None:
-            self._planner = _FeelPlanner(self.bucket, self.data)
+            self._planner = _make_planner(self.bucket, self.data)
         p_c = min(self.chunk, self.periods - self.planned)
         plan = self._planner.plan(p_c)
         self.planned += p_c

@@ -2,33 +2,38 @@
 ``ScenarioSpec``).
 
 A :class:`ScenarioSpec` is everything that defines one experimental cell —
-device fleet, wireless cell, data partition, batchsize policy, training
-scheme, compression, learning-rate base and the seed set — as one frozen,
-hashable value.
+device fleet, wireless cell, data partition, batchsize policy, Table-II
+training scheme, compression, learning-rate base, local-step count and
+the seed set — as one frozen, hashable value.
 
-This port runs the FEEL scheme with one local step per period, on the
-feel-mlp model or the big-model families (``model_family=
-"transformer"`` or ``"mamba2"``), in the static world or the
-time-varying one: per-round participation ``sampling``
+This port runs the four Table-II schemes: ``"feel"`` and
+``"gradient_fl"`` (the full-batch policy) on the FEEL engine, and the
+per-device-parameter schemes ``"individual"`` and ``"model_fl"``.  The
+FEEL family runs the feel-mlp model at any ``local_steps >= 1`` and under
+a cell→edge→cloud ``topology`` (:class:`~repro_torch.topology.Topology`),
+or the big-model families (``model_family="transformer"`` or
+``"mamba2"``) at one local step, in the static world or the time-varying
+one: per-round participation ``sampling``
 (:class:`~repro_torch.topology.Sampling`), channel drift ``fading``,
 stragglers and dropout ``faults`` and per-user ``energy`` budgets
 (:mod:`repro_torch.dynamics`), each type-checked and cross-checked as the
-reference checks it.  The fields of what later slices bring stay on the
-spec so that a spec written for the reference is rejected with a clear
-error instead of being run differently: schemes other than ``"feel"``,
-``local_steps > 1``, ``replan``, ``topology`` and ``adapt_tau``
-(``NotImplementedError``).  The reference's ``TypeError`` and
-``ValueError`` rules run first, so a spec the reference refuses is
-refused here the same way.
+reference checks it.  The closed loop (``replan``) and adaptive local
+steps (``adapt_tau``) are later slices and stay on the spec so that a
+spec written for the reference is rejected with a clear error instead of
+being run differently (``NotImplementedError``).  The reference's
+``TypeError`` and ``ValueError`` rules run first, so a spec the reference
+refuses is refused here the same way.
 
 Two specs share a bucket — one batched device loop — iff
-:meth:`ScenarioSpec.bucket_key` matches: slot width (``b_max``),
-``local_steps``, ``compress`` and (when compressing) ``compression``,
-the model dims and the fading chain's state count.  The fleet is not
-structural: rows are padded to the bucket's max K and an active mask
-keeps padded users out of every reduction.  Sampling, faults, budgets
-and a fading chain's gains are values: they reach the device loop as the
-time-varying active mask and the schedules.
+:meth:`ScenarioSpec.bucket_key` matches.  For the dev schemes that is the
+scheme, the fixed epoch batch and the model dims; for the FEEL family the
+slot width (``b_max``), ``local_steps``, ``compress`` and (when
+compressing) ``compression``, the model dims, the topology's structural
+key and the fading chain's state count.  The fleet is not structural:
+rows are padded to the bucket's max K and an active mask keeps padded
+users out of every reduction.  Sampling, faults, budgets, a fading
+chain's gains and a topology's backhaul rate are values: they reach the
+device loop as the time-varying active mask and the schedules.
 """
 from __future__ import annotations
 
@@ -39,20 +44,23 @@ from repro_torch.channels.model import CellConfig
 from repro_torch.core.latency import DeviceProfile
 from repro_torch.core.baselines import POLICIES
 from repro_torch.dynamics import EnergyBudget, Fading, Faults
-from repro_torch.topology import Sampling
+from repro_torch.topology import Sampling, Topology
 
 SCHEMES = ("feel", "gradient_fl", "model_fl", "individual")
 MODEL_FAMILIES = ("feel_mlp", "transformer", "mamba2")
+# The dev-family schemes train full local epochs with a fixed per-device
+# batch, capped at 64 (the reference's lowering rule).
+DEV_EPOCH_BATCH_CAP = 64
 # fields whose non-default values later slices of the port bring
-_LATER = ("replan", "topology", "adapt_tau")
+_LATER = ("replan", "adapt_tau")
 
 
 @dataclass(frozen=True)
 class ScenarioSpec:
-    """One cell of the scenario family (the FEEL scheme in this port)."""
+    """One cell of the scenario family (all four Table-II schemes)."""
     fleet: Tuple[DeviceProfile, ...]
     name: str = ""                       # fleet/cell label for Results axes
-    scheme: str = "feel"
+    scheme: str = "feel"                 # feel|gradient_fl|model_fl|individual
     partition: str = "noniid"            # iid | noniid
     policy: str = "proposed"             # online | full | random | proposed
     cell: CellConfig = field(default_factory=CellConfig)
@@ -66,7 +74,7 @@ class ScenarioSpec:
     depth: int = 3
     replan: Optional[int] = None
     sampling: Optional[Sampling] = None  # per-round S-of-K participation
-    topology: Optional[object] = None
+    topology: Optional[Topology] = None  # cell→edge→cloud hierarchy
     fading: Optional[Fading] = None      # block-fading Markov channel drift
     faults: Optional[Faults] = None      # straggler slowdowns + dropout
     energy: Optional[EnergyBudget] = None  # per-user per-period energy caps
@@ -85,11 +93,36 @@ class ScenarioSpec:
                 f"policy {self.policy!r} not in {tuple(POLICIES)}")
         if not self.seeds:
             raise ValueError("seeds must be non-empty")
+        if self.replan is not None:
+            if self.is_dev_scheme:
+                raise ValueError(
+                    "replan= is the FEEL family's closed-loop ξ interval; "
+                    f"the {self.scheme!r} scheme has no batchsize policy "
+                    "to re-plan")
+            if not isinstance(self.replan, int) or \
+                    isinstance(self.replan, bool) or self.replan < 1:
+                raise ValueError(
+                    f"replan must be a positive int (periods per "
+                    f"closed-loop chunk), got {self.replan!r}")
         if self.sampling is not None and \
                 not isinstance(self.sampling, Sampling):
             raise TypeError(
                 f"sampling= expects a repro_torch.topology.Sampling, got "
                 f"{type(self.sampling).__name__}")
+        if self.topology is not None:
+            if not isinstance(self.topology, Topology):
+                raise TypeError(
+                    f"topology= expects a repro_torch.topology.Topology, "
+                    f"got {type(self.topology).__name__}")
+            if self.is_dev_scheme:
+                raise ValueError(
+                    "topology= hierarchizes the server aggregation; the "
+                    f"{self.scheme!r} scheme keeps per-device parameters "
+                    "and has no aggregation tier to split")
+            if self.k < self.topology.cells:
+                raise ValueError(
+                    f"fleet of {self.k} users cannot populate the "
+                    f"topology's {self.topology.cells} cells")
         for fld, typ in (("fading", Fading), ("faults", Faults),
                          ("energy", EnergyBudget)):
             val = getattr(self, fld)
@@ -140,19 +173,11 @@ class ScenarioSpec:
                     "weighted (1/p) sampling needs probabilistic "
                     "inclusion; deterministic energy drops break the "
                     "Horvitz-Thompson correction")
-        if self.scheme != "feel":
-            raise NotImplementedError(
-                f"scheme {self.scheme!r} is not ported yet; the PyTorch "
-                "port runs scheme='feel'")
-        if self.local_steps != 1:
-            raise NotImplementedError(
-                f"local_steps={self.local_steps} is not ported yet; the "
-                "PyTorch port takes one local step per period")
         for name in _LATER:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"{name}= is not ported yet; the PyTorch port runs the "
-                    "flat, open-loop FEEL world with one local step")
+                    f"{name}= is not ported yet; the PyTorch port plans "
+                    "every horizon open-loop at a fixed local-step count")
 
     @property
     def is_dev_scheme(self) -> bool:
@@ -171,9 +196,19 @@ class ScenarioSpec:
 
     @property
     def effective_policy(self) -> str:
-        """The batchsize policy the lowering applies (the FEEL scheme's
-        own policy)."""
-        return self.policy
+        """The batchsize policy the lowering applies: ``gradient_fl`` is
+        the full-batch policy on the FEEL engine; the per-device-parameter
+        schemes have none and report ``"none"``, so
+        ``Results.sel(policy=...)`` never mixes them into FEEL-policy
+        selections."""
+        if self.is_dev_scheme:
+            return "none"
+        return "full" if self.scheme == "gradient_fl" else self.policy
+
+    @property
+    def dev_epoch_batch(self) -> int:
+        """The dev schemes' fixed per-device batch."""
+        return min(self.b_max, DEV_EPOCH_BATCH_CAP)
 
     @property
     def label(self) -> str:
@@ -181,13 +216,21 @@ class ScenarioSpec:
         return f"{base}/{self.partition}/{self.scheme}/{self.effective_policy}"
 
     def bucket_key(self) -> tuple:
-        """Shape-compatibility class: the reference's FEEL-family key.
-        A fading chain's state count is a structural coordinate as in the
-        reference; sampling, faults, budgets and the gains are values.
-        The topology and adaptive-τ entries are always None in this
-        port."""
+        """Shape-compatibility class, the reference's key.  The dev
+        schemes key on the scheme (the FedAvg step is part of the loop),
+        the epoch batch and the model dims.  The FEEL family keys on the
+        loop's shapes and branches; a topology contributes its
+        ``structural_key()`` (``backhaul_bps`` only changes ledger
+        values) and a fading chain its state count, while sampling,
+        faults, budgets and the gains are values.  The adaptive-τ entry
+        is always None in this port."""
+        if self.is_dev_scheme:
+            return ("dev", self.scheme, self.dev_epoch_batch,
+                    self.hidden, self.depth)
+        topo = (None if self.topology is None
+                else self.topology.structural_key())
         return ("feel", self.b_max, self.local_steps,
                 self.compress, self.compression if self.compress else None,
-                self.hidden, self.depth, self.replan, None,
+                self.hidden, self.depth, self.replan, topo,
                 None if self.fading is None else self.fading.states,
                 None, self.model_family)

@@ -44,9 +44,9 @@ scheme / policy are label fields already).  Specs that expand identical
 ``lower()`` time, so a Study never pays twice for one trajectory.
 
 A copy of the reference's study module: the same expansion, labels,
-deduplication and rejections.  In this port a spec whose scheme is not
-``"feel"`` is refused when it is built (``NotImplementedError``), before
-the policy-survival check could see it.
+deduplication and rejections — a policy swept over a scheme that reports
+another policy (``gradient_fl``'s ``"full"``, the dev schemes' ``"none"``)
+does not survive to its coordinate and is refused.
 """
 from __future__ import annotations
 

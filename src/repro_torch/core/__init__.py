@@ -13,7 +13,8 @@ from repro_torch.core.solver import (solve_uplink, solve_downlink,
                                      UplinkSolution, DownlinkSolution,
                                      PeriodSolution)
 from repro_torch.core.baselines import POLICIES, PolicyResult
-from repro_torch.core.scheduler import (FeelScheduler, PeriodPlan,
+from repro_torch.core.scheduler import (DevHorizon, DevScheduler,
+                                        FeelScheduler, PeriodPlan,
                                         PlanHorizon, plan_horizons_batch)
 
 __all__ = [
@@ -23,5 +24,6 @@ __all__ = [
     "batch_closed_form", "tau_closed_form", "e_up_bounds", "mu_bounds",
     "fixed_slot_rows", "FleetRows", "UplinkSolution", "DownlinkSolution",
     "PeriodSolution", "POLICIES", "PolicyResult", "FeelScheduler",
-    "PeriodPlan", "PlanHorizon", "plan_horizons_batch",
+    "PeriodPlan", "PlanHorizon", "plan_horizons_batch", "DevHorizon",
+    "DevScheduler",
 ]

@@ -22,8 +22,17 @@ participation sampling (``sampling``), block-fading channel drift
 (``fading``), stragglers and dropout (``faults``) and per-user energy
 budgets (``energy``).  Each process draws from its own tagged rng stream,
 after the participation draw and before the channel draw, so a static
-scheduler's streams are untouched by them.  Hierarchies, adaptive local
-steps and closed-loop re-planning are not part of this port yet.
+scheduler's streams are untouched by them.  Under a cell→edge→cloud
+``topology`` it solves Algorithm 1 per (cell, period) and adds the
+backhaul round trip on cloud rounds.
+
+:class:`DevScheduler` plans the per-device-parameter schemes
+(``individual``, ``model_fl``): each period's minibatch indices and the
+latency ledger of one local epoch (plus the model upload and broadcast
+for ``model_fl``), optionally under per-round participation.
+
+Adaptive local steps and closed-loop re-planning are not part of this
+port yet.
 """
 from __future__ import annotations
 
@@ -36,13 +45,14 @@ import numpy as np
 from repro_torch.channels.model import Cell, CellConfig
 from repro_torch.core.baselines import POLICIES
 from repro_torch.core.efficiency import XiEstimator, lr_scale
-from repro_torch.core.latency import DeviceProfile, gradient_bits
+from repro_torch.core.latency import (DeviceProfile, downlink_latency,
+                                      gradient_bits, uplink_latency)
 from repro_torch.core.solver import (FleetRows, fixed_slot_rows,
                                      optimize_batch_rows, solve_period_rows)
 from repro_torch.dynamics import (EnergyBudget, Fading, FadingProcess,
                                   Faults, FaultProcess)
 from repro_torch.dynamics.energy import batch_caps, energy_spend
-from repro_torch.topology import ParticipationSampler, Sampling
+from repro_torch.topology import ParticipationSampler, Sampling, Topology
 
 
 @dataclass(frozen=True)
@@ -65,7 +75,9 @@ class PlanHorizon:
 
     ``participation`` is the realized per-period user mask (sampling ∧
     dropout ∧ energy drops) when the scheduler samples, faults or has a
-    budget (None: everyone takes part every period); ``aggden`` the
+    budget (None: everyone takes part every period); ``cloud`` flags the
+    cloud-round periods of a :class:`~repro_torch.topology.Topology`
+    horizon (None: flat single-tier aggregation); ``aggden`` the
     Horvitz-Thompson fixed aggregation denominator of weighted sampling;
     ``energy`` the realized per-user joules under a budget; ``slowdown``
     the straggler factors under faults."""
@@ -76,6 +88,7 @@ class PlanHorizon:
     latency: np.ndarray          # (P,) predicted seconds per period
     global_batch: np.ndarray     # (P,) int
     participation: Optional[np.ndarray] = None   # (P, K) {0,1}
+    cloud: Optional[np.ndarray] = None           # (P,) f32 {0,1}
     aggden: Optional[np.ndarray] = None          # (P,) HT fixed denominator
     energy: Optional[np.ndarray] = None          # (P, K) realized spend (J)
     slowdown: Optional[np.ndarray] = None        # (P, K) straggler factors
@@ -102,12 +115,13 @@ class FeelScheduler:
     reopt_every: int = 5         # outer B* search cadence (channel stats
                                  # are stationary; carried in between)
     sampling: Optional[Sampling] = None    # per-round S-of-K participation
+    topology: Optional[Topology] = None    # cell→edge→cloud hierarchy
     fading: Optional[Fading] = None        # block-fading Markov drift
     faults: Optional[Faults] = None        # stragglers + dropout
     energy: Optional[EnergyBudget] = None  # per-user per-period caps
     _period: int = 0
     _dist_km: Optional[np.ndarray] = None
-    _b_cache: Optional[float] = None
+    _b_cache: Optional[float] = None       # topology horizons: (cells,) array
 
     def __post_init__(self):
         if self.policy not in POLICIES:
@@ -117,7 +131,9 @@ class FeelScheduler:
             self.cell = Cell.make(self.seed, self.cell_cfg)
         self.rng = np.random.default_rng(self.seed + 1)
         # user positions are fixed for a training run; fading varies per
-        # period
+        # period.  Under a topology each user's distance is read as the
+        # distance to its own cell's base station: the single disc draw
+        # is reused, so a topology leaves the channel stream as it is.
         self._dist_km = self.cell.drop_users(len(self.devices))
         k = len(self.devices)
         # participation and dynamics draw from dedicated tagged streams
@@ -131,6 +147,12 @@ class FeelScheduler:
         self._faults_proc = (
             None if self.faults is None else
             FaultProcess(self.faults, k, self.seed))
+        if self.topology is not None and (
+                self.fading is not None or self.faults is not None
+                or self.energy is not None):
+            raise ValueError(
+                "dynamics are not threaded through the hierarchical "
+                "per-cell solves")
 
     @property
     def dynamic(self) -> bool:
@@ -269,9 +291,14 @@ class FeelScheduler:
 
         The draw order is participation, then dynamics (fading, faults),
         then one interleaved rate draw for all K users: a sampled horizon
-        still draws rates, and random-policy batches, for every user."""
+        still draws rates, and random-policy batches, for every user.
+        With ``topology`` set, Algorithm 1 allocates per cell per period
+        and the ledger adds the edge→cloud backhaul on cloud rounds
+        (``PlanHorizon.cloud``)."""
         part = self._draw_participation(periods)
         dyn = self._draw_dynamics(periods)
+        if self.topology is not None:
+            return self._plan_horizon_topo(periods, part)
         if self.policy == "proposed":
             return self._plan_horizon_proposed(periods, part, dyn)
         return self._plan_horizon_fixed(periods, part, dyn)
@@ -424,6 +451,125 @@ class FeelScheduler:
             participation=mask_now, aggden=aggden, energy=energy_led,
             slowdown=slow)
 
+    def _plan_horizon_topo(self, periods: int,
+                           part: Optional[np.ndarray]) -> PlanHorizon:
+        """Hierarchical horizon: Algorithm 1 allocates *within each cell*
+        per period (one masked row per (cell, period), cell-major: row
+        ``c*P + p``), and cloud-round periods add the edge→cloud backhaul
+        round trip to the latency ledger.
+
+        The wireless draws are the flat scenario's: one disc draw, one
+        batched rate draw for all K users, so the cell partition enters
+        only as a mask on the rows solver.  The period's radio latency is
+        the slowest cell's round (cells transmit concurrently); per-user
+        arrays recombine by summing the disjoint per-cell rows.
+
+        A cell whose whole cohort is sampled out this period solves a
+        dummy problem (its full-cell mask) that is zeroed from every
+        output and consumes no rng; the cell's B* carry is not advanced.
+        """
+        topo = self.topology
+        c = self.cell.cfg
+        K = len(self.devices)
+        C, P = topo.cells, periods
+        cloud = topo.cloud_rounds(periods, offset=self._period)
+        rates_up, rates_down = self.cell.avg_rate_updown_rows(
+            self._dist_km, periods)
+        cmask = topo.cell_masks(K)                        # (C, K)
+        mask = (cmask[:, None, :] if part is None
+                else cmask[:, None, :] * part[None])      # (C, P, K)
+        mask = np.broadcast_to(mask, (C, P, K))
+        nonempty = mask.sum(2) > 0                        # (C, P)
+        solve_mask = np.where(nonempty[:, :, None], mask,
+                              np.broadcast_to(cmask[:, None, :],
+                                              (C, P, K))).reshape(C * P, K)
+        fr = FleetRows.from_devices(self.devices,
+                                    C * P).with_mask(solve_mask)
+        flat_up = np.broadcast_to(rates_up, (C, P, K)).reshape(C * P, K)
+        flat_down = np.broadcast_to(rates_down,
+                                    (C, P, K)).reshape(C * P, K)
+        if self.policy == "proposed":
+            xi = self.xi_est.xi
+            carry = (np.full(C, np.nan) if self._b_cache is None
+                     else np.asarray(self._b_cache, float).copy())
+            base = np.array([(self._period + p) % self.reopt_every == 0
+                             for p in range(P)])
+            # per-cell B* cadence; a cold cell re-opts at its first
+            # non-empty period even off-cadence
+            reopt_cp = np.zeros((C, P), bool)
+            cold = np.isnan(carry)
+            for p in range(P):
+                need = nonempty[:, p] & (base[p] | cold)
+                reopt_cp[:, p] = need
+                cold = cold & ~need
+            rf = reopt_cp.reshape(C * P)
+            B_cp = np.empty((C, P))
+            if rf.any():
+                b_star = optimize_batch_rows(
+                    fr.take(rf), flat_up[rf], flat_down[rf],
+                    self.payload_bits, c.frame_up_s, c.frame_down_s, xi,
+                    self.b_max)
+                j = 0
+                for ci in range(C):
+                    cur = carry[ci]
+                    for p in range(P):
+                        if reopt_cp[ci, p]:
+                            cur = float(b_star[j])
+                            j += 1
+                        B_cp[ci, p] = 1.0 if np.isnan(cur) else cur
+                    carry[ci] = cur
+            else:
+                B_cp[:] = np.where(np.isnan(carry), 1.0, carry)[:, None]
+            sol = solve_period_rows(fr, flat_up, flat_down,
+                                    self.payload_bits, c.frame_up_s,
+                                    c.frame_down_s, xi,
+                                    B_cp.reshape(C * P), self.b_max)
+            bt = np.where(fr.active,
+                          np.maximum(np.round(np.nan_to_num(sol["batch"]))
+                                     .astype(int), 1), 0)
+            tau_u_r, tau_d_r = sol["tau_up"], sol["tau_down"]
+            lat_r = sol["latency"]
+            self._b_cache = carry
+        else:                                    # online / full / random
+            if self.policy == "online":
+                pol = np.ones((P, K))
+            elif self.policy == "full":
+                pol = np.full((P, K), float(self.b_max))
+            else:
+                pol = self.rng.integers(
+                    1, self.b_max + 1, size=(P, K)).astype(float)
+            batch_rows = np.broadcast_to(pol, (C, P, K)).reshape(C * P, K)
+            tau_u_r, tau_d_r, lat_r = fixed_slot_rows(
+                fr, batch_rows * solve_mask, flat_up, flat_down,
+                self.payload_bits, c.frame_up_s, c.frame_down_s)
+            bt = np.where(fr.active,
+                          np.maximum(np.round(batch_rows).astype(int), 1),
+                          0)
+        # recombine: zero the dummy rows, sum disjoint cells per user,
+        # barrier (max) across concurrent cells per period
+        live = nonempty[:, :, None]
+        bt = np.where(live, bt.reshape(C, P, K), 0)
+        tau_up = np.where(live, np.nan_to_num(tau_u_r).reshape(C, P, K),
+                          0.0).sum(0)
+        tau_down = np.where(live, np.nan_to_num(tau_d_r).reshape(C, P, K),
+                            0.0).sum(0)
+        radio = np.where(nonempty, np.nan_to_num(lat_r).reshape(C, P),
+                         0.0).max(0)
+        latency = radio + cloud.astype(float) * topo.backhaul_roundtrip(
+            self.payload_bits)
+        batch = bt.sum(0)                                 # (P, K)
+        gb = batch.sum(1)
+        if self.policy == "proposed":
+            lr = np.array([lr_scale(self.base_lr, g, self.ref_batch)
+                           for g in gb], np.float64)
+        else:
+            lr = self.base_lr * np.sqrt(gb / self.ref_batch)
+        self._period += periods
+        return PlanHorizon(
+            batch=batch, tau_up=tau_up, tau_down=tau_down, lr=lr,
+            latency=latency, global_batch=gb.astype(np.int64),
+            participation=part, cloud=cloud)
+
     def plan(self) -> PeriodPlan:
         """Plan one period: draw the uplink then the downlink rates, solve
         with the policy (the proposed policy re-optimizes B* on the
@@ -458,8 +604,9 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
     """Plan many schedulers' horizons with proposed-policy rows fused —
     across fleets of any size or composition.
 
-    Dynamic schedulers (``FeelScheduler.dynamic``: fading, faults, a
-    budget or weighted sampling) plan solo; unweighted sampling fuses,
+    Hierarchical schedulers (``topology``) and dynamic ones
+    (``FeelScheduler.dynamic``: fading, faults, a budget or weighted
+    sampling) plan solo; unweighted sampling fuses,
     its cohort masks drawn first as ``plan_horizon`` draws them.
 
     Bitwise equal to ``[s.plan_horizon(periods) for s in schedulers]``:
@@ -475,7 +622,9 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
     out: List[Optional[PlanHorizon]] = [None] * len(schedulers)
     groups = defaultdict(list)
     for i, s in enumerate(schedulers):
-        if s.policy != "proposed" or s.dynamic:
+        if s.policy != "proposed" or s.topology is not None or s.dynamic:
+            # hierarchical horizons solve per (cell, period) with their
+            # own reopt bookkeeping: solo, as time-varying worlds
             out[i] = s.plan_horizon(periods)
         else:
             key = (s.payload_bits, s.cell.cfg.frame_up_s,
@@ -555,3 +704,116 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
                 global_batch=gb[m].astype(np.int64),
                 participation=parts[m])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-device-parameter schemes (individual / model_fl)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DevHorizon:
+    """Pre-planned horizon of the per-device-parameter schemes: everything
+    the dev loop consumes, one array per field, leading period axis."""
+    idx: np.ndarray              # (P, K, batch) int64 sample indices
+    times: np.ndarray            # (P,) cumulative simulated seconds
+    tau_up: np.ndarray           # (P, K) equal TDMA slots
+    tau_down: np.ndarray         # (P, K)
+    rates_up: np.ndarray         # (P, K)
+    rates_down: np.ndarray       # (P, K)
+    participation: Optional[np.ndarray] = None   # (P, K) f32 {0,1}
+
+    @property
+    def periods(self) -> int:
+        return self.idx.shape[0]
+
+
+@dataclass
+class DevScheduler:
+    """Horizon planner for ``individual`` / ``model_fl``: each period is
+    one local epoch at a fixed per-device batch; ``model_fl`` adds the
+    model's upload and broadcast over equal TDMA slots (eqs. (10) and
+    (11)).  Channel rates come from the batched interleaved (up, down)
+    draw the FEEL planner uses."""
+    devices: Sequence[DeviceProfile]
+    parts: Sequence[np.ndarray]          # per-device index sets
+    batch: int                           # fixed per-device batchsize
+    payload_bits: float                  # model upload: d·p, uncompressed
+    upload: bool                         # model_fl syncs; individual doesn't
+    seed: int = 0
+    cell: Optional[Cell] = None
+    cell_cfg: CellConfig = field(default_factory=CellConfig)
+    sampling: Optional[Sampling] = None    # per-round S-of-K participation
+
+    def __post_init__(self):
+        if self.cell is None:
+            self.cell = Cell.make(self.seed, self.cell_cfg)
+        self.rng = np.random.default_rng(self.seed)
+        self._dist_km = self.cell.drop_users(len(self.parts))
+        self._participation = (
+            None if self.sampling is None else
+            ParticipationSampler(self.sampling, len(self.parts), self.seed))
+
+    def plan_horizon(self, periods: int,
+                     time_offset: float = 0.0) -> DevHorizon:
+        """Plan ``periods`` periods.  ``time_offset`` seeds the cumulative
+        time axis (the seeded cumsum is the only form bitwise equal to
+        the monolithic ledger; 0.0 is the plain cumsum).
+
+        The draw order is the participation masks, then K ``rng.choice``
+        index draws a period, then one ``avg_rate_updown_rows``.  With
+        ``sampling`` set each period's cohort alone splits the TDMA frame
+        (equal slots over S, zero for absent users) and alone enters the
+        straggler max; every draw is still made for all K users, so who
+        sat out leaves every stream as it is."""
+        K = len(self.parts)
+        c = self.cell.cfg
+        part = (None if self._participation is None
+                else self._participation.draw(periods))
+        idx = np.empty((periods, K, self.batch), np.int64)
+        for p in range(periods):
+            idx[p] = np.stack(
+                [self.rng.choice(part_k, size=self.batch,
+                                 replace=len(part_k) < self.batch)
+                 for part_k in self.parts])
+        rates_up, rates_down = self.cell.avg_rate_updown_rows(
+            self._dist_km, periods)
+        # one local epoch per period: ⌈|D_k|/B⌉ minibatch steps
+        t_local = np.array([
+            d.local_grad_latency(self.batch) * max(1, len(p_k) // self.batch)
+            for d, p_k in zip(self.devices, self.parts)])
+        if part is None:
+            tau_u = np.full((periods, K), c.frame_up_s / K)
+            tau_d = np.full((periods, K), c.frame_down_s / K)
+        else:
+            # float64 cohort sizes: the f32 mask must not demote the slot
+            # widths below the unsampled path's precision
+            s_p = part.astype(np.float64).sum(1)     # >= 1 per period
+            tau_u = np.where(part > 0.5, c.frame_up_s / s_p[:, None], 0.0)
+            tau_d = np.where(part > 0.5, c.frame_down_s / s_p[:, None], 0.0)
+        if self.upload:
+            # absent users get a dummy full-frame slot for the latency
+            # math (finite, warning-free) and are then masked out of the
+            # straggler max; unsampled, the where keeps tau as it is
+            su = np.where(tau_u > 0, tau_u, c.frame_up_s)
+            sd = np.where(tau_d > 0, tau_d, c.frame_down_s)
+            t_up = uplink_latency(self.payload_bits, su, c.frame_up_s,
+                                  rates_up)
+            t_down = downlink_latency(self.payload_bits, sd,
+                                      c.frame_down_s, rates_down)
+            t_upd = np.array([d.update_latency() for d in self.devices])
+            up_leg = t_local + t_up
+            down_leg = t_down + t_upd
+            if part is not None:
+                up_leg = np.where(part > 0.5, up_leg, 0.0)
+                down_leg = np.where(part > 0.5, down_leg, 0.0)
+            per_period = up_leg.max(1) + down_leg.max(1)
+        elif part is None:
+            per_period = np.full(periods, t_local.max())
+        else:
+            per_period = np.where(part > 0.5, t_local[None, :], 0.0).max(1)
+        times = np.cumsum(np.concatenate([[time_offset], per_period]))[1:]
+        return DevHorizon(idx=idx, times=times,
+                          tau_up=tau_u, tau_down=tau_d,
+                          rates_up=rates_up, rates_down=rates_down,
+                          participation=part)

@@ -1,4 +1,7 @@
-"""Device trajectory engine for the FEEL family.
+"""Device trajectory engine for the feel-mlp model, in the three forms
+of the reference's engine: the flat FEEL loop, the per-device-parameter
+loop of the ``individual`` / ``model_fl`` schemes, and the hierarchical
+cell→edge→cloud FEEL loop.
 
   * host side (numpy, done once up front): the scheduler plans the full
     horizon (``FeelScheduler.plan_horizon``), the batcher pre-samples every
@@ -9,13 +12,18 @@
     update → test metrics, for a whole (rows, devices) batch at once and
     with no per-period host transfer.  Rows are the flattened (scenario ×
     seed) axis of a bucket; per-device gradients are one batched
-    ``torch.func.vmap(torch.func.grad(...))`` over (rows, devices).
+    ``torch.func.vmap(torch.func.grad(...))`` over (rows, devices), taken
+    at the row's global parameters (one local step) or at per-device
+    parameters (τ > 1 local steps, the dev schemes and the hierarchy's
+    per-edge replicas).
 
-The loop is resumable: the carry is an explicit :class:`EngineState`
-(params + SBC residuals) that every ``run_*`` function takes in and hands
-back, so a horizon may run as N chunks — each consuming one slice of the
-schedule — bitwise equal to one monolithic run (the period step is a pure
-function of carry and inputs with the same shapes in both).
+The loops are resumable: the carry is an explicit :class:`EngineState`
+(params + SBC residuals; the dev loop's per-device parameter stack; the
+hierarchy's per-edge replicas + residuals) that every ``run_*`` function
+takes in and hands back, so a horizon may run as N chunks — each
+consuming one slice of the schedule — bitwise equal to one monolithic run
+(the period step is a pure function of carry and inputs with the same
+shapes in both).
 
 On CUDA the engine keeps float32 products in full float32: TF32 is turned
 off for matmuls and for cuDNN (:func:`full_f32`).
@@ -118,21 +126,46 @@ def pad_schedule(schedule: Schedule, k: int) -> Schedule:
 
 
 def build_schedule(scheduler, batcher, periods: int, horizon=None,
-                   time_offset: float = 0.0) -> Schedule:
+                   time_offset: float = 0.0,
+                   local_steps: int = 1) -> Schedule:
     """Pre-generate one run's plans, sample indices and time axis.
 
     ``horizon`` short-circuits planning when the caller already planned
     it (``core.scheduler.plan_horizons_batch`` across a bucket).
     ``time_offset`` seeds the cumulative time axis of a chunk: the cumsum
     accumulates *from* the offset, the only form bitwise equal to the
-    monolithic ledger (offset 0.0 is the plain cumsum)."""
+    monolithic ledger (offset 0.0 is the plain cumsum).
+
+    ``local_steps`` τ > 1 adds τ − 1 more local computations to every
+    period (paper §VII): the straggler max over the scheduler's fleet of
+    each user's slowed-down local latency, over the period's participants
+    only when the horizon samples (a GPU's b = 0 floor latency is
+    nonzero, so an unmasked max would charge absent users' idle
+    floors)."""
     if horizon is None:
         horizon = scheduler.plan_horizon(periods)
     idx = np.empty((periods, batcher.k, batcher.slot), np.int32)
     w = np.empty((periods, batcher.k, batcher.slot), np.float32)
     for p in range(periods):
         idx[p], w[p] = batcher.sample(horizon.batch[p])
-    times = np.cumsum(np.concatenate([[time_offset], horizon.latency]))[1:]
+    per_period = horizon.latency.copy()
+    if local_steps > 1:
+        devices = scheduler.devices
+        part = horizon.participation
+        slow = horizon.slowdown
+        if slow is None:
+            slow = np.ones_like(np.asarray(horizon.batch, np.float64))
+        if part is None:
+            per_period += (local_steps - 1) * np.array(
+                [max(float(sl) * float(d.local_grad_latency(b))
+                     for d, b, sl in zip(devices, bp, sp))
+                 for bp, sp in zip(horizon.batch, slow)])
+        else:
+            per_period += (local_steps - 1) * np.array(
+                [max(float(sl) * float(d.local_grad_latency(b))
+                     for d, b, m, sl in zip(devices, bp, mp, sp) if m > 0.5)
+                 for bp, mp, sp in zip(horizon.batch, part, slow)])
+    times = np.cumsum(np.concatenate([[time_offset], per_period]))[1:]
     return Schedule(idx=idx, weight=w,
                     batch=horizon.batch.astype(np.float32),
                     lr=horizon.lr.astype(np.float32),
@@ -143,11 +176,13 @@ def build_schedule(scheduler, batcher, periods: int, horizon=None,
 
 @dataclass
 class EngineState:
-    """Explicit loop carry, in and out of every trajectory function:
-    ``params`` leaves (R, ...) and SBC error-feedback ``residual`` leaves
-    (R, K, ...), on the device."""
+    """Explicit loop carry, in and out of every trajectory function, on
+    the device: ``params`` leaves (R, ...) — the dev loop's (R, K, ...)
+    per-device stacks, the hierarchy's (R, E, ...) per-edge replicas —
+    and SBC error-feedback ``residual`` leaves (R, K, ...), None in the
+    dev loop (it does not compress)."""
     params: object
-    residual: object
+    residual: object = None
 
 
 def zero_residual(params, k: int):
@@ -200,6 +235,28 @@ _row_accuracy = vmap(feel_model.accuracy, in_dims=(0, None, None))
 # per (row, device): the gradient of the device's weighted loss at the
 # row's global parameters
 _device_grads = vmap(vmap(grad(feel_model.loss_fn), in_dims=(None, 0, 0, 0)))
+# per (row, device): the gradient at the device's OWN parameters, leaves
+# (R, K, ...): τ > 1 local steps, the dev loop and the hierarchy.  Called
+# with per-example weights (weighted loss) or without (plain mean).
+_local_grads = vmap(vmap(grad(feel_model.loss_fn)))
+
+
+def _per_row(v, like):
+    """A per-row (R,) or (R, K) tensor shaped to broadcast over ``like``'s
+    trailing axes."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+def _local_sgd(params, x, y, w, lr, local_steps: int):
+    """τ local SGD steps on every device from its own ``params`` (leaves
+    (R, K, ...)), uploading the cumulative update as the "gradient":
+    ``(p0 − pτ) / lr`` (paper §VII).  A user with all-zero weights has a
+    zero gradient at every step, so its delta is exactly 0."""
+    dev = params
+    for _ in range(local_steps):
+        g = _local_grads(dev, x, y, w)
+        dev = tree_map(lambda p, gg: p - _per_row(lr, gg) * gg, dev, g)
+    return tree_map(lambda p0, pk: (p0 - pk) / _per_row(lr, pk), params, dev)
 
 
 def aggregation_weights(bk, aggden):
@@ -212,7 +269,7 @@ def aggregation_weights(bk, aggden):
 
 
 def _period_step(arrays, active, compress: bool, ratio: float,
-                 carry: EngineState, xs: dict):
+                 carry: EngineState, xs: dict, local_steps: int = 1):
     data_x, data_y, test_x, test_y = arrays
     params, residual = carry.params, carry.residual
     # active: the period's (R, K) {0,1} user mask; the schedule already
@@ -230,7 +287,13 @@ def _period_step(arrays, active, compress: bool, ratio: float,
     wf = w.reshape(rows, -1)
     loss_before = _row_loss(params, xf, yf, wf)
 
-    grads = _device_grads(params, x, y, w)       # leaves (R, K, ...)
+    if local_steps == 1:
+        grads = _device_grads(params, x, y, w)   # leaves (R, K, ...)
+    else:
+        k = x.shape[1]
+        dev = tree_map(lambda a: a[:, None].expand((rows, k) + a.shape[1:]),
+                       params)
+        grads = _local_sgd(dev, x, y, w, lr, local_steps)
     if compress:
         # per-device SBC: every device sparsifies its OWN upload, so a
         # padded (all-zero-gradient) user compresses to exact zeros.  An
@@ -253,7 +316,8 @@ def _period_step(arrays, active, compress: bool, ratio: float,
 @torch.no_grad()
 def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
                          arrays, *, compress: bool = True,
-                         ratio: float = 0.005, active=None):
+                         ratio: float = 0.005, active=None,
+                         local_steps: int = 1):
     """Advance every row of a bucket through its schedule — the
     counterpart of the reference's ``run_trajectory_batch`` and
     ``resume_trajectory_batch`` in one (a fresh trajectory starts from
@@ -264,7 +328,9 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     a common K (:func:`pad_schedule`); ``arrays`` is
     :func:`dataset_to_device`'s tuple; ``active`` an optional {0,1} user
     mask (default all-active), static (R, K) — padded users — or
-    time-varying (R, P, K) — per-period participation.
+    time-varying (R, P, K) — per-period participation; ``local_steps``
+    τ > 1 runs τ local SGD steps a period on every device and uploads the
+    parameter delta.
 
     Returns ``(EngineState, (losses, accs, decays))``, each series
     (R, P) on the device.  The work is enqueued and not waited for."""
@@ -277,8 +343,183 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     for p in range(periods):
         state, out = _period_step(arrays, active[:, p], compress, ratio,
                                   state,
-                                  {key: v[:, p] for key, v in xs.items()})
+                                  {key: v[:, p] for key, v in xs.items()},
+                                  local_steps)
         series.append(out)
     losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
     return state, (losses, accs, decays)
 
+
+
+# ---------------------------------------------------------------------------
+# the per-device-parameter schemes (individual / model_fl)
+# ---------------------------------------------------------------------------
+
+
+def _masked_mean(a, active):
+    """Mean over the device axis of ``a`` (R, K, ...) over the active users
+    only: padded and sampled-out users never enter it (all-active, it is
+    sum / K)."""
+    m = _per_row(active, a)
+    return (a * m).sum(1) / _per_row(active.sum(1), a[:, 0])
+
+
+# per row: the plain test loss of one parameter set
+_row_test_loss = vmap(feel_model.loss_fn, in_dims=(0, None, None))
+
+
+def _dev_step(arrays, average: bool, lr, dev_params, idx, active):
+    """One SGD step of every device on its own parameters at the period's
+    minibatch (the ledger prices a local epoch), then FedAvg
+    (``average``: every copy replaced by the masked mean), and the test
+    loss and accuracy of the masked device mean.  The update is
+    masked, so a sampled-out user's parameters hold still (all-active,
+    ``g * 1.0 == g``)."""
+    data_x, data_y, test_x, test_y = arrays
+    x = data_x[idx]                              # (R, K, batch, D)
+    y = data_y[idx]
+    g = _local_grads(dev_params, x, y)
+    dev_params = tree_map(
+        lambda p, gg: p - _per_row(lr, gg) * (gg * _per_row(active, gg)),
+        dev_params, g)
+    if average:
+        dev_params = tree_map(
+            lambda a: _masked_mean(a, active)[:, None].expand(a.shape),
+            dev_params)
+    avg = tree_map(lambda a: _masked_mean(a, active), dev_params)
+    loss = _row_test_loss(avg, test_x, test_y)
+    acc = _row_accuracy(avg, test_x, test_y)
+    return dev_params, (loss, acc)
+
+
+@torch.no_grad()
+def run_dev_trajectory_batch(state: EngineState, idx, lr, arrays, *,
+                             average: bool, active=None):
+    """Advance every row of a dev-family bucket through its index block —
+    the reference's ``run_dev_trajectory_batch`` and
+    ``resume_dev_trajectory_batch`` in one.
+
+    ``state.params`` leaves are the per-device stacks (R, K, ...) (a fresh
+    run broadcasts each row's init over K); ``idx`` is (R, P, K, batch),
+    ``lr`` (R,); ``active`` as in :func:`run_trajectory_batch`.
+    ``average`` is ``model_fl``'s FedAvg step.  Returns
+    ``(EngineState, (losses, accs))``, each series (R, P) on the device;
+    chunked calls are bitwise one monolithic call."""
+    device = arrays[0].device
+    full_f32(device)
+    idx = host_to_device(np.asarray(idx), device)
+    lr = host_to_device(np.asarray(lr, np.float32), device)
+    rows, periods, k = idx.shape[:3]
+    active = normalize_active(active, rows, periods, k, device)
+    dev_params = state.params
+    series = []
+    for p in range(periods):
+        dev_params, out = _dev_step(arrays, average, lr, dev_params,
+                                    idx[:, p], active[:, p])
+        series.append(out)
+    losses, accs = (torch.stack(s, dim=1) for s in zip(*series))
+    return EngineState(dev_params), (losses, accs)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical FEEL (cell → edge server → cloud, topology.Topology)
+# ---------------------------------------------------------------------------
+#
+# The flat loop keeps one global model a row; the hierarchical loop keeps
+# one replica per edge server (leaves (R, E, ...)) and the (R, E, K)
+# one-hot ``member`` routes users to replicas.  Every period each edge
+# aggregates its own users' (compressed) gradients eq.-(1)-style into its
+# replica; on cloud rounds the replicas merge into the batch-weighted
+# global average, which is also the model every reported metric
+# evaluates.  Padded users are all-zero ``member`` columns and active-mask
+# zeros, so they enter neither the routing nor the weights.
+
+
+def _hier_period_step(arrays, member, active, cloud, compress: bool,
+                      ratio: float, local_steps: int, carry: EngineState,
+                      xs: dict):
+    data_x, data_y, test_x, test_y = arrays
+    params_e, residual = carry.params, carry.residual
+    w = xs["weight"] * active[..., None]
+    bk = xs["batch"] * active
+    lr = xs["lr"]
+    # s_e: per-edge batch mass; wk: per-edge eq. (1) weights (an edge
+    # without participants gets zero weights and a guard denominator, so
+    # its replica holds still); beta: each edge's batch share, the
+    # cloud-merge and evaluation weights
+    s_e = torch.einsum("rek,rk->re", member, bk)
+    wk = member * bk[:, None, :] / torch.where(
+        s_e > 0, s_e, torch.ones_like(s_e))[..., None]
+    beta = s_e / s_e.sum(-1, keepdim=True)
+
+    def cloud_view(tree):
+        return tree_map(lambda a: torch.einsum("re,re...->r...", beta, a),
+                        tree)
+
+    # each user trains from its edge's replica (one-hot gather)
+    user_params = tree_map(
+        lambda a: torch.einsum("rek,re...->rk...", member, a), params_e)
+    idx = xs["idx"]
+    x = data_x[idx]                              # (R, K, slot, D)
+    y = data_y[idx]
+    rows = x.shape[0]
+    xf = x.reshape(rows, -1, x.shape[-1])
+    yf = y.reshape(rows, -1)
+    wf = w.reshape(rows, -1)
+    loss_before = _row_loss(cloud_view(params_e), xf, yf, wf)
+
+    if local_steps == 1:
+        grads = _local_grads(user_params, x, y, w)
+    else:
+        grads = _local_sgd(user_params, x, y, w, lr, local_steps)
+    if compress:
+        grads, residual = compress_dense(grads, ratio, residual,
+                                         batch_dims=2)
+    # per-edge eq. (1) aggregation and SGD step on each replica
+    agg = tree_map(lambda g: torch.einsum("rek,rk...->re...", wk, g), grads)
+    params_e = tree_map(lambda p, g: p - _per_row(lr, p) * g, params_e, agg)
+    # cloud round: replicas → batch-weighted global average, broadcast back
+    merge = cloud > 0.5                                  # (R,)
+    params_e = tree_map(
+        lambda a: torch.where(
+            _per_row(merge, a),
+            torch.einsum("re,re...->r...", beta, a)[:, None].expand(a.shape),
+            a), params_e)
+    global_after = cloud_view(params_e)
+    loss_after = _row_loss(global_after, xf, yf, wf)
+    acc = _row_accuracy(global_after, test_x, test_y)
+    return (EngineState(params_e, residual),
+            (loss_after, acc, loss_before - loss_after))
+
+
+@torch.no_grad()
+def run_hier_trajectory_batch(state: EngineState, member, cloud,
+                              schedules: Sequence[Schedule], arrays, *,
+                              compress: bool = True, ratio: float = 0.005,
+                              active=None, local_steps: int = 1):
+    """Advance every row of a hierarchical bucket through its schedule —
+    the reference's ``run_hier_trajectory_batch`` and
+    ``resume_hier_trajectory_batch`` in one.
+
+    ``state.params`` leaves are (R, E, ...), one replica per edge server
+    (a fresh run broadcasts each row's init over E), ``state.residual``
+    (R, K, ...); ``member`` is (R, E, K) user→edge one-hot (padded users:
+    all-zero columns); ``cloud`` (R, P) {0,1} cloud-round flags
+    (``Topology.cloud_rounds``, counted in global periods); the rest as
+    in :func:`run_trajectory_batch`.  Returns ``(EngineState, (losses,
+    accs, decays))``."""
+    device = arrays[0].device
+    full_f32(device)
+    xs = stack_schedules(schedules, device)
+    rows, periods, k = xs["batch"].shape
+    active = normalize_active(active, rows, periods, k, device)
+    member = host_to_device(np.asarray(member, np.float32), device)
+    cloud = host_to_device(np.asarray(cloud, np.float32), device)
+    series = []
+    for p in range(periods):
+        state, out = _hier_period_step(
+            arrays, member, active[:, p], cloud[:, p], compress, ratio,
+            local_steps, state, {key: v[:, p] for key, v in xs.items()})
+        series.append(out)
+    losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
+    return state, (losses, accs, decays)

@@ -1,8 +1,10 @@
 """The PyTorch port's boundaries: it imports neither jax nor any module of
 the JAX reference package (its ``topology`` and ``dynamics`` packages are
-copies), its spec rejects what later slices bring and type-checks the
-time-varying world's fields as the reference does, and its entry point
-runs on the GPU unless the caller asks for the CPU."""
+copies), its spec accepts, keys and refuses the Table-II schemes, τ local
+steps and the hierarchy as the reference's does, rejects what later
+slices bring and type-checks the time-varying world's fields as the
+reference does, and its entry point runs on the GPU unless the caller
+asks for the CPU."""
 import pathlib
 import re
 import subprocess
@@ -59,13 +61,48 @@ def _fleet(k=3):
                  for f in [0.7, 1.4, 2.1][:k])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("scheme", "model_fl"), ("scheme", "individual"),
-    ("scheme", "gradient_fl"), ("local_steps", 2), ("replan", 5),
-    ("topology", object()), ("adapt_tau", object())])
+@pytest.mark.parametrize("field,value", [("replan", 5),
+                                         ("adapt_tau", object())])
 def test_spec_rejects_what_later_slices_bring(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ScenarioSpec(fleet=_fleet(), **{field: value})
+
+
+def _spec_outcome(ns, field, value):
+    """``(bucket_key, effective_policy)`` of a spec built in one package,
+    or the type of the error it raises."""
+    fleet = tuple(ns.DeviceProfile(kind="cpu", f_cpu=f * 1e9)
+                  for f in [0.7, 1.4, 2.1])
+    try:
+        spec = ns.ScenarioSpec(fleet=fleet, **{field: value(ns)})
+    except (TypeError, ValueError, NotImplementedError) as exc:
+        return type(exc)
+    return spec.bucket_key(), spec.effective_policy
+
+
+@pytest.mark.parametrize("field,value", [
+    ("scheme", lambda ns: "model_fl"), ("scheme", lambda ns: "individual"),
+    ("scheme", lambda ns: "gradient_fl"), ("local_steps", lambda ns: 2),
+    ("topology", lambda ns: object()),
+    ("topology", lambda ns: ns.Topology(cells=2, edges=2, agg_every=3)),
+    ("topology", lambda ns: ns.Topology(cells=4))])
+def test_spec_accepts_what_the_reference_accepts(field, value):
+    """The Table-II schemes, τ local steps and the hierarchy: the port's
+    spec keys, labels and refuses (``topology=object()``: ``TypeError``;
+    more cells than users: ``ValueError``) as the reference's does."""
+    from types import SimpleNamespace
+
+    import repro.api as ref_api
+    from repro.core import DeviceProfile as RefDevice
+    from repro.topology import Topology as RefTopology
+
+    from repro_torch.topology import Topology
+    port = SimpleNamespace(ScenarioSpec=ScenarioSpec,
+                           DeviceProfile=DeviceProfile, Topology=Topology)
+    ref = SimpleNamespace(ScenarioSpec=ref_api.ScenarioSpec,
+                          DeviceProfile=RefDevice, Topology=RefTopology)
+    assert _spec_outcome(port, field, value) == \
+        _spec_outcome(ref, field, value)
 
 
 @pytest.mark.parametrize("field", ["sampling", "fading", "faults",

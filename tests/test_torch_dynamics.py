@@ -51,7 +51,7 @@ from repro_torch.dynamics import (EnergyBudget, Fading, FadingProcess,
                                   FaultProcess, Faults, batch_caps,
                                   energy_spend, uplink_airtime)
 from repro_torch.interop import params_from_numpy
-from repro_torch.topology import Sampling
+from repro_torch.topology import Sampling, Topology
 
 DIM, HIDDEN, BMAX = 32, 16, 12
 FIELDS = ("batch", "tau_up", "tau_down", "lr", "latency", "global_batch",
@@ -370,7 +370,7 @@ def test_spec_accepts_dynamics_and_keys_the_fading_states():
         assert ScenarioSpec(fleet=base.fleet, **kw).bucket_key() \
             == base.bucket_key()
     with pytest.raises(ValueError, match="hierarchical"):
-        ScenarioSpec(fleet=base.fleet, topology=object(),
+        ScenarioSpec(fleet=base.fleet, topology=Topology(cells=2),
                      faults=Faults(drop_prob=0.2))
 
 

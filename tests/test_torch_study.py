@@ -4,10 +4,8 @@ reference's on the same base spec — each expanded spec's fields, its
 label and its axis coordinates — and the port's ``Experiment`` run over
 the grids on the CPU.
 
-One rejection differs by design: a spec whose scheme is not ``"feel"``
-is refused when it is built in the port (``NotImplementedError``: the
-dev schemes are not ported), where the reference refuses the grid
-because the swept policy does not survive to its coordinate."""
+Both refuse a grid whose swept policy does not survive to its
+coordinate (a dev scheme's ``"none"``, ``gradient_fl``'s ``"full"``)."""
 from dataclasses import fields, is_dataclass
 from math import prod
 from types import SimpleNamespace
@@ -177,20 +175,16 @@ def test_grid_passes_through_label_axes():
                                  "policy": ["full", "online"]})) == 4
 
 
-def test_grid_refuses_unported_schemes():
-    """The reference refuses a policy sweep over dev schemes because the
-    policy does not survive to its coordinate; the port refuses the dev
-    scheme itself, before any grid is built."""
+@pytest.mark.parametrize("ns", [REF, PORT], ids=["reference", "port"])
+def test_grid_refuses_unported_schemes(ns):
+    """A policy swept over a scheme that reports another policy (the dev
+    schemes' ``"none"``, ``gradient_fl``'s ``"full"``) does not survive to
+    its coordinate: the reference and the port refuse the grid alike."""
     with pytest.raises(ValueError, match="does not survive"):
-        ref_api.grid(_base(REF), scheme=["feel", "individual"],
-                     policy=["proposed", "online"])
+        ns.api.grid(_base(ns), scheme=["feel", "individual"],
+                    policy=["proposed", "online"])
     with pytest.raises(ValueError, match="does not survive"):
-        ref_api.grid(_base(REF, scheme="gradient_fl"), policy=["proposed"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        grid(_base(), scheme=["feel", "individual"],
-             policy=["proposed", "online"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _base(scheme="gradient_fl")
+        ns.api.grid(_base(ns, scheme="gradient_fl"), policy=["proposed"])
 
 
 def test_tuple_valued_axis_selects_by_equality(dataset):
