@@ -70,6 +70,16 @@ those paths against its plain PyTorch version on the card:
      time to 0.6, speedup against individual), and the bitwise pins on
      the card (chunked == monolithic for a dev, a τ and the hierarchical
      bucket; a sampled-out individual user holds still);
+     4h. the closed loop at ``replan=5`` over 20 periods: the main cell's
+     16 rows (one scheduler a row) under the serial and async executors
+     and the serial one again, bitwise equal, with each run's wall,
+     planning split, peak memory and SBC launches, and its decisions held
+     against the open loop's (if ``global_batch`` equals it, the series
+     bitwise too); ``benchmarks/fig_replan.py``'s GPU fleet open and
+     closed loop (B* per chunk, the decay caps, the ξ-calibration error);
+     adaptive τ from 1 over (1, 2, 4) (τ and wall per chunk); and the
+     drifting channel of ``examples/quickstart.py``'s part 5, open loop
+     against closed (simulated seconds at period 20);
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -83,7 +93,11 @@ those paths against its plain PyTorch version on the card:
      periods: ledgers bitwise, losses 1e-4; 5f. the schemes, card vs
      CPU path: one row each of individual, model_fl (and one sampled),
      gradient_fl, τ 2 (compressed and not) and the hierarchy, 3 periods,
-     the same tolerances;
+     the same tolerances; 5g. the closed loop, card vs CPU path:
+     ``replan=2`` over 4 periods on one row each of 4h's main cell, GPU
+     fleet and adaptive-τ row and a transformer row (through B1, B2, B4,
+     B4′ and B4″): ``global_batch`` and the τ sequence equal, times
+     within rtol 1e-9, losses 1e-4;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -235,6 +249,12 @@ S_SCHEMES = ("individual", "model_fl", "gradient_fl", "feel")
 S_TAUS = (2, 4)
 S_TOPOLOGY = dict(cells=4, edges=2, agg_every=3)
 S_CHUNK = 5
+# the closed-loop cell (phase 4h): the main cell at replan=5 (four
+# chunks), the adaptive-τ choices and the drifting channel of
+# examples/quickstart.py's part 5
+H_REPLAN = 5
+H_TAUS = (1, 2, 4)
+H_FADING = dict(states=3, spread=1.2, stickiness=0.95)
 
 
 class _Log:
@@ -1825,6 +1845,325 @@ def schemes_contracts(env, api):
             "acc_max_abs_err": acc_err}
 
 
+def closed_loop_specs(env, api, **kw):
+    """The main cell's rows (phase 4's: iid and noniid x seeds 0-7, or
+    ``kw``'s) for the closed-loop phases."""
+    kw = dict(dict(partitions=("iid", "noniid"), seeds=tuple(range(8))),
+              **kw)
+    return world_specs(env, {"static": {}}, **kw)
+
+
+def gpu_fleet(DeviceProfile):
+    """``benchmarks/fig_replan.py``'s GPU fleet: flat-then-affine
+    latency, so the open loop's B* is interior."""
+    return tuple(DeviceProfile(kind="gpu", gpu_t_low=0.02, gpu_slope=5e-4,
+                               gpu_b_th=16 + 4 * i) for i in range(4))
+
+
+def drive_closed(env, bucket, periods, chunk, device, on_chunk=None):
+    """Run one bucket chunk by chunk through ``BucketRun`` on ``device``,
+    plan → dispatch → collect; ``on_chunk(run, plan)`` sees each chunk
+    after its collect.  Returns the run."""
+    lowering = env.lowering
+    run = lowering.BucketRun(bucket, env.data, periods, chunk,
+                             lowering.DeviceData(env.data, env.test, device))
+    while not run.done:
+        plan = run.plan_next()
+        run.dispatch(plan)
+        run.collect()
+        if on_chunk is not None:
+            on_chunk(run, plan)
+    return run
+
+
+def closed_loop_cell(env, api, counted):
+    """Phase 4h: the closed loop at full width, 20 periods, ``replan=5``.
+
+    (i) The main cell (phase 4's 16 rows) through ``Experiment.run(
+    PERIODS, replan=H_REPLAN)`` under ``SerialExecutor()``,
+    ``AsyncExecutor()`` and ``SerialExecutor()`` again, after a 1-period
+    warm-up: wall, planning split, peak memory and SBC launches (six
+    leaves x PERIODS) of each; the schedulers planned (one a row) against
+    the open loop's; the runs bitwise equal; then the open loop at
+    ``chunk_periods=H_REPLAN``: whether ``global_batch`` equals it, and
+    if so losses and accuracies bitwise and ``times`` within rtol 1e-12,
+    else the chunk at which the decay cap first moved B*.
+    (ii) ``benchmarks/fig_replan.py``'s GPU fleet on the main cell's data
+    and model, noniid, seeds (0, 1), open and closed loop: B* per chunk,
+    the decay caps at each boundary and ``fig_replan``'s calibration
+    error over the second half.  (iii) The main cell, iid, seeds (0, 1),
+    ``local_steps=1, adapt_tau=TauAdapt(H_TAUS)``: τ and wall per chunk,
+    SBC launches.  (iv) The main cell, iid, seeds (0, 1), under
+    ``Fading(**H_FADING)``, open loop against ``replan=H_REPLAN``: the
+    simulated seconds at period PERIODS.  Returns the report and the
+    closed-loop bucket of (i) for ``--profile``.  Raises AssertionError."""
+    torch, np, lowering = env.torch, env.np, env.lowering
+    Experiment, data, test = env.Experiment, env.data, env.test
+    fields = ("losses", "accs", "times", "global_batch")
+    want = {name: len(LEAF_LENGTHS) * PERIODS for name in counted}
+    out = {}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def read(t0, timings=None):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"wall_s": wall, "ms_per_period": 1e3 * wall / PERIODS,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {n: fn.launches for n, fn in counted.items()}}
+        if timings is not None:
+            rec["timings_s"] = dict(timings)
+        return rec
+
+    # (i) the main cell
+    exp = Experiment(data, test, closed_loop_specs(env, api))
+    (bucket,) = exp.lower(replan=H_REPLAN)
+    n_closed = len(lowering._FeelPlanner(bucket, data,
+                                         per_row=True).schedulers)
+    n_open = len(lowering._FeelPlanner(exp.lower()[0], data).schedulers)
+    t0 = time.perf_counter()
+    exp.run(1, replan=H_REPLAN)                          # warm-up period
+    torch.cuda.synchronize()
+    log(f"[4h closed loop] main cell, {len(bucket.rows)} rows, replan="
+        f"{H_REPLAN}: {n_closed} schedulers (one a row) against the open "
+        f"loop's {n_open}; warm-up run of 1 period "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for tag, executor in (("SerialExecutor()", env.SerialExecutor()),
+                          ("AsyncExecutor()", api.AsyncExecutor()),
+                          ("SerialExecutor() again", env.SerialExecutor()),
+                          (f"open loop, SerialExecutor(chunk_periods="
+                           f"{H_REPLAN})",
+                           env.SerialExecutor(chunk_periods=H_REPLAN))):
+        reset()
+        t0 = time.perf_counter()
+        res = exp.run(PERIODS, executor=executor,
+                      replan=None if tag.startswith("open") else H_REPLAN)
+        rec = read(t0, executor.timings)
+        tm = rec["timings_s"]
+        log(f"[4h closed loop] {tag}: {res.rows} rows x {PERIODS} periods "
+            f"in {rec['wall_s']:.3f} s = {rec['ms_per_period']:.1f} "
+            f"ms/period; host planning {1e3 * tm['plan'] / PERIODS:.1f} "
+            f"ms/period, enqueue {1e3 * tm['dispatch'] / PERIODS:.1f}, "
+            f"collect {1e3 * tm['collect'] / PERIODS:.2f}; peak device "
+            f"memory {rec['peak_gib']:.2f} GiB; launches {rec['launches']} "
+            f"(expected {want})")
+        if rec["launches"] != want:
+            raise AssertionError(f"4h: {tag}: kernel launches "
+                                 f"{rec['launches']}, expected {want}")
+        if not (np.isfinite(res.losses).all() and np.isfinite(res.accs).all()
+                and np.isfinite(res.times).all()):
+            raise AssertionError(f"4h: {tag}: non-finite series")
+        runs[tag] = (res, rec)
+    (serial, _), (asy, _), (again, _), (opened, _) = runs.values()
+    pins = {"AsyncExecutor() == SerialExecutor()": all(
+                np.array_equal(getattr(asy, f), getattr(serial, f))
+                for f in fields),
+            "SerialExecutor() again == the first": all(
+                np.array_equal(getattr(again, f), getattr(serial, f))
+                for f in fields)}
+    same_b = bool(np.array_equal(serial.global_batch, opened.global_batch))
+    moved = None
+    if same_b:
+        pins["losses, accuracies bitwise the open loop's"] = (
+            np.array_equal(serial.losses, opened.losses)
+            and np.array_equal(serial.accs, opened.accs))
+        pins["times within rtol 1e-12 of the open loop's"] = bool(
+            np.allclose(serial.times, opened.times, rtol=1e-12, atol=0))
+    else:
+        first = int(np.argwhere(serial.global_batch
+                                != opened.global_batch)[:, 1].min())
+        moved = first // H_REPLAN + 1
+    starts = slice(0, PERIODS, H_REPLAN)
+    log(f"[4h closed loop] global batch equal to the open loop's: "
+        f"{'yes' if same_b else 'no'}"
+        + ("" if same_b else f"; the decay cap first moved B* in chunk "
+           f"{moved} of {PERIODS // H_REPLAN}")
+        + f"; B* at each chunk start, mean over rows: closed "
+        f"{serial.global_batch[:, starts].mean(0).tolist()}, open "
+        f"{opened.global_batch[:, starts].mean(0).tolist()}; simulated "
+        f"seconds at period {PERIODS}, mean: closed "
+        f"{serial.times[:, -1].mean():.4f}, open "
+        f"{opened.times[:, -1].mean():.4f}; final accuracy, mean: closed "
+        f"{serial.final_acc.mean():.4f}, open {opened.final_acc.mean():.4f}")
+    log("[4h closed loop] on the card, bitwise: " + "; ".join(
+        f"{k}: {'yes' if v else 'NO'}" for k, v in pins.items()))
+    if not all(pins.values()):
+        raise AssertionError(f"4h: a pin fails: {pins}")
+    out["main"] = {"rows": serial.rows, "schedulers": n_closed,
+                   "open_loop_schedulers": n_open,
+                   "runs": {tag: rec for tag, (_, rec) in runs.items()},
+                   "global_batch_equal_open": same_b,
+                   "cap_first_moved_b_in_chunk": moved, "pins": pins}
+
+    # (ii) fig_replan's GPU fleet on the main cell's data and model
+    gspec = env.ScenarioSpec(fleet=gpu_fleet(env.DeviceProfile),
+                             name="gpu4", partition="noniid", b_max=128,
+                             base_lr=0.05, seeds=F_SEEDS)
+    g_open = Experiment(data, test, [gspec]).run(
+        PERIODS, executor=env.SerialExecutor(chunk_periods=H_REPLAN))
+    xi_at_plan, caps = [], []
+
+    def note(run, plan):
+        xi_at_plan.append([s.xi_est.xi for s in run._planner.schedulers])
+        caps.append([s.xi_est.decay_cap for s in run._planner.schedulers])
+
+    (gbucket,) = lowering.group_rows([gspec], replan=H_REPLAN)
+    # the estimators before the first chunk: the prior, uncapped
+    prior = lowering._FeelPlanner(gbucket, data, per_row=True)
+    xi_at_plan.append([s.xi_est.xi for s in prior.schedulers])
+    grun = drive_closed(env, gbucket, PERIODS, H_REPLAN, "cuda", note)
+    _, _, _, g_gb = grun.result()
+    realized = grun.realized_decays
+    xi_series = np.concatenate([
+        np.repeat(np.asarray(xi)[:, None], H_REPLAN, axis=1)
+        for xi in xi_at_plan[:PERIODS // H_REPLAN]], axis=1)
+    late = PERIODS // 2
+    scale = float(np.mean(np.abs(realized[:, late:]))) + 1e-12
+
+    def calibration(pred):
+        return float(np.mean(np.abs(pred[:, late:] - realized[:, late:])))\
+            / scale
+
+    cal_open = calibration(xi_at_plan[0][0] * np.sqrt(g_gb))
+    cal_closed = calibration(xi_series * np.sqrt(g_gb))
+    b_open = g_open.global_batch[:, starts]
+    b_closed = g_gb[:, starts]
+    log(f"[4h fig_replan] GPU fleet ({len(gspec.fleet)} GPUs, b_th 16 + 4i), "
+        f"noniid x seeds {F_SEEDS}, {PERIODS} periods: B* per chunk open "
+        f"{b_open.tolist()}, closed {b_closed.tolist()}; decay cap at each "
+        f"boundary {[[round(c, 6) for c in cc] for cc in caps[:-1]]}"
+        f"; the cap moved B*: "
+        f"{'yes' if not np.array_equal(b_open, b_closed) else 'no'}; "
+        f"calibration |xi^ sqrt(B) - realized| / realized over the second "
+        f"half: open {cal_open:.4f}, closed {cal_closed:.4f}; final "
+        f"accuracy open {g_open.final_acc.tolist()}, closed "
+        f"{grun.result()[1][:, -1].tolist()}")
+    out["fig_replan"] = {"b_open": b_open.tolist(),
+                         "b_closed": b_closed.tolist(),
+                         "caps": caps[:-1], "cal_open": cal_open,
+                         "cal_closed": cal_closed}
+
+    # (iii) adaptive τ on the main cell
+    (abucket,) = lowering.group_rows(closed_loop_specs(
+        env, api, partitions=("iid",), seeds=F_SEEDS, local_steps=1,
+        replan=H_REPLAN, adapt_tau=api.TauAdapt(H_TAUS)))
+    taus, walls = [], []
+    stamp = [0.0]
+
+    def chunk_wall(run, plan):
+        torch.cuda.synchronize()
+        taus.append(plan.tau)
+        walls.append(time.perf_counter() - stamp[0])
+        stamp[0] = time.perf_counter()
+
+    reset()
+    t0 = stamp[0] = time.perf_counter()
+    drive_closed(env, abucket, PERIODS, H_REPLAN, "cuda", chunk_wall)
+    rec = read(t0)
+    log(f"[4h adaptive tau] main cell, iid x seeds {F_SEEDS}, TauAdapt("
+        f"{H_TAUS}) from local_steps=1: tau per chunk {taus}; wall per "
+        f"chunk {[round(w, 3) for w in walls]} s ({rec['ms_per_period']:.1f}"
+        f" ms/period); launches {rec['launches']} (expected {want})")
+    if rec["launches"] != want:
+        raise AssertionError(f"4h: adaptive tau: kernel launches "
+                             f"{rec['launches']}, expected {want}")
+    out["adaptive_tau"] = dict(rec, taus=taus, chunk_wall_s=walls)
+
+    # (iv) drift: open loop against the closed loop
+    dexp = Experiment(data, test, closed_loop_specs(
+        env, api, partitions=("iid",), seeds=F_SEEDS,
+        fading=api.Fading(**H_FADING)))
+    d_open = dexp.run(PERIODS)
+    d_closed = dexp.run(PERIODS, replan=H_REPLAN)
+    log(f"[4h drift] Fading({H_FADING}), iid x seeds {F_SEEDS}: simulated "
+        f"seconds at period {PERIODS} open loop "
+        f"{d_open.times[:, -1].tolist()}, replan={H_REPLAN} "
+        f"{d_closed.times[:, -1].tolist()}; final accuracy open "
+        f"{d_open.final_acc.tolist()}, closed {d_closed.final_acc.tolist()}")
+    out["drift"] = {"open_s": d_open.times[:, -1].tolist(),
+                    "closed_s": d_closed.times[:, -1].tolist()}
+    return out, bucket
+
+
+def closed_loop_contracts(env, api, counted_attn):
+    """Phase 5g: 4 periods at ``replan=2`` on the card and on the port's
+    CPU path, one row each of 4h's main cell (iid, seed 0), its GPU fleet
+    (noniid, seed 0), its adaptive-τ row (iid, seed 0) and a transformer
+    row (phase 5e's: feel-transformer-h256-d3, slot 16), each bucket
+    driven chunk by chunk through ``BucketRun``: ``global_batch`` and the
+    τ sequence equal, ``times`` within rtol 1e-9, losses 1e-4, accuracies
+    two test predictions; the attention kernels' launches counted around
+    the card run.  Raises AssertionError."""
+    np, lowering = env.np, env.lowering
+    main = dict(partitions=("iid",), seeds=(0,))
+    specs = (closed_loop_specs(env, api, **main)
+             + [env.ScenarioSpec(fleet=gpu_fleet(env.DeviceProfile),
+                                 name="gpu4", partition="noniid", b_max=128,
+                                 base_lr=0.05, seeds=(0,))]
+             + closed_loop_specs(env, api, local_steps=1, replan=2,
+                                 adapt_tau=api.TauAdapt(H_TAUS), **main)
+             + closed_loop_specs(env, api, b_max=16,
+                                 model_family="transformer", **main))
+    buckets = lowering.group_rows(specs, replan=2)
+
+    def drive(device):
+        out = []
+        for b in buckets:
+            taus = []
+            run = drive_closed(env, b, 4, 2, device,
+                               lambda run, plan: taus.append(plan.tau))
+            out.append((run, taus))
+        return out
+
+    for fn in counted_attn.values():
+        fn.launches = 0
+    card = drive("cuda")
+    launches = {name: fn.launches for name, fn in counted_attn.items()}
+    cpu = drive("cpu")
+    out = {"launches": launches, "buckets": []}
+    for b, (crun, ctaus), (prun, ptaus) in zip(buckets, card, cpu):
+        cl, ca, ct, cg = crun.result()
+        pl, pa, pt, pg = prun.result()
+        labels = [r.spec.label + (f" {r.spec.model_family}"
+                                  if r.spec.model_family != "feel_mlp"
+                                  else "")
+                  + ("" if r.spec.adapt_tau is None
+                     else f" {r.spec.adapt_tau}") for r in b.rows]
+        loss_err = float(np.abs(cl - pl).max())
+        acc_err = float(np.abs(ca - pa).max())
+        gap = float(np.abs(ct / pt - 1).max())
+        log(f"[5g card vs cpu] {labels}, replan=2, 4 periods: global batch "
+            f"{cg.tolist()}; tau {ctaus} (CPU {ptaus}); times rel gap "
+            f"{gap:.3g}; losses max abs err {loss_err:.3g}; accs max abs "
+            f"err {acc_err:.3g}")
+        if not (np.array_equal(cg, pg) and ctaus == ptaus):
+            scores = [[(s.xi_est.xi, s.xi_est.decay_cap, s._last_lat,
+                        s._last_comp) for s in run._planner.schedulers]
+                      for run in (crun, prun)]
+            raise AssertionError(
+                f"5g: {labels}: decisions differ, global batch {cg.tolist()}"
+                f" vs {pg.tolist()}, tau {ctaus} vs {ptaus}; (xi, cap, "
+                f"latency, compute) card {scores[0]}, CPU {scores[1]}")
+        if not (np.allclose(ct, pt, rtol=1e-9, atol=0)
+                and np.allclose(cl, pl, rtol=1e-4, atol=1e-4)
+                and acc_err <= 2.0 / len(env.test.y) + 1e-7):
+            raise AssertionError(f"5g: {labels}: card and CPU path disagree "
+                                 "beyond times rtol 1e-9, losses 1e-4, "
+                                 "accuracies two test predictions")
+        out["buckets"].append({"rows": labels, "taus": ctaus,
+                               "times_rel_gap": gap,
+                               "loss_max_abs_err": loss_err,
+                               "acc_max_abs_err": acc_err})
+    log(f"[5g card vs cpu] launches on the card {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"5g: a kernel was not launched: {launches}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2148,6 +2487,15 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
+    # ---- 4h. the closed loop and adaptive local steps ---------------------
+    try:
+        report["closed_loop"], closed_bucket = closed_loop_cell(
+            env, api, {"sbc_stats": ksbc.sbc_stats,
+                       "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    h_launches = report["closed_loop"]["main"]["runs"][G_SERIAL]["launches"]
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -2231,6 +2579,19 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
+    # ---- 5g. the closed loop: card vs CPU ----------------------------------
+    try:
+        report["closed_loop_contracts"] = closed_loop_contracts(
+            env, api, {"flash_attention_fwd": kfa.flash_attention_fwd,
+                       "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+                       "flash_attention_bwd_dkdv":
+                           kfa.flash_attention_bwd_dkdv,
+                       "sbc_stats": ksbc.sbc_stats,
+                       "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    g5_launches = report["closed_loop_contracts"]["launches"]
+
     # ---- 6. times ----------------------------------------------------------
     records = []
     for name, kern, plain in (("sbc_stats", ksbc.sbc_stats,
@@ -2274,7 +2635,11 @@ def main(argv=None) -> int:
                                  "feel_mlp dynamics, bucket 1":
                                      f_launches["bucket 1"][name],
                                  "feel_mlp dynamics, bucket 2":
-                                     f_launches["bucket 2"][name]},
+                                     f_launches["bucket 2"][name],
+                                 "feel_mlp closed loop, each executor":
+                                     h_launches[name],
+                                 "closed-loop rows on the card, 4 periods":
+                                     g5_launches[name]},
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
@@ -2320,7 +2685,9 @@ def main(argv=None) -> int:
             "launches": t_launches[name],
             "launches_by_path": {"transformer": t_launches[name],
                                  "transformer weighted-sampled, 3 periods":
-                                     e_launches[name]},
+                                     e_launches[name],
+                                 "transformer closed loop, 4 periods":
+                                     g5_launches[name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2442,23 +2809,33 @@ def main(argv=None) -> int:
         report["profile_decode"] = decode_profile(torch, tm, get_arch,
                                                   make_serve_step)
         # device time by kernel over the device loop of two periods of
-        # each path
+        # each path; the closed loop's two periods (one chunk) with its
+        # planning and feedback, as it runs them
         from torch.profiler import ProfilerActivity, profile
         for path, pbucket, form in (
                 ("feel_mlp", bucket, "features"),
                 ("transformer", cells["transformer"]["bucket"], "tokens"),
                 ("mamba2", cells["mamba2"]["bucket"], "tokens"),
                 *((f"4g {tag}", b, "features")
-                  for tag, b in schemes_buckets.items())):
-            plan = lowering.plan_bucket(pbucket, data, 2)
-            arrays = lowering.DeviceData(data, test, "cuda")
-            getattr(arrays, form)
+                  for tag, b in schemes_buckets.items()),
+                ("4h closed loop, planning and feedback included",
+                 closed_bucket, None)):
+            if form is None:
+                def work(b=pbucket):
+                    drive_closed(env, b, 2, H_REPLAN, "cuda")
+            else:
+                plan = lowering.plan_bucket(pbucket, data, 2)
+                arrays = lowering.DeviceData(data, test, "cuda")
+                getattr(arrays, form)
+
+                def work(plan=plan, arrays=arrays):
+                    lowering.collect_bucket(lowering.dispatch_bucket(
+                        plan, arrays))
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                lowering.collect_bucket(lowering.dispatch_bucket(plan,
-                                                                 arrays))
+                work()
                 window = time.perf_counter() - t0
             events = prof.key_averages()
             busy = sum(e.self_device_time_total for e in events

@@ -28,6 +28,13 @@ device, the experiment's own: a mesh of several devices raises
 for a multi-card path), and a mesh on another device raises
 ``ValueError`` — an executor does not move data behind the caller's back.
 
+A bucket whose specs set ``replan=`` (or run under
+``Experiment.run(replan=)``) is closed-loop: it chunks at the replan
+interval whatever ``chunk_periods`` says, and must collect chunk *c*,
+whose realized decays are copied to the host for the ξ estimators,
+before it plans chunk *c+1*.  Under :class:`AsyncExecutor` such a bucket
+cannot run ahead; only the buckets after it can.
+
 Executors yield ``(bucket, (losses, accs, times, global_batch))`` in
 bucket order, which is what lets ``Experiment.stream`` hand back
 incrementally collected ``Results``.  After a run, ``executor.timings``
@@ -85,9 +92,12 @@ class Executor:
         return None if self.mesh is None else _check_mesh(self.mesh, device)
 
     def _chunk_for(self, bucket: Bucket) -> Optional[int]:
-        """The bucket's chunk size, or ``None`` for one monolithic chunk
-        (the spec refuses closed-loop ``replan=`` buckets in this port, so
-        the executor's ``chunk_periods`` always applies)."""
+        """The bucket's chunk size, or ``None`` for one monolithic chunk.
+        A closed-loop bucket chunks at its replan interval (the feedback
+        boundary is semantic, not a tuning knob); otherwise the
+        executor's ``chunk_periods`` applies."""
+        if bucket.replan is not None:
+            return bucket.replan
         return self.chunk_periods
 
     def _run(self, bucket: Bucket, data, arrays, periods: int) -> BucketRun:

@@ -16,7 +16,10 @@ running as ONE batched device loop over its (scenario × seed) rows.
 serial, pipelined or on a one-device mesh, all bitwise equal in results.
 ``stream`` yields cumulative partial ``Results`` as each bucket
 collects.  ``specs`` may be a :class:`~repro_torch.api.study.Study`: its
-swept axes then surface as extra ``Results`` coordinates.
+swept axes then surface as extra ``Results`` coordinates.  ``replan=R``
+closes the Algorithm-1 loop for every FEEL bucket of a run: R-period
+chunks, each chunk's realized loss decays fed to the ξ estimators before
+the next is planned.
 
 The experiment runs on the GPU: ``device=None`` resolves to ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
@@ -60,35 +63,45 @@ class Experiment:
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
-    def lower(self, bands: bool = False) -> List[Bucket]:
+    def lower(self, replan: Optional[int] = None,
+              bands: bool = False) -> List[Bucket]:
         """The bucketed row plan: which rows share a device loop, in
-        execution order.  ``bands`` applies the power-of-two K-band
-        sub-bucketing (see :meth:`run`)."""
-        return group_rows(self.specs, bands=bands)
+        execution order.  ``replan`` applies the run-level closed-loop
+        override and ``bands`` the power-of-two K-band sub-bucketing (see
+        :meth:`run`)."""
+        return group_rows(self.specs, replan=replan, bands=bands)
 
     def run(self, periods: int, executor: Optional[Executor] = None,
-            bands: bool = False) -> Results:
+            replan: Optional[int] = None, bands: bool = False) -> Results:
         """Run the whole grid and return the complete ``Results``.
+
+        ``replan=R`` turns every FEEL-family bucket closed-loop for this
+        run, overriding any ``ScenarioSpec.replan``: horizons run as
+        R-period chunks and each chunk's realized loss decays update the
+        ξ estimators before the next chunk is planned (Algorithm 1 with
+        live feedback).  Dev-scheme buckets have no ξ loop and ignore it.
 
         ``bands=True`` splits each bucket by power-of-two K band
         (``repro_torch.topology.band_width``), so a mixed-K grid pads each
         row to its band instead of the grid's largest fleet: one device
         loop per band, host ledgers bitwise the unbanded run's."""
         builder = None
-        for builder in self._collected(periods, executor, bands):
+        for builder in self._collected(periods, executor, replan, bands):
             pass
         return builder.build()
 
     def stream(self, periods: int, executor: Optional[Executor] = None,
+               replan: Optional[int] = None,
                bands: bool = False) -> Iterator[Results]:
         """Yield a cumulative partial ``Results`` after each bucket
         collection (the final yield is the complete result)."""
-        for builder in self._collected(periods, executor, bands):
+        for builder in self._collected(periods, executor, replan, bands):
             yield builder.partial()
 
     def _collected(self, periods: int, executor: Optional[Executor],
+                   replan: Optional[int] = None,
                    bands: bool = False) -> Iterator[ResultsBuilder]:
-        buckets = self.lower(bands=bands)
+        buckets = self.lower(replan=replan, bands=bands)
         if not buckets:
             raise ValueError("Experiment has no specs")
         if executor is None:

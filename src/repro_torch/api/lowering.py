@@ -39,6 +39,15 @@ carrying the planner's rng streams and time offsets and the engine's
 is bitwise equal to the monolithic one.  Its planning step touches no
 torch, so a pipelined executor plans the next chunk while the card still
 runs what the current one enqueued.
+
+Because planning happens between chunks, a bucket whose specs set
+``replan=`` (or run under ``Experiment.run(replan=)``) closes the
+Algorithm-1 loop: chunk *c*'s realized loss decays are copied to the host
+and feed each row's ξ estimator (``observe_series``) before chunk *c+1*
+is planned, on a warm B* grid with the estimator's decay cap.  Closed-loop
+rows each own their scheduler (realized decays are per trajectory, so the
+``_plan_key`` horizon dedup does not apply), and an ``adapt_tau`` bucket
+runs each chunk at the rows' consensus (minimum) recommended τ.
 """
 from __future__ import annotations
 
@@ -76,9 +85,12 @@ class Bucket:
     """All rows sharing one ``bucket_key`` → one batched device loop.
     Rows may carry fleets of different sizes, padded to :attr:`k_pad`:
     the largest K, or the power-of-two ``band`` when the lowering
-    sub-buckets by K band."""
+    sub-buckets by K band.  ``replan`` is the bucket's closed-loop ξ
+    interval (None: open loop), from the rows' specs or a run-level
+    override; executors run such a bucket in ``replan``-period chunks."""
     key: tuple
     rows: List[Row]
+    replan: Optional[int] = None
     band: Optional[int] = None
 
     @property
@@ -100,32 +112,54 @@ class Bucket:
 
 
 def group_rows(specs: Sequence[ScenarioSpec],
+               replan: Optional[int] = None,
                bands: bool = False) -> List[Bucket]:
     """Flatten specs × seeds into rows, grouped into first-seen-order
     buckets by shape compatibility; duplicate (spec, seed) pairs collapse
     onto one row carrying every output index.
+
+    ``replan`` overrides every FEEL-family spec's own ``replan`` for this
+    lowering (``Experiment.run(replan=)``: one knob for a whole grid).
+    Dev-scheme specs have no ξ loop and keep open-loop execution, so a
+    mixed grid accepts the override.  Rows are deduplicated and grouped
+    on the spec as executed (specs differing only in ``replan`` are one
+    trajectory under an override); each row keeps its spec as declared.
 
     ``bands=True`` further splits each bucket by the power-of-two K band
     (:func:`~repro_torch.topology.band_width`) of its rows: one bucket per
     band, padded to the band width instead of the grid's largest fleet.
     Host ledgers are bitwise the unbanded lowering's (no row's plan
     depends on its neighbours' padding)."""
+    if replan is not None and (not isinstance(replan, int)
+                               or isinstance(replan, bool) or replan < 1):
+        raise ValueError(
+            f"replan must be a positive int (periods per closed-loop "
+            f"chunk), got {replan!r}")
     entries: Dict[tuple, List[list]] = {}
     seen: Dict[tuple, list] = {}
+    replans: Dict[tuple, Optional[int]] = {}
     index = 0
     for spec in specs:
-        key = spec.bucket_key()
-        band = band_width(spec.k) if bands else None
+        if spec.is_dev_scheme:
+            eff, eff_spec = None, spec
+        else:
+            eff = spec.replan if replan is None else replan
+            eff_spec = (spec if eff == spec.replan
+                        else replace(spec, replan=eff))
+        key = eff_spec.bucket_key()
+        band = band_width(eff_spec.k) if bands else None
+        replans[key] = eff
         for seed in spec.seeds:
-            if (spec, seed) in seen:
-                seen[(spec, seed)].append(index)
+            if (eff_spec, seed) in seen:
+                seen[(eff_spec, seed)].append(index)
             else:
                 entry = [spec, seed, [index]]
-                seen[(spec, seed)] = entry[2]
+                seen[(eff_spec, seed)] = entry[2]
                 entries.setdefault((key, band), []).append(entry)
             index += 1
     return [Bucket(key=key, rows=[Row(spec=s, seed=sd, indices=tuple(ix))
-                                  for s, sd, ix in rows], band=band)
+                                  for s, sd, ix in rows],
+                   replan=replans[key], band=band)
             for (key, band), rows in entries.items()]
 
 
@@ -191,13 +225,13 @@ def _plan_key(r: Row) -> tuple:
     lowering plans each unique key once.  Sampling and the dynamics
     processes are part of the key: they change the plan.
     So is the topology (the per-cell solves and the backhaul ledger).
-    ``model_family`` is part of the key as in the reference's;
-    ``bucket_key`` already keeps the families in separate buckets, so it
-    changes no plan."""
+    ``adapt_tau`` and ``model_family`` are part of the key as in the
+    reference's; ``bucket_key`` already keeps them in separate buckets, so
+    they change no plan."""
     s = r.spec
     return (s.fleet, s.effective_policy, s.b_max, s.compression, s.cell,
             s.hidden, s.depth, r.seed, s.sampling, s.topology, s.fading,
-            s.faults, s.energy, s.model_family)
+            s.faults, s.energy, s.adapt_tau, s.model_family)
 
 
 def _rescale_lr(horizon, base_lr: float, ref_batch: float):
@@ -220,7 +254,8 @@ class BucketPlan:
     static (n, k_pad) padding mask, or (n, P, k_pad) when a row sampled,
     faulted or has a budget; ``energy`` the host-only per-user joules
     ledger when a row has a budget (padded columns and unbudgeted rows
-    exactly 0), else None."""
+    exactly 0), else None; ``tau`` the local-step count an ``adapt_tau``
+    bucket runs this chunk at (None: the spec's ``local_steps``)."""
     bucket: Bucket
     input_dim: int
     times: np.ndarray            # (n, P) cumulative simulated seconds
@@ -232,12 +267,15 @@ class BucketPlan:
     cloud: Optional[np.ndarray] = None    # (n, P) f32 {0,1}, hierarchy
     idx: Optional[np.ndarray] = None      # (n, P, k_pad, batch), dev
     lr: Optional[np.ndarray] = None       # (n,) f32, dev
+    tau: Optional[int] = None             # adaptive buckets' chunk τ
 
 
 @dataclass
 class BucketHandle:
     """Phase-2 output: in-flight device series + finished host ledgers,
-    and the engine carry after this dispatch."""
+    and the engine carry after this dispatch.  ``decays`` (FEEL buckets)
+    are the realized per-period loss decays, the closed loop's ξ
+    feedback."""
     bucket: Bucket
     losses: torch.Tensor         # (n, P) on the device
     accs: torch.Tensor           # (n, P) on the device
@@ -245,44 +283,72 @@ class BucketHandle:
     global_batch: np.ndarray
     state: engine.EngineState
     energy: Optional[np.ndarray] = None   # (n, P, k_pad) host joules
+    decays: Optional[torch.Tensor] = None  # (n, P) on the device, feel
 
 
 class _FeelPlanner:
-    """Host planning state for one bucket, resumable chunk by chunk: one
-    scheduler — and one planned horizon — per unique ``_plan_key``.
-    Successive ``plan()`` calls continue every rng stream and time
-    offset, so N chunked plans are bitwise equal to one monolithic plan."""
+    """Host planning state for one FEEL bucket, resumable chunk by chunk.
 
-    def __init__(self, bucket: Bucket, data):
+    ``per_row=False`` (open loop): one scheduler — and one planned
+    horizon — per unique ``_plan_key``.  Successive ``plan()`` calls
+    continue every rng stream and time offset, so N chunked plans are
+    bitwise equal to one monolithic plan.
+
+    ``per_row=True`` (closed loop): every row owns its scheduler and ξ
+    estimator, since realized decays are per trajectory.  ``observe()``
+    lands chunk *c*'s decays before ``plan()`` produces chunk *c+1*."""
+
+    def __init__(self, bucket: Bucket, data, per_row: bool = False):
         rows = bucket.rows
         self.bucket = bucket
+        self.per_row = per_row
         self.input_dim = data.x.shape[1]
         n_params = _n_params(rows[0].spec, self.input_dim)
+
+        def make_scheduler(r: Row) -> FeelScheduler:
+            return FeelScheduler(
+                devices=r.spec.fleet, n_params=n_params,
+                policy=r.spec.effective_policy, b_max=r.spec.b_max,
+                base_lr=r.spec.base_lr, compression=r.spec.compression,
+                cell_cfg=r.spec.cell, seed=r.seed,
+                sampling=r.spec.sampling, topology=r.spec.topology,
+                fading=r.spec.fading, faults=r.spec.faults,
+                energy=r.spec.energy)
+
         self.schedulers: List[FeelScheduler] = []
         self._sched_of: List[int] = []
         unique: Dict[tuple, int] = {}
-        for r in rows:
-            key = _plan_key(r)
+        for i, r in enumerate(rows):
+            key = i if per_row else _plan_key(r)
             if key not in unique:
                 unique[key] = len(self.schedulers)
-                self.schedulers.append(FeelScheduler(
-                    devices=r.spec.fleet, n_params=n_params,
-                    policy=r.spec.effective_policy, b_max=r.spec.b_max,
-                    base_lr=r.spec.base_lr, compression=r.spec.compression,
-                    cell_cfg=r.spec.cell, seed=r.seed,
-                    sampling=r.spec.sampling, topology=r.spec.topology,
-                    fading=r.spec.fading, faults=r.spec.faults,
-                    energy=r.spec.energy))
+                self.schedulers.append(make_scheduler(r))
             self._sched_of.append(unique[key])
         self.batchers = [
             FederatedBatcher(_partition(r.spec, data, r.seed),
                              r.spec.b_max, r.seed) for r in rows]
         self._offsets = np.zeros(len(rows))
+        # adaptive local steps: the bucket-consensus τ the next chunk
+        # runs at (the spec's local_steps until feedback has landed)
+        self._tau = rows[0].spec.local_steps
 
-    def plan(self, periods: int) -> BucketPlan:
+    def plan(self, periods: int, warm_start: bool = False) -> BucketPlan:
         rows = self.bucket.rows
         k_pad = self.bucket.k_pad
-        planned = plan_horizons_batch(self.schedulers, periods)
+        adapt = rows[0].spec.adapt_tau
+        tau = None
+        if adapt is not None:
+            # τ shapes the device loop, so the bucket agrees on one a
+            # chunk: the MIN of the rows' recommendations (never more
+            # local compute than the most communication-starved row wants)
+            tau = min(s.recommend_tau(adapt.choices, self._tau)
+                      for s in self.schedulers)
+            self._tau = tau
+        # per_row IS the closed loop: the decay cap steers B* only once
+        # rows own their estimators (and only after feedback has landed)
+        planned = plan_horizons_batch(self.schedulers, periods,
+                                      warm_start=warm_start,
+                                      closed_loop=self.per_row)
         schedules, parts, clouds, energies = [], [], [], []
         for i, r in enumerate(rows):
             sched = self.schedulers[self._sched_of[i]]
@@ -293,10 +359,10 @@ class _FeelPlanner:
             parts.append(horizon.participation)
             clouds.append(horizon.cloud)
             energies.append(horizon.energy)
-            s = engine.build_schedule(sched, self.batchers[i], periods,
-                                      horizon=horizon,
-                                      time_offset=float(self._offsets[i]),
-                                      local_steps=r.spec.local_steps)
+            s = engine.build_schedule(
+                sched, self.batchers[i], periods, horizon=horizon,
+                time_offset=float(self._offsets[i]),
+                local_steps=r.spec.local_steps if tau is None else tau)
             self._offsets[i] = s.times[-1]
             schedules.append(engine.pad_schedule(s, k_pad))
         # the static (n, k_pad) padding mask, unless a row's cohort varies
@@ -323,15 +389,24 @@ class _FeelPlanner:
             times=np.stack([s.times for s in schedules]),
             global_batch=np.stack([s.global_batch for s in schedules]),
             schedules=schedules, active=active, energy=energy,
-            member=member, cloud=cloud)
+            member=member, cloud=cloud, tau=tau)
+
+    def observe(self, decays: np.ndarray, global_batch: np.ndarray):
+        """Feed one collected chunk's realized per-period loss decays,
+        (n, P_c) row-major, into each row's ξ estimator."""
+        assert self.per_row, "closed-loop feedback needs per-row schedulers"
+        for i, s in enumerate(self.schedulers):
+            s.observe_series(decays[i], global_batch[i])
 
 
 class _DevPlanner:
     """Host planning state for one dev-scheme bucket, resumable chunk by
     chunk: one :class:`~repro_torch.core.scheduler.DevScheduler` a row,
-    its rng streams and time offset carried between ``plan()`` calls."""
+    its rng streams and time offset carried between ``plan()`` calls.
+    No ξ loop: ``per_row`` is accepted and ignored, and there is no
+    ``observe``."""
 
-    def __init__(self, bucket: Bucket, data):
+    def __init__(self, bucket: Bucket, data, per_row: bool = False):
         rows = bucket.rows
         spec0 = rows[0].spec
         self.bucket = bucket
@@ -350,7 +425,7 @@ class _DevPlanner:
             for r in rows]
         self._offsets = np.zeros(len(rows))
 
-    def plan(self, periods: int) -> BucketPlan:
+    def plan(self, periods: int, warm_start: bool = False) -> BucketPlan:
         rows = self.bucket.rows
         k_pad = self.bucket.k_pad
         horizons = []
@@ -381,14 +456,27 @@ class _DevPlanner:
                                  np.float32))
 
 
-def _make_planner(bucket: Bucket, data):
+def _make_planner(bucket: Bucket, data, per_row: bool = False):
     cls = _FeelPlanner if bucket.kind == "feel" else _DevPlanner
-    return cls(bucket, data)
+    return cls(bucket, data, per_row=per_row)
 
 
 def plan_bucket(bucket: Bucket, data, periods: int) -> BucketPlan:
     """Host-side planning for one bucket (no device work)."""
     return _make_planner(bucket, data).plan(periods)
+
+
+def chunk_lengths(periods: int, chunk: Optional[int]) -> Tuple[int, ...]:
+    """The per-chunk period counts a ``chunk``-chunked horizon dispatches:
+    ``chunk_lengths(7, 3) == (3, 3, 1)`` (``None``: one monolithic
+    chunk)."""
+    if chunk is None:
+        return (periods,)
+    chunk = min(max(1, chunk), periods)
+    out = [chunk] * (periods // chunk)
+    if periods % chunk:
+        out.append(periods % chunk)
+    return tuple(out)
 
 
 def _broadcast_rows(params, n: int):
@@ -404,9 +492,10 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
     bucket (the reference's ``_dispatch_dev``); else, as the reference's
     ``_dispatch_feel``, the hierarchical loop under a topology, the
     big-model engine for a ``model_family`` bucket, or the flat feel-mlp
-    loop.  ``state`` resumes a previous chunk's carry (``None``: fresh
-    init params — broadcast over the devices of a dev row and over the
-    edge replicas of a hierarchical row — and zero residuals)."""
+    loop, at the plan's ``tau`` when an adaptive bucket set one.
+    ``state`` resumes a previous chunk's carry (``None``: fresh init
+    params — broadcast over the devices of a dev row and over the edge
+    replicas of a hierarchical row — and zero residuals)."""
     spec0 = plan.bucket.rows[0].spec
     k_pad = plan.bucket.k_pad
     if plan.bucket.kind == "dev":
@@ -427,26 +516,28 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
         if plan.member is not None:
             params0 = _broadcast_rows(params0, plan.member.shape[1])
         state = engine.EngineState(params0, residual0)
+    local_steps = spec0.local_steps if plan.tau is None else plan.tau
     if plan.member is not None:
-        state, (losses, accs, _) = engine.run_hier_trajectory_batch(
+        state, (losses, accs, decays) = engine.run_hier_trajectory_batch(
             state, plan.member, plan.cloud, plan.schedules,
             arrays.features, compress=spec0.compress,
             ratio=spec0.compression, active=plan.active,
-            local_steps=spec0.local_steps)
+            local_steps=local_steps)
     elif spec0.model_family != "feel_mlp":
-        state, (losses, accs, _) = model_engine.run_model_trajectory_batch(
-            state, plan.schedules, arrays.tokens,
-            model_family=spec0.model_family, hidden=spec0.hidden,
-            depth=spec0.depth, compress=spec0.compress,
-            ratio=spec0.compression, active=plan.active)
+        state, (losses, accs, decays) = \
+            model_engine.run_model_trajectory_batch(
+                state, plan.schedules, arrays.tokens,
+                model_family=spec0.model_family, hidden=spec0.hidden,
+                depth=spec0.depth, compress=spec0.compress,
+                ratio=spec0.compression, active=plan.active)
     else:
-        state, (losses, accs, _) = engine.run_trajectory_batch(
+        state, (losses, accs, decays) = engine.run_trajectory_batch(
             state, plan.schedules, arrays.features, compress=spec0.compress,
             ratio=spec0.compression, active=plan.active,
-            local_steps=spec0.local_steps)
+            local_steps=local_steps)
     return BucketHandle(bucket=plan.bucket, losses=losses, accs=accs,
                         times=plan.times, global_batch=plan.global_batch,
-                        state=state, energy=plan.energy)
+                        state=state, energy=plan.energy, decays=decays)
 
 
 def collect_bucket(handle: BucketHandle):
@@ -471,12 +562,19 @@ class BucketRun:
       without waiting for the device; chunks are dispatched in the order
       they were planned.
     * :meth:`advance` is the two in one; :meth:`collect` waits for the
-      oldest chunk in flight.
+      oldest chunk in flight.  In a closed-loop bucket (``bucket.replan``,
+      FEEL kind) ``collect`` also copies the chunk's realized decays to
+      the host and feeds them to every row's ξ estimator, and chunks
+      after the first are planned on a warm grid.
+    * :attr:`can_advance` is the scheduling guard: a closed-loop bucket
+      must collect chunk *c* before it plans chunk *c+1* (the feedback is
+      the point; ``plan_next`` refuses too), while an open-loop bucket may
+      run ahead as far as it likes.
 
     ``seconds`` sums the host clock spent in each of the three.
 
-    Any chunk size, and any interleaving of the three, is bitwise equal to
-    the monolithic three-phase path."""
+    With ξ frozen (open loop) any chunk size, and any interleaving of the
+    three, is bitwise equal to the monolithic three-phase path."""
     bucket: Bucket
     data: object
     periods: int
@@ -489,6 +587,7 @@ class BucketRun:
     _state: object = None
     _pending: deque = field(default_factory=deque)
     _chunks: list = field(default_factory=list)
+    _decays: list = field(default_factory=list)
     _energy: list = field(default_factory=list)
     seconds: dict = field(default_factory=lambda: dict.fromkeys(
         ("plan", "dispatch", "collect"), 0.0))
@@ -497,6 +596,8 @@ class BucketRun:
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         self.chunk = min(self.chunk, self.periods)
+        self.closed_loop = (self.bucket.replan is not None
+                            and self.bucket.kind == "feel")
 
     @property
     def n_chunks(self) -> int:
@@ -508,18 +609,29 @@ class BucketRun:
 
     @property
     def can_advance(self) -> bool:
-        """Whether a next chunk is left to plan and dispatch."""
-        return self.dispatched < self.periods
+        """Whether the next chunk can be planned and dispatched now,
+        without a collect first."""
+        if self.dispatched >= self.periods:
+            return False
+        return not (self.closed_loop and self._pending)
 
     def plan_next(self) -> BucketPlan:
         """Plan the next chunk (host only)."""
         if self.planned >= self.periods:
             raise RuntimeError("cannot plan: horizon fully planned")
+        if self.closed_loop and self.planned > self.collected:
+            raise RuntimeError(
+                "cannot plan: a closed-loop chunk awaits collection")
         t0 = time.perf_counter()
         if self._planner is None:
-            self._planner = _make_planner(self.bucket, self.data)
+            self._planner = _make_planner(self.bucket, self.data,
+                                          per_row=self.closed_loop)
         p_c = min(self.chunk, self.periods - self.planned)
-        plan = self._planner.plan(p_c)
+        # closed-loop chunks after the first re-plan on a warm B* grid
+        if self.closed_loop and self.planned > 0:
+            plan = self._planner.plan(p_c, warm_start=True)
+        else:
+            plan = self._planner.plan(p_c)
         self.planned += p_c
         self.seconds["plan"] += time.perf_counter() - t0
         return plan
@@ -542,26 +654,55 @@ class BucketRun:
     def advance(self) -> None:
         """Plan and dispatch the next chunk (host work + async enqueue)."""
         if not self.can_advance:
-            raise RuntimeError("cannot advance: horizon fully dispatched")
+            raise RuntimeError(
+                "cannot advance: horizon fully dispatched, or a "
+                "closed-loop chunk awaits collection")
         if self.planned != self.dispatched:
             raise RuntimeError("cannot advance: a planned chunk awaits "
                                "dispatch")
         self.dispatch(self.plan_next())
 
     def collect(self) -> tuple:
-        """Wait for the oldest chunk in flight and bank its host series;
+        """Wait for the oldest chunk in flight and bank its host series
+        (closed loop: and feed its realized decays to the ξ estimators);
         returns that chunk's ``(losses, accs, times, global_batch)``."""
         if not self._pending:
             raise RuntimeError("no chunk in flight to collect")
         t0 = time.perf_counter()
         p_c, handle = self._pending.popleft()
         chunk = collect_bucket(handle)
+        if self.closed_loop:
+            decays = handle.decays.cpu().numpy()
+            self._decays.append(decays)
+            self._planner.observe(decays, handle.global_batch)
         self._chunks.append(chunk)
         if handle.energy is not None:
             self._energy.append(handle.energy)
         self.collected += p_c
         self.seconds["collect"] += time.perf_counter() - t0
         return chunk
+
+    def park(self) -> list:
+        """Suspend the run at the current chunk boundary: collect every
+        chunk in flight (returned oldest first, so a caller can still
+        stream them) and fence the engine carry (a CUDA synchronize; a
+        no-op on the CPU).  Resuming a parked run with plain
+        :meth:`advance` is bitwise equal to never having parked."""
+        banked = []
+        while self._pending:
+            banked.append(self.collect())
+        device = torch.device(self.arrays.device)
+        if self._state is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return banked
+
+    @property
+    def realized_decays(self) -> Optional[np.ndarray]:
+        """(n, collected) realized per-period loss decays banked so far
+        (closed-loop runs only; None open loop)."""
+        if not self._decays:
+            return None
+        return np.concatenate(self._decays, axis=1)
 
     @property
     def energy_ledger(self) -> Optional[np.ndarray]:
@@ -583,15 +724,17 @@ class BucketRun:
                      for j in range(4))
 
     def run_serial(self):
-        """Strictly plan → dispatch → collect one chunk at a time."""
+        """Strictly plan → dispatch → collect one chunk at a time (the
+        reference schedule)."""
         while not self.done:
             self.advance()
             self.collect()
         return self.result()
 
     def drain(self):
-        """Finish the bucket with maximal plan-ahead: dispatch every chunk
-        left, then collect.  Returns :meth:`result`."""
+        """Finish the bucket with maximal plan-ahead: dispatch whatever
+        the closed-loop guard admits, collect otherwise.  Returns
+        :meth:`result`."""
         while not self.done:
             while self.can_advance:
                 self.advance()

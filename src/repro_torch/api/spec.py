@@ -6,34 +6,35 @@ device fleet, wireless cell, data partition, batchsize policy, Table-II
 training scheme, compression, learning-rate base, local-step count and
 the seed set — as one frozen, hashable value.
 
-This port runs the four Table-II schemes: ``"feel"`` and
-``"gradient_fl"`` (the full-batch policy) on the FEEL engine, and the
-per-device-parameter schemes ``"individual"`` and ``"model_fl"``.  The
-FEEL family runs the feel-mlp model at any ``local_steps >= 1`` and under
-a cell→edge→cloud ``topology`` (:class:`~repro_torch.topology.Topology`),
-or the big-model families (``model_family="transformer"`` or
-``"mamba2"``) at one local step, in the static world or the time-varying
-one: per-round participation ``sampling``
+The spec accepts and refuses exactly what the reference's does, with the
+reference's error types: the four Table-II schemes (``"feel"`` and
+``"gradient_fl"``, the full-batch policy, on the FEEL engine; the
+per-device-parameter schemes ``"individual"`` and ``"model_fl"``), the
+feel-mlp model at any ``local_steps >= 1`` and under a cell→edge→cloud
+``topology`` (:class:`~repro_torch.topology.Topology`), the big-model
+families (``model_family="transformer"`` or ``"mamba2"``) at one local
+step, per-round participation ``sampling``
 (:class:`~repro_torch.topology.Sampling`), channel drift ``fading``,
-stragglers and dropout ``faults`` and per-user ``energy`` budgets
-(:mod:`repro_torch.dynamics`), each type-checked and cross-checked as the
-reference checks it.  The closed loop (``replan``) and adaptive local
-steps (``adapt_tau``) are later slices and stay on the spec so that a
-spec written for the reference is rejected with a clear error instead of
-being run differently (``NotImplementedError``).  The reference's
-``TypeError`` and ``ValueError`` rules run first, so a spec the reference
-refuses is refused here the same way.
+stragglers and dropout ``faults``, per-user ``energy`` budgets, the
+closed loop ``replan`` (the FEEL family's ξ re-plan interval: the horizon
+runs as ``replan``-period chunks with the realized loss decays fed back
+between them) and adaptive local steps ``adapt_tau``
+(:class:`~repro_torch.dynamics.TauAdapt`, re-planned at those chunk
+boundaries; it needs ``replan`` and a ``local_steps`` among its
+choices).
 
 Two specs share a bucket — one batched device loop — iff
 :meth:`ScenarioSpec.bucket_key` matches.  For the dev schemes that is the
 scheme, the fixed epoch batch and the model dims; for the FEEL family the
 slot width (``b_max``), ``local_steps``, ``compress`` and (when
-compressing) ``compression``, the model dims, the topology's structural
-key and the fading chain's state count.  The fleet is not structural:
-rows are padded to the bucket's max K and an active mask keeps padded
-users out of every reduction.  Sampling, faults, budgets, a fading
-chain's gains and a topology's backhaul rate are values: they reach the
-device loop as the time-varying active mask and the schedules.
+compressing) ``compression``, the model dims, ``replan`` (a bucket's rows
+chunk on the same boundary), the topology's structural key, the fading
+chain's state count and the ``adapt_tau`` choice set.  The fleet is
+not structural: rows are padded to the bucket's max K and an active mask
+keeps padded users out of every reduction.  Sampling, faults, budgets, a
+fading chain's gains and a topology's backhaul rate are values: they
+reach the device loop as the time-varying active mask and the
+schedules.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from typing import Optional, Tuple
 from repro_torch.channels.model import CellConfig
 from repro_torch.core.latency import DeviceProfile
 from repro_torch.core.baselines import POLICIES
-from repro_torch.dynamics import EnergyBudget, Fading, Faults
+from repro_torch.dynamics import EnergyBudget, Fading, Faults, TauAdapt
 from repro_torch.topology import Sampling, Topology
 
 SCHEMES = ("feel", "gradient_fl", "model_fl", "individual")
@@ -51,8 +52,6 @@ MODEL_FAMILIES = ("feel_mlp", "transformer", "mamba2")
 # The dev-family schemes train full local epochs with a fixed per-device
 # batch, capped at 64 (the reference's lowering rule).
 DEV_EPOCH_BATCH_CAP = 64
-# fields whose non-default values later slices of the port bring
-_LATER = ("replan", "adapt_tau")
 
 
 @dataclass(frozen=True)
@@ -72,14 +71,14 @@ class ScenarioSpec:
     seeds: Tuple[int, ...] = (0,)
     hidden: int = 256
     depth: int = 3
-    replan: Optional[int] = None
+    replan: Optional[int] = None         # closed-loop ξ re-plan interval
     sampling: Optional[Sampling] = None  # per-round S-of-K participation
     topology: Optional[Topology] = None  # cell→edge→cloud hierarchy
     fading: Optional[Fading] = None      # block-fading Markov channel drift
     faults: Optional[Faults] = None      # straggler slowdowns + dropout
     energy: Optional[EnergyBudget] = None  # per-user per-period energy caps
-    adapt_tau: Optional[object] = None
-    model_family: str = "feel_mlp"
+    adapt_tau: Optional[TauAdapt] = None   # re-planned local-steps knob
+    model_family: str = "feel_mlp"       # feel_mlp | transformer | mamba2
 
     def __post_init__(self):
         object.__setattr__(self, "fleet", tuple(self.fleet))
@@ -124,7 +123,7 @@ class ScenarioSpec:
                     f"fleet of {self.k} users cannot populate the "
                     f"topology's {self.topology.cells} cells")
         for fld, typ in (("fading", Fading), ("faults", Faults),
-                         ("energy", EnergyBudget)):
+                         ("energy", EnergyBudget), ("adapt_tau", TauAdapt)):
             val = getattr(self, fld)
             if val is not None and not isinstance(val, typ):
                 raise TypeError(
@@ -141,6 +140,16 @@ class ScenarioSpec:
                     "dynamics are not threaded through the hierarchical "
                     "per-cell solves yet; drop topology= or the dynamics "
                     "fields")
+        if self.adapt_tau is not None:
+            if self.replan is None:
+                raise ValueError(
+                    "adapt_tau= re-plans local steps at closed-loop chunk "
+                    "boundaries; set replan= on the spec")
+            if self.local_steps not in self.adapt_tau.choices:
+                raise ValueError(
+                    f"local_steps={self.local_steps} is the starting point "
+                    "of the adaptive schedule and must appear in adapt_tau "
+                    f"choices {self.adapt_tau.choices!r}")
         if self.model_family not in MODEL_FAMILIES:
             raise ValueError(
                 f"model_family {self.model_family!r} not in {MODEL_FAMILIES}")
@@ -173,11 +182,6 @@ class ScenarioSpec:
                     "weighted (1/p) sampling needs probabilistic "
                     "inclusion; deterministic energy drops break the "
                     "Horvitz-Thompson correction")
-        for name in _LATER:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet; the PyTorch port plans "
-                    "every horizon open-loop at a fixed local-step count")
 
     @property
     def is_dev_scheme(self) -> bool:
@@ -221,9 +225,10 @@ class ScenarioSpec:
         the epoch batch and the model dims.  The FEEL family keys on the
         loop's shapes and branches; a topology contributes its
         ``structural_key()`` (``backhaul_bps`` only changes ledger
-        values) and a fading chain its state count, while sampling,
-        faults, budgets and the gains are values.  The adaptive-τ entry
-        is always None in this port."""
+        values), a fading chain its state count and ``adapt_tau`` its
+        choice set, while sampling, faults, budgets and the gains are
+        values.  ``replan`` is structural for the FEEL family: a bucket's
+        rows chunk on the same boundary, where the feedback lands."""
         if self.is_dev_scheme:
             return ("dev", self.scheme, self.dev_epoch_batch,
                     self.hidden, self.depth)
@@ -233,4 +238,5 @@ class ScenarioSpec:
                 self.compress, self.compression if self.compress else None,
                 self.hidden, self.depth, self.replan, topo,
                 None if self.fading is None else self.fading.states,
-                None, self.model_family)
+                None if self.adapt_tau is None else self.adapt_tau.choices,
+                self.model_family)

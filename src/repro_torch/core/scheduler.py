@@ -5,7 +5,7 @@ per-device batchsizes (as masks downstream), η = η₀√(B/B_ref) and the
 simulated latency ledger.  Baseline policies are drop-in replacements via
 ``policy=``.
 
-A copy of the reference's static-world planner: :class:`FeelScheduler`
+A copy of the reference's planner: :class:`FeelScheduler`
 (``plan`` for one period through the ``core.baselines`` policies,
 ``plan_horizon`` for a whole horizon of the proposed or a fixed-batch
 policy) and :func:`plan_horizons_batch`, consuming the same rng streams
@@ -31,8 +31,11 @@ backhaul round trip on cloud rounds.
 latency ledger of one local epoch (plus the model upload and broadcast
 for ``model_fl``), optionally under per-round participation.
 
-Adaptive local steps and closed-loop re-planning are not part of this
-port yet.
+The closed loop re-plans chunk by chunk: ``plan_horizon(warm_start=,
+closed_loop=)`` narrows the B* grid around the previous chunk's optimum
+and caps the decay credited to a candidate at the ξ estimator's
+``decay_cap``, and :meth:`FeelScheduler.recommend_tau` scores the
+adaptive local-step choices at the last chunk's realized comm/comp split.
 """
 from __future__ import annotations
 
@@ -153,6 +156,10 @@ class FeelScheduler:
             raise ValueError(
                 "dynamics are not threaded through the hierarchical "
                 "per-cell solves")
+        # realized comm/comp split of the last planned chunk: the
+        # adaptive-τ recommendation's inputs (bookkeeping only)
+        self._last_lat: Optional[float] = None
+        self._last_comp: Optional[float] = None
 
     @property
     def dynamic(self) -> bool:
@@ -235,7 +242,8 @@ class FeelScheduler:
         solver's ledger arithmetic operand for operand: identity dynamics
         give the solver's own latency bitwise.  Returns ``(latency,
         energy)``; ``energy`` is the per-user spend under a budget, else
-        None."""
+        None.  Stores the chunk's mean comm/comp split for
+        :meth:`recommend_tau`."""
         c = self.cell.cfg
         s = self.payload_bits
         fr = FleetRows.from_devices(self.devices, periods)
@@ -253,7 +261,36 @@ class FeelScheduler:
         if self.energy is not None:
             energy = np.where(fr.active,
                               energy_spend(self.energy, t_local, t_up), 0.0)
+        self._last_lat = float(np.mean(latency))
+        self._last_comp = float(np.mean(fr.mmax(t_local)))
         return latency, energy
+
+    def recommend_tau(self, choices, current: int) -> int:
+        """Score each candidate local-steps count with the paper's
+        learning-efficiency criterion at the last chunk's realized
+        comm/comp split, E(τ) = min(ξ√(τ·B̄), cap) / (t_comm + τ·t_comp),
+        and return the best; ties break toward fewer steps.  Before any
+        feedback, and for the fixed policies (no ``_b_cache``), the
+        current τ stands."""
+        if self._last_lat is None or self._last_comp is None \
+                or self._b_cache is None:
+            return current
+        try:
+            b_bar = float(np.mean(self._b_cache))
+        except (TypeError, ValueError):
+            return current
+        comp = max(self._last_comp, 0.0)
+        comm = max(self._last_lat - comp, 1e-12)
+        cap = self.xi_est.decay_cap
+        best, best_e = current, -np.inf
+        for t in sorted(choices):
+            dl = self.xi_est.xi * float(np.sqrt(t * b_bar))
+            if cap is not None:
+                dl = min(dl, cap)
+            e = dl / (comm + t * comp)
+            if e > best_e:
+                best, best_e = t, e
+        return int(best)
 
     def _aggden(self, full_batch: np.ndarray) -> Optional[np.ndarray]:
         """Weighted sampling's Horvitz-Thompson fixed denominator
@@ -282,12 +319,27 @@ class FeelScheduler:
         for d, g in zip(loss_decays, global_batches):
             self.xi_est.update(float(d), float(g))
 
-    def plan_horizon(self, periods: int) -> PlanHorizon:
+    def plan_horizon(self, periods: int, warm_start: bool = False,
+                     closed_loop: bool = False) -> PlanHorizon:
         """Plan ``periods`` consecutive periods open-loop and stack them.
 
         Channel fading is re-drawn per period; ξ is frozen at its current
         estimate for the whole horizon.  Successive calls continue the rng
         streams, so N chunked calls equal one monolithic call bitwise.
+        The closed loop (``api.lowering.BucketRun``) calls this once a
+        chunk with ``observe_series`` feedback in between.
+
+        ``warm_start`` narrows the outer B* candidate grid to
+        ``[b/2, 2b]`` around the previous solution (``_b_cache``) at 33
+        candidates instead of 97.  It changes which candidates are
+        evaluated, so only the closed loop turns it on.
+
+        ``closed_loop`` lets the realized decays steer B*: a scalar ξ
+        cancels from every Algorithm-1 decision, so the estimator's
+        ``decay_cap`` caps the decay credited to a B* candidate, and a
+        fading planner prices the chunk at the chain's current gain
+        instead of the horizon's first.  Off, the planner is the paper's
+        open-loop model.
 
         The draw order is participation, then dynamics (fading, faults),
         then one interleaved rate draw for all K users: a sampled horizon
@@ -298,22 +350,28 @@ class FeelScheduler:
         part = self._draw_participation(periods)
         dyn = self._draw_dynamics(periods)
         if self.topology is not None:
-            return self._plan_horizon_topo(periods, part)
+            return self._plan_horizon_topo(periods, part, warm_start,
+                                           closed_loop)
         if self.policy == "proposed":
-            return self._plan_horizon_proposed(periods, part, dyn)
-        return self._plan_horizon_fixed(periods, part, dyn)
+            return self._plan_horizon_proposed(periods, warm_start,
+                                               closed_loop, part, dyn)
+        return self._plan_horizon_fixed(periods, part, dyn, closed_loop)
 
-    def _belief(self, rates_up, rates_down, gains):
-        """Rates as the open-loop planner prices them: at the horizon's
-        first realized fading gain (the paper's static assumption)."""
+    def _belief(self, rates_up, rates_down, gains, closed_loop):
+        """Rates as the planner prices them under fading: open loop at the
+        horizon's first realized gain (the paper's static assumption, and
+        chunking-invariant), closed loop at the chain's gain at the chunk
+        start.  The ledger is priced at the realized gains by
+        ``_realize``."""
         if gains is None:
             return rates_up, rates_down
-        pg = self._fading_proc.planning_gain(False)[None, :]
+        pg = self._fading_proc.planning_gain(closed_loop)[None, :]
         return rates_up * pg, rates_down * pg
 
     def _plan_horizon_fixed(self, periods: int,
                             part: Optional[np.ndarray] = None,
-                            dyn=(None, None, None)) -> PlanHorizon:
+                            dyn=(None, None, None),
+                            closed_loop: bool = False) -> PlanHorizon:
         """Fixed-batch baselines, whole horizon in one lockstep evaluation:
         one batched interleaved (up, down) channel draw, one (P, K)
         integer block for the random policy, and the equal-slot latency
@@ -328,7 +386,7 @@ class FeelScheduler:
         gains, slow, keep = dyn
         rates_up, rates_down = self.cell.avg_rate_updown_rows(
             self._dist_km, periods)
-        pup, pdown = self._belief(rates_up, rates_down, gains)
+        pup, pdown = self._belief(rates_up, rates_down, gains, closed_loop)
         if self.policy == "online":
             batch = np.ones((periods, K))
         elif self.policy == "full":
@@ -374,7 +432,8 @@ class FeelScheduler:
             participation=mask_now, aggden=aggden, energy=energy_led,
             slowdown=slow)
 
-    def _plan_horizon_proposed(self, periods: int,
+    def _plan_horizon_proposed(self, periods: int, warm_start: bool = False,
+                               closed_loop: bool = False,
                                part: Optional[np.ndarray] = None,
                                dyn=(None, None, None)) -> PlanHorizon:
         c = self.cell.cfg
@@ -383,7 +442,7 @@ class FeelScheduler:
         # even when sampled (the cohort mask selects)
         rates_up, rates_down = self.cell.avg_rate_updown_rows(
             self._dist_km, periods)
-        pup, pdown = self._belief(rates_up, rates_down, gains)
+        pup, pdown = self._belief(rates_up, rates_down, gains, closed_loop)
         weighted = self.sampling is not None and self.sampling.weighted
         avail = self._compose_avail(part, keep, periods)
         # no mask keeps the plain devices path; a cohort mask routes
@@ -404,11 +463,19 @@ class FeelScheduler:
         B = np.empty(periods)
         carry = self._b_cache
         if reopt.any():
+            warm = warm_start and self._b_cache is not None
+            b_prev = (np.full(int(reopt.sum()), self._b_cache)
+                      if warm else None)
+            cap = self.xi_est.decay_cap if closed_loop else None
             b_star = optimize_batch_rows(
                 rows if solve_mask is None else rows.take(reopt),
                 pup[reopt], pdown[reopt],
                 self.payload_bits, c.frame_up_s, c.frame_down_s, xi,
-                self.b_max, energy=self.energy)
+                self.b_max, b_prev=b_prev,
+                n_candidates=33 if warm else 97,
+                dl_cap=(None if cap is None
+                        else np.full(int(reopt.sum()), cap)),
+                energy=self.energy)
             j = 0
             for p in range(periods):
                 if reopt[p]:
@@ -435,14 +502,15 @@ class FeelScheduler:
         if mask_now is not None:
             batch = np.where(mask_now > 0.5, batch, 0)
         gb = batch.sum(1)
-        latency, energy_led = sol["latency"], None
-        if (gains is not None or slow is not None
-                or self.energy is not None or weighted):
-            # the realized-world ledger; the static world keeps the
-            # solver's own latency
-            latency, energy_led = self._realize(
-                batch_f, mask_now, sol["tau_up"], sol["tau_down"],
-                rates_up, rates_down, gains, slow, periods)
+        # the realized-world ledger re-price (and the adaptive-τ
+        # bookkeeping); the static world keeps the solver's own latency
+        realize = (gains is not None or slow is not None
+                   or self.energy is not None or weighted)
+        rl, energy_led = self._realize(
+            batch_f, mask_now, sol["tau_up"], sol["tau_down"],
+            rates_up, rates_down, gains, slow, periods)
+        latency = rl if realize else sol["latency"]
+        energy_led = energy_led if realize else None
         return PlanHorizon(
             batch=batch, tau_up=sol["tau_up"], tau_down=sol["tau_down"],
             lr=np.array([lr_scale(self.base_lr, g, self.ref_batch)
@@ -452,7 +520,9 @@ class FeelScheduler:
             slowdown=slow)
 
     def _plan_horizon_topo(self, periods: int,
-                           part: Optional[np.ndarray]) -> PlanHorizon:
+                           part: Optional[np.ndarray],
+                           warm_start: bool = False,
+                           closed_loop: bool = False) -> PlanHorizon:
         """Hierarchical horizon: Algorithm 1 allocates *within each cell*
         per period (one masked row per (cell, period), cell-major: row
         ``c*P + p``), and cloud-round periods add the edge→cloud backhaul
@@ -505,10 +575,17 @@ class FeelScheduler:
             rf = reopt_cp.reshape(C * P)
             B_cp = np.empty((C, P))
             if rf.any():
+                # warm unless every cell is still cold
+                warm = warm_start and not np.isnan(carry).all()
+                b_prev = (np.repeat(carry, P)[rf] if warm else None)
+                cap = self.xi_est.decay_cap if closed_loop else None
                 b_star = optimize_batch_rows(
                     fr.take(rf), flat_up[rf], flat_down[rf],
                     self.payload_bits, c.frame_up_s, c.frame_down_s, xi,
-                    self.b_max)
+                    self.b_max, b_prev=b_prev,
+                    n_candidates=33 if warm else 97,
+                    dl_cap=(None if cap is None
+                            else np.full(int(rf.sum()), cap)))
                 j = 0
                 for ci in range(C):
                     cur = carry[ci]
@@ -600,16 +677,26 @@ class FeelScheduler:
 
 
 def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
-                        periods: int) -> List[PlanHorizon]:
+                        periods: int, warm_start: bool = False,
+                        closed_loop: bool = False) -> List[PlanHorizon]:
     """Plan many schedulers' horizons with proposed-policy rows fused —
     across fleets of any size or composition.
+
+    ``warm_start`` and ``closed_loop`` forward to every solve (see
+    :meth:`FeelScheduler.plan_horizon`): in the fused group a cold row's
+    hint is NaN and the warm 33-candidate grid is used only if some row
+    has a hint; a row without a decay cap gets inf, and caps are passed
+    only if some row has one.
 
     Hierarchical schedulers (``topology``) and dynamic ones
     (``FeelScheduler.dynamic``: fading, faults, a budget or weighted
     sampling) plan solo; unweighted sampling fuses,
     its cohort masks drawn first as ``plan_horizon`` draws them.
 
-    Bitwise equal to ``[s.plan_horizon(periods) for s in schedulers]``:
+    With both flags off, bitwise equal to ``[s.plan_horizon(periods) for
+    s in schedulers]`` (the adaptive-τ bookkeeping aside, which the
+    fused group computes on its padded rows instead of through
+    ``_realize``):
     each scheduler's rng streams are consumed in the per-call order, but
     the Algorithm-1 / Theorem-2 bisections of every proposed-policy
     scheduler sharing (payload, frames, b_max, reopt cadence) run as ONE
@@ -625,14 +712,16 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
         if s.policy != "proposed" or s.topology is not None or s.dynamic:
             # hierarchical horizons solve per (cell, period) with their
             # own reopt bookkeeping: solo, as time-varying worlds
-            out[i] = s.plan_horizon(periods)
+            out[i] = s.plan_horizon(periods, warm_start=warm_start,
+                                    closed_loop=closed_loop)
         else:
             key = (s.payload_bits, s.cell.cfg.frame_up_s,
                    s.cell.cfg.frame_down_s, s.b_max, s.reopt_every)
             groups[key].append(i)
     for key, idxs in groups.items():
         if len(idxs) == 1:
-            out[idxs[0]] = schedulers[idxs[0]].plan_horizon(periods)
+            out[idxs[0]] = schedulers[idxs[0]].plan_horizon(
+                periods, warm_start=warm_start, closed_loop=closed_loop)
             continue
         scheds = [schedulers[i] for i in idxs]
         s0 = scheds[0]
@@ -666,10 +755,28 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
         B = np.empty((M, P))
         if reopt.any():
             rf = reopt.reshape(M * P)
+            b_prev = None
+            n_cand = 97
+            if warm_start:
+                # per-scheduler previous-solution hints (NaN = cold row)
+                prev = np.repeat(np.array(
+                    [np.nan if s._b_cache is None else s._b_cache
+                     for s in scheds]), P)[rf]
+                if np.isfinite(prev).any():
+                    b_prev = prev
+                    n_cand = 33
+            dl_cap = None
+            if closed_loop:
+                caps = np.repeat(np.array(
+                    [np.inf if s.xi_est.decay_cap is None
+                     else s.xi_est.decay_cap for s in scheds]), P)[rf]
+                if np.isfinite(caps).any():
+                    dl_cap = caps
             b_star = optimize_batch_rows(
                 flat_fleets.take(rf), flat_up[rf], flat_down[rf],
                 s0.payload_bits, c.frame_up_s, c.frame_down_s, xi_rows[rf],
-                s0.b_max)
+                s0.b_max, b_prev=b_prev, n_candidates=n_cand,
+                dl_cap=dl_cap)
             j = 0
             for m, s in enumerate(scheds):
                 carry = s._b_cache
@@ -690,9 +797,17 @@ def plan_horizons_batch(schedulers: Sequence[FeelScheduler],
                          np.maximum(np.round(sol["batch"]).astype(int)
                                     .reshape(M, P, K), 1), 0)
         gb = batch.sum(2)
+        # adaptive-τ bookkeeping (no output depends on it): each
+        # scheduler's mean comm/comp split, from the unrounded batches of
+        # the padded rows (the reference's arithmetic, not _realize's)
+        comp_mp = flat_fleets.mmax(
+            flat_fleets.local_latency(sol["batch"])).reshape(M, P)
+        lat_mp = sol["latency"].reshape(M, P)
         for m, (i, s) in enumerate(zip(idxs, scheds)):
             s._b_cache = float(B[m, -1])
             s._period += P
+            s._last_lat = float(np.mean(lat_mp[m]))
+            s._last_comp = float(np.mean(comp_mp[m]))
             k_m = ks[m]                          # slice back to the true K
             out[i] = PlanHorizon(
                 batch=batch[m, :, :k_m],

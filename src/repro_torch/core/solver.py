@@ -552,6 +552,7 @@ def optimize_batch_rows(devices,
                         s_bits: float, frame_up: float, frame_down: float,
                         xi, b_max: int,
                         n_candidates: int = 97,
+                        b_prev=None, dl_cap=None,
                         energy=None) -> np.ndarray:
     """Outer 𝒫₁ for M rows at once: integer-grid argmin of E^U*+E^D* over B
     (every row and every candidate evaluated in one lockstep solve; B is
@@ -563,6 +564,22 @@ def optimize_batch_rows(devices,
     grids repeat their last candidate so the lockstep solve stays
     rectangular — a repeated candidate ties its original and argmin keeps
     the first, so padding never changes a row's argmin.
+
+    ``b_prev`` (optional (M,) array, NaN = no hint) warm-starts a row's
+    grid from a previous solution: the candidates span
+    ``[b_prev/2, 2·b_prev]`` (clipped to the row's feasible range, falling
+    back to the full range when the hint is stale or outside it); the
+    closed loop pairs it with a reduced ``n_candidates`` because B* moves
+    slowly between consecutive chunks.
+
+    ``dl_cap`` (optional (M,) array, NaN, inf or <= 0 = uncapped) caps the
+    loss decay credited to a candidate: the selection objective becomes
+    T_pred(B)/min(ξ√B, cap) instead of T_pred(B)/(ξ√B).  A scalar ξ
+    cancels from the uncapped argmin, so the cap is the term that makes
+    closed-loop feedback decide anything: candidates whose √B
+    extrapolation out-promises the realized decay stop being credited and
+    B* falls back to the knee (cap/ξ)².  Only the argmin changes; the
+    per-B allocation stays the paper's.
 
     ``energy`` (optional :class:`repro_torch.dynamics.EnergyBudget`, read
     through ``budget_j``/``comp_w``/``tx_w``) discounts candidates the
@@ -576,6 +593,11 @@ def optimize_batch_rows(devices,
     fr = as_fleet_rows(devices, M)
     lo_rows = _ssum(np.where(fr.active, fr.lo, 0.0))
     hi_rows = fr.k_active * b_max
+    if b_prev is not None:
+        hint = np.broadcast_to(np.asarray(b_prev, float), (M,))
+        ok = np.isfinite(hint) & (hint >= lo_rows) & (hint <= hi_rows)
+        lo_rows = np.where(ok, np.maximum(lo_rows, hint / 2.0), lo_rows)
+        hi_rows = np.where(ok, np.minimum(hi_rows, hint * 2.0), hi_rows)
     per_row = [np.unique(np.round(np.linspace(lo_rows[m], hi_rows[m],
                                               n_candidates)))
                for m in range(M)]
@@ -606,6 +628,13 @@ def optimize_batch_rows(devices,
                                np.minimum(sol["batch"], cap), 0.0))
         factor = np.sqrt(b_all / np.maximum(b_aff, 1e-30))
         obj = obj * factor.reshape(M, C)
+    if dl_cap is not None:
+        cap = np.broadcast_to(np.asarray(dl_cap, float), (M,))[:, None]
+        cap = np.where(np.isfinite(cap) & (cap > 0), cap, np.inf)
+        # e_total = T_pred/ΔL with ΔL = ξ√B; re-denominate by the capped
+        # decay so over-promising candidates stop looking efficient
+        dl = xi_rows[:, None] * np.sqrt(cand)
+        obj = obj * dl / np.minimum(dl, cap)
     best = np.argmin(obj, axis=1)
     return cand[np.arange(M), best]
 

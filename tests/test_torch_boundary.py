@@ -1,10 +1,10 @@
 """The PyTorch port's boundaries: it imports neither jax nor any module of
 the JAX reference package (its ``topology`` and ``dynamics`` packages are
 copies), its spec accepts, keys and refuses the Table-II schemes, τ local
-steps and the hierarchy as the reference's does, rejects what later
-slices bring and type-checks the time-varying world's fields as the
-reference does, and its entry point runs on the GPU unless the caller
-asks for the CPU."""
+steps, the hierarchy, the closed loop (``replan``) and adaptive local
+steps (``adapt_tau``) as the reference's does and type-checks the
+time-varying world's fields as the reference does, and its entry point
+runs on the GPU unless the caller asks for the CPU."""
 import pathlib
 import re
 import subprocess
@@ -61,48 +61,59 @@ def _fleet(k=3):
                  for f in [0.7, 1.4, 2.1][:k])
 
 
-@pytest.mark.parametrize("field,value", [("replan", 5),
-                                         ("adapt_tau", object())])
-def test_spec_rejects_what_later_slices_bring(field, value):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ScenarioSpec(fleet=_fleet(), **{field: value})
-
-
-def _spec_outcome(ns, field, value):
-    """``(bucket_key, effective_policy)`` of a spec built in one package,
-    or the type of the error it raises."""
+def _spec_outcome(ns, kw):
+    """``(bucket_key, effective_policy)`` of a spec built in one package
+    from the keyword arguments ``kw(ns)``, or the type of the error it
+    raises."""
     fleet = tuple(ns.DeviceProfile(kind="cpu", f_cpu=f * 1e9)
                   for f in [0.7, 1.4, 2.1])
     try:
-        spec = ns.ScenarioSpec(fleet=fleet, **{field: value(ns)})
-    except (TypeError, ValueError, NotImplementedError) as exc:
+        spec = ns.ScenarioSpec(fleet=fleet, **kw(ns))
+    except (TypeError, ValueError) as exc:
         return type(exc)
     return spec.bucket_key(), spec.effective_policy
 
 
-@pytest.mark.parametrize("field,value", [
-    ("scheme", lambda ns: "model_fl"), ("scheme", lambda ns: "individual"),
-    ("scheme", lambda ns: "gradient_fl"), ("local_steps", lambda ns: 2),
-    ("topology", lambda ns: object()),
-    ("topology", lambda ns: ns.Topology(cells=2, edges=2, agg_every=3)),
-    ("topology", lambda ns: ns.Topology(cells=4))])
-def test_spec_accepts_what_the_reference_accepts(field, value):
-    """The Table-II schemes, τ local steps and the hierarchy: the port's
-    spec keys, labels and refuses (``topology=object()``: ``TypeError``;
-    more cells than users: ``ValueError``) as the reference's does."""
+@pytest.mark.parametrize("kw", [
+    lambda ns: dict(scheme="model_fl"), lambda ns: dict(scheme="individual"),
+    lambda ns: dict(scheme="gradient_fl"), lambda ns: dict(local_steps=2),
+    lambda ns: dict(topology=object()),
+    lambda ns: dict(topology=ns.Topology(cells=2, edges=2, agg_every=3)),
+    lambda ns: dict(topology=ns.Topology(cells=4)),
+    lambda ns: dict(replan=5), lambda ns: dict(replan=0),
+    lambda ns: dict(replan=True),
+    lambda ns: dict(replan=5, scheme="individual"),
+    lambda ns: dict(adapt_tau=object()),
+    lambda ns: dict(adapt_tau=ns.TauAdapt((1, 2))),
+    lambda ns: dict(replan=2, adapt_tau=ns.TauAdapt((1, 2))),
+    lambda ns: dict(replan=2, local_steps=4, adapt_tau=ns.TauAdapt((1, 2))),
+    lambda ns: dict(replan=2, model_family="transformer"),
+    lambda ns: dict(replan=2, model_family="transformer",
+                    adapt_tau=ns.TauAdapt((1, 2)))])
+def test_spec_accepts_what_the_reference_accepts(kw):
+    """The Table-II schemes, τ local steps, the hierarchy, the closed
+    loop and adaptive local steps: the port's spec keys, labels and
+    refuses as the reference's does (``topology=object()`` and
+    ``adapt_tau=object()``: ``TypeError``; more cells than users, a
+    ``replan`` that is not a positive int or on a dev scheme, ``adapt_tau``
+    without ``replan``, with a ``local_steps`` outside its choices or on a
+    big-model family: ``ValueError``)."""
     from types import SimpleNamespace
 
     import repro.api as ref_api
     from repro.core import DeviceProfile as RefDevice
+    from repro.dynamics import TauAdapt as RefTau
     from repro.topology import Topology as RefTopology
 
+    from repro_torch.dynamics import TauAdapt
     from repro_torch.topology import Topology
     port = SimpleNamespace(ScenarioSpec=ScenarioSpec,
-                           DeviceProfile=DeviceProfile, Topology=Topology)
+                           DeviceProfile=DeviceProfile, Topology=Topology,
+                           TauAdapt=TauAdapt)
     ref = SimpleNamespace(ScenarioSpec=ref_api.ScenarioSpec,
-                          DeviceProfile=RefDevice, Topology=RefTopology)
-    assert _spec_outcome(port, field, value) == \
-        _spec_outcome(ref, field, value)
+                          DeviceProfile=RefDevice, Topology=RefTopology,
+                          TauAdapt=RefTau)
+    assert _spec_outcome(port, kw) == _spec_outcome(ref, kw)
 
 
 @pytest.mark.parametrize("field", ["sampling", "fading", "faults",
