@@ -4,8 +4,9 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also a torch.profiler breakdown
 
-It drives the port's paths through ``repro_torch.api.Experiment.run``
-with the Table-II fleet at K = 12 — the main path, the FEEL scheme with
+It drives the port's paths through ``repro_torch.api.Experiment.run``,
+``repro_torch.serve.ExperimentService`` and ``FeelSimulation`` with the
+Table-II fleet at K = 12 — the main path, the FEEL scheme with
 feel-mlp at full width (3072→256→256→10, 855 050 parameters, 16 rows),
 the four Table-II schemes, τ local steps and the cell→edge→cloud
 hierarchy on the same model,
@@ -80,6 +81,20 @@ those paths against its plain PyTorch version on the card:
      adaptive τ from 1 over (1, 2, 4) (τ and wall per chunk); and the
      drifting channel of ``examples/quickstart.py``'s part 5, open loop
      against closed (simulated seconds at period 20);
+     4i. ``repro_torch.serve.ExperimentService`` at the main cell's width
+     under ``benchmarks/serve_load.py``'s traffic (two hot templates of 6
+     periods, 12 Poisson arrivals at 6/s on a virtual clock advanced by
+     measured wall, after an untimed warm-up; a 24-period background
+     request and a transformer and a mamba2 request, 2 seeds, 4 periods;
+     chunk 2, window 0.02, ``max_batch`` 2): hit rate >= 0.5, a
+     preemption, no ledger event in a warm admission, launches against
+     the formulas, p50/p99 result latency, wall and peak memory; every
+     ticket bitwise its admission group's ``Experiment`` twin, and its
+     solo twin's ledgers bitwise, losses 1e-4 (the gap printed);
+     4j. ``FeelSimulation`` at the same width, ``engine="scan"`` against
+     ``engine="python"`` over 20 periods (times bitwise, the loss gap
+     stated) and ``run_seed_batch`` of 4 seeds bitwise its
+     ``Experiment`` bucket, with each one's wall a period;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -97,7 +112,9 @@ those paths against its plain PyTorch version on the card:
      ``replan=2`` over 4 periods on one row each of 4h's main cell, GPU
      fleet and adaptive-τ row and a transformer row (through B1, B2, B4,
      B4′ and B4″): ``global_batch`` and the τ sequence equal, times
-     within rtol 1e-9, losses 1e-4;
+     within rtol 1e-9, losses 1e-4; 5h. the service, card vs CPU path: one
+     fixed-step tape (a transformer ticket and three feel-mlp ones):
+     ``stats.to_dict()`` equal, ledgers bitwise, losses 1e-4;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -2164,6 +2181,331 @@ def closed_loop_contracts(env, api, counted_attn):
     return out
 
 
+# the service cell (phase 4i): benchmarks/serve_load.py's traffic at the
+# main cell's width — two hot templates (noniid seeds (0, 1), iid seeds
+# (2, 3)) of 6 periods, 12 Poisson arrivals at 6/s (seed 7) on a virtual
+# clock advanced by each step's measured wall, after an untimed warm-up; a
+# 24-period priority-5 background request, then one transformer and one
+# mamba2 request (family defaults, 2 seeds, 4 periods), also priority 5:
+# the background starts first, and the hot arrivals preempt it
+I_RATE, I_ARRIVALS, I_SEED = 6.0, 12, 7
+I_HOT, I_LONG, I_FAMILY = 6, 24, 4
+I_CHUNK, I_WINDOW, I_MAX_BATCH = 2, 0.02, 2
+# the launches a dispatched period: B1/B2 once a leaf, B4 4 forwards x 3
+# layers, B4' / B4'' and B3' one backward x 3 layers
+I_FEEL_SBC = len(LEAF_LENGTHS)
+I_FAMILY_LAUNCHES = {"transformer": T_LAUNCHES, "mamba2": M_LAUNCHES}
+# phase 5h: a fixed-step tape through the service on the card and on the
+# CPU path, at slot widths no other phase runs (so both devices' programs
+# start cold alike): three feel-mlp arrivals of one seed (2 periods, chunk
+# 1) and one transformer ticket
+H5_FEEL_BMAX, H5_T_BMAX, H5_STEP = 112, 24, 0.05
+
+
+def _service_specs(env, **kw):
+    base = dict(fleet=fleet(env.DeviceProfile, DEVICES), name="K12",
+                b_max=128, base_lr=0.05)
+    return env.ScenarioSpec(**dict(base, **kw))
+
+
+def _watch_admissions(svc):
+    """The tickets of each admission group, in admission order (read off
+    the scheduler's ``add``)."""
+    groups, add = [], svc._scheduler.add
+
+    def record(srun):
+        groups.append([r.ticket for r in srun.requests])
+        add(srun)
+    svc._scheduler.add = record
+    return groups
+
+
+def service_cell(env, counted, device=None):
+    """Phase 4i: ``repro_torch.serve.ExperimentService`` at the main
+    cell's full width under serve_load's traffic (the constants above),
+    with the kernels' launch counts set to 0 after the warm-up and read
+    after the drain, held against 6 B1/B2 a dispatched feel-mlp period
+    and the families' formulas.  Then every ticket is held bitwise
+    against its admission group's ``Experiment`` twin (chunked as the
+    service chunks) and against its solo twin (ledgers bitwise, losses
+    1e-4; the gap printed).  Raises AssertionError."""
+    from repro_torch.serve import ExperimentService, ProgramCache
+    from repro_torch.testing import (VirtualClock, assign_templates,
+                                     poisson_arrivals)
+    torch, np = env.torch, env.np
+    hot = [_service_specs(env, partition="noniid", seeds=(0, 1)),
+           _service_specs(env, partition="iid", seeds=(2, 3))]
+    clock = VirtualClock()
+    svc = ExperimentService(env.data, env.test, device=device,
+                            chunk_periods=I_CHUNK, window=I_WINDOW,
+                            max_batch=I_MAX_BATCH, clock=clock,
+                            cache=ProgramCache(shared=False))
+    # untimed warm-up: the single-request (2-row) and paired (4-row) hot
+    # shapes, as serve_load warms them
+    t0 = time.perf_counter()
+    svc.submit(hot[0], periods=I_HOT)
+    svc.drain()
+    svc.submit(hot[0], periods=I_HOT)
+    svc.submit(hot[1], periods=I_HOT)
+    svc.drain()
+    t_warm = time.perf_counter() - t0
+    stats = svc.reset_stats()
+    groups = _watch_admissions(svc)
+    for fn in counted.values():
+        fn.launches = 0
+    if device is None:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(_service_specs(env, partition="iid", seeds=(4,)),
+                          periods=I_LONG, priority=5)]
+    tickets += [svc.submit(_service_specs(env, seeds=(0, 1),
+                                          model_family=family),
+                           periods=I_FAMILY, priority=5)
+                for family in I_FAMILY_LAUNCHES]
+    tape = assign_templates(poisson_arrivals(I_RATE, I_ARRIVALS,
+                                             seed=I_SEED, start=0.05), hot)
+    i = 0
+    while True:
+        while i < len(tape) and clock.now() >= tape[i][0]:
+            tickets.append(svc.submit(tape[i][1], periods=I_HOT))
+            i += 1
+        t1 = time.perf_counter()
+        if svc.step():
+            clock.advance(time.perf_counter() - t1)
+        elif i < len(tape):
+            clock.advance_to(tape[i][0])    # idle until the next arrival
+        else:
+            break
+    svc.drain()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device is None
+            else float("nan"))
+    s = stats.to_dict()
+    feel_periods = I_HOT * (s["admissions"] - 3) + I_LONG
+    full = {name: I_FEEL_SBC * feel_periods
+            for name in ("sbc_stats", "sbc_apply")}
+    for per in I_FAMILY_LAUNCHES.values():
+        for name, n in per.items():
+            full[name] = full.get(name, 0) + n * I_FAMILY
+    want = {name: full.get(name, 0) for name in counted}
+    lat, first = s["latency"], s["first_result_latency"]
+    log(f"[4i service] {len(tickets)} tickets ({I_ARRIVALS} hot arrivals at "
+        f"{I_RATE:g}/s, seed {I_SEED}; a {I_LONG}-period background; a "
+        f"transformer and a mamba2 request) in {wall:.3f} s (warm-up "
+        f"{t_warm:.2f} s): {s['admissions']} admissions, {s['chunks']} "
+        f"chunks, {s['preemptions']} preemptions, {s['resumes']} resumes; "
+        f"result latency p50 {lat['p50']:.4f} s, p90 {lat['p90']:.4f} s, "
+        f"p99 {lat['p99']:.4f} s; first result p50 {first['p50']:.4f} s; "
+        f"program-cache hit rate {s['cache_hit_rate']:.3f} "
+        f"({s['cache_hits']} / {s['cache_hits'] + s['cache_misses']}); "
+        f"{s['new_traces']} ledger events, {s['warm_admission_traces']} in "
+        f"warm admissions; peak device memory {peak:.2f} GiB")
+    log(f"[4i service] launches during the run: {launches} (expected "
+        f"{want}: {I_FEEL_SBC} B1/B2 a feel-mlp period x {feel_periods} "
+        f"dispatched, the families' formulas x {I_FAMILY} periods each)")
+    if not all(t.done for t in tickets):
+        raise AssertionError("4i: the service left unfinished tickets")
+    if not (s["cache_hit_rate"] >= 0.5 and s["preemptions"] >= 1
+            and s["warm_admission_traces"] == 0):
+        raise AssertionError(f"4i: hit rate {s['cache_hit_rate']:.3f} "
+                             f"(>= 0.5), preemptions {s['preemptions']} "
+                             f"(>= 1), warm-admission events "
+                             f"{s['warm_admission_traces']} (0)")
+    if device is None and launches != want:
+        raise AssertionError(f"4i: kernel launches {launches}, expected "
+                             f"{want}")
+    # each ticket against its admission group's Experiment twin (bitwise)
+    # and its solo twin (ledgers bitwise, losses 1e-4)
+    fields = ("losses", "accs", "times", "global_batch")
+    twins, solos, gap = {}, {}, 0.0
+    for group in groups:
+        specs = tuple(t.spec for t in group)
+        key = (specs, group[0].periods)
+        if key not in twins:
+            twins[key] = env.Experiment(env.data, env.test, list(specs),
+                                        device=device).run(
+                group[0].periods,
+                executor=env.SerialExecutor(chunk_periods=I_CHUNK))
+        offset = 0
+        for t in group:
+            got = t.result()
+            rows = [offset + j for j in range(t.n_rows)]
+            offset += t.n_rows
+            if not all(np.array_equal(getattr(got, f),
+                                      getattr(twins[key], f)[rows])
+                       for f in fields):
+                raise AssertionError(f"4i: ticket {t.record.ticket_id} "
+                                     f"({t.spec.label}) is not bitwise its "
+                                     "admission group's Experiment twin")
+            skey = (t.spec, t.periods)
+            if skey not in solos:
+                solos[skey] = env.Experiment(env.data, env.test, [t.spec],
+                                             device=device).run(t.periods)
+            solo = solos[skey]
+            if not (np.array_equal(got.times, solo.times)
+                    and np.array_equal(got.global_batch, solo.global_batch)
+                    and np.allclose(got.losses, solo.losses, rtol=1e-4,
+                                    atol=1e-4)):
+                raise AssertionError(f"4i: ticket {t.record.ticket_id} and "
+                                     "its solo twin disagree beyond ledgers "
+                                     "bitwise, losses 1e-4")
+            gap = max(gap, float(np.abs(got.losses - solo.losses).max()))
+    log(f"[4i service] every ticket bitwise its admission group's Experiment"
+        f" twin ({len(twins)} twins for {len(groups)} admissions); against "
+        f"its solo twin ({len(solos)}): ledgers bitwise, losses max abs gap "
+        f"{gap:.3g} (tol 1e-4)")
+    return {"stats": s, "wall_s": wall, "warmup_s": t_warm,
+            "peak_gib": peak, "launches": launches, "expected": want,
+            "feel_periods": feel_periods, "solo_loss_gap": gap,
+            "admissions": len(groups), "group_twins": len(twins)}
+
+
+def trainer_cell(env, counted, device=None):
+    """Phase 4j: ``repro_torch.fed.trainer.FeelSimulation`` at the main
+    cell's width (noniid, seed 0), ``engine="scan"`` against
+    ``engine="python"`` (one period a Python iteration, a host sync a
+    step) over ``PERIODS`` periods: times bitwise, losses and accuracies
+    within 1e-5 or the gap stated (a fault past 1e-3); then
+    ``run_seed_batch`` of seeds 0-3 (iid) bitwise the ``Experiment``
+    bucket of the same rows.  Launches counted around each run (6 B1/B2 a
+    period).  Raises AssertionError."""
+    from repro_torch.fed.sweep import run_seed_batch
+    from repro_torch.fed.trainer import FeelSimulation
+    torch, np = env.torch, env.np
+    devices = list(fleet(env.DeviceProfile, DEVICES))
+
+    def sim(engine, seed=0, partition="noniid"):
+        return FeelSimulation(devices, env.data, env.test,
+                              partition=partition, b_max=128, base_lr=0.05,
+                              seed=seed, engine=engine, device=device)
+
+    def timed(fn):
+        for kern in counted.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        if device is None:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            name: kern.launches for name, kern in counted.items()}
+
+    want = {name: I_FEEL_SBC * PERIODS for name in counted}
+    runs = {}
+    for engine in ("scan", "python"):
+        s = sim(engine)
+        runs[engine] = timed(lambda s=s: s.run(PERIODS, eval_every=1))
+    (rs, ws, ls), (rp, wp, lp) = runs["scan"], runs["python"]
+    loss_gap = float(np.abs(np.subtract(rs.losses, rp.losses)).max())
+    acc_gap = float(np.abs(np.subtract(rs.accs, rp.accs)).max())
+    within = (np.allclose(rs.losses, rp.losses, rtol=1e-5, atol=1e-5)
+              and np.allclose(rs.accs, rp.accs, rtol=1e-5, atol=1e-5))
+    log(f"[4j trainer] FeelSimulation {DEVICES} devices x {PERIODS} periods:"
+        f" scan {ws:.3f} s = {1e3 * ws / PERIODS:.1f} ms/period, python "
+        f"{wp:.3f} s = {1e3 * wp / PERIODS:.1f} ms/period "
+        f"({wp / ws:.2f}x); times {'bitwise' if rs.times == rp.times else 'DIFFER'};"
+        f" losses max abs gap {loss_gap:.3g}, accs {acc_gap:.3g} "
+        f"({'within' if within else 'beyond'} 1e-5); launches scan {ls}, "
+        f"python {lp} (expected {want} each)")
+    if rs.times != rp.times or rs.global_batches != rp.global_batches:
+        raise AssertionError("4j: scan and python ledgers differ")
+    if not (np.allclose(rs.losses, rp.losses, rtol=1e-3, atol=1e-3)
+            and np.isfinite(rs.losses).all()):
+        raise AssertionError(f"4j: scan and python losses {loss_gap:.3g} "
+                             "apart, past 1e-3")
+    sims = [sim("scan", seed=s, partition="iid") for s in range(4)]
+    (bl, ba, bt, bg), wb, lb = timed(lambda: run_seed_batch(sims, PERIODS))
+    spec = _service_specs(env, partition="iid", seeds=tuple(range(4)))
+    twin, we, le = timed(lambda: env.Experiment(
+        env.data, env.test, [spec], device=device).run(PERIODS))
+    bitwise = all(np.array_equal(a, b) for a, b in (
+        (bl, twin.losses), (ba, twin.accs), (bt, twin.times),
+        (bg, twin.global_batch)))
+    log(f"[4j trainer] run_seed_batch of 4 seeds x {PERIODS} periods "
+        f"{wb:.3f} s = {1e3 * wb / PERIODS:.1f} ms/period (the Experiment "
+        f"bucket {1e3 * we / PERIODS:.1f}); "
+        f"{'bitwise' if bitwise else 'NOT bitwise'} the Experiment bucket; "
+        f"launches {lb}")
+    if not bitwise:
+        raise AssertionError("4j: run_seed_batch is not bitwise its "
+                             "Experiment bucket")
+    if device is None and not (ls == lp == lb == want):
+        raise AssertionError(f"4j: launches scan {ls}, python {lp}, seed "
+                             f"batch {lb}, expected {want} each")
+    return {"scan_ms_per_period": 1e3 * ws / PERIODS,
+            "python_ms_per_period": 1e3 * wp / PERIODS,
+            "seed_batch_ms_per_period": 1e3 * wb / PERIODS,
+            "experiment_ms_per_period": 1e3 * we / PERIODS,
+            "loss_gap": loss_gap, "acc_gap": acc_gap,
+            "within_1e-5": bool(within),
+            "launches": {"scan": ls, "python": lp, "seed_batch": lb}}
+
+
+def service_contracts(env, counted, devices=(None, "cpu")):
+    """Phase 5h: one fixed-step tape (``H5_STEP`` s of virtual clock a
+    service step) through the service on the card and on the port's CPU
+    path: a transformer ticket (seed 0, 2 periods) at 0 s, then feel-mlp
+    tickets of one seed (2 periods) at 0.02, 0.04 and 0.2 s; chunk 1,
+    window 0.05, ``max_batch`` 2.  ``stats.to_dict()`` equal, each
+    ticket's ledgers bitwise, losses 1e-4, accuracies two test
+    predictions; launches counted around the card run.  Raises
+    AssertionError."""
+    from repro_torch.serve import ExperimentService, ProgramCache
+    from repro_torch.testing import VirtualClock
+    np = env.np
+    tape = [(0.0, _service_specs(env, b_max=H5_T_BMAX, seeds=(0,),
+                                 model_family="transformer"))]
+    tape += [(t, _service_specs(env, b_max=H5_FEEL_BMAX, partition=p,
+                                seeds=(seed,)))
+             for t, p, seed in ((0.02, "iid", 0), (0.04, "noniid", 1),
+                                (0.2, "iid", 0))]
+    out, launches = [], None
+    for device in devices:
+        if device is None:
+            for fn in counted.values():
+                fn.launches = 0
+        clock = VirtualClock()
+        svc = ExperimentService(env.data, env.test, device=device,
+                                chunk_periods=1, window=0.05, max_batch=2,
+                                clock=clock, cache=ProgramCache(shared=False))
+        tickets, pending = [], list(tape)
+        while pending or not svc.idle:
+            clock.advance(H5_STEP)
+            while pending and pending[0][0] <= clock.now():
+                tickets.append(svc.submit(pending.pop(0)[1], periods=2))
+            svc.step()
+        if device is None:
+            launches = {name: fn.launches for name, fn in counted.items()}
+        out.append((svc.stats.to_dict(), [t.result() for t in tickets]))
+    (card_stats, card), (cpu_stats, cpu) = out
+    loss_err = max(float(np.abs(a.losses - b.losses).max())
+                   for a, b in zip(card, cpu))
+    acc_err = max(float(np.abs(a.accs - b.accs).max())
+                  for a, b in zip(card, cpu))
+    log(f"[5h card vs cpu] service tape ({len(tape)} tickets, a transformer "
+        f"one among them): stats {'equal' if card_stats == cpu_stats else 'DIFFER'}"
+        f" ({card_stats['admissions']} admissions, {card_stats['chunks']} "
+        f"chunks, {card_stats['new_traces']} ledger events); losses max abs "
+        f"err {loss_err:.3g}, accs {acc_err:.3g}; launches on the card "
+        f"{launches}")
+    if card_stats != cpu_stats:
+        raise AssertionError(f"5h: service stats differ: card {card_stats}, "
+                             f"CPU {cpu_stats}")
+    for a, b in zip(card, cpu):
+        if not (np.array_equal(a.times, b.times)
+                and np.array_equal(a.global_batch, b.global_batch)
+                and np.allclose(a.losses, b.losses, rtol=1e-4, atol=1e-4)):
+            raise AssertionError("5h: a ticket's card and CPU results "
+                                 "disagree beyond ledgers bitwise, losses "
+                                 "1e-4")
+    if acc_err > 2.0 / len(env.test.y) + 1e-7:
+        raise AssertionError(f"5h: accuracies {acc_err:.3g} apart")
+    if launches is not None and not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"5h: a kernel was not launched: {launches}")
+    return {"stats": card_stats, "loss_max_abs_err": loss_err,
+            "acc_max_abs_err": acc_err, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2496,6 +2838,27 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     h_launches = report["closed_loop"]["main"]["runs"][G_SERIAL]["launches"]
 
+    # ---- 4i. the experiment service at full width -------------------------
+    all_kernels = {"sbc_stats": ksbc.sbc_stats, "sbc_apply": ksbc.sbc_apply,
+                   "flash_attention_fwd": kfa.flash_attention_fwd,
+                   "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+                   "flash_attention_bwd_dkdv": kfa.flash_attention_bwd_dkdv,
+                   "ssd_scan_fwd": kssd.ssd_scan_fwd,
+                   "ssd_scan_bwd": kssd.ssd_scan_bwd}
+    try:
+        report["service"] = service_cell(env, all_kernels)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    i_launches = report["service"]["launches"]
+
+    # ---- 4j. FeelSimulation: scan vs python, run_seed_batch ----------------
+    try:
+        report["trainer"] = trainer_cell(env, {"sbc_stats": ksbc.sbc_stats,
+                                               "sbc_apply": ksbc.sbc_apply})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    j_launches = report["trainer"]["launches"]
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -2592,6 +2955,16 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     g5_launches = report["closed_loop_contracts"]["launches"]
 
+    # ---- 5h. the service: card vs CPU ---------------------------------------
+    try:
+        report["service_contracts"] = service_contracts(
+            env, {name: all_kernels[name] for name in (
+                "sbc_stats", "sbc_apply", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")})
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    h5_launches = report["service_contracts"]["launches"]
+
     # ---- 6. times ----------------------------------------------------------
     records = []
     for name, kern, plain in (("sbc_stats", ksbc.sbc_stats,
@@ -2639,7 +3012,12 @@ def main(argv=None) -> int:
                                  "feel_mlp closed loop, each executor":
                                      h_launches[name],
                                  "closed-loop rows on the card, 4 periods":
-                                     g5_launches[name]},
+                                     g5_launches[name],
+                                 "service, 4i": i_launches[name],
+                                 **{f"FeelSimulation {run}, 4j": n[name]
+                                    for run, n in j_launches.items()},
+                                 "service card vs CPU, 5h":
+                                     h5_launches[name]},
             "max_abs_err": errs[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
@@ -2687,7 +3065,10 @@ def main(argv=None) -> int:
                                  "transformer weighted-sampled, 3 periods":
                                      e_launches[name],
                                  "transformer closed loop, 4 periods":
-                                     g5_launches[name]},
+                                     g5_launches[name],
+                                 "service, 4i": i_launches[name],
+                                 "service card vs CPU, 5h":
+                                     h5_launches[name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2742,7 +3123,8 @@ def main(argv=None) -> int:
                          if name == "ssd_scan_fwd"
                          else "none: backward of B3, C-ref-3"),
             "launches": m_launches[name],
-            "launches_by_path": {"mamba2": m_launches[name]},
+            "launches_by_path": {"mamba2": m_launches[name],
+                                 "service, 4i": i_launches[name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})

@@ -479,6 +479,37 @@ def chunk_lengths(periods: int, chunk: Optional[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def program_key(bucket: Bucket, n_rows: int, periods: int,
+                data, test) -> tuple:
+    """Hashable identity of the engine program one dispatch runs, and of
+    the signature it runs at: the reference's tuple.  Equal keys dispatch
+    one program at one signature (a warm dispatch records no
+    ``engine.TraceEvent``); different keys may still share one — the key
+    over-approximates, never the reverse.  ``bucket.key`` carries every
+    static knob of the engine's program constructors (scheme, slot width,
+    τ, compression and its ratio, model dims, topology, fading states);
+    the rest of the signature is ``n_rows`` (the row axis as dispatched),
+    ``k_pad``, the chunk's period count and the dataset's shapes, from
+    which the feature and token forms of
+    :class:`DeviceData` both follow.  Dtypes never vary: everything
+    crosses ``engine.host_to_device``."""
+    return (bucket.key, int(n_rows), bucket.k_pad, int(periods),
+            tuple(data.x.shape), tuple(data.y.shape),
+            tuple(test.x.shape), tuple(test.y.shape))
+
+
+def bucket_program_keys(bucket: Bucket, n_rows: int, periods: int,
+                        chunk: Optional[int], data, test) -> Tuple[tuple, ...]:
+    """Every distinct :func:`program_key` a ``chunk``-chunked run of this
+    bucket dispatches (first-use order): one per distinct chunk length."""
+    out = []
+    for p_c in chunk_lengths(periods, chunk):
+        key = program_key(bucket, n_rows, p_c, data, test)
+        if key not in out:
+            out.append(key)
+    return tuple(out)
+
+
 def _broadcast_rows(params, n: int):
     """Row-batched leaves (R, ...) → (R, n, ...): every copy starts from
     its row's parameters."""

@@ -27,11 +27,31 @@ shapes in both).
 
 On CUDA the engine keeps float32 products in full float32: TF32 is turned
 off for matmuls and for cuDNN (:func:`full_f32`).
+
+**The dispatch ledger.**  Each loop runs as a *program*: one object per
+static key, built by an ``lru_cache``'d constructor with the reference's
+key tuples (``_trajectory_fn``'s ``(local_steps, compress, ratio,
+batched)``, ``_dev_trajectory_fn``'s ``(average, batched)``,
+``_hier_trajectory_fn``'s and ``model_engine``'s).  A program records one
+:class:`TraceEvent` ``(kind, key, signature)`` the first time it is
+called with an argument signature — the flattened ``(shape, dtype,
+device)`` tuple of its tensors, row axis kept — and nothing when the
+signature repeats.  An event is therefore not a compile: eager PyTorch
+compiles nothing (the CUDA kernels are built once per source, apart from
+this).  It marks the first dispatch of one program at one signature in
+this process, the nearest thing to the reference's jit trace (which is
+per device too), so "warm" means what it means there: this exact program
+already ran these exact shapes on this device.
+``testing.no_retrace`` and ``serve.ExperimentService`` read the ledger.  An
+uncompressed program keys its ratio as ``None``, as ``bucket_key``
+does: the ratio does not enter its loop.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from functools import lru_cache
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +59,91 @@ from torch.func import grad, vmap
 
 from repro_torch.compression.sbc import compress_dense
 from repro_torch.fed import feel_model
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
+
+# ---------------------------------------------------------------------------
+# the dispatch ledger
+# ---------------------------------------------------------------------------
+
+_TRACES = {"n": 0, "events": [], "suspended": 0}
+
+
+class TraceEvent(NamedTuple):
+    """The first dispatch of a program at one argument signature.
+
+    ``kind`` names the program family (``feel`` / ``dev`` / ``hier`` /
+    ``model``); ``key`` is the static key its constructor is cached on;
+    ``signature`` the flattened (shape, dtype, device) tuple of its
+    arguments.  Two equal events would mean one program met one signature
+    twice as if new (a retrace)."""
+    kind: str
+    key: tuple
+    signature: tuple
+
+
+def trace_count() -> int:
+    """Events recorded so far in this process."""
+    return _TRACES["n"]
+
+
+def trace_events() -> tuple:
+    """The ledger, one :class:`TraceEvent` per first dispatch."""
+    return tuple(_TRACES["events"])
+
+
+@contextlib.contextmanager
+def suspend_trace_count():
+    """Run programs without recording: a dispatch under this context
+    neither records an event nor marks its signature as seen, so the
+    next dispatch outside it records as the first."""
+    _TRACES["suspended"] += 1
+    try:
+        yield
+    finally:
+        _TRACES["suspended"] -= 1
+
+
+def _signature(args) -> tuple:
+    return tuple((tuple(a.shape), str(a.dtype), str(a.device))
+                 for a in tree_leaves(args) if a is not None)
+
+
+def _record_trace(kind: str, key: tuple, signature: tuple) -> None:
+    _TRACES["n"] += 1
+    _TRACES["events"].append(TraceEvent(kind, key, signature))
+
+
+class _Program:
+    """One loop fixed by its static ``key``; records a :class:`TraceEvent`
+    at the first call with each argument signature."""
+
+    def __init__(self, kind: str, key: tuple, body):
+        self.kind, self.key, self._body = kind, key, body
+        self._seen = set()
+
+    def __call__(self, *args):
+        if not _TRACES["suspended"]:
+            sig = _signature(args)
+            if sig not in self._seen:
+                self._seen.add(sig)
+                _record_trace(self.kind, self.key, sig)
+        return self._body(*args)
+
+
+def _one_row(body, n_row_args: int):
+    """A batched program body as a single-row one: the first
+    ``n_row_args`` arguments gain a row axis of 1, the outputs lose it."""
+    def run(*args):
+        rows = tree_map(lambda a: a[None], args[:n_row_args])
+        out = body(*rows, *args[n_row_args:])
+        return tree_map(lambda a: a[0], out)
+    return run
+
+
+def ratio_key(compress: bool, ratio: float):
+    """The ratio a program keys on: ``None`` when it does not compress."""
+    return float(ratio) if compress else None
+
 
 # ---------------------------------------------------------------------------
 # host -> device dtype boundary
@@ -225,6 +329,16 @@ def normalize_active(active, rows: int, periods: int, k: int, device):
     return active
 
 
+def _single_row_active(active, periods: int, k: int, device):
+    """A single-row program's ``active`` mask as the (P, K) tensor it
+    reads: ``None`` is all ones, a static (K,) mask broadcasts over
+    periods, a (P, K) mask passes through."""
+    if active is not None:
+        active = np.broadcast_to(np.asarray(active, np.float32),
+                                 (periods, k))[None]
+    return normalize_active(active, 1, periods, k, device)[0]
+
+
 # ---------------------------------------------------------------------------
 # the period step (Steps 1-5 of the paper's §II-A loop) over (rows, devices)
 # ---------------------------------------------------------------------------
@@ -313,6 +427,44 @@ def _period_step(arrays, active, compress: bool, ratio: float,
             (loss_after, acc, loss_before - loss_after))
 
 
+@lru_cache(maxsize=None)
+def _trajectory_fn(local_steps: int, compress: bool, ratio, batched: bool):
+    def run(params, residual, active, xs, *arrays):
+        state, series = EngineState(params, residual), []
+        for p in range(xs["batch"].shape[1]):
+            state, out = _period_step(arrays, active[:, p], compress, ratio,
+                                      state,
+                                      {key: v[:, p] for key, v in xs.items()},
+                                      local_steps)
+            series.append(out)
+        return (state.params, state.residual,
+                tuple(torch.stack(s, dim=1) for s in zip(*series)))
+
+    return _Program("feel", (local_steps, compress, ratio, batched),
+                    run if batched else _one_row(run, 4))
+
+
+@torch.no_grad()
+def run_trajectory(state: EngineState, schedule: Schedule, arrays, *,
+                   compress: bool = True, ratio: float = 0.005, active=None,
+                   local_steps: int = 1):
+    """One trajectory (the reference's single-row ``run_trajectory``):
+    ``state`` holds unbatched params and (K, ...) residuals; ``active`` an
+    optional (K,) or (P, K) {0,1} mask.  Returns ``(EngineState, (losses,
+    accs, decays))``, each series (P,) on the device."""
+    device = arrays[0].device
+    full_f32(device)
+    xs = {key: v[0] for key, v in stack_schedules([schedule],
+                                                  device).items()}
+    periods, k = xs["batch"].shape
+    active = _single_row_active(active, periods, k, device)
+    fn = _trajectory_fn(local_steps, compress, ratio_key(compress, ratio),
+                        False)
+    params, residual, series = fn(state.params, state.residual, active, xs,
+                                  *arrays)
+    return EngineState(params, residual), series
+
+
 @torch.no_grad()
 def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
                          arrays, *, compress: bool = True,
@@ -339,15 +491,11 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     xs = stack_schedules(schedules, device)
     rows, periods, k = xs["batch"].shape
     active = normalize_active(active, rows, periods, k, device)
-    series = []
-    for p in range(periods):
-        state, out = _period_step(arrays, active[:, p], compress, ratio,
-                                  state,
-                                  {key: v[:, p] for key, v in xs.items()},
-                                  local_steps)
-        series.append(out)
-    losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
-    return state, (losses, accs, decays)
+    fn = _trajectory_fn(local_steps, compress, ratio_key(compress, ratio),
+                        True)
+    params, residual, series = fn(state.params, state.residual, active, xs,
+                                  *arrays)
+    return EngineState(params, residual), series
 
 
 
@@ -392,6 +540,38 @@ def _dev_step(arrays, average: bool, lr, dev_params, idx, active):
     return dev_params, (loss, acc)
 
 
+@lru_cache(maxsize=None)
+def _dev_trajectory_fn(average: bool, batched: bool):
+    def run(dev_params, idx, lr, active, *arrays):
+        series = []
+        for p in range(idx.shape[1]):
+            dev_params, out = _dev_step(arrays, average, lr, dev_params,
+                                        idx[:, p], active[:, p])
+            series.append(out)
+        return dev_params, tuple(torch.stack(s, dim=1) for s in zip(*series))
+
+    return _Program("dev", (average, batched),
+                    run if batched else _one_row(run, 4))
+
+
+@torch.no_grad()
+def run_dev_trajectory(state: EngineState, idx, lr: float, arrays, *,
+                       average: bool, active=None):
+    """One dev-scheme trajectory (the reference's single-row
+    ``run_dev_trajectory``): ``state.params`` leaves (K, ...), ``idx``
+    (P, K, batch), ``active`` an optional (K,) or (P, K) mask.  Returns
+    ``(EngineState, (losses, accs))``, each series (P,) on the device."""
+    device = arrays[0].device
+    full_f32(device)
+    idx = host_to_device(np.asarray(idx), device)
+    periods, k = idx.shape[:2]
+    active = _single_row_active(active, periods, k, device)
+    lr = host_to_device(np.float32(lr), device)
+    fn = _dev_trajectory_fn(bool(average), False)
+    dev_params, series = fn(state.params, idx, lr, active, *arrays)
+    return EngineState(dev_params), series
+
+
 @torch.no_grad()
 def run_dev_trajectory_batch(state: EngineState, idx, lr, arrays, *,
                              average: bool, active=None):
@@ -411,14 +591,9 @@ def run_dev_trajectory_batch(state: EngineState, idx, lr, arrays, *,
     lr = host_to_device(np.asarray(lr, np.float32), device)
     rows, periods, k = idx.shape[:3]
     active = normalize_active(active, rows, periods, k, device)
-    dev_params = state.params
-    series = []
-    for p in range(periods):
-        dev_params, out = _dev_step(arrays, average, lr, dev_params,
-                                    idx[:, p], active[:, p])
-        series.append(out)
-    losses, accs = (torch.stack(s, dim=1) for s in zip(*series))
-    return EngineState(dev_params), (losses, accs)
+    fn = _dev_trajectory_fn(bool(average), True)
+    dev_params, series = fn(state.params, idx, lr, active, *arrays)
+    return EngineState(dev_params), series
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +667,23 @@ def _hier_period_step(arrays, member, active, cloud, compress: bool,
             (loss_after, acc, loss_before - loss_after))
 
 
+@lru_cache(maxsize=None)
+def _hier_trajectory_fn(local_steps: int, compress: bool, ratio,
+                        n_edges: int, batched: bool):
+    def run(params, residual, member, active, cloud, xs, *arrays):
+        state, series = EngineState(params, residual), []
+        for p in range(xs["batch"].shape[1]):
+            state, out = _hier_period_step(
+                arrays, member, active[:, p], cloud[:, p], compress, ratio,
+                local_steps, state, {key: v[:, p] for key, v in xs.items()})
+            series.append(out)
+        return (state.params, state.residual,
+                tuple(torch.stack(s, dim=1) for s in zip(*series)))
+
+    return _Program("hier", (local_steps, compress, ratio, n_edges, batched),
+                    run)
+
+
 @torch.no_grad()
 def run_hier_trajectory_batch(state: EngineState, member, cloud,
                               schedules: Sequence[Schedule], arrays, *,
@@ -515,11 +707,9 @@ def run_hier_trajectory_batch(state: EngineState, member, cloud,
     active = normalize_active(active, rows, periods, k, device)
     member = host_to_device(np.asarray(member, np.float32), device)
     cloud = host_to_device(np.asarray(cloud, np.float32), device)
-    series = []
-    for p in range(periods):
-        state, out = _hier_period_step(
-            arrays, member, active[:, p], cloud[:, p], compress, ratio,
-            local_steps, state, {key: v[:, p] for key, v in xs.items()})
-        series.append(out)
-    losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
-    return state, (losses, accs, decays)
+    fn = _hier_trajectory_fn(local_steps, compress,
+                             ratio_key(compress, ratio),
+                             int(member.shape[1]), True)
+    params, residual, series = fn(state.params, state.residual, member,
+                                  active, cloud, xs, *arrays)
+    return EngineState(params, residual), series

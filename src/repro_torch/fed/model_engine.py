@@ -39,9 +39,10 @@ import torch
 
 from repro_torch.compression.sbc import compress_dense
 from repro_torch.configs.base import ArchConfig, SSMConfig
-from repro_torch.fed.engine import (EngineState, aggregation_weights,
-                                    full_f32, host_to_device,
-                                    normalize_active, stack_schedules)
+from repro_torch.fed.engine import (EngineState, _Program,
+                                    aggregation_weights, full_f32,
+                                    host_to_device, normalize_active,
+                                    ratio_key, stack_schedules)
 from repro_torch.fed.train_step import TrainState, make_loss_fn
 from repro_torch.models.model import Runtime, forward
 from repro_torch.models.model import init as model_init
@@ -182,6 +183,28 @@ def _model_period_step(cfg, rt, loss_fn, opt, compress: bool, ratio: float,
     return state, (loss_after, acc, loss_before - loss_after)
 
 
+@lru_cache(maxsize=None)
+def _model_trajectory_fn(model_family: str, hidden: int, depth: int,
+                         compress: bool, ratio, batched: bool):
+    cfg = family_arch(model_family, hidden, depth)
+    loss_fn = make_loss_fn(cfg, KERNEL_RT)
+    opt = sgd()
+
+    def run(params, residual, active, xs, *arrays):
+        train = TrainState(params, opt.init(params), 0, residual)
+        series = []
+        for p in range(xs["batch"].shape[1]):
+            train, out = _model_period_step(
+                cfg, KERNEL_RT, loss_fn, opt, compress, ratio, arrays,
+                active[:, p], train, {key: v[:, p] for key, v in xs.items()})
+            series.append(out)
+        return (train.params, train.residual,
+                tuple(torch.stack(s, dim=1) for s in zip(*series)))
+
+    return _Program("model", (model_family, hidden, depth, compress, ratio,
+                              batched), run)
+
+
 @torch.no_grad()
 def run_model_trajectory_batch(state: EngineState, schedules: Sequence,
                                arrays, *, model_family: str, hidden: int,
@@ -198,19 +221,12 @@ def run_model_trajectory_batch(state: EngineState, schedules: Sequence,
     is enqueued and not waited for."""
     device = arrays[0].device
     full_f32(device)
-    cfg = family_arch(model_family, hidden, depth)
-    loss_fn = make_loss_fn(cfg, KERNEL_RT)
-    opt = sgd()
     xs = stack_schedules(schedules, device)
     rows, periods, k = xs["batch"].shape
     active = normalize_active(active, rows, periods, k, device)
-    train = TrainState(state.params, opt.init(state.params), 0,
-                       state.residual)
-    series = []
-    for p in range(periods):
-        train, out = _model_period_step(
-            cfg, KERNEL_RT, loss_fn, opt, compress, ratio, arrays,
-            active[:, p], train, {key: v[:, p] for key, v in xs.items()})
-        series.append(out)
-    losses, accs, decays = (torch.stack(s, dim=1) for s in zip(*series))
-    return EngineState(train.params, train.residual), (losses, accs, decays)
+    fn = _model_trajectory_fn(model_family, int(hidden), int(depth),
+                              bool(compress), ratio_key(compress, ratio),
+                              True)
+    params, residual, series = fn(state.params, state.residual, active, xs,
+                                  *arrays)
+    return EngineState(params, residual), series

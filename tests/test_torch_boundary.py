@@ -3,8 +3,11 @@ the JAX reference package (its ``topology`` and ``dynamics`` packages are
 copies), its spec accepts, keys and refuses the Table-II schemes, τ local
 steps, the hierarchy, the closed loop (``replan``) and adaptive local
 steps (``adapt_tau``) as the reference's does and type-checks the
-time-varying world's fields as the reference does, and its entry point
-runs on the GPU unless the caller asks for the CPU."""
+time-varying world's fields as the reference does, its entry points
+(``Experiment``, ``ExperimentService``, ``FeelSimulation``) run on the
+GPU unless the caller asks for the CPU, and its one-device
+``MeshExecutor`` dispatches the programs a warm admission then reuses
+without a duplicate ledger event."""
 import pathlib
 import re
 import subprocess
@@ -13,9 +16,13 @@ import sys
 import pytest
 import torch
 
-from repro_torch.api import Experiment, ScenarioSpec
+from repro_torch.api import Experiment, MeshExecutor, ScenarioSpec
 from repro_torch.core.latency import DeviceProfile
 from repro_torch.data.pipeline import ClassificationData
+from repro_torch.fed import engine
+from repro_torch.fed.trainer import FeelSimulation
+from repro_torch.serve import ExperimentService, ProgramCache
+from repro_torch.testing import VirtualClock, no_retrace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -34,13 +41,20 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
+new = {"repro_torch.serve." + m for m in ("admission", "program_cache",
+                                          "scheduler", "service", "stats")}
+new |= {"repro_torch.testing." + m for m in ("arrivals", "clock",
+                                             "proptest")}
+new |= {"repro_torch.serve", "repro_torch.testing", "repro_torch.fed.sweep",
+        "repro_torch.fed.trainer"}
+bad += sorted(new - set(names))
 print(len(names), bad)
 """
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"}).stdout.split(" ", 1)
-    assert int(out[0]) >= 46, out
+    assert int(out[0]) >= 70, out
     assert out[1].strip() == "[]", out
 
 
@@ -50,7 +64,8 @@ def test_port_sources_and_chip_smoke_name_no_jax_and_no_repro():
               ROOT / "executor_ab.py"]
     assert len(files) > 20
     # the copies of the reference's jax-free modules are scanned too
-    assert {"topology", "dynamics"} <= {f.parent.name for f in files}
+    assert {"topology", "dynamics", "serve", "testing"} <= {
+        f.parent.name for f in files}
     offenders = [(str(f.relative_to(ROOT)), m.group(0).strip())
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert offenders == []
@@ -167,3 +182,42 @@ def test_experiment_defaults_to_the_gpu_and_raises_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Experiment(data, test, [spec])
     assert Experiment(data, test, [spec], device="cpu").device.type == "cpu"
+
+
+def test_service_and_simulation_default_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data, test = ClassificationData.synthetic(n=40, dim=8).split(10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExperimentService(data, test)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FeelSimulation(list(_fleet()), data, test)
+    assert ExperimentService(data, test, device="cpu").device.type == "cpu"
+    assert FeelSimulation(list(_fleet()), data, test,
+                          device="cpu").device.type == "cpu"
+
+
+def test_mesh_executor_then_warm_admission_records_no_duplicate():
+    """The reference's one-device mesh runs a warm program again as new
+    (C-ref-8: a duplicate ledger event).  The port's ``MeshExecutor``
+    dispatches the very programs the service's admissions reuse: after
+    it, a cold-by-index and a warm admission of the same shapes record
+    nothing, and the whole ledger holds no duplicate.  Shapes (dim 17,
+    b_max 7) are this test's alone."""
+    data, test = ClassificationData.synthetic(n=200, dim=17, seed=3,
+                                              spread=6.0).split(40)
+    spec = ScenarioSpec(fleet=_fleet(), hidden=20, b_max=7, seeds=(0, 1))
+    mark = engine.trace_count()
+    Experiment(data, test, [spec], device="cpu").run(
+        4, executor=MeshExecutor(chunk_periods=2))
+    assert engine.trace_count() - mark == 1      # one program, one shape
+    svc = ExperimentService(data, test, device="cpu", chunk_periods=2,
+                            clock=VirtualClock(),
+                            cache=ProgramCache(shared=False))
+    with no_retrace():
+        for part in ("noniid", "iid"):
+            svc.submit(ScenarioSpec(fleet=_fleet(), hidden=20, b_max=7,
+                                    partition=part, seeds=(4, 5)),
+                       periods=4)
+            svc.drain()
+    assert svc.stats.cold_admissions == svc.stats.warm_admissions == 1
+    assert svc.stats.new_traces == svc.stats.warm_admission_traces == 0
