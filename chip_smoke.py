@@ -17,8 +17,11 @@ defaults (feel-mamba2-h256-d3: d_model 256, 64 SSD heads of 8, state
 16, chunk 4, 1 330 208 parameters, 8 rows) — and the token-decode
 driver ``repro_torch.launch.serve.main`` at the full width of
 mistral-nemo-12b (40 layers, d_model 5120, 32 query / 8 KV heads of 128,
-12.25 B parameters in float32) and mamba2-2.7b, and holds every kernel of
-those paths against its plain PyTorch version on the card:
+12.25 B parameters in float32), mamba2-2.7b and qwen1.5-4b, and the
+training driver ``repro_torch.launch.train.main`` at qwen1.5-4b's full
+width and depth (40 layers, d_model 2560, 20 heads of 128 with qkv
+biases, 3.95 B parameters in float32), and holds every kernel of those
+paths against its plain PyTorch version on the card:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -44,10 +47,11 @@ those paths against its plain PyTorch version on the card:
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
-     PERF.md; 4d. ``launch.serve.main`` on mistral-nemo-12b (batch 8,
-     prompt 128, 64 generated tokens, ctx 2048: 40 x 192 = 7 680 flash
-     decode launches) and on mamba2-2.7b (none), each with its launch
-     count, tokens/s and peak memory; 4e. ``Experiment(data, test,
+     PERF.md; 4d. ``launch.serve.main`` on mistral-nemo-12b and
+     qwen1.5-4b (batch 8, prompt 128, 64 generated tokens, ctx 2048: 40
+     x 192 = 7 680 flash decode launches each; qwen's at g = 1) and on
+     mamba2-2.7b (none), each with its launch count, tokens/s and peak
+     memory; 4e. ``Experiment(data, test,
      grid(...))`` over the main cell (4 policies x 2 SBC ratios x 2
      partitions x 2 seeds: 32 rows in two buckets) under the serial,
      async (plain, chunked, capped) and mesh executors, each run bitwise
@@ -95,6 +99,17 @@ those paths against its plain PyTorch version on the card:
      ``engine="python"`` over 20 periods (times bitwise, the loss gap
      stated) and ``run_seed_batch`` of 4 seeds bitwise its
      ``Experiment`` bucket, with each one's wall a period;
+     4k. ``launch.train.main`` at qwen1.5-4b's full width and depth: (i)
+     momentum at the driver's defaults (K 4 x slot 8 x 64 tokens), (ii)
+     with ``--compress-uplink --slot 2`` (15 B1 and 15 B2 launches a
+     step), each 6 steps with finite losses, peak memory and launches;
+     then B1 and B2 against their plain versions on one segment of
+     ``w_down``'s 707 788 800 elements, with their times; (iii)
+     ``make_train_step`` with sgd under ``attn_impl="pallas"`` against
+     ``"naive"`` (each from the same seed: first loss and gradient norm
+     within rtol 1e-4, 40 launches of B4, B4′ and B4″ a step), 3 timed
+     steps each for ms a step and tokens/s, and a compressed naive run
+     for the SBC uplink's share of a step;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -114,7 +129,13 @@ those paths against its plain PyTorch version on the card:
      B4′ and B4″): ``global_batch`` and the τ sequence equal, times
      within rtol 1e-9, losses 1e-4; 5h. the service, card vs CPU path: one
      fixed-step tape (a transformer ticket and three feel-mlp ones):
-     ``stats.to_dict()`` equal, ledgers bitwise, losses 1e-4;
+     ``stats.to_dict()`` equal, ledgers bitwise, losses 1e-4; 5i. the
+     reduced qwen1.5-4b's train step, card vs CPU path: momentum and
+     AdamW, each with the SBC uplink off and on, 3 steps, losses 1e-4
+     (AdamW teacher-forced, its free gap printed), SBC keep-mask flips
+     counted; and a checkpoint on the card: 2 steps, ``save_state``,
+     ``restore_state`` bitwise, the resumed third step bitwise the
+     uninterrupted one;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -128,7 +149,9 @@ those paths against its plain PyTorch version on the card:
      also at one
      layer of a 32k-token cache (B 16) in bf16 and f32, with its time on
      the card from the profiler, the kernels a call puts there (must be
-     1) and its resources (registers, spills, shared memory, runs).
+     1) and its resources (registers, spills, shared memory, runs); the
+     attention kernels also at qwen1.5-4b's step (B 32, S 64, 20 / 20
+     heads of 128) and flash decode at its decode shape (g = 1).
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
@@ -146,6 +169,7 @@ import gc
 import io
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -188,6 +212,7 @@ ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # the attention kernels' cases (B, S, Hq, Hkv, hd, causal, window): the
 # cell's shape, longer sequences, windows, a ragged S, non-causal
 ATTN_CASES = [T_SHAPE + (True, None), (4, 128, 4, 2, 64, True, None),
+              (32, 64, 20, 20, 128, True, None),     # qwen1.5-4b, phase 4k
               (4, 256, 4, 2, 128, True, 64), (4, 100, 4, 2, 64, True, 16),
               (4, 100, 4, 2, 128, False, None),
               (4, 256, 4, 1, 64, False, 16)]
@@ -230,11 +255,12 @@ SSD_FWD_RESOURCE_SHAPES = [(64, 8, 1, 16), (8, 16, 2, 32), (8, 32, 4, 64),
 # decode path over the prompt, then greedy decode; mistral-nemo-12b's
 # cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
 # decodes; one layer of a 32k-token cache
-D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b")
+D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b", "qwen1.5-4b")
 D_BATCH, D_PROMPT, D_GEN, D_CTX = 8, 128, 64, 2048
 D_ARGV = ["--full", "--batch", str(D_BATCH), "--prompt-len", str(D_PROMPT),
           "--gen", str(D_GEN), "--ctx", str(D_CTX)]
-D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0}   # attention layers
+D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0,   # attention layers
+            "qwen1.5-4b": 40}
 D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)
 D_POS = D_PROMPT + D_GEN - 1
 D_LONG = (16, 32_768, 32, 8, 128)
@@ -272,6 +298,20 @@ S_CHUNK = 5
 H_REPLAN = 5
 H_TAUS = (1, 2, 4)
 H_FADING = dict(states=3, spread=1.2, stickiness=0.95)
+# the training cell (phase 4k): launch.train at qwen1.5-4b's full width
+# and depth with the driver's defaults (K 4 devices x slot 8 x 64-token
+# sequences, momentum 0.9, lr 0.1), then with the SBC uplink at slot 2;
+# its 15 leaves are one B1/B2 segment each a step, the largest
+# layers.ffn.w_down (40 x 6912 x 2560); make_train_step with sgd under
+# the flash kernels against naive attention at the driver's batch
+Q_ARCH = "qwen1.5-4b"
+Q_STEPS, Q_K, Q_SLOT, Q_SEQ, Q_SLOT_SBC = 6, 4, 8, 64, 2
+Q_LEAVES, Q_LAYERS = 15, 40
+Q_SHAPE = (Q_K * Q_SLOT, Q_SEQ, 20, 20, 128)          # B, S, Hq, Hkv, hd
+Q_W_DOWN = Q_LAYERS * 6912 * 2560
+Q_LRS = (0.1, 0.05, 0.02)
+Q_TIMED = 3
+Q_DECODE = (D_BATCH, D_CTX, 20, 20, 128)              # B, ctx, Hq, Hkv, hd
 
 
 class _Log:
@@ -584,15 +624,16 @@ def sdpa_call(torch, F, q, k, v, causal, window):
     return call
 
 
-def attention_times(torch, kfa, F):
-    """Cold-L2 median times at the transformer cell's attention shape:
+def attention_times(torch, kfa, F, shape=T_SHAPE):
+    """Cold-L2 median times at an attention shape (the transformer cell's
+    by default):
     each kernel, its plain version, and scaled_dot_product_attention
     (forward; forward + backward for the backward kernels, and its
     backward alone on a graph built once) as a yardstick.  Bounds: bytes
     moved (each input read once, each output written once) over 3.35 TB/s
     vs the visible pairs' f32 operations over 67 TFLOP/s.  Each kernel
     also on the card (profiler)."""
-    b, s, hq, hkv, hd = T_SHAPE
+    b, s, hq, hkv, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = attention_inputs(torch, gen, b, s, hq, hkv, hd)
     do = torch.randn(q.shape, generator=gen, device="cuda")
@@ -857,7 +898,8 @@ def decode_checks(torch, kfd):
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {"flash_decode": 0.0, "bf16": 0.0}
     b, ctx, hq, hkv, hd = D_SHAPE
-    cases = [D_SHAPE + (D_POS, None), D_SHAPE + (0, None),
+    cases = [D_SHAPE + (D_POS, None), Q_DECODE + (D_POS, None),
+             D_SHAPE + (0, None),
              D_SHAPE + (ctx - 1, None), *D_SEAMS,
              (4, 256, 8, 2, 64, 100, 256), (4, 256, 8, 2, 64, 1000, 256),
              (4, 512, 16, 4, 128, 700, 128),
@@ -992,8 +1034,9 @@ def decode_times(torch, kfd, F):
     """Cold-L2 median times of flash decode, its plain version and
     ``scaled_dot_product_attention`` (a boolean mask of the visible
     slots, ``enable_gqa=True``, over the cache's (B, Hkv, ctx, hd) view)
-    at the decode cell's shape at the path's last position (f32) and at
-    one layer of a full 32k-token cache (bf16 and f32), beside the bound
+    at the decode cell's shape at the path's last position (f32), at
+    qwen1.5-4b's (g = 1) there, and at one layer of a full 32k-token
+    cache (bf16 and f32), beside the bound
     of :func:`decode_bound`.  Beside the
     CUDA-event time (the wrapper's host work included): the card's own
     time a call from the profiler and the kernels a call puts on the card,
@@ -1002,6 +1045,7 @@ def decode_times(torch, kfd, F):
     out = {}
     for key, shape, pos, dtype in (
             ("path", D_SHAPE, D_POS, torch.float32),
+            ("qwen_path", Q_DECODE, D_POS, torch.float32),
             ("32k_bf16", D_LONG, D_LONG[1] - 1, torch.bfloat16),
             ("32k_f32", D_LONG, D_LONG[1] - 1, torch.float32)):
         b, ctx, hq, hkv, hd = shape
@@ -2506,11 +2550,389 @@ def service_contracts(env, counted, devices=(None, "cpu")):
             "acc_max_abs_err": acc_err, "launches": launches}
 
 
+def _train_lines(out: str):
+    """The driver's printed lines into the log; the per-step losses and
+    wall seconds it printed."""
+    losses, walls = [], []
+    for line in out.splitlines():
+        log(f"[4k train]   {line}")
+        if "loss=" in line and "wall=" in line:
+            losses.append(float(line.split("loss=")[1].split()[0]))
+            walls.append(float(line.split("wall=")[1].strip().rstrip("s")))
+    return losses, walls
+
+
+def train_cell(torch, train, counted, smi):
+    """Phase 4k (i) and (ii): ``launch.train.main`` at qwen1.5-4b's full
+    width and depth, momentum at the driver's defaults, then with
+    ``--compress-uplink --slot 2``; each with its launch counts (set to 0
+    just before, read just after), peak memory, whole-call wall and the
+    driver's losses (all finite).  Returns the report; raises
+    AssertionError."""
+    report = {}
+    for tag, extra, slot in (
+            ("momentum", [], Q_SLOT),
+            ("compressed", ["--compress-uplink", "--slot", str(Q_SLOT_SBC)],
+             Q_SLOT_SBC)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        argv = ["--arch", Q_ARCH, "--full", "--steps", str(Q_STEPS)] + extra
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            final = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses, walls = _train_lines(out.getvalue())
+        step_s = ((walls[-1] - walls[0]) / (len(walls) - 1)
+                  if len(walls) > 1 else float("nan"))
+        tokens = Q_K * slot * Q_SEQ
+        want = Q_LEAVES * Q_STEPS if "--compress-uplink" in extra else 0
+        log(f"[4k train] ({'i' if tag == 'momentum' else 'ii'}) "
+            f"launch.train.main {' '.join(argv)}: {tokens} tokens a step; "
+            f"losses {losses}; whole call {wall:.2f} s (init, data, "
+            f"{Q_STEPS} steps); about {step_s:.2f} s a step from the "
+            f"driver's wall= lines (0.1 s resolution); peak device memory "
+            f"{peak:.2f} GiB; launches {launches} (expected {want} each of "
+            f"the SBC pair); {smi}")
+        if len(losses) != Q_STEPS or not all(map(math.isfinite,
+                                                 losses + [final])):
+            raise AssertionError(f"4k {tag}: losses {losses}, final {final}")
+        if launches != {name: want for name in counted}:
+            raise AssertionError(f"4k {tag}: launches {launches}, expected "
+                                 f"{want} each")
+        report[tag] = {"argv": argv, "losses": losses, "wall_s": wall,
+                       "step_s_from_driver": step_s, "peak_gib": peak,
+                       "tokens_per_step": tokens, "launches": launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def sbc_at_w_down(torch, csbc, ksbc):
+    """B1 and B2 against their plain versions on one segment of
+    ``layers.ffn.w_down``'s size (707 788 800 elements, drawn from the
+    seed) behind its bisection threshold: counts and keep mask bitwise,
+    sums within rtol 1e-6 (both sum in float64: about 3.5 M kept terms
+    give a relative error near 3.5e6 x 1.1e-16 = 4e-10, far below
+    float32's half ulp of 6e-8, so the two round to the same float32 or
+    its neighbour), apply bitwise; then cold times of each against its
+    plain version, and the bounds.  Returns the report; raises
+    AssertionError."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = Q_W_DOWN
+    x = torch.randn((1, n), generator=gen, device="cuda") * 1e-3
+    thr = csbc.topk_threshold_bisect(x.abs(), csbc.n_keep(n, RATIO))
+    got = ksbc.sbc_stats(x, thr)
+    want = ksbc.sbc_stats_plain(x, thr)
+    if not torch.equal(got[:, 2:], want[:, 2:]):
+        raise AssertionError(f"4k w_down: sbc_stats counts {got} vs {want}")
+    if not torch.allclose(got[:, :2], want[:, :2], rtol=1e-6, atol=0):
+        raise AssertionError(f"4k w_down: sbc_stats sums {got} vs {want}")
+    stats_err = float((got[:, :2] - want[:, :2]).abs().max())
+    scalars = csbc.group_scalars(thr, want)
+    out, res = ksbc.sbc_apply(x, scalars)
+    pout, pres = ksbc.sbc_apply_plain(x, scalars)
+    if not (torch.equal(out, pout) and torch.equal(res, pres)):
+        raise AssertionError("4k w_down: sbc_apply is not bitwise the plain "
+                             "version")
+    kept = int(want[0, 2] + want[0, 3])
+    del out, res, pout, pres
+    torch.cuda.empty_cache()
+    rec = {"n": n, "kept": kept, "stats": [float(v) for v in want[0]]}
+    for name, kern, plain, arg, nbytes, ops in (
+            ("sbc_stats", ksbc.sbc_stats, ksbc.sbc_stats_plain, thr,
+             4 * n + 4 + 16, 4 * n),
+            ("sbc_apply", ksbc.sbc_apply, ksbc.sbc_apply_plain, scalars,
+             12 * n + 12, 5 * n)):
+        bound_ms, bound_by = bound(nbytes, ops)
+        rec[name] = {"ms": cold_ms(torch, lambda: kern(x, arg), iters=5),
+                     "plain_ms": cold_ms(torch, lambda: plain(x, arg),
+                                         iters=3),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "ops": ops,
+                     "max_abs_err": stats_err if name == "sbc_stats"
+                     else 0.0}
+        torch.cuda.empty_cache()
+    del x, thr, scalars
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pallas_vs_naive(torch, ts, tm, optim, get_arch, counted, smi):
+    """Phase 4k (iii): ``make_train_step`` with ``sgd()`` at qwen1.5-4b's
+    full width and depth on the driver's batch shape (32 sequences of
+    64 tokens), under ``Runtime(attn_impl="naive")`` and then
+    ``"pallas"``, each run drawing its weights afresh from the same seed
+    (two resident copies would not fit): the first step's loss and
+    gradient norm within rtol 1e-4; B4, B4′ and B4″ launched 40 times each
+    a pallas step (counts set to 0 just before the run); then 3 more
+    steps timed with the card synchronized.  A third run, naive with
+    ``compress_uplink``, times what the SBC uplink adds to a step.
+    Returns the report; raises AssertionError."""
+    cfg = get_arch(Q_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    toks = torch.randint(0, 512, (Q_K * Q_SLOT, Q_SEQ + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "weights": torch.ones((Q_K * Q_SLOT, Q_SEQ), device="cuda")}
+    report = {}
+    for run in ("naive", "pallas", "naive+sbc"):
+        impl = run.split("+")[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = tm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        opt = optim.sgd()
+        state = ts.TrainState(params, opt.init(params), 0)
+        step = ts.make_train_step(cfg, tm.Runtime(attn_impl=impl), opt,
+                                  compress_uplink=run.endswith("+sbc"))
+        del params
+        for fn in counted.values():
+            fn.launches = 0
+        state, m = step(state, batch, Q_LRS[0])
+        first = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(Q_TIMED):
+            state, m = step(state, batch, Q_LRS[0])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / Q_TIMED
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tokens = Q_K * Q_SLOT * Q_SEQ
+        report[run] = {"first": first, "last_loss": float(m["loss"]),
+                       "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+                       "peak_gib": peak, "launches": launches}
+        log(f"[4k train] (iii) make_train_step sgd {Q_ARCH} full, "
+            f"attn_impl={impl}{', compress_uplink' if '+' in run else ''}, "
+            f"{Q_K * Q_SLOT} x {Q_SEQ} tokens: first "
+            f"step loss {first['loss']:.6f}, grad_norm "
+            f"{first['grad_norm']:.6f}; {ms:.1f} ms a step over "
+            f"{Q_TIMED} steps after it = {tokens / ms * 1e3:.0f} tokens/s; "
+            f"peak device memory {peak:.2f} GiB; launches over "
+            f"{1 + Q_TIMED} steps {launches}; {smi}")
+        del state, step, m
+    want = {name: Q_LAYERS * (1 + Q_TIMED) for name in counted}
+    if report["pallas"]["launches"] != want:
+        raise AssertionError(f"4k pallas: launches "
+                             f"{report['pallas']['launches']}, expected "
+                             f"{want}")
+    if any(report["naive"]["launches"].values()):
+        raise AssertionError("4k naive: an attention kernel was launched")
+    sbc_ms = (report["naive+sbc"]["ms_per_step"]
+              - report["naive"]["ms_per_step"])
+    report["sbc_ms_per_step"] = sbc_ms
+    log(f"[4k train] (iii) the SBC uplink of 15 leaves (3.95 B values) adds "
+        f"{sbc_ms:.1f} ms to a step (the compressed step's time less the "
+        f"plain one's); {smi}")
+    for key in ("loss", "grad_norm"):
+        a, b = report["pallas"]["first"][key], report["naive"]["first"][key]
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"4k pallas vs naive: first {key} {a} vs "
+                                 f"{b} beyond rtol 1e-4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _qwen_smoke(torch, tm, get_arch, tree_map, device):
+    """Reduced qwen1.5-4b (2 layers, d_model 256) drawn on the CPU from
+    seed 0 with its qkv biases set non-zero, then moved to ``device``;
+    and the phase's batch (K 2 x slot 2 x 16 tokens, B_k = (1, 2))."""
+    cfg = get_arch(Q_ARCH).reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = tm.init(cfg, gen)
+    for name in ("bq", "bk", "bv"):
+        b = params["layers"]["attn"][name]
+        b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    toks = torch.randint(0, cfg.vocab, (4, 17), generator=gen,
+                         dtype=torch.int32)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0])[:, None].expand(4, 16)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "weights": w.contiguous()}
+    move = lambda t: t.to(device)  # noqa: E731
+    return cfg, tree_map(move, params), tree_map(move, batch)
+
+
+def _card_cpu_steps(torch, ts, tm, optim, get_arch, tree_map, tree_leaves,
+                    opt_name, compress, forced):
+    """3 steps of the reduced qwen1.5-4b on the card and on the CPU path
+    (``_qwen_smoke``); with ``forced``, each CPU step starts from a copy
+    of the card's state (teacher forcing).  Returns the per-step losses
+    and SBC keep masks of each device."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg, params, batch = _qwen_smoke(torch, tm, get_arch, tree_map,
+                                         device)
+        opt = getattr(optim, opt_name)()
+        step = ts.make_train_step(cfg, tm.Runtime(attn_impl="naive"), opt,
+                                  compress_uplink=compress)
+        runs[device] = [step, batch, ts.TrainState(params, opt.init(params),
+                                                   0)]
+    losses = {"cuda": [], "cpu": []}
+    masks = {"cuda": [], "cpu": []}
+    real = ts.sbc_uplink
+    copy = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    for lr in Q_LRS:
+        if forced:
+            card = runs["cuda"][2]
+            runs["cpu"][2] = ts.TrainState(
+                tree_map(copy, card.params), tree_map(copy, card.opt),
+                card.step, None if card.residual is None
+                else tree_map(copy, card.residual))
+        for device, (step, batch, state) in runs.items():
+            def recording(grads, ratio, residual, out=masks[device]):
+                result = real(grads, ratio, residual)
+                out.append([(g != 0).cpu() for g in tree_leaves(result[0])])
+                return result
+            ts.sbc_uplink = recording
+            try:
+                state, m = step(state, batch, lr)
+            finally:
+                ts.sbc_uplink = real
+            runs[device][2] = state
+            losses[device].append(float(m["loss"]))
+    return cfg, losses, masks
+
+
+def train_contracts(torch, np, ts, tm, optim, get_arch, tree_map,
+                    tree_leaves, counted):
+    """Phase 5i: the reduced qwen1.5-4b through 3 steps of
+    ``make_train_step`` on the card and on the port's CPU path, momentum
+    and adamw, each with ``compress_uplink`` off and on: losses within
+    1e-4, SBC keep masks compared leaf by leaf every step (the flips
+    counted and named, not failed on), launches counted on the card.
+    AdamW is held teacher-forced — each CPU step from a copy of the
+    card's state — because run free the two part after one step: its
+    first update is lr·g/(|g| + eps), so an element whose gradient is at
+    rounding level moves by up to ±lr on either side of a last-bit gap;
+    the free run's gap is printed beside it.  Returns the report; raises
+    AssertionError."""
+    report = {}
+    before = {name: fn.launches for name, fn in counted.items()}
+    compressed_runs = 0
+    names = _leaf_names(_qwen_smoke(torch, tm, get_arch, tree_map, "cpu")[1])
+    for opt_name in ("momentum", "adamw"):
+        for compress in (False, True):
+            label = f"{opt_name} compress_uplink={compress}"
+            forced = opt_name == "adamw"
+            args = (torch, ts, tm, optim, get_arch, tree_map, tree_leaves,
+                    opt_name, compress)
+            runs = [(forced, _card_cpu_steps(*args, forced))]
+            if forced:
+                runs.append((False, _card_cpu_steps(*args, False)))
+            compressed_runs += len(runs) * compress
+            rec = {}
+            for is_forced, (cfg, losses, masks) in runs:
+                card, cpu = np.array(losses["cuda"]), np.array(losses["cpu"])
+                flips = {f"step {t + 1} {name}": int((x != y).sum())
+                         for t, (a, b) in enumerate(zip(masks["cuda"],
+                                                        masks["cpu"]))
+                         for name, x, y in zip(names, a, b)
+                         if int((x != y).sum())}
+                err = float(np.abs(card - cpu).max())
+                how = "teacher-forced" if is_forced else "free"
+                log(f"[5i card vs cpu] {cfg.name} {label}, 3 steps, {how}: "
+                    f"losses {card.tolist()} vs {cpu.tolist()} (max abs err "
+                    f"{err:.3g}{', tol 1e-4' if is_forced == forced else ''}"
+                    f"); SBC keep-mask flips {flips if compress else 'n/a'}")
+                rec[how] = {"loss_max_abs_err": err, "mask_flips": flips}
+                if is_forced == forced and not np.allclose(
+                        card, cpu, rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"5i {label} ({how}): losses {card}"
+                                         f" vs {cpu}")
+            report[label] = rec
+    launches = {name: fn.launches - before[name]
+                for name, fn in counted.items()}
+    want = compressed_runs * Q_LEAVES * len(Q_LRS)
+    log(f"[5i card vs cpu] launches on the card {launches} (expected {want} "
+        f"each)")
+    if launches != {name: want for name in counted}:
+        raise AssertionError(f"5i: launches {launches}, expected {want} "
+                             f"each")
+    report["launches"] = launches
+    return report
+
+
+def _leaf_names(params, path=""):
+    """Dotted leaf names in tree order (``layers.attn.bq``)."""
+    if isinstance(params, dict):
+        return [n for k in sorted(params)
+                for n in _leaf_names(params[k], f"{path}.{k}".lstrip("."))]
+    return [path]
+
+
+def checkpoint_contract(torch, ts, tm, optim, get_arch, tree_leaves,
+                        tree_map, checkpoint):
+    """The reduced qwen1.5-4b on the card, momentum with the SBC uplink:
+    2 steps, ``save_state`` (the residual as ``extra``), ``restore_state``
+    into fresh tensors on the card, parameters, optimizer state and
+    residual bitwise; the resumed third step's loss and parameters
+    bitwise the uninterrupted run's.  Returns the report; raises
+    AssertionError."""
+    path = str(OUT_DIR / "smoke_checkpoint.ckpt")
+    runs = {}
+    for tag in ("straight", "resumed"):
+        cfg, params, batch = _qwen_smoke(torch, tm, get_arch, tree_map,
+                                         "cuda")
+        opt = optim.momentum()
+        step = ts.make_train_step(cfg, tm.Runtime(attn_impl="naive"), opt,
+                                  compress_uplink=True)
+        state = ts.TrainState(params, opt.init(params), 0)
+        losses = []
+        for t, lr in enumerate(Q_LRS):
+            if tag == "resumed" and t == 2:
+                checkpoint.save_state(path, state.step, state.params,
+                                      state.opt, state.residual)
+                like = lambda tree: tree_map(torch.empty_like,  # noqa
+                                             tree)
+                n, p, o, r = checkpoint.restore_state(
+                    path, like(state.params), like(state.opt),
+                    like(state.residual))
+                if n != 2 or not all(
+                        torch.equal(a, b) and a.device == b.device
+                        for a, b in zip(tree_leaves((p, o, r)),
+                                        tree_leaves((state.params, state.opt,
+                                                     state.residual)))):
+                    raise AssertionError("checkpoint: the restored state is "
+                                         "not bitwise the saved one")
+                state = ts.TrainState(p, o, n, r)
+            state, m = step(state, batch, lr)
+            losses.append(m["loss"])
+        runs[tag] = (losses, state.params)
+    Path(path).unlink()
+    (a_losses, a_params), (b_losses, b_params) = runs["straight"], \
+        runs["resumed"]
+    same = (torch.equal(a_losses[2], b_losses[2])
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(a_params),
+                                                      tree_leaves(b_params))))
+    log(f"[5i checkpoint] {cfg.name} momentum + SBC on the card: 2 steps, "
+        f"save_state / restore_state bitwise; the resumed third step's "
+        f"loss {float(b_losses[2]):.7f} vs {float(a_losses[2]):.7f} "
+        f"uninterrupted: {'bitwise' if same else 'DIFFER'} (parameters "
+        f"too)")
+    if not same:
+        raise AssertionError("checkpoint: the resumed step is not bitwise "
+                             "the uninterrupted one")
+    return {"resumed_bitwise": True, "loss": float(b_losses[2])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace two periods with torch.profiler")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -2535,7 +2957,9 @@ def main(argv=None) -> int:
         from repro_torch.kernels.ref import attention_ref
         from repro_torch.configs import get_arch
         from repro_torch.fed.train_step import make_serve_step
-        from repro_torch.launch import serve
+        from repro_torch.launch import serve, train
+        from repro_torch import checkpoint, optim
+        from repro_torch.fed import train_step as ts
         from repro_torch.models import model as tm
         from repro_torch.fed import engine
         from repro_torch.tree import tree_leaves, tree_map
@@ -2859,6 +3283,30 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     j_launches = report["trainer"]["launches"]
 
+    # ---- 4k. the training driver at qwen1.5-4b's full width ---------------
+    attn_kernels = {"flash_attention_fwd": kfa.flash_attention_fwd,
+                    "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+                    "flash_attention_bwd_dkdv": kfa.flash_attention_bwd_dkdv}
+    try:
+        report["train"] = train_cell(torch, train,
+                                     {"sbc_stats": ksbc.sbc_stats,
+                                      "sbc_apply": ksbc.sbc_apply}, smi)
+        report["sbc_w_down"] = sbc_at_w_down(torch, csbc, ksbc)
+        report["train_pallas"] = pallas_vs_naive(
+            torch, ts, tm, optim, get_arch, attn_kernels, smi)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    k_sbc = report["train"]["compressed"]["launches"]
+    k_attn = report["train_pallas"]["pallas"]["launches"]
+    w = report["sbc_w_down"]
+    log(f"[4k train] B1/B2 at w_down's {Q_W_DOWN} elements ({w['kept']} "
+        f"kept): stats counts and apply bitwise the plain versions, sums "
+        f"within rtol 1e-6 (max abs err {w['sbc_stats']['max_abs_err']:.3g})"
+        + "".join(f"; {name} {w[name]['ms']:.3f} ms, plain "
+                  f"{w[name]['plain_ms']:.3f} ms, bound "
+                  f"{w[name]['bound_ms']:.3f} ms ({w[name]['bound_by']})"
+                  for name in ("sbc_stats", "sbc_apply")) + f"; {smi}")
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -2965,6 +3413,17 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     h5_launches = report["service_contracts"]["launches"]
 
+    # ---- 5i. the train step: card vs CPU; a checkpoint resumed -------------
+    try:
+        report["train_contracts"] = train_contracts(
+            torch, np, ts, tm, optim, get_arch, tree_map, tree_leaves,
+            {"sbc_stats": ksbc.sbc_stats, "sbc_apply": ksbc.sbc_apply})
+        report["checkpoint"] = checkpoint_contract(
+            torch, ts, tm, optim, get_arch, tree_leaves, tree_map,
+            checkpoint)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+
     # ---- 6. times ----------------------------------------------------------
     records = []
     for name, kern, plain in (("sbc_stats", ksbc.sbc_stats,
@@ -3017,8 +3476,12 @@ def main(argv=None) -> int:
                                  **{f"FeelSimulation {run}, 4j": n[name]
                                     for run, n in j_launches.items()},
                                  "service card vs CPU, 5h":
-                                     h5_launches[name]},
+                                     h5_launches[name],
+                                 f"{Q_ARCH} launch.train --compress-uplink "
+                                 f"--slot {Q_SLOT_SBC}, {Q_STEPS} steps, 4k":
+                                     k_sbc[name]},
             "max_abs_err": errs[name],
+            "at_w_down": report["sbc_w_down"][name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -3054,7 +3517,14 @@ def main(argv=None) -> int:
                for r in recs.values()):
             return fail(f"phase 6: an attention {kernel} instance spills or "
                         f"has static shared memory")
+    at_qwen = attention_times(torch, kfa, F, Q_SHAPE)
     for name, t in attention_times(torch, kfa, F).items():
+        aq = at_qwen[name]
+        log(f"[6 times] {name} at {Q_SHAPE} (qwen1.5-4b's step): kernel "
+            f"{aq['ms']:.4f} ms ({aq['device_ms']:.4f} ms on the card), plain "
+            f"{aq['plain_ms']:.4f} ms, bound {aq['bound_ms']:.4f} ms "
+            f"({aq['bound_by']}), scaled_dot_product_attention "
+            f"{aq['library_ms']:.4f} ms")
         records.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
             "replaces": ("src/repro/kernels/flash_attention.py:24"
@@ -3068,10 +3538,15 @@ def main(argv=None) -> int:
                                      g5_launches[name],
                                  "service, 4i": i_launches[name],
                                  "service card vs CPU, 5h":
-                                     h5_launches[name]},
+                                     h5_launches[name],
+                                 f"{Q_ARCH} make_train_step pallas, "
+                                 f"{1 + Q_TIMED} steps, 4k": k_attn[name]},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "at_qwen": {f: aq[f] for f in ("ms", "device_ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by")}})
         if name in attn_res:
             records[-1]["device_ms"] = t["device_ms"]
             records[-1]["resources"] = attn_res[name][1]
@@ -3155,6 +3630,9 @@ def main(argv=None) -> int:
         "device_span_ms": path["device_span_ms"],
         "kernels_per_call": path["kernels_per_call"],
         "resources": path["resources"],
+        "at_qwen": {f: dt["qwen_path"][f] for f in (
+            "shape", "pos", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
         "at_32k": {k: {f: dt[k][f] for f in ("shape", "pos", "dtype", "ms",
                                              "device_ms", "device_span_ms",
                                              "kernels_per_call", "plain_ms",
@@ -3234,6 +3712,8 @@ def main(argv=None) -> int:
 
     report["kernels"] = records
     report["device"] = {"kind": kind, "smi": smi}
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"[done] every phase passed in {report['seconds']:.1f} s")
     try:
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     except OSError as exc:

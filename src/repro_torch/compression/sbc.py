@@ -15,6 +15,8 @@ threshold — the CUDA kernels for CUDA tensors, their plain versions for
 CPU tensors.  For a given threshold, stats + group choice + apply compute
 exactly ``sbc_tensor(exact=False)``: the same keep mask, and
 ``pos_sum / max(pos_cnt, 1)`` is the oracle's ``grp_sum / max(Σgrp, 1)``.
+:func:`sbc_uplink` is the big-model train step's form: one segment a
+leaf, leaf by leaf, written in place.
 """
 from __future__ import annotations
 
@@ -123,6 +125,30 @@ def compress_dense(grads, ratio: float = 0.005, residual=None,
                                        tree_leaves(residual))]
     return (tree_unflatten(grads, [a for a, _ in pairs]),
             tree_unflatten(grads, [r for _, r in pairs]))
+
+
+def sbc_uplink(grads, ratio: float = 0.005, residual=None):
+    """Error-feedback SBC of one parameter set's gradients, in place.
+
+    Each leaf is one upload: ``acc = g + r`` is one segment through the
+    bisection threshold, ``sbc_stats`` and ``sbc_apply`` (the CUDA kernels
+    on CUDA tensors, their plain versions on the CPU), and the kernel
+    writes the approximation into the gradient's buffer and the new
+    residual into the residual's.  Leaf by leaf, so no more than one
+    leaf's accumulator and magnitudes are alive beside the trees: what
+    lets a full-width model's step fit on the card.  A ``residual`` of
+    None starts from zeros.  Returns ``(grads, residual)``, the same
+    tensors, updated; the values are bitwise :func:`compress_dense`'s on
+    the same inputs (the reference's contract for its CPU path)."""
+    if residual is None:
+        residual = tree_map(torch.zeros_like, grads)
+    for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
+        acc = (g + r).reshape(1, -1)
+        thr = topk_threshold_bisect(acc.abs(), n_keep(acc.shape[1], ratio))
+        sbc_apply(acc, group_scalars(thr, sbc_stats(acc, thr)),
+                  out=g.view(1, -1), res=r.view(1, -1))
+        del acc, thr
+    return grads, residual
 
 
 def compressed_bits(n_params: int, ratio: float = 0.005,

@@ -7,16 +7,18 @@ asking for one raises ``NotImplementedError``; an unknown name raises
 ``KeyError``.  ``configs/feel_mlp.py`` holds the paper's classifier's
 constants, not an ``ArchConfig``.
 """
-from repro_torch.configs import mamba2_2p7b, mistral_nemo_12b
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs import mamba2_2p7b, mistral_nemo_12b, qwen1p5_4b
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      SSMConfig, get_shape)
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (mistral_nemo_12b, mamba2_2p7b)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (mistral_nemo_12b, mamba2_2p7b, qwen1p5_4b)}
 
 # the reference's architectures that select parts the port does not run
-# yet (MoE, MLA, hybrid, audio, VLM, qkv bias, the GELU FFN, the MLP)
+# yet (MoE, MLA, hybrid, audio, VLM, the GELU FFN, the MLP)
 NOT_PORTED = ("granite-34b", "deepseek-v2-lite-16b", "musicgen-large",
-              "zamba2-7b", "arctic-480b", "qwen1.5-4b",
-              "llava-next-mistral-7b", "minicpm3-4b", "feel-mlp")
+              "zamba2-7b", "arctic-480b", "llava-next-mistral-7b",
+              "minicpm3-4b", "feel-mlp")
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -29,4 +31,5 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "SSMConfig", "ARCHS", "NOT_PORTED", "get_arch"]
+__all__ = ["ArchConfig", "SSMConfig", "ShapeConfig", "SHAPES", "ARCHS",
+           "NOT_PORTED", "get_arch", "get_shape"]

@@ -6,10 +6,13 @@ big-model FEEL families derive theirs from a spec's ``(hidden, depth)``
 a config written for it reads the same.  ``models.model.init`` and
 ``forward`` run the ``dense`` family and the ``ssm`` family (an
 :class:`SSMConfig` with ``attn_kind="none"``), and refuse the values that
-select parts not ported (MoE, MLA, hybrid, codebooks, VLM prefix, qkv
-bias, the GELU FFN, another ``norm_eps``, an SSM on a dense model).
+select parts not ported (MoE, MLA, hybrid, codebooks, VLM prefix, the
+GELU FFN, another ``norm_eps``, an SSM on a dense model).
 :meth:`ArchConfig.reduced` is the reference's CPU-smoke variant of the
-same family (2 layers, d_model 256), for tests.
+same family (2 layers, d_model 256), for tests.  A :class:`ShapeConfig`
+is one (sequence length, global batch, mode) input shape of the
+reference's dry-run contract (:data:`SHAPES`), which
+``fed.train_step.input_specs`` turns into abstract inputs.
 """
 from __future__ import annotations
 
@@ -94,3 +97,23 @@ class ArchConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32, chunk=32)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -1,7 +1,9 @@
-"""Federated data pipeline (paper §VI-A partitioning, synthetic source).
+"""Federated data pipeline (paper §VI-A partitioning, synthetic sources).
 
 ``ClassificationData`` — 10 Gaussian class clusters in 3072-dim space (a
 32x32x3 CIFAR-10 stand-in) for the paper-scale FEEL experiments.
+``TokenData`` — teacher-bigram token streams for transformer training
+(``launch.train``).
 
 Partitioning:
   * IID: shuffle, split into K equal parts.
@@ -41,6 +43,26 @@ class ClassificationData:
         tr = ClassificationData(self.x[:-n_test], self.y[:-n_test])
         te = ClassificationData(self.x[-n_test:], self.y[-n_test:])
         return tr, te
+
+
+@dataclass
+class TokenData:
+    tokens: np.ndarray     # (N, S+1) int32 — input/target windows
+
+    @classmethod
+    def synthetic(cls, n: int = 4096, seq: int = 64, vocab: int = 512,
+                  seed: int = 0):
+        """Markov-chain text: learnable structure, nontrivial loss floor."""
+        rng = np.random.default_rng(seed)
+        # sparse row-stochastic transition matrix
+        trans = rng.dirichlet(np.ones(32), size=vocab)
+        nxt = rng.integers(0, vocab, size=(vocab, 32))
+        t = np.empty((n, seq + 1), np.int64)
+        t[:, 0] = rng.integers(0, vocab, size=n)
+        for s in range(seq):
+            choice = np.array([rng.choice(32, p=trans[v]) for v in t[:, s]])
+            t[:, s + 1] = nxt[t[:, s], choice]
+        return cls(tokens=t.astype(np.int32))
 
 
 def partition_iid(n: int, k: int, seed: int = 0) -> List[np.ndarray]:

@@ -1,14 +1,23 @@
-"""The big-model train step's pieces (port of the reference's
-``fed/train_step.py``): the train state and the weighted next-token
-cross-entropy behind the FEEL aggregation (eq. (1)).
+"""Training and serving step builders for the big-model configs (port of
+the reference's ``fed/train_step.py``).
 
-Losses are per parameter copy: ``params`` is a stack of N sets and the
-batch's tokens, labels and weights are (N, B, S), so one call gives the
-(N,) losses of N devices (or rows), each over its own examples with its
-own denominator.
+:func:`make_train_step` realizes the FEEL aggregation (eq. (1)) on one
+parameter set: per-example weights (the federated B_k masks of the
+scheduler's plan) enter the weighted cross-entropy, so the gradient of
+the weighted mean IS the paper's Step-3 aggregate.  Optional
+``compress_uplink`` applies SBC to the gradients before the optimizer —
+the paper's Step-2 compression — with the error-feedback residual
+carried in ``TrainState.residual``.
 
-:func:`make_serve_step` is the one-token decode step (the reference's
-``make_serve_step``) over one parameter set.
+Losses in :func:`weighted_ce` and :func:`make_loss_fn` are per parameter
+copy: ``params`` is a stack of N sets and the batch's tokens, labels and
+weights are (N, B, S), so one call gives the (N,) losses of N devices
+(or rows), each over its own examples with its own denominator (the FEEL
+engines' form).  The train, prefill and serve steps run one set in the
+reference's layout (no copy axis) and add a copy axis of 1 inside.
+
+:func:`input_specs` gives the reference's abstract inputs of an (arch,
+shape) pair as tensors on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -17,9 +26,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import Runtime, decode_step, forward
-from repro_torch.tree import tree_map
+from repro_torch.compression.sbc import sbc_uplink
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models.model import (Runtime, _one_copy, decode_step,
+                                      forward, init_cache)
+from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclass
@@ -55,8 +67,171 @@ def make_loss_fn(cfg: ArchConfig, rt: Runtime):
     return loss_fn
 
 
+def _leaf_state(state, like, i: int):
+    """Leaf ``i``'s slice of an optimizer state: every subtree shaped like
+    the parameters (``like``) gives its i-th leaf; anything else (AdamW's
+    step count) is shared by all leaves and passed whole."""
+    if _same_structure(state, like):
+        return tree_leaves(state)[i]
+    if isinstance(state, dict):
+        return {k: _leaf_state(v, like, i) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_leaf_state(v, like, i) for v in state)
+    return state
+
+
+def _same_structure(a, b) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return (sorted(a) == sorted(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return not isinstance(a, (dict, list, tuple)) and not isinstance(
+        b, (dict, list, tuple))
+
+
+def _write_state(state, new, like, i: int, shared: list):
+    """Copy leaf ``i``'s new optimizer state into ``state`` in place;
+    the shared parts' new values are collected in ``shared`` (written
+    once every leaf has read the old ones)."""
+    if _same_structure(state, like):
+        tree_leaves(state)[i].copy_(new)
+    elif isinstance(state, dict):
+        for k in state:
+            _write_state(state[k], new[k], like, i, shared)
+    elif isinstance(state, (list, tuple)):
+        for old, nw in zip(state, new):
+            _write_state(old, nw, like, i, shared)
+    elif i == 0:
+        shared.append((state, new))
+
+
+def apply_in_place(opt: Optimizer, params, grads: list, state, lr):
+    """One optimizer step written into ``params`` and ``state``, one leaf
+    at a time: ``opt.update`` (functional) on leaf i alone, its result
+    copied into the leaf and its state, and the gradient leaf dropped
+    from ``grads`` — so one leaf's update is alive at once, not a second
+    copy of the model and its state.  The same arithmetic as the
+    reference's ``apply_updates(params, opt.update(...))``."""
+    shared = []
+    for i, p in enumerate(tree_leaves(params)):
+        upd, new = opt.update(grads[i], _leaf_state(state, params, i), p, lr)
+        p.add_(upd.to(p.dtype))
+        _write_state(state, new, params, i, shared)
+        grads[i] = None
+        del upd, new
+    for old, new in shared:
+        old.copy_(new)
+
+
+def make_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
+                    compress_uplink: bool = False,
+                    compress_ratio: float = 0.005):
+    """``train_step(state, batch, lr) -> (state, metrics)`` on one
+    parameter set; ``batch`` holds ``tokens`` and ``labels`` (B, S)
+    integers and ``weights`` (B, S) float32, ``lr`` a float.
+
+    The step updates the parameters, the optimizer state and the residual
+    IN PLACE, as a donated jit buffer would be on the reference's
+    accelerator, and returns the same tensors in a new ``TrainState`` with
+    ``step + 1``; a caller that needs the old values clones them first.
+    Gradients come from ``torch.autograd``; with ``compress_uplink`` they
+    go through :func:`sbc_uplink` (a residual of None starts from zeros)
+    and the optimizer steps on the approximation.  ``metrics``: ``loss``
+    (the weighted CE), ``total_loss`` (the same: the ported families have
+    no auxiliary loss) and ``grad_norm`` (of the gradients the optimizer
+    took), 0-d tensors on the parameters' device."""
+    loss_fn = make_loss_fn(cfg, rt)
+
+    def train_step(state: TrainState, batch, lr):
+        leaves = tree_leaves(state.params)
+        with torch.enable_grad():
+            req = [p.detach().requires_grad_() for p in leaves]
+            views = _one_copy(tree_unflatten(state.params, req))
+            loss = loss_fn(views, _one_copy(batch))[0]
+            grads = list(torch.autograd.grad(loss, req))
+        loss = loss.detach()
+        del req, views
+        residual = state.residual
+        if compress_uplink:     # the gradients become their approximation
+            _, residual = sbc_uplink(tree_unflatten(state.params, grads),
+                                     compress_ratio, residual)
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        with torch.no_grad():
+            apply_in_place(opt, state.params, grads, state.opt, lr)
+        metrics = {"loss": loss, "total_loss": loss, "grad_norm": gnorm}
+        return TrainState(state.params, state.opt, state.step + 1,
+                          residual), metrics
+
+    return train_step
+
+
+def make_multi_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
+                          compress_uplink: bool = False,
+                          compress_ratio: float = 0.005):
+    """T periods of :func:`make_train_step` (the reference scans them; a
+    Python loop here).  Call as ``many(state, batches, lrs)``, every leaf
+    of ``batches`` with a leading T axis and ``lrs`` (T,); returns the
+    final state and the per-period metrics stacked (T,).  Under
+    ``compress_uplink`` a residual of None is materialized as zeros
+    before the first period, as the reference does for its scan carry.
+    The state is updated in place, as in :func:`make_train_step`."""
+    step = make_train_step(cfg, rt, opt, compress_uplink, compress_ratio)
+
+    def many(state: TrainState, batches, lrs):
+        if compress_uplink and state.residual is None:
+            state = TrainState(state.params, state.opt, state.step,
+                               zero_residual(state.params))
+        per = []
+        for t in range(len(lrs)):
+            state, metrics = step(state, tree_map(lambda b: b[t], batches),
+                                  float(lrs[t]))
+            per.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per]) for k in per[0]}
+
+    return many
+
+
+def make_prefill_step(cfg: ArchConfig, rt: Runtime):
+    def prefill(params, batch):
+        return forward(cfg, _one_copy(params), batch["tokens"][None],
+                       rt=rt)[0]
+
+    return prefill
+
+
 def make_serve_step(cfg: ArchConfig, rt: Runtime):
     def serve(params, cache, tokens):
         return decode_step(cfg, params, cache, tokens, rt=rt)
 
     return serve
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins: the reference's dry-run contract)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
+    """Abstract inputs of every model input of the given (arch, shape), as
+    tensors on the ``meta`` device with the reference's shapes and dtypes.
+
+    Train/prefill: the token batch (+ labels and weights for train).
+    Decode: one new token per sequence + the KV/SSM cache, allocated at
+    ``min(seq_len, window)`` context under a sliding window (the
+    documented ``init_cache`` contract: decode only ever addresses
+    ``window`` ring-buffer slots)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    if shape.mode in ("train", "prefill"):
+        batch = {"tokens": torch.empty((B, S), dtype=torch.int32, **meta)}
+        if shape.mode == "train":
+            batch["labels"] = torch.empty((B, S), dtype=torch.int32, **meta)
+            batch["weights"] = torch.empty((B, S), dtype=torch.float32,
+                                           **meta)
+        return batch
+    win = rt.win(cfg)
+    ctx = min(S, win) if win else S
+    return {"cache": init_cache(cfg, B, ctx, rt, device="meta"),
+            "tokens": torch.empty((B, 1), dtype=torch.int32, **meta)}

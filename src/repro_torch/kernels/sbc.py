@@ -58,11 +58,14 @@ def _check(x: torch.Tensor, per_seg: torch.Tensor, width: int, what: str):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _launch_args(x: torch.Tensor):
+def _launch_args(x: torch.Tensor, *written: torch.Tensor):
+    """(segments, n, vec4, stream): the float4 path when n % 4 == 0 and x
+    and every tensor the kernel writes start on a 16-byte boundary."""
     segments, n = x.shape
     if segments > 65535:
         raise ValueError(f"{segments} segments exceed the grid's y limit")
-    vec4 = int(n % 4 == 0 and x.data_ptr() % 16 == 0)
+    vec4 = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x,) + written))
     return segments, n, vec4, torch.cuda.current_stream(x.device).cuda_stream
 
 
@@ -131,17 +134,39 @@ def sbc_apply_plain(x: torch.Tensor, scalars: torch.Tensor):
     return out, x - out
 
 
-def sbc_apply(x: torch.Tensor, scalars: torch.Tensor):
+def _check_destination(t, x: torch.Tensor, what: str) -> None:
+    """``t`` (when given) must be a tensor the kernel may write: x's
+    shape, dtype and device, contiguous, and apart from x (the kernel
+    reads x through the read-only cache)."""
+    if t is None:
+        return
+    if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
+            or not t.is_contiguous()):
+        raise ValueError(f"sbc_apply: {what} must be a contiguous "
+                         f"{tuple(x.shape)} {x.dtype} tensor on {x.device}")
+    x0, x1 = x.data_ptr(), x.data_ptr() + 4 * x.numel()
+    t0, t1 = t.data_ptr(), t.data_ptr() + 4 * t.numel()
+    if x.numel() and t0 < x1 and x0 < t1:
+        raise ValueError(f"sbc_apply: {what} overlaps x")
+
+
+def sbc_apply(x: torch.Tensor, scalars: torch.Tensor, *, out=None,
+              res=None):
     """x: (S, n) f32; scalars: (S, 3) f32 ``[thr, val_pos, val_neg]`` (the
     dropped group's value is 0) → ``(out, residual)``, each (S, n), with
-    ``residual = x - out`` bitwise."""
+    ``residual = x - out`` bitwise.  ``out`` and ``res``, when given, are
+    where the two are written (each apart from x); else they are new."""
     _check(x, scalars, 3, "sbc_apply")
+    _check_destination(out, x, "out")
+    _check_destination(res, x, "res")
     if x.device.type == "cpu":
-        return sbc_apply_plain(x, scalars)
+        p_out, p_res = sbc_apply_plain(x, scalars)
+        return (p_out if out is None else out.copy_(p_out),
+                p_res if res is None else res.copy_(p_res))
     lib = _library()
-    segments, n, vec4, stream = _launch_args(x)
-    out = torch.empty_like(x)
-    res = torch.empty_like(x)
+    out = torch.empty_like(x) if out is None else out
+    res = torch.empty_like(x) if res is None else res
+    segments, n, vec4, stream = _launch_args(x, out, res)
     if n == 0:
         return out, res
     _raise_on(lib.sbc_apply_launch(x.data_ptr(), scalars.data_ptr(),

@@ -27,7 +27,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, linear
+from repro_torch.models.layers import (_per_copy, apply_rope, dense_init,
+                                       linear)
 
 IMPLS = ("pallas", "naive")
 
@@ -43,24 +44,35 @@ def attend(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
-    """Query, key, value and output projections, drawn in that order."""
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported yet")
+    """Query, key, value and output projections, drawn in that order; with
+    ``cfg.qkv_bias`` also zero ``bq``, ``bk`` and ``bv``, which draw
+    nothing (as the reference's)."""
     hd = cfg.hd()
-    return {"wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
-            "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
-            "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
-            "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype)}
+    p = {"wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
+         "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+         "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+         "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype)}
+    if cfg.qkv_bias:
+        zeros = lambda n: torch.zeros((n,), dtype=dtype,  # noqa: E731
+                                      device=gen.device)
+        p["bq"] = zeros(cfg.n_heads * hd)
+        p["bk"] = zeros(cfg.n_kv_heads * hd)
+        p["bv"] = zeros(cfg.n_kv_heads * hd)
+    return p
 
 
 def _qkv(params, cfg: ArchConfig, x, positions):
     """x: (N, B, S, d) → q (N·B, S, Hq, hd), k and v (N·B, S, Hkv, hd),
-    with RoPE on q and k."""
+    with the biases (``cfg.qkv_bias``) added before RoPE on q and k."""
     n, b, s, _ = x.shape
     hd = cfg.hd()
-    q = linear(x, params["wq"]).reshape(n * b, s, cfg.n_heads, hd)
-    k = linear(x, params["wk"]).reshape(n * b, s, cfg.n_kv_heads, hd)
-    v = linear(x, params["wv"]).reshape(n * b, s, cfg.n_kv_heads, hd)
+    q, k, v = (linear(x, params[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = (t + _per_copy(params[name], t)
+                   for t, name in ((q, "bq"), (k, "bk"), (v, "bv")))
+    q = q.reshape(n * b, s, cfg.n_heads, hd)
+    k = k.reshape(n * b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(n * b, s, cfg.n_kv_heads, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 

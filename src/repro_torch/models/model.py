@@ -47,8 +47,7 @@ class Runtime:
 
 # ArchConfig fields whose other values select parts that are not ported
 _UNPORTED = ("attn_kind", "moe", "mla", "ssm", "hybrid_every",
-             "n_codebooks", "vlm_prefix", "qkv_bias", "ffn_kind",
-             "norm_eps")
+             "n_codebooks", "vlm_prefix", "ffn_kind", "norm_eps")
 # the values each ported family takes where it differs from the defaults
 # (a class: any instance of it)
 _FAMILY_FIELDS = {"dense": {},

@@ -26,8 +26,8 @@ from repro_torch.testing import VirtualClock, no_retrace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b)",
-    re.MULTILINE)
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|from\s+repro\b"
+    r"|import\s+msgpack\b|from\s+msgpack\b)", re.MULTILINE)
 
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
@@ -40,13 +40,16 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "msgpack" or m.startswith("msgpack."))
 new = {"repro_torch.serve." + m for m in ("admission", "program_cache",
                                           "scheduler", "service", "stats")}
 new |= {"repro_torch.testing." + m for m in ("arrivals", "clock",
                                              "proptest")}
 new |= {"repro_torch.serve", "repro_torch.testing", "repro_torch.fed.sweep",
         "repro_torch.fed.trainer"}
+new |= {"repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+        "repro_torch.launch.train", "repro_torch.configs.qwen1p5_4b"}
 bad += sorted(new - set(names))
 print(len(names), bad)
 """

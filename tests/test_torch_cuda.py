@@ -46,7 +46,10 @@ its CPU path (1e-4 in log-softmax) and runs every attention layer
 through the kernel.  ``AsyncExecutor`` (capped or not, chunked or not)
 and ``MeshExecutor`` on the card equal ``SerialExecutor`` bitwise on a
 two-bucket grid, launching the SBC pair as often, and a planning error
-stops the run and reaches the caller."""
+stops the run and reaches the caller.  The reduced qwen1.5-4b train step
+through the three attention kernels matches the naive step (1e-4), and
+``sbc_uplink`` on one leaf of 2^27 elements matches the plain versions
+(keep masks equal, values rtol 1e-6)."""
 import itertools
 
 import numpy as np
@@ -870,3 +873,73 @@ def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
     want = 16 * cfg.n_layers if cfg.family == "dense" else 0
     assert kfd.flash_decode.launches - before == want
     assert int(caches["cuda"]["pos"]) == 16
+
+
+def test_qwen_train_step_pallas_matches_naive_on_the_card(cuda):
+    """Reduced qwen1.5-4b (qkv biases non-zero), sgd, 2 steps at B_k =
+    (1, 2): the step through B4, B4′ and B4″ (2 layers: 2 launches of
+    each a step) against the naive step, losses, gradient norms and
+    parameters within 1e-4."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.fed.train_step import TrainState, make_train_step
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import model as tm
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_arch("qwen1.5-4b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = tm.init(cfg, gen)
+    for name in ("bq", "bk", "bv"):
+        params["layers"]["attn"][name].normal_(0.0, 0.1, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (4, 17), generator=gen).to(cuda)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda)[:, None]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "weights": w.expand(4, 16).contiguous()}
+    kernels = (kfa.flash_attention_fwd, kfa.flash_attention_bwd_dq,
+               kfa.flash_attention_bwd_dkdv)
+    out = {}
+    for impl in ("naive", "pallas"):
+        before = [k.launches for k in kernels]
+        state = TrainState(tree_map(lambda t: t.to(cuda), params), (), 0)
+        step = make_train_step(cfg, tm.Runtime(attn_impl=impl), optim.sgd())
+        metrics = []
+        for lr in (0.1, 0.05):
+            state, m = step(state, batch, lr)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        out[impl] = (metrics, state.params)
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert launched == ([2 * cfg.n_layers] * 3 if impl == "pallas"
+                            else [0, 0, 0])
+    np.testing.assert_allclose(out["pallas"][0], out["naive"][0],
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(out["pallas"][1]),
+                    tree_leaves(out["naive"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_sbc_uplink_matches_plain_on_a_2_27_leaf(cuda):
+    """``sbc_uplink`` on one leaf of 2^27 elements through B1 and B2 (one
+    launch each) against the same in the plain versions on the card:
+    keep masks equal; the kept value within rtol 1e-6 (the group sums,
+    in float64 in both, may round one ulp apart), and so the residual
+    within 1e-6 of that value; the gradient and the residual are written
+    in place."""
+    from repro_torch.compression import sbc as c
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    g = torch.randn((1 << 27,), generator=gen, device=cuda) * 1e-3
+    r = torch.randn((1 << 27,), generator=gen, device=cuda) * 1e-4
+    acc = (g + r).reshape(1, -1)
+    thr = c.topk_threshold_bisect(acc.abs(), c.n_keep(acc.shape[1], 0.005))
+    stats = ksbc.sbc_stats_plain(acc, thr)
+    want_out, want_res = ksbc.sbc_apply_plain(acc, c.group_scalars(thr,
+                                                                   stats))
+    del acc
+    before = (ksbc.sbc_stats.launches, ksbc.sbc_apply.launches)
+    out, res = c.sbc_uplink({"w": g}, 0.005, {"w": r})
+    assert out["w"] is g and res["w"] is r
+    assert (ksbc.sbc_stats.launches, ksbc.sbc_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(g != 0, want_out[0] != 0)
+    torch.testing.assert_close(g, want_out[0], rtol=1e-6, atol=0)
+    val = float(want_out.abs().max())
+    torch.testing.assert_close(r, want_res[0], rtol=0, atol=1e-6 * val)

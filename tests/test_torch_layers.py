@@ -148,13 +148,23 @@ def test_transformer_params_cross_and_step_like_the_reference():
     ("n_codebooks", 2), ("vlm_prefix", 4), ("qkv_bias", True),
     ("ffn_kind", "mlp"), ("norm_eps", 1e-6)])
 def test_model_refuses_config_fields_not_ported(field, value):
+    """Every field value that selects a part the port does not run is
+    refused; ``qkv_bias=True``, refused until qwen1.5-4b was ported, now
+    runs (``tests/test_torch_launch_train.py`` holds it against the
+    reference)."""
     cfg = model_engine.family_arch("transformer", 16, 2)
     params = model.init(cfg, torch.Generator().manual_seed(0))
     other = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.init(other, torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 2, 4), dtype=torch.int64)
     assert model.forward(cfg, tree_map(lambda t: t[None], params),
                          tokens).shape == (1, 2, 4, 128)
+    if field == "qkv_bias":
+        biased = model.init(other, torch.Generator().manual_seed(0))
+        assert {"bq", "bk", "bv"} <= set(biased["layers"]["attn"])
+        assert model.forward(other, tree_map(lambda t: t[None], biased),
+                             tokens).shape == (1, 2, 4, 128)
+        return
+    with pytest.raises(NotImplementedError, match="not ported"):
+        model.init(other, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="not ported"):
         model.forward(other, tree_map(lambda t: t[None], params), tokens)
