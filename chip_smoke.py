@@ -17,7 +17,12 @@ defaults (feel-mamba2-h256-d3: d_model 256, 64 SSD heads of 8, state
 16, chunk 4, 1 330 208 parameters, 8 rows) — and the token-decode
 driver ``repro_torch.launch.serve.main`` at the full width of
 mistral-nemo-12b (40 layers, d_model 5120, 32 query / 8 KV heads of 128,
-12.25 B parameters in float32), mamba2-2.7b and qwen1.5-4b, and the
+12.25 B parameters in float32), mamba2-2.7b, qwen1.5-4b,
+llava-next-mistral-7b, musicgen-large (4 codebooks) and zamba2-7b (81
+SSM layers, a shared block of 32 heads of 112), granite-34b at full
+width with its depth cut from 88 to 20 layers (the GELU MLP, 48 query
+heads over one KV head), llava-next-mistral-7b's prefill with a
+2880-patch prefix, and the
 training driver ``repro_torch.launch.train.main`` at qwen1.5-4b's full
 width and depth (40 layers, d_model 2560, 20 heads of 128 with qkv
 biases, 3.95 B parameters in float32), and holds every kernel of those
@@ -43,15 +48,24 @@ paths against its plain PyTorch version on the card:
      among 8); 3d. flash decode at the decode cell's shape
      and edge cases (pos 0, the last slot, the runs' seams at pos 31, 32,
      33 and where runs are empty, ring buffers, head dim 64 at g 1/4/8,
-     a ragged ctx; f32 2e-5, bf16 2e-2; bitwise twice);
+     a ragged ctx; head dim 112 at zamba2-7b's shape and its seams, g 48
+     over one KV head, 32 / 32 heads of 64; f32 2e-5, bf16 2e-2; bitwise
+     twice);
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
      PERF.md; 4d. ``launch.serve.main`` on mistral-nemo-12b and
      qwen1.5-4b (batch 8, prompt 128, 64 generated tokens, ctx 2048: 40
-     x 192 = 7 680 flash decode launches each; qwen's at g = 1) and on
-     mamba2-2.7b (none), each with its launch count, tokens/s and peak
-     memory; 4e. ``Experiment(data, test,
+     x 192 = 7 680 flash decode launches each; qwen's at g = 1), on
+     mamba2-2.7b (none), llava-next-mistral-7b (32 x 192),
+     musicgen-large (48 x 192) and zamba2-7b (9 x 192, head dim 112), and
+     granite-34b at 20 of its 88 layers through ``init`` /
+     ``init_cache`` / ``make_serve_step`` (20 x 192), each with its
+     launch count, tokens/s and peak memory; 4l. llava-next-mistral-7b's
+     ``make_prefill_step`` at full width (B 1, S 6144, the first 2880
+     positions a patch prefix) under B4 and under naive attention in
+     ``torch.inference_mode()``: log-softmax of the last 16 positions
+     within 1e-4, B4 32 launches; 4e. ``Experiment(data, test,
      grid(...))`` over the main cell (4 policies x 2 SBC ratios x 2
      partitions x 2 seeds: 32 rows in two buckets) under the serial,
      async (plain, chunked, capped) and mesh executors, each run bitwise
@@ -114,9 +128,11 @@ paths against its plain PyTorch version on the card:
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
      its solo twin; 5b. the same for the transformer, 5c. for mamba2;
-     5d. decode at the reduced configs (and a window of 8) over 12
-     tokens: card vs CPU path (1e-4 in log-softmax) and decode vs the
-     port's full-sequence forward on the card (2e-3); 5e. the dynamic
+     5d. decode at the reduced configs of all seven decoders (and a
+     window of 8; zamba2-7b also at head dim 112) over 12 tokens: card vs
+     CPU path (1e-4 in log-softmax) and decode vs the port's
+     full-sequence forward on the card (2e-3; at head dim 112 under naive
+     attention, B4's wrapper refusing it); 5e. the dynamic
      worlds, card vs CPU path: one feel-mlp row each of sampling,
      weighted sampling, fading with faults and the budget, and a
      weighted-sampled transformer row (through B4, B4′ and B4″), 3
@@ -135,7 +151,9 @@ paths against its plain PyTorch version on the card:
      (AdamW teacher-forced, its free gap printed), SBC keep-mask flips
      counted; and a checkpoint on the card: 2 steps, ``save_state``,
      ``restore_state`` bitwise, the resumed third step bitwise the
-     uninterrupted one;
+     uninterrupted one; 5j. reduced musicgen-large and zamba2-7b (B3 and
+     B3′ in the hybrid's SSM layers), momentum, 3 steps, card vs CPU path,
+     losses 1e-4;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -151,7 +169,10 @@ paths against its plain PyTorch version on the card:
      the card from the profiler, the kernels a call puts there (must be
      1) and its resources (registers, spills, shared memory, runs); the
      attention kernels also at qwen1.5-4b's step (B 32, S 64, 20 / 20
-     heads of 128) and flash decode at its decode shape (g = 1).
+     heads of 128) and flash decode at its decode shape (g = 1) and at
+     zamba2-7b's (head dim 112, f32 and bf16), granite-34b's (g 48) and
+     musicgen-large's, with every flash decode instance's registers and
+     spills from the build (failing on a spill).
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
@@ -255,13 +276,23 @@ SSD_FWD_RESOURCE_SHAPES = [(64, 8, 1, 16), (8, 16, 2, 32), (8, 32, 4, 64),
 # decode path over the prompt, then greedy decode; mistral-nemo-12b's
 # cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
 # decodes; one layer of a 32k-token cache
-D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b", "qwen1.5-4b")
+D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b", "qwen1.5-4b",
+           "llava-next-mistral-7b", "musicgen-large", "zamba2-7b")
+D_PROFILED = D_ARCHS[:3]        # --profile's 16 steps a model
 D_BATCH, D_PROMPT, D_GEN, D_CTX = 8, 128, 64, 2048
 D_ARGV = ["--full", "--batch", str(D_BATCH), "--prompt-len", str(D_PROMPT),
           "--gen", str(D_GEN), "--ctx", str(D_CTX)]
-D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0,   # attention layers
-            "qwen1.5-4b": 40}
-D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)
+# attention layers a step (zamba2-7b: its shared block, once a segment)
+D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0, "qwen1.5-4b": 40,
+            "llava-next-mistral-7b": 32, "musicgen-large": 48,
+            "zamba2-7b": 9}
+# granite-34b at full width with its depth cut: its 88 layers hold ~136 GB
+# of float32, 20 of them (with the embedding and head) ~33 GB
+G_ARCH, G_LAYERS = "granite-34b", 20
+D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)        # also llava-next-mistral-7b
+D_ZAMBA = (D_BATCH, D_CTX, 32, 32, 112)       # zamba2-7b's shared block
+D_GRANITE = (D_BATCH, D_CTX, 48, 1, 128)      # granite-34b's MQA, g 48
+D_MUSICGEN = (D_BATCH, D_CTX, 32, 32, 64)     # musicgen-large's MHA
 D_POS = D_PROMPT + D_GEN - 1
 D_LONG = (16, 32_768, 32, 8, 128)
 # the runs' seams (B, ctx, Hq, Hkv, hd, pos, window): the first tile's last
@@ -270,7 +301,17 @@ D_LONG = (16, 32_768, 32, 8, 128)
 D_SEAMS = [D_SHAPE + (31, None), D_SHAPE + (32, None), D_SHAPE + (33, None),
            D_SHAPE + (100, None), (2, 256, 8, 2, 64, 40, 256),
            (2, 40, 8, 2, 64, 39, None)]
+# hd 112's seams: the runs' (pos 31, 32, 33), a ring buffer (wrapped, and
+# a window under ctx), a ctx that is not a multiple of the 32-slot tile
+D_SEAMS_112 = [D_ZAMBA + (31, None), D_ZAMBA + (32, None),
+               D_ZAMBA + (33, None), (4, 256, 32, 32, 112, 1000, 256),
+               (4, 512, 16, 4, 112, 700, 128),
+               (3, 1000, 32, 32, 112, 999, None)]
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+# llava's prefill (phase 4l): one sequence of 6144 positions whose first
+# 2880 are the anyres patch embeddings (5 tiles of 24 x 24), under B4 and
+# under naive attention; log-softmax compared at the last 16 positions
+L_ARCH, L_PREFIX, L_SEQ, L_LAST = "llava-next-mistral-7b", 2880, 6144, 16
 SOURCES = ("sbc", "flash_attention", "ssd_scan", "flash_decode")
 # the dynamic-worlds cell (phase 4f): the main cell's model, data and
 # fleet, seeds (0, 1), iid and noniid, under five value-only worlds (one
@@ -893,10 +934,15 @@ def decode_checks(torch, kfd):
     pos 0 and the last slot, the runs' seams (``D_SEAMS``), ring
     buffers (pos < ctx and pos 1000), head
     dim 64 at g 1, 4 and 8, and a ctx that is not a multiple of the
-    kernel's 32-slot tile; every case run twice and required bitwise
-    equal.  Returns the max abs errors; raises AssertionError."""
+    kernel's 32-slot tile; and the new paths' shapes: zamba2-7b's head
+    dim 112 (``D_ZAMBA``, with its seams ``D_SEAMS_112``), granite-34b's
+    g 48 over one KV head (the R = 8 instance in two passes over the
+    rows) and musicgen-large's 32 / 32 heads of 64; every case run twice
+    and required bitwise equal.  Returns the max abs errors (hd 112 apart
+    too); raises AssertionError."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    errs = {"flash_decode": 0.0, "bf16": 0.0}
+    errs = {"flash_decode": 0.0, "bf16": 0.0, "hd112": 0.0,
+            "hd112_bf16": 0.0}
     b, ctx, hq, hkv, hd = D_SHAPE
     cases = [D_SHAPE + (D_POS, None), Q_DECODE + (D_POS, None),
              D_SHAPE + (0, None),
@@ -905,7 +951,9 @@ def decode_checks(torch, kfd):
              (4, 512, 16, 4, 128, 700, 128),
              (4, 256, 8, 8, 64, 200, None), (4, 256, 8, 2, 64, 200, None),
              (4, 256, 64, 8, 64, 255, 64), (3, 1000, 32, 8, 128, 999, None),
-             (3, 1000, 32, 8, 128, 5000, None)]
+             (3, 1000, 32, 8, 128, 5000, None),
+             D_ZAMBA + (D_POS, None), *D_SEAMS_112,
+             D_GRANITE + (D_POS, None), D_MUSICGEN + (D_POS, None)]
     for b, ctx, hq, hkv, hd, pos, window in cases:
         label = (f"flash_decode B={b} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} "
                  f"pos={pos} window={window}")
@@ -925,6 +973,9 @@ def decode_checks(torch, kfd):
                 raise AssertionError(f"{label} {dtype}: not bitwise "
                                      "reproducible")
             errs[key] = max(errs[key], err)
+            if hd == 112:
+                key112 = "hd112" if key == "flash_decode" else "hd112_bf16"
+                errs[key112] = max(errs[key112], err)
     return errs
 
 
@@ -967,22 +1018,151 @@ def decode_cell(torch, serve, kfd, arch):
             "argv": ["--arch", arch] + D_ARGV}
 
 
-def decode_contracts(torch, tm, get_arch, tree_map):
+def granite_decode_cell(torch, tm, get_arch, make_serve_step, kfd,
+                        tree_leaves):
+    """4d for granite-34b: its full width (d_model 6144, 48 query heads
+    of 128 over one KV head, the GELU MLP of 24576) with its depth cut to
+    ``G_LAYERS``, driven as ``launch.serve.main`` drives a model (which
+    takes no depth): ``init``, ``init_cache`` and ``make_serve_step``,
+    the prompt stepped through the decode path, then greedy decode, with
+    the flash decode count set to 0 just before and read just after.
+    Returns the report; raises AssertionError."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(G_ARCH), n_layers=G_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tm.init(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab, (D_BATCH, D_PROMPT), generator=gen,
+                           device="cuda")
+    serve = make_serve_step(cfg, tm.Runtime(attn_impl="pallas"))
+    cache = tm.init_cache(cfg, D_BATCH, D_CTX, device="cuda")
+    kfd.flash_decode.launches = 0
+    for t in range(D_PROMPT):
+        logits, cache = serve(params, cache, prompt[:, t:t + 1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(D_GEN):
+        nxt = torch.argmax(logits[..., :cfg.vocab], dim=-1)
+        logits, cache = serve(params, cache, nxt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = kfd.flash_decode.launches
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tps = D_GEN * D_BATCH / dt
+    want = G_LAYERS * (D_PROMPT + D_GEN)
+    log(f"[4d decode] {G_ARCH} at full width, depth cut from "
+        f"{get_arch(G_ARCH).n_layers} to {G_LAYERS} layers ({n_params} "
+        f"float32 parameters), batch {D_BATCH}, prompt {D_PROMPT}, "
+        f"{D_GEN} generated, ctx {D_CTX}: {tps:.1f} tokens/s = "
+        f"{1e3 * D_BATCH / tps:.2f} ms per decode step; prefill "
+        f"{t1 - t0:.2f} s with init; whole {wall:.2f} s; peak device "
+        f"memory {peak:.2f} GiB; flash_decode launches {launches} "
+        f"(expected {want})")
+    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError(f"4d {G_ARCH}: non-finite logits")
+    if launches != want:
+        raise AssertionError(f"4d {G_ARCH}: flash_decode launches "
+                             f"{launches}, expected {want}")
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": tps, "ms_per_step": 1e3 * D_BATCH / tps,
+            "wall_s": wall, "peak_gib": peak, "n_params": n_params,
+            "n_layers": G_LAYERS, "launches": {"flash_decode": launches}}
+
+
+def llava_prefill_cell(torch, ts, tm, get_arch, kfa, smi):
+    """Phase 4l: ``make_prefill_step`` on llava-next-mistral-7b at full
+    width and depth, one sequence of ``L_SEQ`` positions whose first
+    ``L_PREFIX`` are patch embeddings (``batch["prefix"]``), inside
+    ``torch.inference_mode()``, under ``attn_impl="pallas"`` (B4, one
+    launch a layer, counted from 0 just before) and ``"naive"``: the
+    log-softmax of the last ``L_LAST`` positions within 1e-4.  Returns the
+    report; raises AssertionError."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(L_ARCH)
+    params = tm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, L_SEQ), generator=gen,
+                                     device="cuda"),
+             "prefix": 0.02 * torch.randn((1, L_PREFIX, cfg.d_model),
+                                          generator=gen, device="cuda")}
+    report, lsm = {}, {}
+    for impl in ("pallas", "naive"):
+        prefill = ts.make_prefill_step(cfg, tm.Runtime(attn_impl=impl))
+        torch.cuda.reset_peak_memory_stats()
+        kfa.flash_attention_fwd.launches = 0
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            lsm[impl] = torch.log_softmax(
+                logits[:, -L_LAST:, :cfg.vocab].float(), -1)
+            finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        del logits
+        launches = kfa.flash_attention_fwd.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        report[impl] = {"ms": ms, "tokens_per_s": L_SEQ / ms * 1e3,
+                        "peak_gib": peak,
+                        "launches": {"flash_attention_fwd": launches}}
+        log(f"[4l prefill] make_prefill_step {L_ARCH} full, B 1, S "
+            f"{L_SEQ} with a {L_PREFIX}-patch prefix, attn_impl={impl}: "
+            f"{ms:.1f} ms = {L_SEQ / ms * 1e3:.0f} tokens/s (one call); "
+            f"peak device memory {peak:.2f} GiB; flash_attention_fwd "
+            f"launches {launches}; {smi}")
+        if not finite:
+            raise AssertionError(f"4l {impl}: non-finite logits")
+    err = float((lsm["pallas"] - lsm["naive"]).abs().max())
+    report["log_softmax_max_abs_err"] = err
+    log(f"[4l prefill] pallas vs naive: log-softmax of the last {L_LAST} "
+        f"positions max abs err {err:.3g} (tol 1e-4)")
+    want = {"pallas": cfg.n_layers, "naive": 0}
+    for impl, n in want.items():
+        got = report[impl]["launches"]["flash_attention_fwd"]
+        if got != n:
+            raise AssertionError(f"4l {impl}: B4 launches {got}, expected "
+                                 f"{n}")
+    if not err <= 1e-4:
+        raise AssertionError(f"4l: pallas vs naive log-softmax {err:.3g} "
+                             f"beyond 1e-4")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def decode_contracts(torch, tm, get_arch, tree_map, kfa):
     """Decode at the reduced configs (and mistral-nemo-12b with a window
-    of 8, a ring buffer) over 12 tokens of 2 sequences: the card against
-    the CPU path (1e-4 in log-softmax), and decode against the port's
-    full-sequence forward on the card (2e-3, the reference's bound).
+    of 8, a ring buffer; zamba2-7b also at head dim 112) over 12 tokens of
+    2 sequences: the card against the CPU path (1e-4 in log-softmax), and
+    decode against the port's full-sequence forward on the card (2e-3,
+    the reference's bound; at head dim 112, which B4 does not take, under
+    naive attention, after checking that B4's wrapper refuses it).
     Returns the max errors; raises AssertionError."""
     n, b = 12, 2
     errs = {}
-    for arch, window in (("mistral-nemo-12b", None), ("mistral-nemo-12b", 8),
-                         ("mamba2-2.7b", None)):
+    for arch, window, hd in (
+            ("mistral-nemo-12b", None, None), ("mistral-nemo-12b", 8, None),
+            ("mamba2-2.7b", None, None), ("granite-34b", None, None),
+            ("musicgen-large", None, None),
+            ("llava-next-mistral-7b", None, None),
+            ("zamba2-7b", None, None), ("zamba2-7b", None, 112)):
         cfg = get_arch(arch).reduced()
         if window is not None:
             cfg = dataclasses.replace(cfg, attn_window=window)
+        if hd is not None:
+            cfg = dataclasses.replace(cfg, head_dim=hd)
         params = tm.init(cfg, torch.Generator().manual_seed(0))
         card = tree_map(lambda t: t.cuda(), params)
-        toks = torch.randint(0, cfg.vocab, (b, n),
+        cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        toks = torch.randint(0, cfg.vocab, (b, n) + cb,
                              generator=torch.Generator().manual_seed(1))
         caches = [tm.init_cache(cfg, b, n),
                   tm.init_cache(cfg, b, n, device="cuda")]
@@ -996,11 +1176,23 @@ def decode_contracts(torch, tm, get_arch, tree_map):
             on_card.append(lg)
         lsm = lambda x: torch.log_softmax(  # noqa: E731
             torch.cat(x, 1)[..., :cfg.vocab].float().cpu(), -1)
-        full = tm.forward(cfg, tree_map(lambda t: t[None], card),
-                          toks.cuda()[None])[0]
+        stacked = tree_map(lambda t: t[None], card)
+        impl = "pallas"
+        if cfg.n_heads and cfg.hd() not in kfa.HEAD_DIMS:
+            try:
+                tm.forward(cfg, stacked, toks.cuda()[None])
+            except ValueError as exc:
+                log(f"[5d decode] {cfg.name} hd={cfg.hd()}: forward under "
+                    f"B4 refused as it must be: {exc}")
+            else:
+                raise AssertionError(f"5d {cfg.name}: B4 took head dim "
+                                     f"{cfg.hd()}")
+            impl = "naive"
+        full = tm.forward(cfg, stacked, toks.cuda()[None],
+                          rt=tm.Runtime(attn_impl=impl))[0]
         cpu_err = float((lsm(on_card) - lsm(on_cpu)).abs().max())
         fwd_err = float((lsm(on_card) - lsm([full])).abs().max())
-        label = f"{cfg.name} window={window}"
+        label = f"{cfg.name} window={window} hd={cfg.hd()}"
         log(f"[5d decode] {label}: {n} tokens card vs CPU path log-softmax "
             f"max abs err {cpu_err:.3g} (tol 1e-4); decode vs forward on the "
             f"card {fwd_err:.3g} (tol 2e-3)")
@@ -1035,7 +1227,10 @@ def decode_times(torch, kfd, F):
     ``scaled_dot_product_attention`` (a boolean mask of the visible
     slots, ``enable_gqa=True``, over the cache's (B, Hkv, ctx, hd) view)
     at the decode cell's shape at the path's last position (f32), at
-    qwen1.5-4b's (g = 1) there, and at one layer of a full 32k-token
+    qwen1.5-4b's (g = 1) there, at the new paths' (zamba2-7b's head dim
+    112 in f32 and bf16, granite-34b's g 48 over one KV head,
+    musicgen-large's 32 / 32 heads of 64; llava-next-mistral-7b's is the
+    decode cell's), and at one layer of a full 32k-token
     cache (bf16 and f32), beside the bound
     of :func:`decode_bound`.  Beside the
     CUDA-event time (the wrapper's host work included): the card's own
@@ -1046,6 +1241,10 @@ def decode_times(torch, kfd, F):
     for key, shape, pos, dtype in (
             ("path", D_SHAPE, D_POS, torch.float32),
             ("qwen_path", Q_DECODE, D_POS, torch.float32),
+            ("zamba2_path", D_ZAMBA, D_POS, torch.float32),
+            ("zamba2_bf16", D_ZAMBA, D_POS, torch.bfloat16),
+            ("granite_path", D_GRANITE, D_POS, torch.float32),
+            ("musicgen_path", D_MUSICGEN, D_POS, torch.float32),
             ("32k_bf16", D_LONG, D_LONG[1] - 1, torch.bfloat16),
             ("32k_f32", D_LONG, D_LONG[1] - 1, torch.float32)):
         b, ctx, hq, hkv, hd = shape
@@ -1089,7 +1288,7 @@ def decode_profile(torch, tm, get_arch, make_serve_step):
     is bound by the host's launch rate."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for arch in D_ARCHS:
+    for arch in D_PROFILED:
         gc.collect()
         torch.cuda.empty_cache()
         cfg = get_arch(arch)
@@ -2864,6 +3063,62 @@ def train_contracts(torch, np, ts, tm, optim, get_arch, tree_map,
     return report
 
 
+def family_train_contracts(torch, np, ts, tm, optim, get_arch, tree_map,
+                           counted):
+    """Phase 5j: reduced musicgen-large (4 codebooks) and reduced
+    zamba2-7b (two SSM segments, each followed by the shared block)
+    through 3 momentum steps of ``make_train_step`` (naive attention, as
+    ``launch.train``) on the card and on the port's CPU path, from the
+    same seed-0 weights and batch (K 2 x slot 2 x 16 tokens, B_k = (1,
+    2)): losses within 1e-4; zamba2's SSD forward and backward (B3, B3′)
+    launched once a layer a step on the card.  Returns the report; raises
+    AssertionError."""
+    report = {}
+    for arch in ("musicgen-large", "zamba2-7b"):
+        cfg = get_arch(arch).reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = tm.init(cfg, gen)
+        cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        toks = torch.randint(0, cfg.vocab, (4, 17) + cb, generator=gen,
+                             dtype=torch.int32)
+        w = torch.tensor([1.0, 0.0, 1.0, 1.0])[:, None].expand(4, 16)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "weights": w.contiguous()}
+        losses = {}
+        for device in ("cuda", "cpu"):
+            move = lambda t: t.to(device, copy=True)  # noqa: E731
+            p = tree_map(move, params)
+            opt = optim.momentum(0.9)
+            step = ts.make_train_step(cfg, tm.Runtime(attn_impl="naive"),
+                                      opt)
+            state = ts.TrainState(p, opt.init(p), 0)
+            dev_batch = tree_map(move, batch)
+            before = {name: fn.launches for name, fn in counted.items()}
+            out = []
+            for lr in Q_LRS:
+                state, m = step(state, dev_batch, lr)
+                out.append(float(m["loss"]))
+            losses[device] = np.array(out)
+            if device == "cuda":
+                launches = {name: fn.launches - before[name]
+                            for name, fn in counted.items()}
+        err = float(np.abs(losses["cuda"] - losses["cpu"]).max())
+        ssm_layers = cfg.n_layers if cfg.ssm is not None else 0
+        want = {name: ssm_layers * len(Q_LRS) for name in counted}
+        log(f"[5j card vs cpu] {cfg.name} momentum, 3 steps: losses "
+            f"{losses['cuda'].tolist()} vs {losses['cpu'].tolist()} (max abs "
+            f"err {err:.3g}, tol 1e-4); launches on the card {launches} "
+            f"(expected {want})")
+        if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
+                           atol=1e-4):
+            raise AssertionError(f"5j {cfg.name}: losses {losses}")
+        if launches != want:
+            raise AssertionError(f"5j {cfg.name}: launches {launches}, "
+                                 f"expected {want}")
+        report[cfg.name] = {"loss_max_abs_err": err, "launches": launches}
+    return report
+
+
 def _leaf_names(params, path=""):
     """Dotted leaf names in tree order (``layers.attn.bq``)."""
     if isinstance(params, dict):
@@ -3117,9 +3372,12 @@ def main(argv=None) -> int:
         f"pos {D_POS}, 0 and {D_CTX - 1}, the runs' seams {D_SEAMS} "
         f"(B, ctx, Hq, Hkv, hd, pos, window), ring buffers (pos 100 and 1000 "
         f"in 256 slots, pos 700 with window 128), hd 64 at g 1, 4 and 8, ctx "
-        f"1000 (pos 999 and 5000): max abs err {dec_errs['flash_decode']:.3g} "
-        f"(tol 2e-5), bf16 {dec_errs['bf16']:.3g} (tol 2e-2); every case run "
-        f"twice bitwise equal")
+        f"1000 (pos 999 and 5000), hd 112 at {D_ZAMBA} and its seams "
+        f"{D_SEAMS_112}, g 48 at {D_GRANITE}, hd 64 MHA at {D_MUSICGEN}: max "
+        f"abs err {dec_errs['flash_decode']:.3g} (tol 2e-5; hd 112 "
+        f"{dec_errs['hd112']:.3g}), bf16 {dec_errs['bf16']:.3g} (tol 2e-2; "
+        f"hd 112 {dec_errs['hd112_bf16']:.3g}); every case run twice bitwise "
+        f"equal")
     report["decode_errors"] = dec_errs
 
     # ---- 4. the main path at full width ------------------------------------
@@ -3224,8 +3482,21 @@ def main(argv=None) -> int:
             report[f"decode_{arch}"] = decode_cell(torch, serve, kfd, arch)
         except (AssertionError, FloatingPointError) as exc:
             return fail(f"phase 4d: {exc}")
+    try:
+        report[f"decode_{G_ARCH}"] = granite_decode_cell(
+            torch, tm, get_arch, make_serve_step, kfd, tree_leaves)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
     d_launches = {arch: report[f"decode_{arch}"]["launches"]["flash_decode"]
-                  for arch in D_ARCHS}
+                  for arch in D_ARCHS + (G_ARCH,)}
+
+    # ---- 4l. llava's prefill with its image prefix -------------------------
+    try:
+        report["prefill_llava"] = llava_prefill_cell(torch, ts, tm, get_arch,
+                                                     kfa, smi)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    l_launches = report["prefill_llava"]["pallas"]["launches"]
 
     # ---- 4e. the grid through the executors at full width -----------------
     try:
@@ -3369,7 +3640,7 @@ def main(argv=None) -> int:
     # ---- 5d. decode: card vs CPU, decode vs forward ------------------------
     try:
         report["decode_contracts"] = decode_contracts(torch, tm, get_arch,
-                                                      tree_map)
+                                                      tree_map, kfa)
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
@@ -3421,6 +3692,15 @@ def main(argv=None) -> int:
         report["checkpoint"] = checkpoint_contract(
             torch, ts, tm, optim, get_arch, tree_leaves, tree_map,
             checkpoint)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+
+    # ---- 5j. the audio and hybrid train steps: card vs CPU -----------------
+    try:
+        report["family_train_contracts"] = family_train_contracts(
+            torch, np, ts, tm, optim, get_arch, tree_map,
+            {"ssd_scan_fwd": kssd.ssd_scan_fwd,
+             "ssd_scan_bwd": kssd.ssd_scan_bwd})
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
@@ -3540,7 +3820,10 @@ def main(argv=None) -> int:
                                  "service card vs CPU, 5h":
                                      h5_launches[name],
                                  f"{Q_ARCH} make_train_step pallas, "
-                                 f"{1 + Q_TIMED} steps, 4k": k_attn[name]},
+                                 f"{1 + Q_TIMED} steps, 4k": k_attn[name],
+                                 **({f"{L_ARCH} prefill, 4l":
+                                     l_launches[name]}
+                                    if name in l_launches else {})},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3630,9 +3913,12 @@ def main(argv=None) -> int:
         "device_span_ms": path["device_span_ms"],
         "kernels_per_call": path["kernels_per_call"],
         "resources": path["resources"],
-        "at_qwen": {f: dt["qwen_path"][f] for f in (
-            "shape", "pos", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
+        **{f"at_{key[:-len('_path')] if key.endswith('_path') else key}":
+           {f: dt[key][f] for f in ("shape", "pos", "dtype", "ms",
+                                    "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}
+           for key in ("qwen_path", "zamba2_path", "zamba2_bf16",
+                       "granite_path", "musicgen_path")},
         "at_32k": {k: {f: dt[k][f] for f in ("shape", "pos", "dtype", "ms",
                                              "device_ms", "device_span_ms",
                                              "kernels_per_call", "plain_ms",
@@ -3659,6 +3945,20 @@ def main(argv=None) -> int:
             f"{r['ctas_per_sm']} CTAs resident an SM; {r['splits']} runs a "
             f"(sequence, KV head)")
     report["decode_times"] = dt
+    # every instance the build made: 2 types x 3 head dims x 4 row counts
+    fd_build = {name: r for name, r in build.ptxas_report(
+        libs["flash_decode"].log).items() if "decode_kernel" in name}
+    for name, r in sorted(fd_build.items()):
+        log(f"[6 resources] flash_decode build {name}: {r['registers']} "
+            f"registers, {r['spill_stores']} bytes of spill stores and "
+            f"{r['spill_loads']} of spill loads")
+    report["decode_build_resources"] = fd_build
+    if len(fd_build) != 24 or any(
+            r["spill_stores"] or r["spill_loads"] for r in fd_build.values()):
+        return fail(f"phase 6: {len(fd_build)} flash_decode instances built "
+                    f"(24 expected), or one spills")
+    if any(t["resources"]["local_bytes"] for t in dt.values()):
+        return fail("phase 6: a flash_decode instance spills")
     if any(t["kernels_per_call"] != 1 for t in dt.values()):
         return fail("phase 6: a flash_decode call put "
                     + ", ".join(f"{t['kernels_per_call']:g}"

@@ -7,18 +7,20 @@ asking for one raises ``NotImplementedError``; an unknown name raises
 ``KeyError``.  ``configs/feel_mlp.py`` holds the paper's classifier's
 constants, not an ``ArchConfig``.
 """
-from repro_torch.configs import mamba2_2p7b, mistral_nemo_12b, qwen1p5_4b
+from repro_torch.configs import (granite_34b, llava_next_mistral_7b,
+                                 mamba2_2p7b, mistral_nemo_12b,
+                                 musicgen_large, qwen1p5_4b, zamba2_7b)
 from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
                                       SSMConfig, get_shape)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (mistral_nemo_12b, mamba2_2p7b, qwen1p5_4b)}
+         for m in (granite_34b, mistral_nemo_12b, musicgen_large, zamba2_7b,
+                   mamba2_2p7b, qwen1p5_4b, llava_next_mistral_7b)}
 
 # the reference's architectures that select parts the port does not run
-# yet (MoE, MLA, hybrid, audio, VLM, the GELU FFN, the MLP)
-NOT_PORTED = ("granite-34b", "deepseek-v2-lite-16b", "musicgen-large",
-              "zamba2-7b", "arctic-480b", "llava-next-mistral-7b",
-              "minicpm3-4b", "feel-mlp")
+# yet (MoE, MLA; feel-mlp is the paper's classifier, not a decoder)
+NOT_PORTED = ("deepseek-v2-lite-16b", "arctic-480b", "minicpm3-4b",
+              "feel-mlp")
 
 
 def get_arch(name: str) -> ArchConfig:

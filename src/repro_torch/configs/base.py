@@ -4,10 +4,12 @@ An :class:`ArchConfig` is a frozen description of one decoder model; the
 big-model FEEL families derive theirs from a spec's ``(hidden, depth)``
 (``fed.model_engine.family_arch``).  The fields are the reference's, so
 a config written for it reads the same.  ``models.model.init`` and
-``forward`` run the ``dense`` family and the ``ssm`` family (an
-:class:`SSMConfig` with ``attn_kind="none"``), and refuse the values that
-select parts not ported (MoE, MLA, hybrid, codebooks, VLM prefix, the
-GELU FFN, another ``norm_eps``, an SSM on a dense model).
+``forward`` run the ``dense`` family (SwiGLU or the 2-matrix GELU
+``ffn_kind="mlp"``), ``vlm`` (a ``vlm_prefix``), ``audio``
+(``n_codebooks``), ``ssm`` (an :class:`SSMConfig` with
+``attn_kind="none"``) and ``hybrid`` (an SSM and ``hybrid_every``), and
+refuse the values that select parts not ported (MoE, MLA, another
+``norm_eps``, a field of one family on another).
 :meth:`ArchConfig.reduced` is the reference's CPU-smoke variant of the
 same family (2 layers, d_model 256), for tests.  A :class:`ShapeConfig`
 is one (sequence length, global batch, mode) input shape of the
@@ -64,12 +66,20 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Exact parameter count of the model the port instantiates: the
-        sizes of its init's leaves (the reference counts the same shapes
-        through ``jax.eval_shape``)."""
+        sizes of its init's leaves, drawn on the ``meta`` device, so no
+        memory is allocated (the reference counts the same shapes through
+        ``jax.eval_shape``)."""
         import torch
         from repro_torch.models.model import init
         from repro_torch.tree import tree_leaves
-        params = init(self, torch.Generator())
+
+        class MetaGenerator(torch.Generator):
+            """A CPU generator whose draws land on the meta device."""
+            @property
+            def device(self):
+                return torch.device("meta")
+
+        params = init(self, MetaGenerator())
         return sum(t.numel() for t in tree_leaves(params))
 
     def reduced(self) -> "ArchConfig":

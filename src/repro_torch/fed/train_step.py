@@ -49,11 +49,15 @@ def zero_residual(params):
 
 def weighted_ce(cfg: ArchConfig, logits, labels, weights):
     """Weighted next-token CE per copy: logits (N, B, S, V), labels and
-    weights (N, B, S) → (N,).  eq. (1): Σ_k B_k·ḡ_k / Σ B_k equals
-    Σ_i w_i·g_i / Σ w_i.  The denominator is ``max(Σw, 1e-6)``, so a
-    device with all-zero weights has loss 0 and an exact zero gradient."""
+    weights (N, B, S) → (N,); audio's logits (N, B, S, n_cb, V) and
+    labels (N, B, S, n_cb) sum the codebooks' losses at each position.
+    eq. (1): Σ_k B_k·ḡ_k / Σ B_k equals Σ_i w_i·g_i / Σ w_i.  The
+    denominator is ``max(Σw, 1e-6)``, so a device with all-zero weights
+    has loss 0 and an exact zero gradient."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if cfg.n_codebooks > 1:
+        nll = nll.sum(-1)                       # sum codebook losses
     dims = tuple(range(1, nll.dim()))
     denom = torch.clamp(weights.sum(dims), min=1e-6)
     return (nll * weights).sum(dims) / denom
@@ -61,7 +65,8 @@ def weighted_ce(cfg: ArchConfig, logits, labels, weights):
 
 def make_loss_fn(cfg: ArchConfig, rt: Runtime):
     def loss_fn(params, batch):
-        logits = forward(cfg, params, batch["tokens"], rt=rt)
+        logits = forward(cfg, params, batch["tokens"],
+                         prefix_embeds=batch.get("prefix"), rt=rt)
         return weighted_ce(cfg, logits, batch["labels"], batch["weights"])
 
     return loss_fn
@@ -195,7 +200,9 @@ def make_multi_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
 
 def make_prefill_step(cfg: ArchConfig, rt: Runtime):
     def prefill(params, batch):
+        prefix = batch.get("prefix")
         return forward(cfg, _one_copy(params), batch["tokens"][None],
+                       prefix_embeds=None if prefix is None else prefix[None],
                        rt=rt)[0]
 
     return prefill
@@ -217,21 +224,30 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
     """Abstract inputs of every model input of the given (arch, shape), as
     tensors on the ``meta`` device with the reference's shapes and dtypes.
 
-    Train/prefill: the token batch (+ labels and weights for train).
-    Decode: one new token per sequence + the KV/SSM cache, allocated at
-    ``min(seq_len, window)`` context under a sliding window (the
+    Train/prefill: the token batch, (B, S) or (B, S, n_cb) for audio (+
+    labels alike and weights (B, S) for train, and the VLM's prefix
+    embeddings (B, min(vlm_prefix, S // 2), d)).  Decode: one new token
+    per sequence, (B, 1) or (B, 1, n_cb), + the KV/SSM cache, allocated
+    at ``min(seq_len, window)`` context under a sliding window (the
     documented ``init_cache`` contract: decode only ever addresses
     ``window`` ring-buffer slots)."""
     B, S = shape.global_batch, shape.seq_len
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     meta = dict(device="meta")
     if shape.mode in ("train", "prefill"):
-        batch = {"tokens": torch.empty((B, S), dtype=torch.int32, **meta)}
+        batch = {"tokens": torch.empty((B, S) + cb, dtype=torch.int32,
+                                       **meta)}
+        if cfg.vlm_prefix:
+            P = min(cfg.vlm_prefix, S // 2)
+            batch["prefix"] = torch.empty((B, P, cfg.d_model),
+                                          dtype=torch.float32, **meta)
         if shape.mode == "train":
-            batch["labels"] = torch.empty((B, S), dtype=torch.int32, **meta)
+            batch["labels"] = torch.empty((B, S) + cb, dtype=torch.int32,
+                                          **meta)
             batch["weights"] = torch.empty((B, S), dtype=torch.float32,
                                            **meta)
         return batch
     win = rt.win(cfg)
     ctx = min(S, win) if win else S
     return {"cache": init_cache(cfg, B, ctx, rt, device="meta"),
-            "tokens": torch.empty((B, 1), dtype=torch.int32, **meta)}
+            "tokens": torch.empty((B, 1) + cb, dtype=torch.int32, **meta)}

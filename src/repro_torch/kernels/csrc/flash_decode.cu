@@ -38,8 +38,20 @@
 // passes over the run) and runs their online softmax with one slot per
 // lane: the dot products over HD (each K chunk read once for the R rows,
 // four partial sums), the row max and sum by warp shuffles, and P.V with
-// each lane holding HD/32 consecutive columns (each V chunk read once for
+// each lane holding PER consecutive columns (each V chunk read once for
 // the R rows).
+// Head dims.  HD is 64, 112 or 128.  Where 32 divides HD a lane holds
+// PER = HD / 32 columns; at HD 112 (3.5 columns a lane) it holds 4, so
+// 28 lanes cover the row and lanes 28-31 read lane 27's columns (a
+// shared-memory broadcast) and write nothing: the accumulators, partials
+// and output stay 16-byte aligned, and no lane owns half a vector.  The
+// tiles' copies are 16 bytes each, HD * sizeof(T) / 16 a row (28 in f32,
+// 14 in bf16 at HD 112, which 128 threads do not divide): JSTEP rows are
+// copied at a time, JSTEP the largest power of two whose rows the 128
+// threads cover (4 in f32, 8 in bf16), and the threads past JSTEP rows'
+// copies (16 of them) copy nothing, so each thread's addresses are still
+// set once.  The cache is read in place in its own (B, ctx, Hkv, HD)
+// layout; nothing is padded.
 // The merge, in the same launch: each CTA writes its run's (acc, m, l) per
 // row to a buffer the wrapper keeps (it stays in L2), then adds one to its
 // (sequence, KV head)'s arrival count, an integer atomic with release and
@@ -203,6 +215,19 @@ __device__ __forceinline__ bool visible(const Shape& sh, int pos, int slot) {
 // m and l, padded to HD + 4 floats so that rows stay 16-byte aligned.
 template <int HD>
 __host__ __device__ constexpr int part_row() { return HD + 4; }
+
+// The largest power of two <= n (n >= 1).
+__host__ __device__ constexpr int pow2_floor(int n) {
+  return n < 2 ? 1 : 2 * pow2_floor(n / 2);
+}
+
+// Columns a lane owns in P.V and the merge: HD / 32 where 32 divides HD,
+// else 4 (HD 112: 28 lanes of 4 columns); kLanes lanes hold the row.
+template <int HD> struct Cols {
+  static constexpr int kPer = HD % 32 == 0 ? HD / 32 : 4;
+  static constexpr int kLanes = HD / kPer;
+  static_assert(HD % kPer == 0 && kLanes <= 32 && HD % 8 == 0, "head dim");
+};
 template <int HD>
 __device__ __forceinline__ size_t part_off(const Shape& sh, int b, int h,
                                            int s) {
@@ -246,7 +271,8 @@ __device__ __forceinline__ int arrive(int* count) {
 
 // The last CTA of (sequence b, KV head hk): every run's partials of the g
 // rows merged in run order, o written in q's type.  Each warp takes rows
-// warp, warp + 4, ...; each lane HD/32 columns, and every lane reads the
+// warp, warp + 4, ...; each lane PER columns (lanes past the row's kLanes
+// repeat the last lane's and write nothing), and every lane reads the
 // runs' (m, l) itself.  A row's first eight runs (m, l and columns) are
 // requested together, so the merge waits for one round trip to L2 at up to
 // eight runs.  No warp shuffle: the code stays free of collectives under
@@ -254,9 +280,11 @@ __device__ __forceinline__ int arrive(int* count) {
 template <typename T, int HD>
 __device__ void merge_runs(const float* part, T* o, const Shape& sh, int b,
                            int hk) {
-  constexpr int PER = HD / 32, BATCH = 8, ROW = part_row<HD>();
+  constexpr int PER = Cols<HD>::kPer, LANES = Cols<HD>::kLanes;
+  constexpr int BATCH = 8, ROW = part_row<HD>();
   const int g = sh.Hq / sh.Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = (LANES == 32 ? lane : min(lane, LANES - 1)) * PER;
   for (int r = warp; r < g; r += kWarps) {
     const int h = hk * g + r;
     const float* base = part + part_off<HD>(sh, b, h, 0);
@@ -270,7 +298,7 @@ __device__ void merge_runs(const float* part, T* o, const Shape& sh, int b,
       if (u < sh.splits) {
         mb[u] = __ldcg(base + u * ROW + HD);
         lb[u] = __ldcg(base + u * ROW + HD + 1);
-        ldcg_n<PER>(base + u * ROW + lane * PER, a[u]);
+        ldcg_n<PER>(base + u * ROW + col, a[u]);
       }
     }
     float mx = kNegInf;
@@ -295,14 +323,16 @@ __device__ void merge_runs(const float* part, T* o, const Shape& sh, int b,
       const float w = expf(__ldcg(run + HD) - mx);
       den += __ldcg(run + HD + 1) * w;
       float as[PER];
-      ldcg_n<PER>(run + lane * PER, as);
+      ldcg_n<PER>(run + col, as);
 #pragma unroll
       for (int c = 0; c < PER; ++c) acc[c] = fmaf(as[c], w, acc[c]);
     }
     den = fmaxf(den, 1e-30f);
-    T* dst = o + (static_cast<size_t>(b) * sh.Hq + h) * HD + lane * PER;
+    T* dst = o + (static_cast<size_t>(b) * sh.Hq + h) * HD + col;
+    if (lane < LANES) {
 #pragma unroll
-    for (int c = 0; c < PER; ++c) dst[c] = from_f32<T>(acc[c] / den);
+      for (int c = 0; c < PER; ++c) dst[c] = from_f32<T>(acc[c] / den);
+    }
   }
 }
 
@@ -311,21 +341,26 @@ __device__ void merge_runs(const float* part, T* o, const Shape& sh, int b,
 // ---------------------------------------------------------------------------
 
 // The CTAs an SM must hold, for the register budget: as many as the shared
-// memory lets in at R <= 2 (6 in bf16: at most 80 registers); 1 at R >= 4,
-// whose rows need the registers (the compiler spills below ~170).
-template <typename T, int R> struct MinResident {
-  static constexpr int value = R <= 2 ? Elem<T>::kResident : 1;
+// memory lets in at R <= 2 (6 in bf16: at most 80 registers), but 2 for f32
+// at HD 112, which spills 8-60 bytes at 3 CTAs (168 registers) and needs
+// 182-186; 1 at R >= 4, whose rows need the registers (the compiler spills
+// below ~170).
+template <typename T, int HD, int R> struct MinResident {
+  static constexpr int value =
+      R >= 4 ? 1 : (sizeof(T) == 4 && HD == 112 ? 2 : Elem<T>::kResident);
 };
 
 template <typename T, int HD, int R>
-__global__ void __launch_bounds__(kThreads, MinResident<T, R>::value)
+__global__ void __launch_bounds__(kThreads, MinResident<T, HD, R>::value)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ pos_ptr,
               float* __restrict__ part, int* __restrict__ arrivals,
               T* __restrict__ o, Shape sh) {
   constexpr int VEC = Elem<T>::kVec, LDK = HD + Elem<T>::kPad;
-  constexpr int PER = HD / 32, CHUNKS = HD / VEC, ROWS = R * kWarps;
-  constexpr int D_UNROLL = R >= 4 ? 2 : 4;   // K chunks in flight a lane
+  constexpr int PER = Cols<HD>::kPer, LANES = Cols<HD>::kLanes;
+  constexpr int CHUNKS = HD / VEC, ROWS = R * kWarps;
+  // K chunks in flight a lane: a divisor of the HD / 8 steps
+  constexpr int D_UNROLL = R >= 4 || (HD / 8) % 4 ? 2 : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);            // [2][kTile][LDK]
   T* vs = ks + 2 * kTile * LDK;                      // [2][kTile][HD]
@@ -333,6 +368,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int g = sh.Hq / sh.Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = (LANES == 32 ? lane : min(lane, LANES - 1)) * PER;
   const int pos = *pos_ptr;
   const int n_valid = visible_slots(sh, pos);
   const int n_tiles = (n_valid + kTile - 1) / kTile;
@@ -344,17 +380,20 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + static_cast<size_t>(b) * sh.ctx * kv_row + hk * HD;
 
   // start the copies of tile t into buffer buf (rows past the visible
-  // slots are zero-filled): thread x copies column chunk x % CHUNKS of rows
-  // x / CHUNKS + i * JSTEP, so its addresses are set once, and a tile only
-  // adds its offset
-  constexpr int JSTEP = kThreads / CHUNKS;
-  static_assert(kThreads % CHUNKS == 0 && kTile % JSTEP == 0, "copies");
+  // slots are zero-filled): thread x < COPIERS copies column chunk
+  // x % CHUNKS of rows x / CHUNKS + i * JSTEP, so its addresses are set
+  // once, and a tile only adds its offset (see the header for HD 112)
+  constexpr int JSTEP = pow2_floor(kThreads / CHUNKS);
+  constexpr int COPIERS = JSTEP * CHUNKS;
+  static_assert(kTile % JSTEP == 0, "copies");
+  const bool copier = COPIERS == kThreads || threadIdx.x < COPIERS;
   const int j0 = threadIdx.x / CHUNKS, c0 = (threadIdx.x % CHUNKS) * VEC;
   const T* kg = kb + j0 * kv_row + c0;
   const T* vg = vb + j0 * kv_row + c0;
   T* kd = ks + j0 * LDK + c0;
   T* vd = vs + j0 * HD + c0;
   auto load_tile = [&](int t, int buf) {
+    if (!copier) return;
     const int s0 = t * kTile;
     const size_t at = static_cast<size_t>(s0) * kv_row;
 #pragma unroll
@@ -437,8 +476,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < PER; ++c) acc[i][c] *= corr;
       }
-      // P.V: lane holds columns lane*PER .. lane*PER + PER - 1
-      const T* vt = vs + buf * kTile * HD + lane * PER;
+      // P.V: lane holds columns col .. col + PER - 1
+      const T* vt = vs + buf * kTile * HD + col;
 #pragma unroll 8
       for (int j = 0; j < n; ++j) {
         float vj[PER];
@@ -457,8 +496,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = warp + i * kWarps;
       if (row < rows) {
         float* dst = part + part_off<HD>(sh, b, hk * g + r0 + row, split);
+        if (lane < LANES) {
 #pragma unroll
-        for (int c = 0; c < PER; ++c) dst[lane * PER + c] = acc[i][c];
+          for (int c = 0; c < PER; ++c) dst[col + c] = acc[i][c];
+        }
         if (lane == 0) {
           dst[HD] = m[i];
           dst[HD + 1] = l[i];
@@ -581,9 +622,11 @@ int by_shape(const Shape& sh, int hd, int bf16, const Op& op) {
   const int g = sh.Hq / sh.Hkv;
   if (bf16) {
     if (hd == 64) return by_rows<__nv_bfloat16, 64>(g, op);
+    if (hd == 112) return by_rows<__nv_bfloat16, 112>(g, op);
     if (hd == 128) return by_rows<__nv_bfloat16, 128>(g, op);
   } else {
     if (hd == 64) return by_rows<float, 64>(g, op);
+    if (hd == 112) return by_rows<float, 112>(g, op);
     if (hd == 128) return by_rows<float, 128>(g, op);
   }
   return kBadShape;
@@ -618,8 +661,9 @@ extern "C" {
 // device; part: the runs' partials, B * Hq * 32 * (hd + 4) floats, and
 // arrivals: B * Hkv int32 counts, 0 before the first call (each call leaves
 // them at 0), both kept by the caller from call to call on one stream.
-// bf16 != 0: q, k, v, o are bf16, else f32.  hd in {64, 128}; window <= 0:
-// none.  Returns a cudaError_t, or -1 for a shape the kernel does not take.
+// bf16 != 0: q, k, v, o are bf16, else f32.  hd in {64, 112, 128}; window
+// <= 0: none.  Returns a cudaError_t, or -1 for a shape the kernel does not
+// take.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* pos, float* part, int* arrivals, void* o,
                         int B, int ctx, int Hq, int Hkv, int hd, int window,

@@ -20,7 +20,9 @@ runs over CTAs, the last CTA of each (sequence, KV head) merging the
 runs) and adds one to its ``launches`` count; on a CPU tensor it runs
 :func:`flash_decode_plain`.  There is no fallback: a CUDA tensor either
 launches the kernel or raises.  It takes float32 or bfloat16 (q, k, v in
-one type; accumulation in float32) and head dims 64 and 128.  A call
+one type; accumulation in float32) and head dims 64, 112 (zamba2-7b's
+shared block: 28 lanes of 4 columns, the cache read in place, unpadded)
+and 128.  A call
 allocates only its output: the runs' partials and the arrival counts
 live in a buffer kept per device and stream, allocated on first use.
 """
@@ -35,7 +37,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 MAX_SPLITS = 32           # runs the kernel cuts a (sequence, head) into
 
 # (device index, stream) -> (partials, arrival counts): kept between calls

@@ -7,7 +7,8 @@ FEEL experiment service.  It builds ``--arch`` (``configs.get_arch``;
 draws random weights and a random prompt from ``--seed``, prefills by
 stepping the decode path over the prompt (as the reference does), then
 decodes ``--gen`` tokens greedily, and returns the decode rate in
-tokens/s.
+tokens/s.  An audio model's prompt and tokens carry one id a codebook,
+(B, 1, n_cb) a step.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --full \\
         --batch 8 --prompt-len 128 --gen 64 --ctx 2048
@@ -61,8 +62,10 @@ def main(argv=None):
     rt = Runtime(attn_impl="pallas")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init(cfg, gen)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=gen, device=device)
+    shape = (args.batch, args.prompt_len) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    prompt = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=device)
 
     serve = make_serve_step(cfg, rt)
     cache = init_cache(cfg, args.batch, args.ctx, rt, device=device)
@@ -78,7 +81,8 @@ def main(argv=None):
     toks = []
     t0 = time.perf_counter()
     for _ in range(args.gen):
-        nxt = torch.argmax(logits[..., :cfg.vocab], dim=-1)     # (B, 1)
+        # (B, 1), or (B, 1, n_cb): one greedy token a codebook
+        nxt = torch.argmax(logits[..., :cfg.vocab], dim=-1)
         logits, cache = serve(params, cache, nxt)
         toks.append(nxt)
     _sync(device)

@@ -116,9 +116,14 @@ def main(argv=None):
         idx = rng.integers(0, len(data.tokens),
                            size=args.devices * args.slot)
         toks = data.tokens[idx]
+        if cfg.n_codebooks > 1:     # the same ids in every codebook
+            t_in = np.repeat(toks[:, :-1, None], cfg.n_codebooks, axis=2)
+            t_lab = np.repeat(toks[:, 1:, None], cfg.n_codebooks, axis=2)
+        else:
+            t_in, t_lab = toks[:, :-1], toks[:, 1:]
         batch = {
-            "tokens": torch.from_numpy(toks[:, :-1]).to(device),
-            "labels": torch.from_numpy(toks[:, 1:] % cfg.vocab).to(device),
+            "tokens": torch.from_numpy(t_in).to(device),
+            "labels": torch.from_numpy(t_lab % cfg.vocab).to(device),
             "weights": torch.from_numpy(w.reshape(-1)).to(device)[:, None]
             .expand(args.devices * args.slot, args.seq).contiguous(),
         }

@@ -1,5 +1,5 @@
 """Shared model layers (port of the reference's ``models/layers.py``):
-init helpers, RMSNorm, RoPE, embeddings, the SwiGLU FFN.
+init helpers, RMSNorm, RoPE, embeddings, the SwiGLU and GELU FFNs.
 
 Parameters are nested dicts of tensors.  Every apply function takes a
 *stack* of N parameter sets — each leaf with a leading copy axis — and
@@ -64,15 +64,21 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
     return {"table": table.to(dtype)}
 
 
+FFN_KINDS = ("swiglu", "mlp")
+
+
 def ffn_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
              kind: str = "swiglu"):
-    """SwiGLU weights, drawn gate, up, down."""
-    if kind != "swiglu":
+    """SwiGLU weights, drawn gate, up, down; or, for ``kind="mlp"`` (the
+    GPT-BigCode 2-matrix GELU MLP), up and down alone, as the reference's
+    init draws no gate for it."""
+    if kind not in FFN_KINDS:
         raise NotImplementedError(f"ffn kind {kind!r} is not ported yet; "
-                                  "the port runs SwiGLU")
-    return {"w_gate": dense_init(gen, d, d_ff, dtype),
-            "w_up": dense_init(gen, d, d_ff, dtype),
-            "w_down": dense_init(gen, d_ff, d, dtype)}
+                                  f"the port runs {FFN_KINDS}")
+    p = {"w_gate": dense_init(gen, d, d_ff, dtype)} if kind == "swiglu" else {}
+    p["w_up"] = dense_init(gen, d, d_ff, dtype)
+    p["w_down"] = dense_init(gen, d_ff, d, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +122,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def ffn(params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) ∘ x W_up) W_down`` per copy."""
-    g = F.silu(linear(x, params["w_gate"]))
-    return linear(g * linear(x, params["w_up"]), params["w_down"])
+    """SwiGLU, ``(silu(x W_gate) ∘ x W_up) W_down``, where the parameters
+    hold a gate; else the GELU MLP, ``gelu(x W_up) W_down``, with the
+    reference's ``jax.nn.gelu``: its tanh approximation, not the erf."""
+    if "w_gate" in params:
+        g = F.silu(linear(x, params["w_gate"]))
+        return linear(g * linear(x, params["w_up"]), params["w_down"])
+    h = F.gelu(linear(x, params["w_up"]), approximate="tanh")
+    return linear(h, params["w_down"])

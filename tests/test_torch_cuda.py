@@ -770,7 +770,17 @@ DECODE_CASES = [  # (B, ctx, Hq, Hkv, hd, pos, window)
     (8, 2048, 32, 8, 128, 100, None),
     (2, 256, 8, 2, 64, 40, 256),          # a ring not yet wrapped
     (2, 40, 8, 2, 64, 39, None),          # two tiles, the second ragged
-    (1, 32768, 32, 8, 128, 32767, None)]  # a 32k cache: many tiles a run
+    (1, 32768, 32, 8, 128, 32767, None),  # a 32k cache: many tiles a run
+    # head dim 112 (zamba2-7b's shared block: 28 lanes of 4 columns) at
+    # its decode shape, the runs' seams, a ring buffer and a ragged ctx
+    (8, 2048, 32, 32, 112, 191, None),
+    (8, 2048, 32, 32, 112, 31, None),
+    (8, 2048, 32, 32, 112, 32, None),
+    (8, 2048, 32, 32, 112, 33, None),
+    (2, 128, 8, 2, 112, 1000, 128),
+    (3, 100, 8, 2, 112, 99, None),
+    (8, 2048, 48, 1, 128, 191, None),     # granite-34b's MQA: g 48
+    (8, 2048, 32, 32, 64, 191, None)]     # musicgen-large's MHA at hd 64
 
 
 def _decode_inputs(cuda, b, ctx, hq, hkv, hd, dtype=torch.float32):
@@ -817,13 +827,15 @@ def test_flash_decode_puts_one_kernel_on_the_card_and_no_workspace(cuda):
 @pytest.mark.parametrize("hd,dtype", [(128, torch.float32),
                                       (128, torch.bfloat16),
                                       (64, torch.float32),
-                                      (64, torch.bfloat16)])
+                                      (64, torch.bfloat16),
+                                      (112, torch.float32),
+                                      (112, torch.bfloat16)])
 def test_flash_decode_spills_nothing(cuda, hd, dtype):
     from repro_torch.kernels import build
     kfd.flash_decode(*_decode_inputs(cuda, 2, 64, 8, 2, hd, dtype), 10)
     report = build.ptxas_report(build.load("flash_decode").log)
     instances = {n: r for n, r in report.items() if "decode_kernel" in n}
-    assert len(instances) == 16, report      # 2 types x 2 hd x 4 R
+    assert len(instances) == 24, report      # 2 types x 3 hd x 4 R
     for name, r in instances.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
     # the path's instance on this card: no local memory, several runs
@@ -845,7 +857,11 @@ def test_flash_decode_wrapper_raises_instead_of_falling_back(cuda):
 
 @pytest.mark.parametrize("arch,window", [("mistral-nemo-12b", None),
                                          ("mistral-nemo-12b", 8),
-                                         ("mamba2-2.7b", None)])
+                                         ("mamba2-2.7b", None),
+                                         ("granite-34b", None),
+                                         ("musicgen-large", None),
+                                         ("llava-next-mistral-7b", None),
+                                         ("zamba2-7b", None)])
 def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
     import dataclasses
     from repro_torch.configs import get_arch
@@ -856,7 +872,8 @@ def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
         cfg = dataclasses.replace(cfg, attn_window=window)
     params = tm.init(cfg, torch.Generator().manual_seed(0))
     on_card = tree_map(lambda t: t.to(cuda), params)
-    toks = torch.randint(0, cfg.vocab, (2, 16),
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab, (2, 16) + cb,
                          generator=torch.Generator().manual_seed(1))
     caches = {"cpu": tm.init_cache(cfg, 2, 16),
               "cuda": tm.init_cache(cfg, 2, 16, device=cuda)}
@@ -870,7 +887,9 @@ def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
             torch.log_softmax(card[..., :cfg.vocab], -1).cpu(),
             torch.log_softmax(cpu[..., :cfg.vocab], -1), rtol=1e-4,
             atol=1e-4)
-    want = 16 * cfg.n_layers if cfg.family == "dense" else 0
+    attn_layers = {"ssm": 0, "hybrid": cfg.n_layers // max(
+        cfg.hybrid_every, 1)}.get(cfg.family, cfg.n_layers)
+    want = 16 * attn_layers
     assert kfd.flash_decode.launches - before == want
     assert int(caches["cuda"]["pos"]) == 16
 

@@ -155,18 +155,30 @@ def test_decode_matches_the_full_sequence_forward(name, window, n):
 
 def test_init_fills_the_stacked_layers_with_the_same_stream():
     """In-place layer filling draws what drawing every layer and stacking
-    drew: a CPU generator's parameters are unchanged."""
+    drew: a CPU generator's parameters are unchanged (an audio model's
+    tables and heads drawn one a codebook, a hybrid's shared block
+    last)."""
     for name in ARCHS:
         cfg = get_arch(name).reduced()
         got = tm.init(cfg, torch.Generator().manual_seed(5))
         gen = torch.Generator().manual_seed(5)
-        want = {"embed": tm.embedding_init(gen, cfg.vocab, cfg.d_model),
-                "lm_head": tm.dense_init(gen, cfg.d_model,
-                                         tm.padded_vocab(cfg.vocab)),
+
+        def per_codebook(draw):
+            if cfg.n_codebooks == 1:
+                return draw()
+            return torch.stack([draw() for _ in range(cfg.n_codebooks)])
+
+        want = {"embed": {"table": per_codebook(lambda: tm.embedding_init(
+                    gen, cfg.vocab, cfg.d_model)["table"])},
+                "lm_head": per_codebook(lambda: tm.dense_init(
+                    gen, cfg.d_model, tm.padded_vocab(cfg.vocab))),
                 "final_norm": tm.rmsnorm_init(cfg.d_model)}
         layers = [tm._LAYER_INIT[cfg.family](gen, cfg, torch.float32)
                   for _ in range(cfg.n_layers)]
         want["layers"] = tree_map(lambda *ls: torch.stack(ls), *layers)
+        if cfg.family == "hybrid":
+            want["shared_attn"] = tm._dense_layer_init(gen, cfg,
+                                                       torch.float32)
         for a, b in zip(tree_leaves(got), tree_leaves(want)):
             assert torch.equal(a, b)
 

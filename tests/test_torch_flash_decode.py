@@ -272,6 +272,28 @@ def test_split_partition_gqa_matches_reference_ops(pos):
           f"max_abs_err={max(errs):.3g} tol=2e-05")
 
 
+@pytest.mark.parametrize("hq,hkv,hd", [(4, 4, 112), (48, 1, 128)])
+@pytest.mark.parametrize("pos", [31, 32, 33, 191])
+def test_split_partition_new_shapes_match_reference_ops(hq, hkv, hd, pos):
+    """Head dim 112 over MHA heads (zamba2-7b's shared block) and g 48 over
+    one KV head (granite-34b's MQA).  The kernel's column split at hd 112
+    (28 lanes of 4 columns) sums each column over the slots in the same
+    tile and run order as at hd 128, so :func:`split_decode`, which keeps
+    that order per column, models it unchanged."""
+    b, ctx = 2, 256
+    rng = np.random.default_rng(pos + hd)
+    q = rng.normal(size=(b, 1, hq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, ctx, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, ctx, hkv, hd)).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = ref_ops.flash_decode(jq, jk, jv, pos)
+    errs = [_parity(split_decode(*map(torch.from_numpy, (q, k, v)), pos,
+                                 None, splits), want, 2e-5)
+            for splits in SPLITS]
+    print(f"PARITY flash_decode split partition {hq}/{hkv} hd={hd} "
+          f"pos={pos}: max_abs_err={max(errs):.3g} tol=2e-05")
+
+
 def test_ptxas_report_reads_registers_and_spills():
     """The build report the card's resources test reads: each entry
     function's registers and spills, by its mangled name."""

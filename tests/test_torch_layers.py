@@ -149,9 +149,10 @@ def test_transformer_params_cross_and_step_like_the_reference():
     ("ffn_kind", "mlp"), ("norm_eps", 1e-6)])
 def test_model_refuses_config_fields_not_ported(field, value):
     """Every field value that selects a part the port does not run is
-    refused; ``qkv_bias=True``, refused until qwen1.5-4b was ported, now
-    runs (``tests/test_torch_launch_train.py`` holds it against the
-    reference)."""
+    refused; ``qkv_bias=True``, refused until qwen1.5-4b was ported, and
+    ``ffn_kind="mlp"`` (the GELU MLP), refused until granite-34b was, now
+    run (``tests/test_torch_launch_train.py`` and
+    ``tests/test_torch_families.py`` hold them against the reference)."""
     cfg = model_engine.family_arch("transformer", 16, 2)
     params = model.init(cfg, torch.Generator().manual_seed(0))
     other = dataclasses.replace(cfg, **{field: value})
@@ -162,6 +163,12 @@ def test_model_refuses_config_fields_not_ported(field, value):
         biased = model.init(other, torch.Generator().manual_seed(0))
         assert {"bq", "bk", "bv"} <= set(biased["layers"]["attn"])
         assert model.forward(other, tree_map(lambda t: t[None], biased),
+                             tokens).shape == (1, 2, 4, 128)
+        return
+    if field == "ffn_kind":
+        mlp = model.init(other, torch.Generator().manual_seed(0))
+        assert set(mlp["layers"]["ffn"]) == {"w_up", "w_down"}
+        assert model.forward(other, tree_map(lambda t: t[None], mlp),
                              tokens).shape == (1, 2, 4, 128)
         return
     with pytest.raises(NotImplementedError, match="not ported"):
