@@ -18,15 +18,20 @@ defaults (feel-mamba2-h256-d3: d_model 256, 64 SSD heads of 8, state
 driver ``repro_torch.launch.serve.main`` at the full width of
 mistral-nemo-12b (40 layers, d_model 5120, 32 query / 8 KV heads of 128,
 12.25 B parameters in float32), mamba2-2.7b, qwen1.5-4b,
-llava-next-mistral-7b, musicgen-large (4 codebooks) and zamba2-7b (81
-SSM layers, a shared block of 32 heads of 112), granite-34b at full
-width with its depth cut from 88 to 20 layers (the GELU MLP, 48 query
-heads over one KV head), llava-next-mistral-7b's prefill with a
-2880-patch prefix, and the
+llava-next-mistral-7b, musicgen-large (4 codebooks), minicpm3-4b (MLA,
+62 layers) and deepseek-v2-lite-16b (MLA and 64 experts top-6, 15.71 B
+parameters), and with their depth cut granite-34b (from 88 to 20
+layers; the GELU MLP, 48 query heads over one KV head), arctic-480b
+(from 35 to 1 layer; 128 experts top-2 beside a dense FFN, 56 query
+heads over 8 KV heads) and zamba2-7b (from 81 to 27 SSM layers, each 9
+followed by a shared block of 32 heads of 112),
+llava-next-mistral-7b's prefill with a 2880-patch prefix, and the
 training driver ``repro_torch.launch.train.main`` at qwen1.5-4b's full
 width and depth (40 layers, d_model 2560, 20 heads of 128 with qkv
-biases, 3.95 B parameters in float32), and holds every kernel of those
-paths against its plain PyTorch version on the card:
+biases, 3.95 B parameters in float32) and minicpm3-4b's, and the train
+step with the SBC uplink at deepseek-v2-lite-16b's full width (6 of its
+27 layers), and holds every kernel of those paths against its plain
+PyTorch version on the card:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -49,8 +54,8 @@ paths against its plain PyTorch version on the card:
      and edge cases (pos 0, the last slot, the runs' seams at pos 31, 32,
      33 and where runs are empty, ring buffers, head dim 64 at g 1/4/8,
      a ragged ctx; head dim 112 at zamba2-7b's shape and its seams, g 48
-     over one KV head, 32 / 32 heads of 64; f32 2e-5, bf16 2e-2; bitwise
-     twice);
+     over one KV head, 32 / 32 heads of 64, arctic-480b's g 7 and its
+     seams; f32 2e-5, bf16 2e-2; bitwise twice);
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
@@ -58,10 +63,12 @@ paths against its plain PyTorch version on the card:
      qwen1.5-4b (batch 8, prompt 128, 64 generated tokens, ctx 2048: 40
      x 192 = 7 680 flash decode launches each; qwen's at g = 1), on
      mamba2-2.7b (none), llava-next-mistral-7b (32 x 192),
-     musicgen-large (48 x 192) and zamba2-7b (9 x 192, head dim 112), and
-     granite-34b at 20 of its 88 layers through ``init`` /
-     ``init_cache`` / ``make_serve_step`` (20 x 192), each with its
-     launch count, tokens/s and peak memory; 4l. llava-next-mistral-7b's
+     musicgen-large (48 x 192), minicpm3-4b and deepseek-v2-lite-16b
+     (none: MLA decodes in plain PyTorch), and granite-34b at 20 of its
+     88 layers, arctic-480b at 1 of its 35 and zamba2-7b at 27 of its 81
+     SSM layers (3 segments, head dim 112) through ``init`` /
+     ``init_cache`` / ``make_serve_step`` (20 x 192, 1 x 192, 3 x 192),
+     each with its launch count, tokens/s and peak memory; 4l. llava-next-mistral-7b's
      ``make_prefill_step`` at full width (B 1, S 6144, the first 2880
      positions a patch prefix) under B4 and under naive attention in
      ``torch.inference_mode()``: log-softmax of the last 16 positions
@@ -123,16 +130,21 @@ paths against its plain PyTorch version on the card:
      ``"naive"`` (each from the same seed: first loss and gradient norm
      within rtol 1e-4, 40 launches of B4, B4′ and B4″ a step), 3 timed
      steps each for ms a step and tokens/s, and a compressed naive run
-     for the SBC uplink's share of a step;
+     for the SBC uplink's share of a step; 4m. (i) ``launch.train.main``
+     at minicpm3-4b's full width and depth (momentum, the driver's
+     defaults, 6 steps), (ii) ``make_train_step`` with momentum and the
+     SBC uplink at deepseek-v2-lite-16b's full width, 6 of its 27 layers
+     (31 leaves: 31 B1 and 31 B2 launches a step), 3 steps, each with
+     finite losses, peak memory, launches and tokens/s;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
      its solo twin; 5b. the same for the transformer, 5c. for mamba2;
-     5d. decode at the reduced configs of all seven decoders (and a
+     5d. decode at the reduced configs of all ten decoders (and a
      window of 8; zamba2-7b also at head dim 112) over 12 tokens: card vs
      CPU path (1e-4 in log-softmax) and decode vs the port's
-     full-sequence forward on the card (2e-3; at head dim 112 under naive
-     attention, B4's wrapper refusing it); 5e. the dynamic
+     full-sequence forward on the card (2e-3; at head dim 112 and for MLA
+     under naive attention, the kernel route refusing them); 5e. the dynamic
      worlds, card vs CPU path: one feel-mlp row each of sampling,
      weighted sampling, fading with faults and the budget, and a
      weighted-sampled transformer row (through B4, B4′ and B4″), 3
@@ -153,7 +165,10 @@ paths against its plain PyTorch version on the card:
      ``restore_state`` bitwise, the resumed third step bitwise the
      uninterrupted one; 5j. reduced musicgen-large and zamba2-7b (B3 and
      B3′ in the hybrid's SSM layers), momentum, 3 steps, card vs CPU path,
-     losses 1e-4;
+     losses 1e-4; 5k. reduced minicpm3-4b, deepseek-v2-lite-16b and
+     arctic-480b, momentum, 3 steps, card vs CPU path: losses 1e-4, aux
+     1e-5, the first step's expert indices, positions and keep masks
+     equal, the card's run twice bitwise;
   6. the SSD kernels' and the three attention kernels' resources
      (registers, spills, shared memory, resident warps or CTAs an SM; the
      SSD forward and the attention kernels in every instance, failing on a
@@ -170,9 +185,10 @@ paths against its plain PyTorch version on the card:
      1) and its resources (registers, spills, shared memory, runs); the
      attention kernels also at qwen1.5-4b's step (B 32, S 64, 20 / 20
      heads of 128) and flash decode at its decode shape (g = 1) and at
-     zamba2-7b's (head dim 112, f32 and bf16), granite-34b's (g 48) and
-     musicgen-large's, with every flash decode instance's registers and
-     spills from the build (failing on a spill).
+     zamba2-7b's (head dim 112, f32 and bf16), granite-34b's (g 48),
+     musicgen-large's and arctic-480b's (g 7), with every flash decode
+     instance's registers and spills from the build (failing on a
+     spill).
 
 Every phase that fails makes the script exit non-zero.  The last three
 lines of standard output are the card's ``name, power.limit``, one JSON
@@ -277,22 +293,31 @@ SSD_FWD_RESOURCE_SHAPES = [(64, 8, 1, 16), (8, 16, 2, 32), (8, 32, 4, 64),
 # cache (B, ctx, Hq, Hkv, hd) per layer and the last position the path
 # decodes; one layer of a 32k-token cache
 D_ARCHS = ("mistral-nemo-12b", "mamba2-2.7b", "qwen1.5-4b",
-           "llava-next-mistral-7b", "musicgen-large", "zamba2-7b")
+           "llava-next-mistral-7b", "musicgen-large", "minicpm3-4b",
+           "deepseek-v2-lite-16b")
 D_PROFILED = D_ARCHS[:3]        # --profile's 16 steps a model
 D_BATCH, D_PROMPT, D_GEN, D_CTX = 8, 128, 64, 2048
 D_ARGV = ["--full", "--batch", str(D_BATCH), "--prompt-len", str(D_PROMPT),
           "--gen", str(D_GEN), "--ctx", str(D_CTX)]
-# attention layers a step (zamba2-7b: its shared block, once a segment)
+# B5 launches a step: its GQA attention layers (MLA decodes against its
+# ckv cache in plain PyTorch, as the reference's, so minicpm3-4b and
+# deepseek-v2-lite-16b launch none)
 D_LAYERS = {"mistral-nemo-12b": 40, "mamba2-2.7b": 0, "qwen1.5-4b": 40,
             "llava-next-mistral-7b": 32, "musicgen-large": 48,
-            "zamba2-7b": 9}
-# granite-34b at full width with its depth cut: its 88 layers hold ~136 GB
-# of float32, 20 of them (with the embedding and head) ~33 GB
-G_ARCH, G_LAYERS = "granite-34b", 20
+            "minicpm3-4b": 0, "deepseek-v2-lite-16b": 0}
+# decoders at full width with their depth cut: granite-34b's 88 layers
+# hold ~136 GB of float32, 20 of them (with the embedding and head) ~33
+# GB; one layer of arctic-480b (128 experts of 4864 beside the dense
+# residual FFN) holds 54 GB, one layer with the embedding and head 56 GB;
+# zamba2-7b (which fits) at 27 of its 81 SSM layers, three segments, to
+# keep the script near half its time limit (the host-bound decode of its
+# 81 layers took 35 s)
+CUT_DECODE = (("granite-34b", 20), ("arctic-480b", 1), ("zamba2-7b", 27))
 D_SHAPE = (D_BATCH, D_CTX, 32, 8, 128)        # also llava-next-mistral-7b
 D_ZAMBA = (D_BATCH, D_CTX, 32, 32, 112)       # zamba2-7b's shared block
 D_GRANITE = (D_BATCH, D_CTX, 48, 1, 128)      # granite-34b's MQA, g 48
 D_MUSICGEN = (D_BATCH, D_CTX, 32, 32, 64)     # musicgen-large's MHA
+D_ARCTIC = (D_BATCH, D_CTX, 56, 8, 128)       # arctic-480b's GQA, g 7
 D_POS = D_PROMPT + D_GEN - 1
 D_LONG = (16, 32_768, 32, 8, 128)
 # the runs' seams (B, ctx, Hq, Hkv, hd, pos, window): the first tile's last
@@ -307,6 +332,9 @@ D_SEAMS_112 = [D_ZAMBA + (31, None), D_ZAMBA + (32, None),
                D_ZAMBA + (33, None), (4, 256, 32, 32, 112, 1000, 256),
                (4, 512, 16, 4, 112, 700, 128),
                (3, 1000, 32, 32, 112, 999, None)]
+# g 7's seams: the runs' (pos 31, 32, 33) with the last warp's rows short
+D_SEAMS_G7 = [D_ARCTIC + (31, None), D_ARCTIC + (32, None),
+              D_ARCTIC + (33, None)]
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 # llava's prefill (phase 4l): one sequence of 6144 positions whose first
 # 2880 are the anyres patch embeddings (5 tiles of 24 x 24), under B4 and
@@ -353,6 +381,19 @@ Q_W_DOWN = Q_LAYERS * 6912 * 2560
 Q_LRS = (0.1, 0.05, 0.02)
 Q_TIMED = 3
 Q_DECODE = (D_BATCH, D_CTX, 20, 20, 128)              # B, ctx, Hq, Hkv, hd
+# the MoE and MLA training cell (phase 4m): (i) launch.train at
+# minicpm3-4b's full width and depth with the driver's defaults; (ii)
+# make_train_step, momentum with the SBC uplink, at deepseek-v2-lite-16b's
+# full width with its depth cut from 27 to 6 layers (layer 0 dense, 5 MoE;
+# 3 424 678 912 parameters: parameters, gradients, momentum and residual
+# ~55 GB) on the driver's batch; its 31 leaves are one B1/B2 segment each
+# a step, the largest the experts' three matrices (5 x 64 x 2048 x 1408)
+M4_TRAIN_ARCH, M4_SBC_ARCH, M4_SBC_LAYERS = ("minicpm3-4b",
+                                             "deepseek-v2-lite-16b", 6)
+M4_SBC_STEPS, M4_SBC_LEAVES = 3, 31
+M4_EXPERT_MATRIX = 5 * 64 * 2048 * 1408
+# the MoE and MLA families card vs CPU (phase 5k), reduced
+K5_ARCHS = ("minicpm3-4b", "deepseek-v2-lite-16b", "arctic-480b")
 
 
 class _Log:
@@ -937,12 +978,14 @@ def decode_checks(torch, kfd):
     kernel's 32-slot tile; and the new paths' shapes: zamba2-7b's head
     dim 112 (``D_ZAMBA``, with its seams ``D_SEAMS_112``), granite-34b's
     g 48 over one KV head (the R = 8 instance in two passes over the
-    rows) and musicgen-large's 32 / 32 heads of 64; every case run twice
-    and required bitwise equal.  Returns the max abs errors (hd 112 apart
-    too); raises AssertionError."""
+    rows), musicgen-large's 32 / 32 heads of 64 and arctic-480b's 56 / 8
+    (g 7: the R = 2 instance with the last warp's second row empty, also
+    at the runs' seams ``D_SEAMS_G7``); every case run twice and
+    required bitwise equal.  Returns the max abs errors (hd 112 and g 7
+    apart too); raises AssertionError."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {"flash_decode": 0.0, "bf16": 0.0, "hd112": 0.0,
-            "hd112_bf16": 0.0}
+            "hd112_bf16": 0.0, "g7": 0.0, "g7_bf16": 0.0}
     b, ctx, hq, hkv, hd = D_SHAPE
     cases = [D_SHAPE + (D_POS, None), Q_DECODE + (D_POS, None),
              D_SHAPE + (0, None),
@@ -953,7 +996,8 @@ def decode_checks(torch, kfd):
              (4, 256, 64, 8, 64, 255, 64), (3, 1000, 32, 8, 128, 999, None),
              (3, 1000, 32, 8, 128, 5000, None),
              D_ZAMBA + (D_POS, None), *D_SEAMS_112,
-             D_GRANITE + (D_POS, None), D_MUSICGEN + (D_POS, None)]
+             D_GRANITE + (D_POS, None), D_MUSICGEN + (D_POS, None),
+             D_ARCTIC + (D_POS, None), *D_SEAMS_G7]
     for b, ctx, hq, hkv, hd, pos, window in cases:
         label = (f"flash_decode B={b} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} "
                  f"pos={pos} window={window}")
@@ -973,9 +1017,11 @@ def decode_checks(torch, kfd):
                 raise AssertionError(f"{label} {dtype}: not bitwise "
                                      "reproducible")
             errs[key] = max(errs[key], err)
-            if hd == 112:
-                key112 = "hd112" if key == "flash_decode" else "hd112_bf16"
-                errs[key112] = max(errs[key112], err)
+            for apart, case in (("hd112", hd == 112),
+                                ("g7", hq == 7 * hkv)):
+                if case:
+                    sub = apart if key == "flash_decode" else apart + "_bf16"
+                    errs[sub] = max(errs[sub], err)
     return errs
 
 
@@ -1018,11 +1064,14 @@ def decode_cell(torch, serve, kfd, arch):
             "argv": ["--arch", arch] + D_ARGV}
 
 
-def granite_decode_cell(torch, tm, get_arch, make_serve_step, kfd,
-                        tree_leaves):
-    """4d for granite-34b: its full width (d_model 6144, 48 query heads
-    of 128 over one KV head, the GELU MLP of 24576) with its depth cut to
-    ``G_LAYERS``, driven as ``launch.serve.main`` drives a model (which
+def cut_decode_cell(torch, tm, get_arch, make_serve_step, kfd, tree_leaves,
+                    arch, n_layers):
+    """4d for a decoder at full width with its depth cut to ``n_layers``
+    (granite-34b: d_model 6144, 48 query heads of 128 over one KV head,
+    the GELU MLP of 24576; arctic-480b: d_model 7168, 56 / 8 heads of
+    128, 128 experts top-2 beside the dense residual FFN; zamba2-7b:
+    segments of 9 SSM layers, each followed by the shared block of 32
+    heads of 112), driven as ``launch.serve.main`` drives a model (which
     takes no depth): ``init``, ``init_cache`` and ``make_serve_step``,
     the prompt stepped through the decode path, then greedy decode, with
     the flash decode count set to 0 just before and read just after.
@@ -1030,7 +1079,7 @@ def granite_decode_cell(torch, tm, get_arch, make_serve_step, kfd,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(get_arch(G_ARCH), n_layers=G_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = tm.init(cfg, gen)
@@ -1053,9 +1102,11 @@ def granite_decode_cell(torch, tm, get_arch, make_serve_step, kfd,
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_params = sum(t.numel() for t in tree_leaves(params))
     tps = D_GEN * D_BATCH / dt
-    want = G_LAYERS * (D_PROMPT + D_GEN)
-    log(f"[4d decode] {G_ARCH} at full width, depth cut from "
-        f"{get_arch(G_ARCH).n_layers} to {G_LAYERS} layers ({n_params} "
+    attn_layers = (n_layers // cfg.hybrid_every if cfg.family == "hybrid"
+                   else n_layers)
+    want = attn_layers * (D_PROMPT + D_GEN)
+    log(f"[4d decode] {arch} at full width, depth cut from "
+        f"{get_arch(arch).n_layers} to {n_layers} layers ({n_params} "
         f"float32 parameters), batch {D_BATCH}, prompt {D_PROMPT}, "
         f"{D_GEN} generated, ctx {D_CTX}: {tps:.1f} tokens/s = "
         f"{1e3 * D_BATCH / tps:.2f} ms per decode step; prefill "
@@ -1063,16 +1114,16 @@ def granite_decode_cell(torch, tm, get_arch, make_serve_step, kfd,
         f"memory {peak:.2f} GiB; flash_decode launches {launches} "
         f"(expected {want})")
     if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
-        raise AssertionError(f"4d {G_ARCH}: non-finite logits")
+        raise AssertionError(f"4d {arch}: non-finite logits")
     if launches != want:
-        raise AssertionError(f"4d {G_ARCH}: flash_decode launches "
+        raise AssertionError(f"4d {arch}: flash_decode launches "
                              f"{launches}, expected {want}")
     del params, cache, logits
     gc.collect()
     torch.cuda.empty_cache()
     return {"tokens_per_s": tps, "ms_per_step": 1e3 * D_BATCH / tps,
             "wall_s": wall, "peak_gib": peak, "n_params": n_params,
-            "n_layers": G_LAYERS, "launches": {"flash_decode": launches}}
+            "n_layers": n_layers, "launches": {"flash_decode": launches}}
 
 
 def llava_prefill_cell(torch, ts, tm, get_arch, kfa, smi):
@@ -1143,9 +1194,12 @@ def decode_contracts(torch, tm, get_arch, tree_map, kfa):
     of 8, a ring buffer; zamba2-7b also at head dim 112) over 12 tokens of
     2 sequences: the card against the CPU path (1e-4 in log-softmax), and
     decode against the port's full-sequence forward on the card (2e-3,
-    the reference's bound; at head dim 112, which B4 does not take, under
-    naive attention, after checking that B4's wrapper refuses it).
-    Returns the max errors; raises AssertionError."""
+    the reference's bound; at head dim 112, which B4 does not take, and
+    for MLA, whose v head dim is not q's (C-ref-10), under naive
+    attention, after checking that the kernel route refuses it; the MoE
+    family's forward drop-free at capacity factor 64, as decode is and as
+    the reference's ``tests/test_models.py`` holds it).  Returns the max
+    errors; raises AssertionError."""
     n, b = 12, 2
     errs = {}
     for arch, window, hd in (
@@ -1153,7 +1207,9 @@ def decode_contracts(torch, tm, get_arch, tree_map, kfa):
             ("mamba2-2.7b", None, None), ("granite-34b", None, None),
             ("musicgen-large", None, None),
             ("llava-next-mistral-7b", None, None),
-            ("zamba2-7b", None, None), ("zamba2-7b", None, 112)):
+            ("zamba2-7b", None, None), ("zamba2-7b", None, 112),
+            ("minicpm3-4b", None, None), ("deepseek-v2-lite-16b", None, None),
+            ("arctic-480b", None, None)):
         cfg = get_arch(arch).reduced()
         if window is not None:
             cfg = dataclasses.replace(cfg, attn_window=window)
@@ -1178,18 +1234,23 @@ def decode_contracts(torch, tm, get_arch, tree_map, kfa):
             torch.cat(x, 1)[..., :cfg.vocab].float().cpu(), -1)
         stacked = tree_map(lambda t: t[None], card)
         impl = "pallas"
-        if cfg.n_heads and cfg.hd() not in kfa.HEAD_DIMS:
+        mla = cfg.attn_kind == "mla"
+        if mla or (cfg.n_heads and cfg.hd() not in kfa.HEAD_DIMS):
             try:
                 tm.forward(cfg, stacked, toks.cuda()[None])
             except ValueError as exc:
+                if mla and "C-ref-10" not in str(exc):
+                    raise AssertionError(f"5d {cfg.name}: {exc}") from exc
                 log(f"[5d decode] {cfg.name} hd={cfg.hd()}: forward under "
                     f"B4 refused as it must be: {exc}")
             else:
-                raise AssertionError(f"5d {cfg.name}: B4 took head dim "
-                                     f"{cfg.hd()}")
+                raise AssertionError(f"5d {cfg.name}: B4 took "
+                                     + ("MLA" if mla else
+                                        f"head dim {cfg.hd()}"))
             impl = "naive"
-        full = tm.forward(cfg, stacked, toks.cuda()[None],
-                          rt=tm.Runtime(attn_impl=impl))[0]
+        rt = tm.Runtime(attn_impl=impl,
+                        capacity_factor=64.0 if cfg.moe else 1.25)
+        full = tm.forward(cfg, stacked, toks.cuda()[None], rt=rt)[0][0]
         cpu_err = float((lsm(on_card) - lsm(on_cpu)).abs().max())
         fwd_err = float((lsm(on_card) - lsm([full])).abs().max())
         label = f"{cfg.name} window={window} hd={cfg.hd()}"
@@ -1229,10 +1290,10 @@ def decode_times(torch, kfd, F):
     at the decode cell's shape at the path's last position (f32), at
     qwen1.5-4b's (g = 1) there, at the new paths' (zamba2-7b's head dim
     112 in f32 and bf16, granite-34b's g 48 over one KV head,
-    musicgen-large's 32 / 32 heads of 64; llava-next-mistral-7b's is the
-    decode cell's), and at one layer of a full 32k-token
-    cache (bf16 and f32), beside the bound
-    of :func:`decode_bound`.  Beside the
+    musicgen-large's 32 / 32 heads of 64, arctic-480b's g 7;
+    llava-next-mistral-7b's is the decode cell's), and at one layer of a
+    full 32k-token cache (bf16 and f32), beside the bound of
+    :func:`decode_bound`.  Beside the
     CUDA-event time (the wrapper's host work included): the card's own
     time a call from the profiler and the kernels a call puts on the card,
     and the kernel's resources at the shape."""
@@ -1245,6 +1306,7 @@ def decode_times(torch, kfd, F):
             ("zamba2_bf16", D_ZAMBA, D_POS, torch.bfloat16),
             ("granite_path", D_GRANITE, D_POS, torch.float32),
             ("musicgen_path", D_MUSICGEN, D_POS, torch.float32),
+            ("arctic_path", D_ARCTIC, D_POS, torch.float32),
             ("32k_bf16", D_LONG, D_LONG[1] - 1, torch.bfloat16),
             ("32k_f32", D_LONG, D_LONG[1] - 1, torch.float32)):
         b, ctx, hq, hkv, hd = shape
@@ -3182,6 +3244,201 @@ def checkpoint_contract(torch, ts, tm, optim, get_arch, tree_leaves,
     return {"resumed_bitwise": True, "loss": float(b_losses[2])}
 
 
+def moe_train_cell(torch, train, ts, tm, optim, get_arch, tree_leaves,
+                   counted, smi):
+    """Phase 4m, MoE and MLA training at full width: (i)
+    ``launch.train.main`` on minicpm3-4b at full width and depth with
+    momentum at the driver's defaults (K 4 x slot 8 x 64 tokens), 6
+    steps; (ii) ``make_train_step`` with momentum and ``compress_uplink``
+    on deepseek-v2-lite-16b at full width with its depth cut to
+    ``M4_SBC_LAYERS`` (layer 0 dense, the rest MoE), on the driver's
+    batch shape (seeded tokens under its 512-token vocabulary, every
+    weight 1), 3 steps: B1 and B2 once a leaf a step.  Each with its
+    launch counts (set to 0 just before, read just after), losses (all
+    finite), peak memory, wall and tokens/s.  Returns the report; raises
+    AssertionError."""
+    report = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    argv = ["--arch", M4_TRAIN_ARCH, "--full", "--steps", str(Q_STEPS)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        final = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, walls = _train_lines(out.getvalue())
+    step_s = ((walls[-1] - walls[0]) / (len(walls) - 1)
+              if len(walls) > 1 else float("nan"))
+    tokens = Q_K * Q_SLOT * Q_SEQ
+    log(f"[4m train] (i) launch.train.main {' '.join(argv)}: {tokens} tokens "
+        f"a step; losses {losses}; whole call {wall:.2f} s (init, data, "
+        f"{Q_STEPS} steps); about {step_s:.2f} s a step from the driver's "
+        f"wall= lines (0.1 s resolution) = {tokens / step_s:.0f} tokens/s; "
+        f"peak device memory {peak:.2f} GiB; launches {launches} (expected "
+        f"0 each); {smi}")
+    if len(losses) != Q_STEPS or not all(map(math.isfinite,
+                                             losses + [final])):
+        raise AssertionError(f"4m (i): losses {losses}, final {final}")
+    if any(launches.values()):
+        raise AssertionError(f"4m (i): launches {launches}, expected 0")
+    report["minicpm3"] = {"argv": argv, "losses": losses, "wall_s": wall,
+                          "step_s_from_driver": step_s, "peak_gib": peak,
+                          "tokens_per_step": tokens, "launches": launches}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(M4_SBC_ARCH), n_layers=M4_SBC_LAYERS)
+    params = tm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    sizes = sorted((t.numel() for t in leaves), reverse=True)
+    opt = optim.momentum(0.9)
+    state = ts.TrainState(params, opt.init(params), 0)
+    del params
+    step = ts.make_train_step(cfg, tm.Runtime(attn_impl="naive"), opt,
+                              compress_uplink=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(0, 512, (Q_K * Q_SLOT, Q_SEQ + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "weights": torch.ones((Q_K * Q_SLOT, Q_SEQ), device="cuda")}
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    for fn in counted.values():
+        fn.launches = 0
+    losses, aux, times = [], [], []
+    for t in range(M4_SBC_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, batch, Q_LRS[t % len(Q_LRS)])
+        losses.append(float(m["loss"]))
+        aux.append(float(m["total_loss"] - m["loss"]))
+        times.append(time.perf_counter() - t1)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = 1e3 * sum(times[1:]) / max(1, len(times) - 1)
+    want = M4_SBC_LEAVES * M4_SBC_STEPS
+    log(f"[4m train] (ii) make_train_step momentum + compress_uplink "
+        f"{M4_SBC_ARCH} at full width, depth cut from "
+        f"{get_arch(M4_SBC_ARCH).n_layers} to {M4_SBC_LAYERS} layers "
+        f"({n_params} float32 parameters in {len(leaves)} leaves, the "
+        f"largest {sizes[:3]}), {Q_K * Q_SLOT} x {Q_SEQ} tokens: losses "
+        f"{losses}, aux {aux}; steps {[round(1e3 * x, 1) for x in times]} "
+        f"ms (each waits for its loss) = {ms:.1f} ms a step after the first "
+        f"= {tokens / ms * 1e3:.0f} tokens/s; init {t_init:.2f} s; peak "
+        f"device memory {peak:.2f} GiB; launches {launches} (expected "
+        f"{want} each: one a leaf a step); {smi}")
+    if not all(map(math.isfinite, losses + aux)):
+        raise AssertionError(f"4m (ii): losses {losses}, aux {aux}")
+    if (len(leaves) != M4_SBC_LEAVES or sizes[0] != M4_EXPERT_MATRIX
+            or launches != {name: want for name in counted}):
+        raise AssertionError(f"4m (ii): {len(leaves)} leaves (largest "
+                             f"{sizes[0]}), launches {launches}, expected "
+                             f"{want} each")
+    report["deepseek_sbc"] = {"n_layers": M4_SBC_LAYERS,
+                              "n_params": n_params, "losses": losses,
+                              "aux": aux, "step_ms": [1e3 * x for x in times],
+                              "ms_per_step": ms,
+                              "tokens_per_s": tokens / ms * 1e3,
+                              "peak_gib": peak, "launches": launches}
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _moe_smoke(torch, tm, get_arch, tree_map, arch):
+    """A reduced config drawn on the CPU from seed 0 and the phase's batch
+    (K 2 x slot 2 x 16 tokens, B_k = (1, 2))."""
+    cfg = get_arch(arch).reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = tm.init(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (4, 17), generator=gen,
+                         dtype=torch.int32)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0])[:, None].expand(4, 16)
+    return cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                         "weights": w.contiguous()}
+
+
+def moe_contracts(torch, np, ts, tm, moe_mod, optim, get_arch, tree_map,
+                  tree_leaves):
+    """Phase 5k: reduced minicpm3-4b, deepseek-v2-lite-16b and arctic-480b
+    through 3 momentum steps of ``make_train_step`` (naive attention, as
+    ``launch.train``) on the card, twice, and on the port's CPU path, from
+    the same seed-0 weights and batch: losses within 1e-4, the aux loss
+    (``total_loss - loss``) within 1e-5, the first step's routing (expert
+    indices, capacity positions and keep masks of every MoE layer) equal
+    on card and CPU, and the card's two runs bitwise (losses and
+    parameters).  Returns the report; raises AssertionError."""
+    report = {}
+    real = moe_mod.route_scatter
+    for arch in K5_ARCHS:
+        cfg, params, batch = _moe_smoke(torch, tm, get_arch, tree_map, arch)
+        runs = {}
+        for run in ("cuda", "cuda again", "cpu"):
+            device = run.split()[0]
+            move = lambda t: t.to(device, copy=True)  # noqa: E731
+            p = tree_map(move, params)
+            opt = optim.momentum(0.9)
+            step = ts.make_train_step(cfg, tm.Runtime(attn_impl="naive"),
+                                      opt)
+            state = ts.TrainState(p, opt.init(p), 0)
+            dev_batch = tree_map(move, batch)
+            routes, losses, aux = [], [], []
+
+            def recording(probs, K, C, out=routes):
+                r = real(probs, K, C)
+                out.append([r[i].cpu() for i in (0, 2, 3)])
+                return r
+            for t, lr in enumerate(Q_LRS):
+                moe_mod.route_scatter = recording if t == 0 else real
+                try:
+                    state, m = step(state, dev_batch, lr)
+                finally:
+                    moe_mod.route_scatter = real
+                losses.append(m["loss"].cpu())
+                aux.append(m["total_loss"].cpu() - m["loss"].cpu())
+            runs[run] = (torch.stack(losses), torch.stack(aux), routes,
+                         [t.cpu() for t in tree_leaves(state.params)])
+        (card, card_aux, card_routes, card_p), (again, _, _, again_p), \
+            (cpu, cpu_aux, cpu_routes, _) = runs.values()
+        loss_err = float((card - cpu).abs().max())
+        aux_err = float((card_aux - cpu_aux).abs().max())
+        routes_equal = len(card_routes) == len(cpu_routes) and all(
+            torch.equal(a, b) for ra, rb in zip(card_routes, cpu_routes)
+            for a, b in zip(ra, rb))
+        bitwise = torch.equal(card, again) and all(
+            torch.equal(a, b) for a, b in zip(card_p, again_p))
+        n_moe = cfg.n_layers - (cfg.moe.first_dense_layers if cfg.moe else 0)
+        log(f"[5k card vs cpu] {cfg.name} momentum, 3 steps: losses "
+            f"{card.tolist()} vs {cpu.tolist()} (max abs err {loss_err:.3g}, "
+            f"tol 1e-4); aux {card_aux.tolist()} (max abs err {aux_err:.3g}, "
+            f"tol 1e-5); first step's routing of {len(card_routes)} MoE "
+            f"layers (indices, positions, keep masks) "
+            f"{'equal' if routes_equal else 'DIFFER'}; the card's run "
+            f"twice: {'bitwise' if bitwise else 'DIFFER'}")
+        if not (np.allclose(card.numpy(), cpu.numpy(), rtol=1e-4, atol=1e-4)
+                and aux_err <= 1e-5 and routes_equal and bitwise
+                and len(card_routes) == (n_moe if cfg.moe else 0)):
+            raise AssertionError(f"5k {cfg.name}: losses {loss_err:.3g}, aux "
+                                 f"{aux_err:.3g}, routes equal "
+                                 f"{routes_equal}, bitwise {bitwise}")
+        report[cfg.name] = {"loss_max_abs_err": loss_err,
+                            "aux_max_abs_err": aux_err,
+                            "aux": card_aux.tolist(),
+                            "routes_equal": routes_equal,
+                            "card_bitwise_twice": bitwise}
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3216,6 +3473,7 @@ def main(argv=None) -> int:
         from repro_torch import checkpoint, optim
         from repro_torch.fed import train_step as ts
         from repro_torch.models import model as tm
+        from repro_torch.models import moe as moe_mod
         from repro_torch.fed import engine
         from repro_torch.tree import tree_leaves, tree_map
     except ImportError as exc:
@@ -3373,11 +3631,13 @@ def main(argv=None) -> int:
         f"(B, ctx, Hq, Hkv, hd, pos, window), ring buffers (pos 100 and 1000 "
         f"in 256 slots, pos 700 with window 128), hd 64 at g 1, 4 and 8, ctx "
         f"1000 (pos 999 and 5000), hd 112 at {D_ZAMBA} and its seams "
-        f"{D_SEAMS_112}, g 48 at {D_GRANITE}, hd 64 MHA at {D_MUSICGEN}: max "
+        f"{D_SEAMS_112}, g 48 at {D_GRANITE}, hd 64 MHA at {D_MUSICGEN}, "
+        f"g 7 at {D_ARCTIC} (pos {D_POS}, 31, 32 and 33): max "
         f"abs err {dec_errs['flash_decode']:.3g} (tol 2e-5; hd 112 "
-        f"{dec_errs['hd112']:.3g}), bf16 {dec_errs['bf16']:.3g} (tol 2e-2; "
-        f"hd 112 {dec_errs['hd112_bf16']:.3g}); every case run twice bitwise "
-        f"equal")
+        f"{dec_errs['hd112']:.3g}, g 7 {dec_errs['g7']:.3g}), bf16 "
+        f"{dec_errs['bf16']:.3g} (tol 2e-2; hd 112 "
+        f"{dec_errs['hd112_bf16']:.3g}, g 7 {dec_errs['g7_bf16']:.3g}); "
+        f"every case run twice bitwise equal")
     report["decode_errors"] = dec_errs
 
     # ---- 4. the main path at full width ------------------------------------
@@ -3482,13 +3742,15 @@ def main(argv=None) -> int:
             report[f"decode_{arch}"] = decode_cell(torch, serve, kfd, arch)
         except (AssertionError, FloatingPointError) as exc:
             return fail(f"phase 4d: {exc}")
-    try:
-        report[f"decode_{G_ARCH}"] = granite_decode_cell(
-            torch, tm, get_arch, make_serve_step, kfd, tree_leaves)
-    except AssertionError as exc:
-        return fail(f"phase {exc}")
+    for arch, n_layers in CUT_DECODE:
+        try:
+            report[f"decode_{arch}"] = cut_decode_cell(
+                torch, tm, get_arch, make_serve_step, kfd, tree_leaves, arch,
+                n_layers)
+        except AssertionError as exc:
+            return fail(f"phase {exc}")
     d_launches = {arch: report[f"decode_{arch}"]["launches"]["flash_decode"]
-                  for arch in D_ARCHS + (G_ARCH,)}
+                  for arch in D_ARCHS + tuple(a for a, _ in CUT_DECODE)}
 
     # ---- 4l. llava's prefill with its image prefix -------------------------
     try:
@@ -3577,6 +3839,17 @@ def main(argv=None) -> int:
                   f"{w[name]['plain_ms']:.3f} ms, bound "
                   f"{w[name]['bound_ms']:.3f} ms ({w[name]['bound_by']})"
                   for name in ("sbc_stats", "sbc_apply")) + f"; {smi}")
+
+    # ---- 4m. MoE and MLA training at full width -----------------------------
+    t0 = time.perf_counter()
+    try:
+        report["train_moe"] = moe_train_cell(
+            torch, train, ts, tm, optim, get_arch, tree_leaves,
+            {"sbc_stats": ksbc.sbc_stats, "sbc_apply": ksbc.sbc_apply}, smi)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    m4_sbc = report["train_moe"]["deepseek_sbc"]["launches"]
+    log(f"[4m train] phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
@@ -3704,6 +3977,16 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
 
+    # ---- 5k. the MoE and MLA train steps: card vs CPU ----------------------
+    t0 = time.perf_counter()
+    try:
+        report["moe_contracts"] = moe_contracts(
+            torch, np, ts, tm, moe_mod, optim, get_arch, tree_map,
+            tree_leaves)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    log(f"[5k card vs cpu] phase wall {time.perf_counter() - t0:.1f} s")
+
     # ---- 6. times ----------------------------------------------------------
     records = []
     for name, kern, plain in (("sbc_stats", ksbc.sbc_stats,
@@ -3759,7 +4042,10 @@ def main(argv=None) -> int:
                                      h5_launches[name],
                                  f"{Q_ARCH} launch.train --compress-uplink "
                                  f"--slot {Q_SLOT_SBC}, {Q_STEPS} steps, 4k":
-                                     k_sbc[name]},
+                                     k_sbc[name],
+                                 f"{M4_SBC_ARCH} at {M4_SBC_LAYERS} layers, "
+                                 f"make_train_step --compress-uplink, "
+                                 f"{M4_SBC_STEPS} steps, 4m": m4_sbc[name]},
             "max_abs_err": errs[name],
             "at_w_down": report["sbc_w_down"][name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -3918,7 +4204,7 @@ def main(argv=None) -> int:
                                     "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}
            for key in ("qwen_path", "zamba2_path", "zamba2_bf16",
-                       "granite_path", "musicgen_path")},
+                       "granite_path", "musicgen_path", "arctic_path")},
         "at_32k": {k: {f: dt[k][f] for f in ("shape", "pos", "dtype", "ms",
                                              "device_ms", "device_span_ms",
                                              "kernels_per_call", "plain_ms",

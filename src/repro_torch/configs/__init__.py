@@ -7,20 +7,22 @@ asking for one raises ``NotImplementedError``; an unknown name raises
 ``KeyError``.  ``configs/feel_mlp.py`` holds the paper's classifier's
 constants, not an ``ArchConfig``.
 """
-from repro_torch.configs import (granite_34b, llava_next_mistral_7b,
-                                 mamba2_2p7b, mistral_nemo_12b,
+from repro_torch.configs import (arctic_480b, deepseek_v2_lite_16b,
+                                 granite_34b, llava_next_mistral_7b,
+                                 mamba2_2p7b, minicpm3_4b, mistral_nemo_12b,
                                  musicgen_large, qwen1p5_4b, zamba2_7b)
-from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
-                                      SSMConfig, get_shape)
+from repro_torch.configs.base import (SHAPES, ArchConfig, MLAConfig,
+                                      MoEConfig, ShapeConfig, SSMConfig,
+                                      get_shape)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (granite_34b, mistral_nemo_12b, musicgen_large, zamba2_7b,
+         for m in (deepseek_v2_lite_16b, arctic_480b, granite_34b,
+                   minicpm3_4b, mistral_nemo_12b, musicgen_large, zamba2_7b,
                    mamba2_2p7b, qwen1p5_4b, llava_next_mistral_7b)}
 
-# the reference's architectures that select parts the port does not run
-# yet (MoE, MLA; feel-mlp is the paper's classifier, not a decoder)
-NOT_PORTED = ("deepseek-v2-lite-16b", "arctic-480b", "minicpm3-4b",
-              "feel-mlp")
+# the reference's registry names that are not decoder configs: feel-mlp is
+# the paper's classifier (``configs/feel_mlp.py`` holds its constants)
+NOT_PORTED = ("feel-mlp",)
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -33,5 +35,6 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "SSMConfig", "ShapeConfig", "SHAPES", "ARCHS",
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig",
+           "ShapeConfig", "SHAPES", "ARCHS",
            "NOT_PORTED", "get_arch", "get_shape"]

@@ -7,8 +7,10 @@ a config written for it reads the same.  ``models.model.init`` and
 ``forward`` run the ``dense`` family (SwiGLU or the 2-matrix GELU
 ``ffn_kind="mlp"``), ``vlm`` (a ``vlm_prefix``), ``audio``
 (``n_codebooks``), ``ssm`` (an :class:`SSMConfig` with
-``attn_kind="none"``) and ``hybrid`` (an SSM and ``hybrid_every``), and
-refuse the values that select parts not ported (MoE, MLA, another
+``attn_kind="none"``), ``hybrid`` (an SSM and ``hybrid_every``) and
+``moe`` (a :class:`MoEConfig`), with multi-head latent attention
+(``attn_kind="mla"`` and an :class:`MLAConfig`) in the dense and MoE
+families, and refuse the values that select parts not ported (another
 ``norm_eps``, a field of one family on another).
 :meth:`ArchConfig.reduced` is the reference's CPU-smoke variant of the
 same family (2 layers, d_model 256), for tests.  A :class:`ShapeConfig`
@@ -21,6 +23,28 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0            # shared (always-on) experts, DeepSeek style
+    dense_residual: bool = False  # Arctic: dense FFN in parallel with MoE
+    first_dense_layers: int = 0   # DeepSeek: layer 0 is a dense FFN
+    router_noise: float = 0.0
+    load_balance_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 / MiniCPM3)."""
+    kv_lora_rank: int
+    q_lora_rank: Optional[int]
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
 
 
 @dataclass(frozen=True)
@@ -50,8 +74,8 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     attn_kind: str = "gqa"        # gqa | mla | none
     attn_window: Optional[int] = None   # sliding-window attention (tokens)
-    moe: Optional[object] = None
-    mla: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid_every: int = 0
     n_codebooks: int = 1
@@ -69,26 +93,26 @@ class ArchConfig:
         sizes of its init's leaves, drawn on the ``meta`` device, so no
         memory is allocated (the reference counts the same shapes through
         ``jax.eval_shape``)."""
-        import torch
-        from repro_torch.models.model import init
+        from repro_torch.models.model import MetaGenerator, init
         from repro_torch.tree import tree_leaves
-
-        class MetaGenerator(torch.Generator):
-            """A CPU generator whose draws land on the meta device."""
-            @property
-            def device(self):
-                return torch.device("meta")
 
         params = init(self, MetaGenerator())
         return sum(t.numel() for t in tree_leaves(params))
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k only + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        total = self.param_count()
+        m = self.moe
+        moe_layers = self.n_layers - m.first_dense_layers
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        inactive = moe_layers * (m.n_experts - m.top_k) * per_expert
+        return total - inactive
+
     def reduced(self) -> "ArchConfig":
         """CPU smoke variant: same family/wiring, tiny dims (the
-        reference's ``reduced``; MoE and MLA configs are not ported)."""
-        if self.moe is not None or self.mla is not None:
-            raise NotImplementedError(
-                f"reduced() of {self.name!r}: MoE and MLA configs are not "
-                "ported yet")
+        reference's ``reduced``)."""
         kw = dict(
             name=self.name + "-smoke",
             n_layers=2,
@@ -103,6 +127,19 @@ class ArchConfig:
             hybrid_every=1 if self.hybrid_every else 0,
             vlm_prefix=16 if self.vlm_prefix else 0,
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff_expert=128,
+                n_shared=min(self.moe.n_shared, 1),
+                first_dense_layers=min(self.moe.first_dense_layers, 1),
+            )
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(
+                kv_lora_rank=64,
+                q_lora_rank=64 if self.mla.q_lora_rank else None,
+                qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+            )
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32, chunk=32)

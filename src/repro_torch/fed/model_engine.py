@@ -176,8 +176,8 @@ def _model_period_step(cfg, rt, loss_fn, opt, compress: bool, ratio: float,
     state = TrainState(params, opt_state, state.step + 1, residual)
 
     loss_after = loss_fn(params, joint)
-    logits = forward(cfg, params,
-                     test_tok.expand((rows,) + test_tok.shape), rt=rt)
+    logits, _ = forward(cfg, params,
+                        test_tok.expand((rows,) + test_tok.shape), rt=rt)
     acc = (logits[:, :, -1, :N_CLASSES].argmax(-1) == test_y).to(
         torch.float32).mean(-1)
     return state, (loss_after, acc, loss_before - loss_after)

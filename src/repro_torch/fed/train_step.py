@@ -9,11 +9,12 @@ the weighted mean IS the paper's Step-3 aggregate.  Optional
 the paper's Step-2 compression — with the error-feedback residual
 carried in ``TrainState.residual``.
 
-Losses in :func:`weighted_ce` and :func:`make_loss_fn` are per parameter
-copy: ``params`` is a stack of N sets and the batch's tokens, labels and
-weights are (N, B, S), so one call gives the (N,) losses of N devices
-(or rows), each over its own examples with its own denominator (the FEEL
-engines' form).  The train, prefill and serve steps run one set in the
+Losses in :func:`weighted_ce` and :func:`make_loss_fn` (the weighted CE
+plus the MoE blocks' load-balance loss, as the reference's) are per
+parameter copy: ``params`` is a stack of N sets and the batch's tokens,
+labels and weights are (N, B, S), so one call gives the (N,) losses of N
+devices (or rows), each over its own examples with its own denominator
+(the FEEL engines' form).  The train, prefill and serve steps run one set in the
 reference's layout (no copy axis) and add a copy axis of 1 inside.
 
 :func:`input_specs` gives the reference's abstract inputs of an (arch,
@@ -63,13 +64,23 @@ def weighted_ce(cfg: ArchConfig, logits, labels, weights):
     return (nll * weights).sum(dims) / denom
 
 
-def make_loss_fn(cfg: ArchConfig, rt: Runtime):
-    def loss_fn(params, batch):
-        logits = forward(cfg, params, batch["tokens"],
-                         prefix_embeds=batch.get("prefix"), rt=rt)
-        return weighted_ce(cfg, logits, batch["labels"], batch["weights"])
+def _total_and_ce(cfg: ArchConfig, rt: Runtime):
+    """``fn(params, batch) -> (CE + aux, CE)``, each (N,)."""
+    def fn(params, batch):
+        logits, aux = forward(cfg, params, batch["tokens"],
+                              prefix_embeds=batch.get("prefix"), rt=rt)
+        ce = weighted_ce(cfg, logits, batch["labels"], batch["weights"])
+        return ce + aux, ce
 
-    return loss_fn
+    return fn
+
+
+def make_loss_fn(cfg: ArchConfig, rt: Runtime):
+    """``loss_fn(params, batch)`` → (N,): the weighted CE plus the MoE
+    load-balance loss (0 for the other families), the objective the
+    reference's ``make_loss_fn`` differentiates."""
+    total_and_ce = _total_and_ce(cfg, rt)
+    return lambda params, batch: total_and_ce(params, batch)[0]
 
 
 def _leaf_state(state, like, i: int):
@@ -144,19 +155,19 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
     Gradients come from ``torch.autograd``; with ``compress_uplink`` they
     go through :func:`sbc_uplink` (a residual of None starts from zeros)
     and the optimizer steps on the approximation.  ``metrics``: ``loss``
-    (the weighted CE), ``total_loss`` (the same: the ported families have
-    no auxiliary loss) and ``grad_norm`` (of the gradients the optimizer
-    took), 0-d tensors on the parameters' device."""
-    loss_fn = make_loss_fn(cfg, rt)
+    (the weighted CE), ``total_loss`` (CE + the MoE load-balance loss,
+    which the gradients are of) and ``grad_norm`` (of the gradients the
+    optimizer took), 0-d tensors on the parameters' device."""
+    total_and_ce = _total_and_ce(cfg, rt)
 
     def train_step(state: TrainState, batch, lr):
         leaves = tree_leaves(state.params)
         with torch.enable_grad():
             req = [p.detach().requires_grad_() for p in leaves]
             views = _one_copy(tree_unflatten(state.params, req))
-            loss = loss_fn(views, _one_copy(batch))[0]
-            grads = list(torch.autograd.grad(loss, req))
-        loss = loss.detach()
+            total, ce = total_and_ce(views, _one_copy(batch))
+            grads = list(torch.autograd.grad(total[0], req))
+        total, loss = total[0].detach(), ce[0].detach()
         del req, views
         residual = state.residual
         if compress_uplink:     # the gradients become their approximation
@@ -165,7 +176,7 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         with torch.no_grad():
             apply_in_place(opt, state.params, grads, state.opt, lr)
-        metrics = {"loss": loss, "total_loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "total_loss": total, "grad_norm": gnorm}
         return TrainState(state.params, state.opt, state.step + 1,
                           residual), metrics
 
@@ -203,7 +214,7 @@ def make_prefill_step(cfg: ArchConfig, rt: Runtime):
         prefix = batch.get("prefix")
         return forward(cfg, _one_copy(params), batch["tokens"][None],
                        prefix_embeds=None if prefix is None else prefix[None],
-                       rt=rt)[0]
+                       rt=rt)[0][0]
 
     return prefill
 
@@ -227,7 +238,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
     Train/prefill: the token batch, (B, S) or (B, S, n_cb) for audio (+
     labels alike and weights (B, S) for train, and the VLM's prefix
     embeddings (B, min(vlm_prefix, S // 2), d)).  Decode: one new token
-    per sequence, (B, 1) or (B, 1, n_cb), + the KV/SSM cache, allocated
+    per sequence, (B, 1) or (B, 1, n_cb), + the KV (MLA: ``ckv``) / SSM
+    cache, allocated
     at ``min(seq_len, window)`` context under a sliding window (the
     documented ``init_cache`` contract: decode only ever addresses
     ``window`` ring-buffer slots)."""

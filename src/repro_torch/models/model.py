@@ -1,30 +1,34 @@
-"""The decoder model of the dense, VLM, audio, SSM and hybrid families
-(port of the reference's ``models/model.py``) over a padded-vocab
-embedding, with a final norm and an untied LM head:
+"""The decoder model of every ported family (port of the reference's
+``models/model.py``) over a padded-vocab embedding, with a final norm and
+an untied LM head:
 
-  dense / vlm : [ln → GQA → ln → FFN] × L   (FFN: SwiGLU or the GELU MLP)
+  dense / vlm : [ln → attn → ln → FFN] × L   (FFN: SwiGLU or the GELU MLP)
   audio       : the same, over the sum of ``n_codebooks`` embeddings, with
                 one LM head a codebook
+  moe         : [ln → attn → ln → MoE] × L, the first
+                ``first_dense_layers`` dense blocks (``dense0``)
   ssm         : [ln → mamba2] × L      (the Mamba-2 block, :mod:`.mamba2`)
   hybrid      : L mamba2 layers in segments of ``hybrid_every``; after
                 each segment ONE shared attention + FFN block (the same
                 weights every time, ``shared_attn``) runs
 
+where attn is GQA or, with ``attn_kind="mla"`` (dense and MoE), MLA.
 Parameters follow the reference's layout — ``embed.table``, ``lm_head``,
-``final_norm.scale``, ``layers.*`` stacked over a leading layer axis and,
-for the hybrid, ``shared_attn`` with no layer axis — and :func:`forward`
-takes a stack of N such sets (a leading copy axis on every leaf,
-:mod:`.layers`).  The stacked layer axis runs as a Python loop where the
-reference scans.  A VLM's pre-projected patch embeddings enter
-:func:`forward` as ``prefix_embeds`` and replace the first positions.
+``final_norm.scale``, ``layers.*`` (and the MoE family's ``dense0.*``)
+stacked over a leading layer axis and, for the hybrid, ``shared_attn``
+with no layer axis — and :func:`forward` takes a stack of N such sets (a
+leading copy axis on every leaf, :mod:`.layers`).  The stacked layer
+axis runs as a Python loop where the reference scans.  A VLM's
+pre-projected patch embeddings enter :func:`forward` as ``prefix_embeds``
+and replace the first positions.
 
 Decode (:func:`init_cache`, :func:`decode_step`) runs one parameter set
 in the reference's layout (no copy axis): one token per sequence (one a
-codebook for audio) against the KV cache (dense, vlm, audio; the
-hybrid's one a segment) and the conv and SSM states (ssm, hybrid), all
-updated in place, with the shared position ``pos`` a 0-d int32 tensor on
-the device, so a decode loop never waits for the card.  MoE and MLA are
-not ported.
+codebook for audio) against the KV cache (GQA; the hybrid's one a
+segment), the compressed ``ckv`` cache (MLA) and the conv and SSM states
+(ssm, hybrid), all updated in place, with the shared position ``pos`` a
+0-d int32 tensor on the device, so a decode loop never waits for the
+card.  MoE decode is drop-free (capacity S·top_k).
 """
 from __future__ import annotations
 
@@ -33,9 +37,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (FFN_KINDS, dense_init,
                                        embedding_init, ffn, ffn_init, linear,
                                        padded_vocab, rmsnorm, rmsnorm_init)
@@ -46,8 +52,11 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 class Runtime:
     """Execution knobs independent of the architecture (the model runs in
     float32)."""
-    attn_impl: str = "pallas"      # pallas | naive
+    attn_impl: str = "pallas"   # auto | naive | blockwise | flashjnp | pallas
+    block_q: int = 256
     window: Optional[int] = None   # overrides cfg.attn_window when set
+    capacity_factor: float = 1.25
+    moe_impl: str = "scatter"      # scatter | expert_choice
 
     def win(self, cfg: ArchConfig):
         return self.window if self.window is not None else cfg.attn_window
@@ -58,21 +67,21 @@ _UNPORTED = ("attn_kind", "moe", "mla", "ssm", "hybrid_every",
              "n_codebooks", "vlm_prefix", "ffn_kind", "norm_eps")
 # the values each ported family admits where it differs from the defaults:
 # a class (any instance of it), a tuple (any of its members) or a value
-_FAMILY_FIELDS = {"dense": {"ffn_kind": FFN_KINDS},
+_MLA = {"attn_kind": ("gqa", "mla"), "mla": (None, MLAConfig)}
+_FAMILY_FIELDS = {"dense": {"ffn_kind": FFN_KINDS, **_MLA},
                   "vlm": {"ffn_kind": FFN_KINDS, "vlm_prefix": int},
                   "audio": {"ffn_kind": FFN_KINDS, "n_codebooks": int},
                   "ssm": {"attn_kind": "none", "ssm": SSMConfig},
                   "hybrid": {"ffn_kind": FFN_KINDS, "ssm": SSMConfig,
-                             "hybrid_every": int}}
-# the families whose layers are dense blocks
-_DENSE = ("dense", "vlm", "audio")
+                             "hybrid_every": int},
+                  "moe": {"moe": MoEConfig, **_MLA}}
 
 
 def _admits(want, got) -> bool:
+    if isinstance(want, tuple):
+        return any(_admits(w, got) for w in want)
     if isinstance(want, type):
         return isinstance(got, want)
-    if isinstance(want, tuple):
-        return got in want
     return got == want
 
 
@@ -91,18 +100,48 @@ def _require_ported(cfg: ArchConfig):
                 f"ArchConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"yet for family {cfg.family!r}; the port runs "
                 f"{name}={want[name]!r}")
+    if (cfg.attn_kind == "mla") != (cfg.mla is not None):
+        raise NotImplementedError(
+            f"attn_kind={cfg.attn_kind!r} with mla={cfg.mla!r} is not "
+            "ported: MLA takes attn_kind='mla' and an MLAConfig together")
     if cfg.family == "hybrid" and not (
             cfg.hybrid_every >= 1 and cfg.n_layers % cfg.hybrid_every == 0):
         raise ValueError(f"hybrid_every={cfg.hybrid_every} must divide "
                          f"n_layers={cfg.n_layers}")
 
 
+def _first_dense(cfg: ArchConfig) -> int:
+    """The MoE family's leading dense blocks (``dense0``); 0 otherwise."""
+    return cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the meta device: an init drawn
+    from it allocates nothing, and gives the shapes."""
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def _attn_init(gen, cfg: ArchConfig, dtype):
+    if cfg.attn_kind == "mla":
+        return attn.mla_init(gen, cfg, dtype)
+    return attn.gqa_init(gen, cfg, dtype)
+
+
 def _dense_layer_init(gen, cfg: ArchConfig, dtype):
     return {"ln1": rmsnorm_init(cfg.d_model, dtype, gen.device),
-            "attn": attn.gqa_init(gen, cfg, dtype),
+            "attn": _attn_init(gen, cfg, dtype),
             "ln2": rmsnorm_init(cfg.d_model, dtype, gen.device),
             "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype,
                             cfg.ffn_kind)}
+
+
+def _moe_layer_init(gen, cfg: ArchConfig, dtype, experts=None):
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype, gen.device),
+            "attn": _attn_init(gen, cfg, dtype),
+            "ln2": rmsnorm_init(cfg.d_model, dtype, gen.device),
+            "moe": moe_mod.moe_init(gen, cfg, dtype, experts)}
 
 
 def _ssm_layer_init(gen, cfg: ArchConfig, dtype):
@@ -112,7 +151,7 @@ def _ssm_layer_init(gen, cfg: ArchConfig, dtype):
 
 _LAYER_INIT = {"dense": _dense_layer_init, "vlm": _dense_layer_init,
                "audio": _dense_layer_init, "ssm": _ssm_layer_init,
-               "hybrid": _ssm_layer_init}
+               "hybrid": _ssm_layer_init, "moe": _moe_layer_init}
 
 
 def _codebook_stack(draw, n_codebooks: int):
@@ -122,16 +161,39 @@ def _codebook_stack(draw, n_codebooks: int):
     return torch.stack([draw() for _ in range(n_codebooks)])
 
 
+def _stacked_layers(gen, cfg: ArchConfig, dtype, n: int, layer_init):
+    """``n`` layers stacked on a leading axis: the stacked leaves are
+    allocated first (their shapes from a draw on the meta device), then
+    each layer is drawn and copied into its slot — its experts straight
+    into theirs, a matrix at a time — so the peak is the stack plus one
+    layer's leaves outside the experts plus one expert matrix."""
+    like = layer_init(MetaGenerator(), cfg, dtype)
+    stack = tree_map(lambda t: torch.empty((n,) + t.shape, dtype=t.dtype,
+                                           device=gen.device), like)
+    for i in range(n):
+        slot = tree_map(lambda t: t[i], stack)
+        kw = {"experts": slot["moe"]["experts"]} if "moe" in slot else {}
+        layer = layer_init(gen, cfg, dtype, **kw)
+        for into, t in zip(tree_leaves(slot), tree_leaves(layer)):
+            if into is not t:
+                into.copy_(t)
+        del layer
+    return stack
+
+
 def init(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32):
     """One parameter set on ``gen``'s device, drawn from ``gen`` in this
     order: the embedding table (one a codebook), the LM head (one a
-    codebook), then per layer the attention projections (q, k, v, o) and
-    the FFN (gate, up, down; up, down for the GELU MLP) — or, for the SSM
-    and hybrid families, the mixer's in_proj, conv_w and out_proj — and
-    last the hybrid's shared attention block.  Same shapes and scales as
-    the reference's init, another random stream.  Each layer is drawn
-    and copied into its slot of the stacked leaves, so the peak is the
-    model's size plus one layer."""
+    codebook), then per layer (the MoE family's dense blocks first) the
+    attention projections (GQA: q, k, v, o; MLA: :func:`attn.mla_init`'s
+    order) and the FFN (gate, up, down; up, down for the GELU MLP) or the
+    MoE block (router, each expert's gate, up, down, the shared and the
+    dense FFN) — or, for the SSM and hybrid families, the mixer's
+    in_proj, conv_w and out_proj — and last the hybrid's shared attention
+    block.  Same shapes and scales as the reference's init, another
+    random stream.  Layers are drawn into their slots of the stacked
+    leaves (:func:`_stacked_layers`), so the peak is the model's size
+    plus about one layer outside its experts."""
     _require_ported(cfg)
     pv, ncb = padded_vocab(cfg.vocab), cfg.n_codebooks
     params = {
@@ -140,14 +202,12 @@ def init(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32):
         "lm_head": _codebook_stack(lambda: dense_init(
             gen, cfg.d_model, pv, dtype), ncb),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, gen.device)}
-    layer_init = _LAYER_INIT[cfg.family]
-    first = layer_init(gen, cfg, dtype)
-    layers = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape),
-                      first)
-    for i in range(cfg.n_layers):
-        layer = first if i == 0 else layer_init(gen, cfg, dtype)
-        tree_map(lambda stack, t: stack[i].copy_(t), layers, layer)
-    params["layers"] = layers
+    nd = _first_dense(cfg)
+    if nd:
+        params["dense0"] = _stacked_layers(gen, cfg, dtype, nd,
+                                           _dense_layer_init)
+    params["layers"] = _stacked_layers(gen, cfg, dtype, cfg.n_layers - nd,
+                                       _LAYER_INIT[cfg.family])
     if cfg.family == "hybrid":
         params["shared_attn"] = _dense_layer_init(gen, cfg, dtype)
     return params
@@ -186,22 +246,38 @@ def _unembed(params, cfg: ArchConfig, x):
     return logits
 
 
+def _attn_fwd(lp, cfg: ArchConfig, x, rt: Runtime):
+    if cfg.attn_kind == "mla":
+        return attn.mla_forward(lp, cfg, x, impl=rt.attn_impl,
+                                window=rt.win(cfg), block_q=rt.block_q)
+    return attn.gqa_forward(lp, cfg, x, window=rt.win(cfg),
+                            impl=rt.attn_impl, block_q=rt.block_q)
+
+
 def _dense_block(lp, cfg: ArchConfig, x, rt: Runtime):
-    x = x + attn.gqa_forward(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
-                             window=rt.win(cfg), impl=rt.attn_impl)
+    x = x + _attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], x), rt)
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x))
+
+
+def _moe_block(lp, cfg: ArchConfig, x, rt: Runtime):
+    """A MoE block: (x, its load-balance loss (N,))."""
+    x = x + _attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], x), rt)
+    y, aux = moe_mod.moe_forward(lp["moe"], cfg, rmsnorm(lp["ln2"], x),
+                                 capacity_factor=rt.capacity_factor,
+                                 impl=rt.moe_impl)
+    return x + y, aux
 
 
 def _ssm_block(lp, cfg: ArchConfig, x, rt: Runtime):
     return x + m2.mamba2_forward(lp["mixer"], cfg, rmsnorm(lp["ln"], x))
 
 
-def _layer_params(layers, n_layers: int):
+def _layer_params(layers):
     """Per-layer views of the stacked layer params (layer axis 1, after
     the copy axis); ``unbind`` keeps the gradient one stack per leaf."""
     per_leaf = [leaf.unbind(1) for leaf in tree_leaves(layers)]
-    return [tree_unflatten(layers, [u[i] for u in per_leaf])
-            for i in range(n_layers)]
+    return [tree_unflatten(layers, list(views))
+            for views in zip(*per_leaf)]
 
 
 def _ends_segment(cfg: ArchConfig, i: int) -> bool:
@@ -212,24 +288,33 @@ def _ends_segment(cfg: ArchConfig, i: int) -> bool:
 def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
             rt: Runtime = Runtime()):
     """Full-sequence forward of N parameter copies: tokens (N, B, S)
-    integers, or (N, B, S, n_cb) for audio → logits (N, B, S, padded
-    vocab), or (N, B, S, n_cb, padded vocab).  ``prefix_embeds`` (N, B,
-    P, d), a VLM's pre-projected patch embeddings, replace the first P
-    positions.  The ported families have no auxiliary loss, so only the
-    logits are returned.  The hybrid's shared block runs after every
-    ``hybrid_every`` SSM layers with the same weights, so its gradient is
-    the sum over its applications."""
+    integers, or (N, B, S, n_cb) for audio → ``(logits, aux)``: logits
+    (N, B, S, padded vocab), or (N, B, S, n_cb, padded vocab), and aux
+    (N,) float32, the sum of the MoE blocks' load-balance losses (zeros
+    for the other families).  ``prefix_embeds`` (N, B, P, d), a VLM's
+    pre-projected patch embeddings, replace the first P positions.  The
+    hybrid's shared block runs after every ``hybrid_every`` SSM layers
+    with the same weights, so its gradient is the sum over its
+    applications."""
     _require_ported(cfg)
-    block = _dense_block if cfg.family in _DENSE else _ssm_block
     x = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[2]
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, :, P:]], dim=2)
-    for i, lp in enumerate(_layer_params(params["layers"], cfg.n_layers)):
-        x = block(lp, cfg, x, rt)
+    aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    if "dense0" in params:
+        for lp in _layer_params(params["dense0"]):
+            x = _dense_block(lp, cfg, x, rt)
+    block = _ssm_block if cfg.family in ("ssm", "hybrid") else _dense_block
+    for i, lp in enumerate(_layer_params(params["layers"])):
+        if cfg.family == "moe":
+            x, a = _moe_block(lp, cfg, x, rt)
+            aux = aux + a
+        else:
+            x = block(lp, cfg, x, rt)
         if _ends_segment(cfg, i):
             x = _dense_block(params["shared_attn"], cfg, x, rt)
-    return _unembed(params, cfg, rmsnorm(params["final_norm"], x))
+    return _unembed(params, cfg, rmsnorm(params["final_norm"], x)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -240,11 +325,13 @@ def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
 def init_cache(cfg: ArchConfig, batch: int, ctx: int, rt: Runtime = Runtime(),
                device="cpu"):
     """The decode cache, zeroed, on ``device`` (the reference's layout):
-    ``pos`` a 0-d int32; dense, vlm, audio: ``k``/``v`` (L, B, ctx', Hkv,
-    hd) with ``ctx' = min(ctx, window)`` under a window (a ring buffer);
-    ssm and hybrid: ``conv`` (L, B, d_conv-1, CH) and ``ssm`` (L, B, H,
-    P, N) float32; hybrid also ``k``/``v`` (L / hybrid_every, B, ctx',
-    Hkv, hd), one a segment for the shared block."""
+    ``pos`` a 0-d int32; GQA (dense, vlm, audio, moe): ``k``/``v`` (L, B,
+    ctx', Hkv, hd) with ``ctx' = min(ctx, window)`` under a window (a ring
+    buffer); MLA: ``ckv`` (L, B, ctx', kv_lora + rope), every layer's
+    (the MoE family's dense blocks first); ssm and hybrid: ``conv`` (L,
+    B, d_conv-1, CH) and ``ssm`` (L, B, H, P, N) float32; hybrid also
+    ``k``/``v`` (L / hybrid_every, B, ctx', Hkv, hd), one a segment for
+    the shared block."""
     _require_ported(cfg)
     zeros = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -256,23 +343,46 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, rt: Runtime = Runtime(),
         s = cfg.ssm
         c["conv"] = zeros(L, batch, s.d_conv - 1, CH)
         c["ssm"] = zeros(L, batch, H, s.head_dim, s.d_state)
-    if cfg.family != "ssm":
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        c["ckv"] = zeros(L, batch, kv_ctx, m.kv_lora_rank + m.qk_rope_head_dim)
+    elif cfg.family != "ssm":
         n_kv = L // cfg.hybrid_every if cfg.family == "hybrid" else L
         c["k"] = zeros(n_kv, batch, kv_ctx, cfg.n_kv_heads, cfg.hd())
         c["v"] = zeros(n_kv, batch, kv_ctx, cfg.n_kv_heads, cfg.hd())
     return c
 
 
+def _attn_decode(lp, cfg: ArchConfig, x, cache, i, pos, rt: Runtime):
+    if cfg.attn_kind == "mla":
+        return attn.mla_decode(lp, cfg, x, cache["ckv"][i], pos)
+    return attn.gqa_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos,
+                           window=rt.win(cfg), impl=rt.attn_impl)
+
+
 def _dense_block_decode(lp, cfg: ArchConfig, x, cache, i, pos, rt: Runtime):
-    x = x + attn.gqa_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x),
-                            cache["k"][i], cache["v"][i], pos,
-                            window=rt.win(cfg), impl=rt.attn_impl)
+    x = x + _attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x), cache, i,
+                         pos, rt)
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x))
+
+
+def _moe_block_decode(lp, cfg: ArchConfig, x, cache, i, pos, rt: Runtime):
+    x = x + _attn_decode(lp["attn"], cfg, rmsnorm(lp["ln1"], x), cache, i,
+                         pos, rt)
+    # decode is drop-free: per-row capacity = S·top_k (= top_k at S = 1)
+    y, _ = moe_mod.moe_forward(lp["moe"], cfg, rmsnorm(lp["ln2"], x),
+                               cap=x.shape[2] * cfg.moe.top_k)
+    return x + y
 
 
 def _ssm_block_decode(lp, cfg: ArchConfig, x, cache, i, pos, rt: Runtime):
     return x + m2.mamba2_decode(lp["mixer"], cfg, rmsnorm(lp["ln"], x),
                                 cache["conv"][i], cache["ssm"][i])
+
+
+_BLOCK_DECODE = {"dense": _dense_block_decode, "vlm": _dense_block_decode,
+                 "audio": _dense_block_decode, "ssm": _ssm_block_decode,
+                 "hybrid": _ssm_block_decode, "moe": _moe_block_decode}
 
 
 def _one_copy(tree):
@@ -285,12 +395,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *,
     """One decode step for the whole batch: tokens (B, 1) integers, or
     (B, 1, n_cb) for audio → logits (B, 1, padded vocab), or (B, 1, n_cb,
     padded vocab).  ``cache`` (from :func:`init_cache`) is updated in
-    place — layer i's KV slot or states (the hybrid's shared block: segment
-    i's KV slot), then ``pos`` advanced by one — and returned, as the
-    reference's jitted step donates it."""
+    place — layer i's KV or ``ckv`` slot or states (the hybrid's shared
+    block: segment i's KV slot), then ``pos`` advanced by one — and
+    returned, as the reference's jitted step donates it."""
     _require_ported(cfg)
-    block = (_dense_block_decode if cfg.family in _DENSE
-             else _ssm_block_decode)
     pos = cache["pos"]
     # a gather (a sum of gathers over the codebooks), as the reference's
     # _embed: no gradient flows here, so the training path's one-hot
@@ -301,12 +409,16 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *,
     else:
         x = sum(table[i][tokens[..., i]] for i in range(cfg.n_codebooks))
     x = x[None]                                           # (1, B, 1, d)
-    layers = params["layers"]
+    nd = _first_dense(cfg)
     shared = (_one_copy(params["shared_attn"]) if cfg.family == "hybrid"
               else None)
     for i in range(cfg.n_layers):
-        lp = tree_map(lambda t: t[i][None], layers)
-        x = block(lp, cfg, x, cache, i, pos, rt)
+        if i < nd:
+            lp = tree_map(lambda t: t[i][None], params["dense0"])
+            x = _dense_block_decode(lp, cfg, x, cache, i, pos, rt)
+        else:
+            lp = tree_map(lambda t: t[i - nd][None], params["layers"])
+            x = _BLOCK_DECODE[cfg.family](lp, cfg, x, cache, i, pos, rt)
         if _ends_segment(cfg, i):
             x = _dense_block_decode(shared, cfg, x, cache,
                                     i // cfg.hybrid_every, pos, rt)

@@ -98,12 +98,18 @@ def test_forward_and_backward_match_reference_ops(b, s, hq, hkv, hd, causal,
 
 
 def test_attend_switch_pallas_equals_naive():
+    """On the CPU the kernel route is the plain forward, bitwise naive;
+    flashjnp, blockwise and auto (the reference's variants) fall back to
+    naive at S 24 under their blocks, bitwise; an unknown impl raises."""
     q, k, v = map(torch.from_numpy, _inputs(2, 24, 4, 2, 8, seed=3))
     a = attend(q, k, v, window=6, impl="pallas")
     b = attend(q, k, v, window=6, impl="naive")
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for impl in ("flashjnp", "blockwise", "auto"):
+        torch.testing.assert_close(attend(q, k, v, window=6, impl=impl), b,
+                                   rtol=0, atol=0)
     with pytest.raises(ValueError):
-        attend(q, k, v, impl="flashjnp")
+        attend(q, k, v, impl="mosaic")
 
 
 def test_wrappers_check_their_inputs_on_the_cpu():

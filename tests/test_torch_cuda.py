@@ -780,7 +780,10 @@ DECODE_CASES = [  # (B, ctx, Hq, Hkv, hd, pos, window)
     (2, 128, 8, 2, 112, 1000, 128),
     (3, 100, 8, 2, 112, 99, None),
     (8, 2048, 48, 1, 128, 191, None),     # granite-34b's MQA: g 48
-    (8, 2048, 32, 32, 64, 191, None)]     # musicgen-large's MHA at hd 64
+    (8, 2048, 32, 32, 64, 191, None),     # musicgen-large's MHA at hd 64
+    # arctic-480b's GQA: g 7, the last warp's second row empty
+    (8, 2048, 56, 8, 128, 191, None),
+    (8, 2048, 56, 8, 128, 32, None)]
 
 
 def _decode_inputs(cuda, b, ctx, hq, hkv, hd, dtype=torch.float32):
@@ -861,7 +864,10 @@ def test_flash_decode_wrapper_raises_instead_of_falling_back(cuda):
                                          ("granite-34b", None),
                                          ("musicgen-large", None),
                                          ("llava-next-mistral-7b", None),
-                                         ("zamba2-7b", None)])
+                                         ("zamba2-7b", None),
+                                         ("minicpm3-4b", None),
+                                         ("deepseek-v2-lite-16b", None),
+                                         ("arctic-480b", None)])
 def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
     import dataclasses
     from repro_torch.configs import get_arch
@@ -887,8 +893,11 @@ def test_decode_on_the_card_matches_the_cpu_path(cuda, arch, window):
             torch.log_softmax(card[..., :cfg.vocab], -1).cpu(),
             torch.log_softmax(cpu[..., :cfg.vocab], -1), rtol=1e-4,
             atol=1e-4)
+    # B5 a GQA layer a step (MLA decodes in plain PyTorch)
     attn_layers = {"ssm": 0, "hybrid": cfg.n_layers // max(
         cfg.hybrid_every, 1)}.get(cfg.family, cfg.n_layers)
+    if cfg.attn_kind == "mla":
+        attn_layers = 0
     want = 16 * attn_layers
     assert kfd.flash_decode.launches - before == want
     assert int(caches["cuda"]["pos"]) == 16

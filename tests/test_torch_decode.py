@@ -138,7 +138,7 @@ def test_decode_matches_the_full_sequence_forward(name, window, n):
     params = tm.init(cfg, torch.Generator().manual_seed(2))
     toks = torch.from_numpy(_tokens(cfg, n, seed=3))
     full = tm.forward(cfg, tree_map(lambda t: t[None], params),
-                      toks[None])[0]
+                      toks[None])[0][0]
     cache = tm.init_cache(cfg, B, n)
     steps = []
     for t in range(n):
@@ -156,8 +156,9 @@ def test_decode_matches_the_full_sequence_forward(name, window, n):
 def test_init_fills_the_stacked_layers_with_the_same_stream():
     """In-place layer filling draws what drawing every layer and stacking
     drew: a CPU generator's parameters are unchanged (an audio model's
-    tables and heads drawn one a codebook, a hybrid's shared block
-    last)."""
+    tables and heads drawn one a codebook, a hybrid's shared block last,
+    a MoE model's dense blocks first, its experts drawn into their
+    slots)."""
     for name in ARCHS:
         cfg = get_arch(name).reduced()
         got = tm.init(cfg, torch.Generator().manual_seed(5))
@@ -173,8 +174,13 @@ def test_init_fills_the_stacked_layers_with_the_same_stream():
                 "lm_head": per_codebook(lambda: tm.dense_init(
                     gen, cfg.d_model, tm.padded_vocab(cfg.vocab))),
                 "final_norm": tm.rmsnorm_init(cfg.d_model)}
+        nd = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+        if nd:
+            dense0 = [tm._dense_layer_init(gen, cfg, torch.float32)
+                      for _ in range(nd)]
+            want["dense0"] = tree_map(lambda *ls: torch.stack(ls), *dense0)
         layers = [tm._LAYER_INIT[cfg.family](gen, cfg, torch.float32)
-                  for _ in range(cfg.n_layers)]
+                  for _ in range(cfg.n_layers - nd)]
         want["layers"] = tree_map(lambda *ls: torch.stack(ls), *layers)
         if cfg.family == "hybrid":
             want["shared_attn"] = tm._dense_layer_init(gen, cfg,

@@ -142,7 +142,7 @@ def test_forward_loss_and_grads_match_the_reference(name, impl):
     leaves = [t.requires_grad_() for t in tree_leaves(params)]
     stacked = tree_map(lambda t: t[None], tree_unflatten(params, leaves))
     logits = tm.forward(cfg, stacked, copy["tokens"],
-                        prefix_embeds=copy.get("prefix"), rt=rt)[0]
+                        prefix_embeds=copy.get("prefix"), rt=rt)[0][0]
     loss = ts.make_loss_fn(cfg, rt)(stacked, copy)[0]
     grads = torch.autograd.grad(loss, leaves)
     err = _parity("logits", logits.detach(), want)
@@ -166,7 +166,7 @@ def test_granite_parity_needs_the_tanh_gelu(monkeypatch):
     got = tm.forward(cfg, tree_map(lambda t: t[None],
                                    params_from_numpy(ref_params)),
                      torch.from_numpy(tokens)[None],
-                     rt=tm.Runtime(attn_impl="naive"))[0]
+                     rt=tm.Runtime(attn_impl="naive"))[0][0]
     err = float(np.abs(got.numpy() - np.asarray(want)).max())
     assert err > 10 * TOL, err
     print(f"PARITY granite-34b-smoke with the erf GELU: max_abs_err="

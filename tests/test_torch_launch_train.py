@@ -57,7 +57,7 @@ def test_qwen_forward_and_decode_match_reference(impl):
     ref_p = jax.tree_util.tree_map(jnp.asarray, params)
     want, _ = rm.forward(ref_cfg, ref_p, jnp.asarray(toks), rt=ref_rt)
     got = tm.forward(cfg, tree_map(lambda t: t[None], p),
-                     torch.from_numpy(toks)[None], rt=rt)[0]
+                     torch.from_numpy(toks)[None], rt=rt)[0][0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
     err = float(np.abs(got.numpy() - np.asarray(want)).max())

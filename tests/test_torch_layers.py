@@ -8,8 +8,9 @@ the reference, from the same numpy inputs and carried-across weights.
   which prices the planner's uplink and so the host ledgers.
 * ``sgd`` + ``apply_updates``, ``zero_residual`` and the parameter-tree
   helpers: bitwise.
-* A config that asks for a part the port does not run (MoE, MLA, another
-  ``norm_eps``, ...) is refused by ``init`` and ``forward``.
+* A config that asks for a part the port does not run (another
+  ``norm_eps``, a family's field on another, MoE or MLA without their
+  configs, ...) is refused by ``init`` and ``forward``.
 
 The port's layers take a stack of N parameter copies (a leading copy
 axis); the reference's take one set, so its outputs are compared with the
@@ -30,7 +31,7 @@ from repro.models.model import init as ref_init
 from repro.optim import apply_updates as ref_apply_updates
 from repro.optim import sgd as ref_sgd
 
-from repro_torch.configs.base import SSMConfig
+from repro_torch.configs.base import MLAConfig, MoEConfig, SSMConfig
 from repro_torch.data.pipeline import ClassificationData
 from repro_torch.fed import model_engine
 from repro_torch.fed.train_step import zero_residual
@@ -149,28 +150,50 @@ def test_transformer_params_cross_and_step_like_the_reference():
     ("ffn_kind", "mlp"), ("norm_eps", 1e-6)])
 def test_model_refuses_config_fields_not_ported(field, value):
     """Every field value that selects a part the port does not run is
-    refused; ``qkv_bias=True``, refused until qwen1.5-4b was ported, and
-    ``ffn_kind="mlp"`` (the GELU MLP), refused until granite-34b was, now
-    run (``tests/test_torch_launch_train.py`` and
-    ``tests/test_torch_families.py`` hold them against the reference)."""
+    refused.  Some that were refused now run, each held against the
+    reference elsewhere: ``qkv_bias=True`` (qwen1.5-4b,
+    ``tests/test_torch_launch_train.py``), ``ffn_kind="mlp"`` (the GELU
+    MLP of granite-34b, ``tests/test_torch_families.py``), the MoE family
+    with a ``MoEConfig`` and MLA (``attn_kind="mla"`` with an
+    ``MLAConfig``; ``tests/test_torch_moe_families.py``).  These run
+    here; the family or the attention kind without its config, and a
+    ``moe`` or ``mla`` that is not one, are still refused."""
     cfg = model_engine.family_arch("transformer", 16, 2)
     params = model.init(cfg, torch.Generator().manual_seed(0))
     other = dataclasses.replace(cfg, **{field: value})
     tokens = torch.zeros((1, 2, 4), dtype=torch.int64)
-    assert model.forward(cfg, tree_map(lambda t: t[None], params),
-                         tokens).shape == (1, 2, 4, 128)
+    logits, aux = model.forward(cfg, tree_map(lambda t: t[None], params),
+                                tokens)
+    assert logits.shape == (1, 2, 4, 128) and aux.shape == (1,)
     if field == "qkv_bias":
         biased = model.init(other, torch.Generator().manual_seed(0))
         assert {"bq", "bk", "bv"} <= set(biased["layers"]["attn"])
         assert model.forward(other, tree_map(lambda t: t[None], biased),
-                             tokens).shape == (1, 2, 4, 128)
+                             tokens)[0].shape == (1, 2, 4, 128)
         return
     if field == "ffn_kind":
         mlp = model.init(other, torch.Generator().manual_seed(0))
         assert set(mlp["layers"]["ffn"]) == {"w_up", "w_down"}
         assert model.forward(other, tree_map(lambda t: t[None], mlp),
-                             tokens).shape == (1, 2, 4, 128)
+                             tokens)[0].shape == (1, 2, 4, 128)
         return
+    moe = {"family": "moe", "moe": MoEConfig(n_experts=4, top_k=2,
+                                               d_ff_expert=8)}
+    mla = {"attn_kind": "mla", "mla": MLAConfig(
+        kv_lora_rank=8, q_lora_rank=None, qk_nope_head_dim=4,
+        qk_rope_head_dim=4, v_head_dim=4)}
+    ported = {"family": moe, "moe": moe, "attn_kind": mla, "mla": mla}
+    if field in ported:
+        runs = dataclasses.replace(cfg, **ported[field])
+        p = model.init(runs, torch.Generator().manual_seed(0))
+        assert set(p["layers"]) >= ({"moe"} if "moe" in ported[field]
+                                    else {"ffn"})
+        logits, aux = model.forward(runs, tree_map(lambda t: t[None], p),
+                                    tokens,
+                                    rt=model.Runtime(attn_impl="naive"))
+        assert logits.shape == (1, 2, 4, 128) and bool(
+            torch.isfinite(logits).all())
+        assert bool(aux > 0) == (runs.family == "moe")
     with pytest.raises(NotImplementedError, match="not ported"):
         model.init(other, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="not ported"):

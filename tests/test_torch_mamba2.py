@@ -117,7 +117,7 @@ def test_model_forward_matches_reference(case):
                           rt=ref_me.KERNEL_RT)
     got = forward(model_engine.family_arch(FAMILY, HIDDEN, DEPTH),
                   _batched(params), torch.from_numpy(tok[:6])[None],
-                  rt=model_engine.KERNEL_RT)[0]
+                  rt=model_engine.KERNEL_RT)[0][0]
     live = np.asarray(want)[..., :cfg.vocab]
     np.testing.assert_allclose(got.numpy()[..., :cfg.vocab], live, **TOL)
     np.testing.assert_array_equal(got.numpy()[..., cfg.vocab:],
