@@ -171,10 +171,13 @@ def host_to_device(tree, device):
 
 
 def full_f32(device) -> None:
-    """Keep float32 products in full float32 on CUDA (TF32 off)."""
+    """Keep float32 products in full float32 on CUDA (TF32 off), and
+    bf16 products' sums in float32 (the reference's accumulation)."""
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
 
 
 def dataset_to_device(data, test, device):

@@ -236,10 +236,10 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
     tensors on the ``meta`` device with the reference's shapes and dtypes.
 
     Train/prefill: the token batch, (B, S) or (B, S, n_cb) for audio (+
-    labels alike and weights (B, S) for train, and the VLM's prefix
-    embeddings (B, min(vlm_prefix, S // 2), d)).  Decode: one new token
-    per sequence, (B, 1) or (B, 1, n_cb), + the KV (MLA: ``ckv``) / SSM
-    cache, allocated
+    labels alike and weights (B, S) float32 for train, and the VLM's
+    prefix embeddings (B, min(vlm_prefix, S // 2), d) in ``rt.dtype``).
+    Decode: one new token per sequence, (B, 1) or (B, 1, n_cb), + the KV
+    (MLA: ``ckv``) / SSM cache, allocated
     at ``min(seq_len, window)`` context under a sliding window (the
     documented ``init_cache`` contract: decode only ever addresses
     ``window`` ring-buffer slots)."""
@@ -252,7 +252,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime):
         if cfg.vlm_prefix:
             P = min(cfg.vlm_prefix, S // 2)
             batch["prefix"] = torch.empty((B, P, cfg.d_model),
-                                          dtype=torch.float32, **meta)
+                                          dtype=rt.dtype, **meta)
         if shape.mode == "train":
             batch["labels"] = torch.empty((B, S) + cb, dtype=torch.int32,
                                           **meta)

@@ -26,8 +26,9 @@
 //   C_t . h_in to y (pre(t) = a_{t0} ... a_t), then leaves h_out =
 //   pre(last) h_in + sum_s post(s) dt_s x_s B_s^T (post(s) = a_{s+1} ...
 //   a_last; s in order).  At the mamba2 cell's S 16 no state exists.
-//   Every term is a direct sum of products.  f32 or bf16 inputs, f32
-//   inside, y in the input type.  It needs no chunk size: any S runs (the
+//   Every term is a direct sum of products.  x, B and C in f32 or bf16,
+//   dt in f32 (as the reference's scan reads it), f32 inside, y in x's
+//   type.  It needs no chunk size: any S runs (the
 //   TPU kernel asserts S % chunk == 0).  N up to 128.
 //
 //   Mapping.  A persistent grid (as many CTAs an SM as the occupancy query
@@ -652,15 +653,16 @@ __device__ __forceinline__ FwdUnit fwd_unit(const Dims& d, const FwdPlan& pl,
   return w;
 }
 
-// Shared memory of the forward (byte offsets): two stages of (x tile, dt,
-// B, C in the input type, the heads' A in f32), then a, pre, post, CB
+// Shared memory of the forward (byte offsets): two stages of (x tile in
+// the input type, dt in f32, B and C in the input type, the heads' A in
+// f32), then a, pre, post, CB
 // (transposed), the heads' W (transposed, packed), and, with a state, its
 // term in y (f32).
 template <typename T, int NMAX> struct FwdSmem {
   static constexpr int kE = static_cast<int>(sizeof(T));
   static constexpr int kLdBC = NMAX + 16 / kE;      // B, C rows, padded
   static constexpr int kX = kTile * kFwdRows * kE;
-  static constexpr int kDt = kTile * kFwdHeads * kE;
+  static constexpr int kDt = kTile * kFwdHeads * 4;
   static constexpr int kBC = kTile * kLdBC * kE;
   static constexpr int kAh = 4 * kFwdHeads;
   static constexpr int kStage = kX + kDt + 2 * kBC + kAh;
@@ -779,7 +781,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* p,
 // V: rows a thread owns in the y step (4 where P % 4 == 0, else 1).
 template <typename T, int NMAX, int V>
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
-    ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+    ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const T* __restrict__ Bm,
                    const T* __restrict__ Cm, T* __restrict__ y, Dims d,
                    FwdPlan pl) {
@@ -812,8 +814,8 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
                     x + tok * d.ldx + static_cast<long long>(w.h0) * d.P +
                         w.p0,
                     d.ldx, n_t, w.rows);
-    copy_tile_async(stage(st, L::kX), kFwdHeads, dt + tok * d.H + w.h0, d.H,
-                    n_t, w.nh);
+    copy_tile_async(reinterpret_cast<float*>(stage(st, L::kX)), kFwdHeads,
+                    dt + tok * d.H + w.h0, d.H, n_t, w.nh);
     copy_tile_async(stage(st, L::kX + L::kDt), LDBC, Bm + tok * d.ldb + gn,
                     d.ldb, n_t, d.N);
     copy_tile_async(stage(st, L::kX + L::kDt + L::kBC), LDBC,
@@ -848,7 +850,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
     const FwdUnit w = fwd_unit(d, pl, u);
     const int n_t = min(kTile, d.S - k * kTile);
     const T* sx = stage(st, 0);
-    const T* sdt = stage(st, L::kX);
+    const float* sdt = reinterpret_cast<const float*>(stage(st, L::kX));
     const T* sbm = stage(st, L::kX + L::kDt);
     const T* scm = stage(st, L::kX + L::kDt + L::kBC);
     const float* sah = reinterpret_cast<const float*>(
@@ -858,7 +860,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
     for (int e = tid; e < kTile * kFwdHeads; e += kFwdThreads) {
       const int t = e / kFwdHeads, j = e % kFwdHeads;
       if (t < n_t && j < w.nh)
-        sA[j * kLdA + t] = expf(to_f32(sdt[e]) * sah[j]);
+        sA[j * kLdA + t] = expf(sdt[e] * sah[j]);
     }
     {
       const int t = tid / kTile, s = tid % kTile;
@@ -886,7 +888,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
     for (int e = tid; e < kFwdHeads * kTile; e += kFwdThreads) {
       const int s = e / kFwdHeads, j = e % kFwdHeads;
       if (j < w.nh && s < n_t) {
-        const float dts = to_f32(sdt[e]);
+        const float dts = sdt[e];
         const float* aj = sA + j * kLdA;
         const float* cbs = sCB + s * kLdCB;
         float* row = sW + j * kWMat + w_row(s) - 4 * (s / 4);
@@ -952,7 +954,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
         for (int i = 0; i < 16; ++i) h[i] *= keep;
         for (int s = 0; s < n_t; ++s) {
           const float coef = sPost[s * kFwdHeads + j] *
-                             (to_f32(sdt[s * kFwdHeads + j]) *
+                             (sdt[s * kFwdHeads + j] *
                               to_f32(sx[s * kFwdRows + sr]));
 #pragma unroll
           for (int i = 0; i < 16; ++i) {
@@ -1111,7 +1113,7 @@ int fwd(const void* x, const void* dt, const float* A, const void* Bm,
   const int grid = min(pl.units, inst->sms * inst->per_sm[pl.carry]);
   ssd_fwd_kernel<T, NMAX, V><<<grid, kFwdThreads, inst->bytes[pl.carry],
                                stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), A,
+      static_cast<const T*>(x), static_cast<const float*>(dt), A,
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<T*>(y), d, pl);
   return static_cast<int>(cudaGetLastError());
@@ -1169,7 +1171,7 @@ bool fwd_takes(int H, int P, int G, int N) {
 extern "C" {
 
 // x, y: (B, S, H, P); dt: (B, S, H); Bm, Cm: (B, S, G, N); A: (B /
-// per_copy, H) f32.  bf16 != 0: x, dt, Bm, Cm, y are bf16, else f32.
+// per_copy, H) and dt f32.  bf16 != 0: x, Bm, Cm, y are bf16, else f32.
 // N <= 128.  Returns a cudaError_t, or -1 for a shape the kernel does not
 // take.
 int ssd_scan_fwd_launch(const void* x, const void* dt, const float* A,

@@ -20,8 +20,10 @@ output): the kernels read them with their token stride, no copy.
 On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/ssd_scan.cu`` and adds one to its ``launches`` count; on a CPU
 tensor it runs the plain version beside it.  There is no fallback: a CUDA
-tensor either launches the kernel or raises.  The forward takes float32
-or bfloat16 (all but A in one type) and N up to 128; the backward takes
+tensor either launches the kernel or raises.  The forward takes x, Bm and
+Cm in float32 or bfloat16 (one type), dt in float32 (as the reference's
+scan reads it) or in x's type, and N up to 128; the kernel reads dt in
+float32.  The backward takes
 float32, N up to 64, P a power of two and ``(H // G) * P`` up to 512
 (N <= 16), 256 (N <= 32) or 128.  Both kernels sum over token pairs
 within 16-token tiles (the dual form; states cross tiles only when S >
@@ -78,7 +80,7 @@ def _token_stride(what: str, name: str, t) -> int:
 
 
 def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, max_state: int,
-           *like_x):
+           *like_x, dt_f32: bool = False):
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Bm.shape != Cm.shape:
         raise ValueError(f"{what}: x must be (B, S, H, P), dt (B, S, H) and "
                          f"Bm, Cm one (B, S, G, N) shape")
@@ -99,6 +101,8 @@ def _check(what: str, x, dt, A, Bm, Cm, chunk: int, dtypes, max_state: int,
     if any(t.shape != x.shape for t in like_x):
         raise ValueError(f"{what}: dy must have x's shape {tuple(x.shape)}")
     for t in (x, dt, Bm, Cm, *like_x):
+        if t is dt and dt_f32 and dt.dtype == torch.float32:
+            continue
         if t.dtype not in dtypes or t.dtype != x.dtype:
             raise ValueError(f"{what}: x, dt, Bm, Cm must share one dtype of "
                              f"{dtypes}, got {t.dtype} and {x.dtype}")
@@ -157,11 +161,12 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
 
 
 def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
-    """y (B, S, H, P) in x's dtype."""
+    """y (B, S, H, P) in x's dtype; dt float32 or x's dtype."""
     _check("ssd_scan_fwd", x, dt, A, Bm, Cm, chunk,
-           (torch.float32, torch.bfloat16), FWD_MAX_STATE)
+           (torch.float32, torch.bfloat16), FWD_MAX_STATE, dt_f32=True)
     if x.device.type == "cpu":
         return ssd_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    dt = dt.float()                  # exact; the kernel reads dt in f32
     dims = _dims("ssd_scan_fwd", x, A, Bm, Cm)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.numel() == 0:

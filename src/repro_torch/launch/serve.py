@@ -59,7 +59,7 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    rt = Runtime(attn_impl="pallas")
+    rt = Runtime(dtype=torch.float32, attn_impl="pallas")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init(cfg, gen)
     shape = (args.batch, args.prompt_len) + (

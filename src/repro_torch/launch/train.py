@@ -86,7 +86,7 @@ def main(argv=None):
             n_heads=heads, n_kv_heads=min(cfg.n_kv_heads, heads) or heads,
             head_dim=64 if heads else 0,
             d_ff=4 * d if cfg.d_ff else 0)
-    rt = Runtime(attn_impl="naive")
+    rt = Runtime(dtype=torch.float32, attn_impl="naive")
     params = init(cfg, torch.Generator(device=device).manual_seed(args.seed))
     opt = momentum(0.9)
     state = TrainState(params, opt.init(params), 0)

@@ -39,8 +39,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (_per_copy, apply_rope, dense_init,
-                                       linear, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (_per_copy, apply_rope, checkpointed,
+                                       dense_init, linear, rmsnorm,
+                                       rmsnorm_init)
 
 IMPLS = ("auto", "naive", "blockwise", "flashjnp", "pallas")
 NEG_INF = -1e30
@@ -75,30 +76,39 @@ def attend_naive(q, k, v, pos_q, pos_k, *, causal: bool = True,
     """q (B, Sq, Hq, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hd_v) →
     (B, Sq, Hq, hd_v): float32 scores scaled by ``1/√hd``, masked at
     -1e30, softmax, P·V; query head h reads KV head ``h // (Hq / Hkv)``.
-    The arithmetic of the flash kernels' plain forward."""
+    The arithmetic of the flash kernels' plain forward; in bf16 the
+    probabilities are rounded to v's type before P·V, as the
+    reference's (its products accumulate in float32)."""
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.float().reshape(b, sq, hkv, hq // hkv, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
         1.0 / math.sqrt(hd))
     s = torch.where(_mask(pos_q, pos_k, causal, window), s, NEG_INF)
-    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1),
-                     v.float())
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
 
 
 def attend_chunked(q, k, v, pos_q, pos_k, *, causal: bool = True,
-                   window: Optional[int] = None, block_q: int = 256):
+                   window: Optional[int] = None, block_q: int = 256,
+                   remat_chunks: bool = False):
     """Exact attention a chunk of ``block_q`` queries at a time (naive when
     ``block_q`` does not divide Sq), so the live scores are (B, H,
-    block_q, Sk)."""
+    block_q, Sk).  ``remat_chunks`` recomputes each chunk's scores in the
+    backward instead of keeping every chunk's probabilities."""
     sq = q.shape[1]
     if sq % block_q:
         return attend_naive(q, k, v, pos_q, pos_k, causal=causal,
                             window=window)
-    return torch.cat([attend_naive(q[:, i:i + block_q], k, v,
-                                   pos_q[i:i + block_q], pos_k,
-                                   causal=causal, window=window)
+
+    def chunk(qi, pi):
+        return attend_naive(qi, k, v, pi, pos_k, causal=causal,
+                            window=window)
+
+    run = (lambda qi, pi: checkpointed(chunk, qi, pi)) if remat_chunks \
+        else chunk
+    return torch.cat([run(q[:, i:i + block_q], pos_q[i:i + block_q])
                       for i in range(0, sq, block_q)], dim=1)
 
 
@@ -134,7 +144,8 @@ def attend_flashjnp(q, k, v, pos_q, pos_k, *, causal: bool = True,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p, v[:, j:j + block_k].float())
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).float(),
+                v[:, j:j + block_k].float())
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, block_q, hq, hd)
@@ -144,7 +155,7 @@ def attend_flashjnp(q, k, v, pos_q, pos_k, *, causal: bool = True,
 
 def attend(q, k, v, pos_q=None, pos_k=None, *, causal: bool = True,
            window: Optional[int] = None, impl: str = "pallas",
-           block_q: int = 256):
+           block_q: int = 256, remat_chunks: bool = False):
     if pos_q is None:
         pos_q = torch.arange(q.shape[1], device=q.device)
     if pos_k is None:
@@ -160,7 +171,8 @@ def attend(q, k, v, pos_q=None, pos_k=None, *, causal: bool = True,
                                window=window, block_q=block_q)
     if impl in ("auto", "blockwise"):
         return attend_chunked(q, k, v, pos_q, pos_k, causal=causal,
-                              window=window, block_q=block_q)
+                              window=window, block_q=block_q,
+                              remat_chunks=remat_chunks)
     raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
 
 
@@ -204,12 +216,19 @@ def _qkv(params, cfg: ArchConfig, x, positions):
 
 
 def gqa_forward(params, cfg: ArchConfig, x, *, window=None,
-                impl: str = "pallas", block_q: int = 256):
-    """Full-sequence causal self-attention per copy: x (N, B, S, d)."""
+                impl: str = "pallas", block_q: int = 256,
+                remat_chunks: bool = False, expand_heads: bool = False):
+    """Full-sequence causal self-attention per copy: x (N, B, S, d).
+    ``expand_heads`` repeats each KV head over its query group first
+    (``jnp.repeat``'s order), as the reference's uneven-GQA knob (its
+    head-dim sharding constraint has no counterpart on one card)."""
     positions = torch.arange(x.shape[2], device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
+    if expand_heads and cfg.n_kv_heads < cfg.n_heads:
+        g = cfg.n_heads // cfg.n_kv_heads
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     out = attend(q, k, v, positions, positions, causal=True, window=window,
-                 impl=impl, block_q=block_q)
+                 impl=impl, block_q=block_q, remat_chunks=remat_chunks)
     return linear(out.reshape(x.shape[:3] + (-1,)), params["wo"])
 
 
@@ -301,7 +320,8 @@ def _mla_latent(params, cfg: ArchConfig, x, positions):
 
 
 def mla_forward(params, cfg: ArchConfig, x, *, impl: str = "pallas",
-                window=None, block_q: int = 256):
+                window=None, block_q: int = 256,
+                remat_chunks: bool = False):
     """Full-sequence causal MLA per copy, x (N, B, S, d), in the
     decompressed form: per-head keys (nope from the latent, the rope key
     broadcast over heads) and values, then :func:`attend`."""
@@ -319,7 +339,7 @@ def mla_forward(params, cfg: ArchConfig, x, *, impl: str = "pallas",
                                              m.qk_rope_head_dim)], dim=-1)
     out = attend(q, k, v.reshape(n * b, s, H, m.v_head_dim), positions,
                  positions, causal=True, window=window, impl=impl,
-                 block_q=block_q)
+                 block_q=block_q, remat_chunks=remat_chunks)
     return linear(out.reshape(n, b, s, H * m.v_head_dim), params["wo"])
 
 

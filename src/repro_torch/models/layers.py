@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 VOCAB_PAD_MULTIPLE = 128
 
@@ -30,6 +31,20 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     out = torch.bmm(x.reshape(n, -1, x.shape[-1]), w)
     return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+    Refused inside a ``torch.func`` transform, where PyTorch's checkpoint
+    does not run (the FEEL engines keep ``remat`` off)."""
+    if any(isinstance(a, torch.Tensor)
+           and torch._C._functorch.is_functorch_wrapped_tensor(a)
+           for a in args):
+        raise ValueError("remat (Runtime.remat / remat_attn) does not run "
+                         "under torch.func transforms; use a Runtime with "
+                         "remat=False and remat_attn=False there")
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def _per_copy(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -167,6 +167,7 @@ def mamba2_forward(params, cfg: ArchConfig, x):
     dt = dt.float() + _per_copy(params["dt_bias"], dt)
     dt = torch.logaddexp(dt, torch.zeros_like(dt)).reshape(n * b, S, H)
     A = -torch.exp(params["A_log"])                        # (N, H)
+    # dt stays float32 under bf16, as the reference's scan reads it
     y = ops.ssd(xs, dt, A, Bm, Cm, chunk=min(s.chunk, S))
     y = y.reshape(n, b, S, H, s.head_dim)
     y = y + xs.reshape(y.shape) * params["D"].reshape(n, 1, 1, H, 1).to(

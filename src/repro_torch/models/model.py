@@ -29,6 +29,16 @@ segment), the compressed ``ckv`` cache (MLA) and the conv and SSM states
 (ssm, hybrid), all updated in place, with the shared position ``pos`` a
 0-d int32 tensor on the device, so a decode loop never waits for the
 card.  MoE decode is drop-free (capacity S·top_k).
+
+:class:`Runtime` carries the reference's execution knobs: the
+activations' dtype (bf16 in the reference's production runtime, with the
+parameters drawn in it: :func:`param_spec`), ``remat`` (each layer body
+recomputed in the backward) and the attention and MoE switches.  The
+fields that only pin shardings on the reference's mesh
+(``moe_shard_axes``, ``seq_parallel``) are kept for parity and change
+nothing on one card.
+:func:`param_spec` and :func:`cache_spec` give shapes and dtypes on the
+``meta`` device, as the reference's ``eval_shape``.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig,
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (FFN_KINDS, dense_init,
+from repro_torch.models.layers import (FFN_KINDS, checkpointed, dense_init,
                                        embedding_init, ffn, ffn_init, linear,
                                        padded_vocab, rmsnorm, rmsnorm_init)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -50,16 +60,40 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 @dataclass(frozen=True)
 class Runtime:
-    """Execution knobs independent of the architecture (the model runs in
-    float32)."""
+    """Execution knobs independent of the architecture: the reference's
+    fields and defaults, but ``attn_impl``, which defaults to the kernel
+    route.  ``dtype`` is the activations' type (the parameters are drawn
+    in it: :func:`param_spec`); ``remat`` recomputes each layer body in
+    the backward (``torch.utils.checkpoint``), ``remat_attn`` each query
+    chunk of the chunked attention; ``gqa_expand`` repeats the KV heads
+    before the attention.  ``moe_shard_axes`` and ``seq_parallel`` pin
+    shardings on the reference's mesh and are read by nothing on one
+    card."""
+    dtype: torch.dtype = torch.float32
     attn_impl: str = "pallas"   # auto | naive | blockwise | flashjnp | pallas
     block_q: int = 256
     window: Optional[int] = None   # overrides cfg.attn_window when set
+    remat: bool = False
+    remat_attn: bool = False
     capacity_factor: float = 1.25
     moe_impl: str = "scatter"      # scatter | expert_choice
+    moe_shard_axes: tuple = ()
+    gqa_expand: bool = False
+    seq_parallel: bool = False
 
     def win(self, cfg: ArchConfig):
         return self.window if self.window is not None else cfg.attn_window
+
+
+SMOKE_RT = Runtime(dtype=torch.float32, attn_impl="naive")
+
+
+def _maybe_remat(fn, rt: Runtime):
+    """``fn`` recomputed in the backward under ``rt.remat`` (the
+    reference's ``jax.checkpoint`` of a layer body), else ``fn``."""
+    if not rt.remat:
+        return fn
+    return lambda *args: checkpointed(fn, *args)
 
 
 # ArchConfig fields whose other values select parts that are not ported
@@ -249,9 +283,12 @@ def _unembed(params, cfg: ArchConfig, x):
 def _attn_fwd(lp, cfg: ArchConfig, x, rt: Runtime):
     if cfg.attn_kind == "mla":
         return attn.mla_forward(lp, cfg, x, impl=rt.attn_impl,
-                                window=rt.win(cfg), block_q=rt.block_q)
+                                window=rt.win(cfg), block_q=rt.block_q,
+                                remat_chunks=rt.remat_attn)
     return attn.gqa_forward(lp, cfg, x, window=rt.win(cfg),
-                            impl=rt.attn_impl, block_q=rt.block_q)
+                            impl=rt.attn_impl, block_q=rt.block_q,
+                            remat_chunks=rt.remat_attn,
+                            expand_heads=rt.gqa_expand)
 
 
 def _dense_block(lp, cfg: ArchConfig, x, rt: Runtime):
@@ -285,6 +322,16 @@ def _ends_segment(cfg: ArchConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.hybrid_every == 0
 
 
+def _require_dtype(params, rt: Runtime):
+    """Refuse parameters in another type than ``rt.dtype``: the reference
+    promotes mixed products, PyTorch's batched GEMM does not."""
+    got = params["embed"]["table"].dtype
+    if got != rt.dtype:
+        raise ValueError(f"parameters in {got} under Runtime(dtype="
+                         f"{rt.dtype}): draw them in the runtime's type "
+                         f"(init(cfg, gen, rt.dtype), as param_spec)")
+
+
 def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
             rt: Runtime = Runtime()):
     """Full-sequence forward of N parameter copies: tokens (N, B, S)
@@ -295,25 +342,32 @@ def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
     pre-projected patch embeddings, replace the first P positions.  The
     hybrid's shared block runs after every ``hybrid_every`` SSM layers
     with the same weights, so its gradient is the sum over its
-    applications."""
+    applications.  Activations run in ``rt.dtype``, the parameters'
+    type; under ``rt.remat`` each layer body (a dense, MoE or SSM layer,
+    each application of the shared block) is recomputed in the
+    backward."""
     _require_ported(cfg)
+    _require_dtype(params, rt)
     x = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         P = prefix_embeds.shape[2]
-        x = torch.cat([prefix_embeds.to(x.dtype), x[:, :, P:]], dim=2)
+        x = torch.cat([prefix_embeds.to(rt.dtype), x[:, :, P:]], dim=2)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    dense = _maybe_remat(_dense_block, rt)
     if "dense0" in params:
         for lp in _layer_params(params["dense0"]):
-            x = _dense_block(lp, cfg, x, rt)
-    block = _ssm_block if cfg.family in ("ssm", "hybrid") else _dense_block
+            x = dense(lp, cfg, x, rt)
+    block = _maybe_remat({"ssm": _ssm_block, "hybrid": _ssm_block,
+                          "moe": _moe_block}.get(cfg.family, _dense_block),
+                         rt)
     for i, lp in enumerate(_layer_params(params["layers"])):
         if cfg.family == "moe":
-            x, a = _moe_block(lp, cfg, x, rt)
+            x, a = block(lp, cfg, x, rt)
             aux = aux + a
         else:
             x = block(lp, cfg, x, rt)
         if _ends_segment(cfg, i):
-            x = _dense_block(params["shared_attn"], cfg, x, rt)
+            x = dense(params["shared_attn"], cfg, x, rt)
     return _unembed(params, cfg, rmsnorm(params["final_norm"], x)), aux
 
 
@@ -331,9 +385,11 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, rt: Runtime = Runtime(),
     (the MoE family's dense blocks first); ssm and hybrid: ``conv`` (L,
     B, d_conv-1, CH) and ``ssm`` (L, B, H, P, N) float32; hybrid also
     ``k``/``v`` (L / hybrid_every, B, ctx', Hkv, hd), one a segment for
-    the shared block."""
+    the shared block.  Every cache but ``pos`` and ``ssm`` is in
+    ``rt.dtype``."""
     _require_ported(cfg)
-    zeros = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
+    zeros = lambda *shape, dtype=rt.dtype: torch.zeros(  # noqa: E731
+        shape, dtype=dtype, device=device)
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     L = cfg.n_layers
     win = rt.win(cfg)
@@ -342,7 +398,8 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, rt: Runtime = Runtime(),
         _, H, CH = m2.dims(cfg)
         s = cfg.ssm
         c["conv"] = zeros(L, batch, s.d_conv - 1, CH)
-        c["ssm"] = zeros(L, batch, H, s.head_dim, s.d_state)
+        c["ssm"] = zeros(L, batch, H, s.head_dim, s.d_state,
+                         dtype=torch.float32)
     if cfg.attn_kind == "mla":
         m = cfg.mla
         c["ckv"] = zeros(L, batch, kv_ctx, m.kv_lora_rank + m.qk_rope_head_dim)
@@ -397,8 +454,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *,
     padded vocab).  ``cache`` (from :func:`init_cache`) is updated in
     place — layer i's KV or ``ckv`` slot or states (the hybrid's shared
     block: segment i's KV slot), then ``pos`` advanced by one — and
-    returned, as the reference's jitted step donates it."""
+    returned, as the reference's jitted step donates it.  Activations
+    run in ``rt.dtype``, the parameters' type."""
     _require_ported(cfg)
+    _require_dtype(params, rt)
     pos = cache["pos"]
     # a gather (a sum of gathers over the codebooks), as the reference's
     # _embed: no gradient flows here, so the training path's one-hot
@@ -426,3 +485,16 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *,
     logits = _unembed(_one_copy({"lm_head": params["lm_head"]}), cfg, x)[0]
     cache["pos"] = pos + 1
     return logits, cache
+
+
+def param_spec(cfg: ArchConfig, dtype=torch.float32):
+    """The parameters' shapes and dtypes: :func:`init`'s tree on the
+    ``meta`` device (the reference's ``eval_shape`` of its init)."""
+    return init(cfg, MetaGenerator(), dtype)
+
+
+def cache_spec(cfg: ArchConfig, batch: int, ctx: int,
+               rt: Runtime = SMOKE_RT):
+    """The decode cache's shapes and dtypes: :func:`init_cache` on the
+    ``meta`` device."""
+    return init_cache(cfg, batch, ctx, rt, device="meta")
