@@ -157,7 +157,16 @@ its plain PyTorch version on the card:
      decode_32k on qwen1.5-4b at batch 4 (53.7 GB of bf16 cache), 16
      steps up to the last slot, under B5 in bf16
      (40 a step) and under the plain decode attention (B3 and B5 at
-     these shapes are cases of phases 3c, 3d and 6);
+     these shapes are cases of phases 3c, 3d and 6); 4o. SSM and hybrid
+     training through the backward kernels: (i) ``launch.train.main``
+     on mamba2-2.7b at full width, f32, 3 steps (B3 and B3′ 64 a step);
+     (ii) train_4k through ``run_pair`` under ``runtime_for`` (bf16,
+     remat), one 4096-token sequence, mamba2-2.7b at full depth and
+     zamba2-7b at 54 of its 81 layers (memory); (iii) zamba2-7b's step
+     under B4, B4′ and B4″ at head dim 112, its first loss against
+     blockwise's within ``bf16_tols``; (iv) reduced mamba2 at N 128 and
+     zamba2 at head dim 112, 3 momentum steps card vs CPU path, f32
+     (1e-4) and bf16 (2e-2); every run's launches checked;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -165,8 +174,8 @@ its plain PyTorch version on the card:
      5d. decode at the reduced configs of all ten decoders (and a
      window of 8; zamba2-7b also at head dim 112) over 12 tokens: card vs
      CPU path (1e-4 in log-softmax) and decode vs the port's
-     full-sequence forward on the card (2e-3; at head dim 112 and for MLA
-     under naive attention, the kernel route refusing them); 5e. the dynamic
+     full-sequence forward on the card (2e-3; for MLA under naive
+     attention, the kernel route refusing it); 5e. the dynamic
      worlds, card vs CPU path: one feel-mlp row each of sampling,
      weighted sampling, fading with faults and the budget, and a
      weighted-sampled transformer row (through B4, B4′ and B4″), 3
@@ -210,6 +219,10 @@ its plain PyTorch version on the card:
      zamba2-7b's (head dim 112, f32 and bf16), granite-34b's (g 48),
      musicgen-large's and arctic-480b's (g 7), with every flash decode
      instance's registers and spills from the build (failing on a
+     spill); 4o's kernels at its shapes: B3′ at the two archs' layers
+     and B4, B4′, B4″ at head dim 112 (f32, bf16) and at qwen1.5-4b's
+     step in bf16, each against its plain version, twice bitwise and a
+     sequence alone bitwise among 8, with its resources (failing on a
      spill).
 
 Every phase that fails makes the script exit non-zero.  The last three
@@ -435,6 +448,36 @@ N_DECODE_STEPS, N_DECODE_BATCH = 16, 4
 N_ATTN = (1, 32_768, 20, 20, 128)          # B, S, Hq, Hkv, hd (B4, bf16)
 N_SSD = (1, 32_768, 80, 64, 1, 128, 256)   # B, S, H, P, G, N, chunk (B3)
 N_DECODE = (N_DECODE_BATCH, 32_768, 20, 20, 128)     # B, ctx, ... (B5)
+# the SSM and hybrid training cell (phase 4o): (i) launch.train at
+# mamba2-2.7b's full width and depth in f32, momentum at the driver's
+# defaults (K 4 x slot 8 x 64 tokens), 3 steps; (ii) train_4k through
+# run_pair under runtime_for (bf16, blockwise, remat), one 4096-token
+# sequence (the global batch cut from 256 to 1), mamba2-2.7b at full depth
+# and zamba2-7b at O_LAYERS'; (iii) zamba2-7b's train_4k step under attn_impl="pallas"
+# (B4, B4' and B4'' at its shared block's head dim 112), its first loss
+# against blockwise's; (iv) card vs CPU, 3 momentum steps of 64-token
+# sequences in f32 and bf16, reduced mamba2-2.7b at d_state 128 and
+# reduced zamba2-7b at head dim 112, both under the kernels
+O_TRAIN_ARCH, O_HYBRID_ARCH = "mamba2-2.7b", "zamba2-7b"
+O_STEPS, O_REPEATS, O_CPU_SEQ = 3, 1, 64
+# zamba2-7b's train_4k steps run with its depth cut from 81 to 54 SSM
+# layers (6 of its 9 segments): at 81 the step's gradient norm takes a
+# float32 copy and its square of the stacked in_proj gradient (4.2 G
+# elements, 17 GB each) beside 58 GB of bf16 parameters and gradients
+# and float32 momentum, past the card's 80 GB
+O_LAYERS = {"mamba2-2.7b": 0, "zamba2-7b": 54}
+# B3' at the two archs' train_4k layers (B, S, H, P, G, N, chunk) and B4,
+# B4', B4'' at zamba2-7b's shared block (B, S, Hq, Hkv, hd), phase 6
+O_SSD = {"mamba2-2.7b": (1, 4096, 80, 64, 1, 128, 256),
+         "zamba2-7b": (1, 4096, 112, 64, 1, 64, 256)}
+O_ATTN = (1, 4096, 32, 32, 112)
+O_AMONG = 8                   # sequences a batch-invariance check runs
+# f32 B3' at O_SSD against the plain version and it in float64 (rtol =
+# atol): the backward's 1e-4 (phase 3c's); at S 4096 the kernel needs
+# 2.91e-5 (mamba2) and 3.42e-5 (zamba2) against float64, the float32 plain
+# version 4.2e-3 and 1.6e-2 (phase 6 on an NVIDIA H100 80GB HBM3, 700 W)
+O_SSD_TOL = 1e-4
+O_ATTN_TOL = 2e-5             # f32 B4' and B4'' at O_ATTN (rtol = atol)
 
 
 class _Log:
@@ -713,25 +756,30 @@ def attention_bound(torch, q, k, causal, window):
 
 
 def dq_bound(torch, q, k, causal, window):
-    """(bound_ms, bound_by, bytes, ops) of one dQ call (f32): q, o, dO, k,
-    v and lse read once, dq and D written once, over 3.35 TB/s, against the
-    visible pairs' 6 hd + 4 operations and D's 2 hd a row over 67
-    TFLOP/s."""
+    """(bound_ms, bound_by, bytes, ops) of one dQ call: q, o, dO, k, v (in
+    their type) and lse read once, dq (in q's) and D written once, over
+    3.35 TB/s, against the visible pairs' 6 hd + 4 operations and D's 2 hd
+    a row over the peak rate of the inputs' type (f32: 67 TFLOP/s)."""
     b, s, hq, hd = q.shape
-    nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * b * hq * s)
+    e = q.element_size()
+    nbytes = e * (4 * q.numel() + 2 * k.numel()) + 4 * 2 * b * hq * s
     ops = (visible_pairs(torch, q, causal, window) * (6 * hd + 4)
            + b * hq * s * 2 * hd)
-    return (*bound(nbytes, ops), nbytes, ops)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return (*bound(nbytes, ops, rate), nbytes, ops)
 
 
 def dkdv_bound(torch, q, k, causal, window):
-    """(bound_ms, bound_by, bytes, ops) of one dK/dV call (f32): q, dO, k,
-    v, lse and D read once, dk and dv written once, over 3.35 TB/s, against
-    the visible pairs' 8 hd + 4 operations over 67 TFLOP/s."""
+    """(bound_ms, bound_by, bytes, ops) of one dK/dV call: q, dO, k, v (in
+    their type), lse and D read once, dk and dv written once, over 3.35
+    TB/s, against the visible pairs' 8 hd + 4 operations over the peak
+    rate of the inputs' type."""
     b, s, hq, hd = q.shape
-    nbytes = 4 * (2 * q.numel() + 4 * k.numel() + 2 * b * hq * s)
+    e = q.element_size()
+    nbytes = e * (2 * q.numel() + 4 * k.numel()) + 4 * 2 * b * hq * s
     ops = visible_pairs(torch, q, causal, window) * (8 * hd + 4)
-    return (*bound(nbytes, ops), nbytes, ops)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return (*bound(nbytes, ops, rate), nbytes, ops)
 
 
 def sdpa_call(torch, F, q, k, v, causal, window):
@@ -1285,9 +1333,9 @@ def decode_contracts(torch, tm, get_arch, tree_map, kfa):
     of 8, a ring buffer; zamba2-7b also at head dim 112) over 12 tokens of
     2 sequences: the card against the CPU path (1e-4 in log-softmax), and
     decode against the port's full-sequence forward on the card (2e-3,
-    the reference's bound; at head dim 112, which B4 does not take, and
-    for MLA, whose v head dim is not q's (C-ref-10), under naive
-    attention, after checking that the kernel route refuses it; the MoE
+    the reference's bound; the forward under B4, head dim 112 too; for
+    MLA, whose v head dim is not q's (C-ref-10), under naive attention,
+    after checking that the kernel route refuses it; the MoE
     family's forward drop-free at capacity factor 64, as decode is and as
     the reference's ``tests/test_models.py`` holds it).  Returns the max
     errors; raises AssertionError."""
@@ -2904,12 +2952,12 @@ def service_contracts(env, counted, devices=(None, "cpu")):
             "acc_max_abs_err": acc_err, "launches": launches}
 
 
-def _train_lines(out: str):
+def _train_lines(out: str, tag: str = "4k train"):
     """The driver's printed lines into the log; the per-step losses and
     wall seconds it printed."""
     losses, walls = [], []
     for line in out.splitlines():
-        log(f"[4k train]   {line}")
+        log(f"[{tag}]   {line}")
         if "loss=" in line and "wall=" in line:
             losses.append(float(line.split("loss=")[1].split()[0]))
             walls.append(float(line.split("wall=")[1].strip().rstrip("s")))
@@ -3762,6 +3810,438 @@ def production_attention(torch, F, kfa, smi):
     return {"flash_attention_fwd": t}
 
 
+def _o_launches_ok(name, got, cfg, steps, attention):
+    """Phase 4o's launch counts of a run of ``steps`` train steps: B3'
+    once an SSM layer a step; B3 at least as often (twice under remat:
+    the forward runs again in the backward); with ``attention`` (the
+    hybrid's shared block under "pallas") B4' and B4'' once an
+    application a step, B4 at least as often; no other kernel."""
+    n_ssm = cfg.n_layers
+    n_attn = n_ssm // cfg.hybrid_every if attention else 0
+    bad = [k for k, n in got.items()
+           if k not in ("ssd_scan_fwd", "ssd_scan_bwd",
+                        "flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkdv") and n]
+    ok = (not bad and got["ssd_scan_bwd"] == n_ssm * steps
+          and n_ssm * steps <= got["ssd_scan_fwd"] <= 2 * n_ssm * steps
+          and got["flash_attention_bwd_dq"] == n_attn * steps
+          and got["flash_attention_bwd_dkdv"] == n_attn * steps
+          and n_attn * steps <= got["flash_attention_fwd"]
+          <= 2 * n_attn * steps)
+    if not ok:
+        raise AssertionError(f"4o {name}: launches {got}, expected B3' "
+                             f"{n_ssm * steps}, B4'/B4'' {n_attn * steps}")
+
+
+def _o_smoke(torch, tm, get_arch, arch, dtype):
+    """Phase 4o (iv)'s reduced config (mamba2-2.7b at d_state 128: 4 B3'
+    units a sequence; zamba2-7b at head dim 112), drawn on the CPU from
+    seed 0 in ``dtype``, and a batch of 4 sequences of O_CPU_SEQ tokens
+    (B_k = (1, 2): one weight row 0)."""
+    cfg = get_arch(arch).reduced()
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, d_state=128))
+    else:
+        cfg = dataclasses.replace(cfg, head_dim=112)
+    gen = torch.Generator().manual_seed(0)
+    params = tm.init(cfg, gen, dtype)
+    toks = torch.randint(0, cfg.vocab, (4, O_CPU_SEQ + 1), generator=gen,
+                         dtype=torch.int32)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0])[:, None].expand(4, O_CPU_SEQ)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "weights": w.contiguous()}
+    return cfg, params, batch
+
+
+def ssm_train_cell(torch, np, train, dryrun, ts, tm, optim, get_arch,
+                   get_shape, tree_map, counted, smi):
+    """Phase 4o, SSM and hybrid training on the card, each run's kernel
+    counts set to 0 just before it and read just after: (i)
+    ``launch.train.main`` on mamba2-2.7b at full width and depth, f32,
+    momentum at the driver's defaults, O_STEPS steps (B3 and B3' at N 128
+    over 80 heads of 64: 40 B3' units a sequence); (ii) train_4k through
+    ``run_pair`` under ``runtime_for`` (bf16, blockwise, remat) on
+    mamba2-2.7b at full depth and zamba2-7b at O_LAYERS' depth, one
+    4096-token sequence;
+    (iii) zamba2-7b's train_4k step under ``"pallas"`` (B4, B4' and B4''
+    at (1, 4096, 32, 32, 112) in bf16), and its first loss against
+    blockwise's from the same weights and tokens within
+    :func:`bf16_tols`; (iv) the card against the port's CPU path, 3
+    momentum steps, reduced mamba2-2.7b at d_state 128 and reduced
+    zamba2-7b at head dim 112 under the kernels, f32 (losses within 1e-4)
+    and bf16 under ``runtime_for`` (within 2e-2).  Returns the report;
+    raises AssertionError."""
+    report = {}
+    # (i) the training driver, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", O_TRAIN_ARCH, "--full", "--steps", str(O_STEPS)]
+    out = io.StringIO()
+    _zero(counted)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        final = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counted)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, walls = _train_lines(out.getvalue(), "4o train")
+    step_s = ((walls[-1] - walls[0]) / (len(walls) - 1)
+              if len(walls) > 1 else float("nan"))
+    tokens = Q_K * Q_SLOT * Q_SEQ
+    cfg = get_arch(O_TRAIN_ARCH)
+    log(f"[4o train] (i) launch.train.main {' '.join(argv)}: f32, "
+        f"{tokens} tokens a step; losses {losses}; whole call {wall:.2f} s "
+        f"(init, data, {O_STEPS} steps); about {1e3 * step_s:.0f} ms a step "
+        f"from the driver's wall= lines (0.1 s resolution) = "
+        f"{tokens / step_s:.0f} tokens/s; peak device memory {peak:.2f} GiB;"
+        f" launches {launches} = B3 {launches['ssd_scan_fwd'] / O_STEPS:g}, "
+        f"B3' {launches['ssd_scan_bwd'] / O_STEPS:g} a step; {smi}")
+    if len(losses) != O_STEPS or not all(map(math.isfinite,
+                                             losses + [final])):
+        raise AssertionError(f"4o (i): losses {losses}, final {final}")
+    _o_launches_ok("(i)", launches, cfg, O_STEPS, False)
+    report["train"] = {"argv": argv, "losses": losses, "wall_s": wall,
+                       "ms_per_step_from_driver": 1e3 * step_s,
+                       "tokens_per_step": tokens, "peak_gib": peak,
+                       "launches": launches}
+    # (ii) and (iii): the production runtime's train step
+    shape = get_shape("train_4k")
+    report["train_4k"] = {}
+    for key, arch, impl in (("mamba2", O_TRAIN_ARCH, "blockwise"),
+                            ("zamba2", O_HYBRID_ARCH, "blockwise"),
+                            ("zamba2_pallas", O_HYBRID_ARCH, "pallas")):
+        acfg = get_arch(arch)
+        rt = dataclasses.replace(dryrun.runtime_for(acfg, shape),
+                                 attn_impl=impl)
+        _zero(counted)
+        r = dryrun.run_pair(arch, "train_4k", rt=rt, repeats=O_REPEATS,
+                            layers=O_LAYERS[arch])
+        r["launches_run"] = _read(counted)
+        tag = "(ii)" if impl == "blockwise" else "(iii)"
+        report["train_4k"][key] = r
+        log(_row_line(f"{tag} train {key}", r, smi).replace("[4n ", "[4o "))
+        _o_launches_ok(f"{tag} {key}", r["launches_run"],
+                       dataclasses.replace(acfg, n_layers=O_LAYERS[arch]
+                                           or acfg.n_layers),
+                       1 + O_REPEATS, impl == "pallas")
+    # (iii) the first loss under pallas against blockwise's
+    cfg = get_arch(O_HYBRID_ARCH)
+    rt = dryrun.runtime_for(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    params = tm.init(cfg, gen, rt.dtype)
+    toks = torch.randint(0, cfg.vocab, (1, shape.seq_len + 1),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    batch = tm._one_copy({"tokens": toks[:, :-1].contiguous(),
+                          "labels": toks[:, 1:].contiguous(),
+                          "weights": torch.ones((1, shape.seq_len),
+                                                device="cuda")})
+    first = {}
+    with torch.no_grad():
+        for impl in ("blockwise", "pallas"):
+            first[impl] = ts.make_loss_fn(
+                cfg, dataclasses.replace(rt, attn_impl=impl))(
+                    tm._one_copy(params), batch)[0].float()
+    rtol, atol = bf16_tols(first["blockwise"])
+    gap = float((first["pallas"] - first["blockwise"]).abs())
+    report["first_loss"] = {k: float(v) for k, v in first.items()}
+    report["first_loss"].update(gap=gap, rtol=rtol, atol=atol)
+    log(f"[4o (iii) train] {O_HYBRID_ARCH} x train_4k, bf16, one "
+        f"{shape.seq_len}-token sequence: first loss under pallas "
+        f"{float(first['pallas']):.6f} vs blockwise "
+        f"{float(first['blockwise']):.6f} (abs diff {gap:.3g}; rtol {rtol}, "
+        f"atol {atol:.3g})")
+    if not torch.allclose(first["pallas"], first["blockwise"], rtol=rtol,
+                          atol=atol):
+        raise AssertionError(f"4o (iii): first loss {report['first_loss']}")
+    del params, toks, batch, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (iv) the card against the CPU path
+    report["card_vs_cpu"] = {}
+    for arch in (O_TRAIN_ARCH, O_HYBRID_ARCH):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            cfg, params, batch = _o_smoke(torch, tm, get_arch, arch, dtype)
+            rt = (tm.Runtime(attn_impl="pallas") if dtype == torch.float32
+                  else dataclasses.replace(dryrun.runtime_for(cfg, shape),
+                                           attn_impl="pallas"))
+            losses = {}
+            for device in ("cuda", "cpu"):
+                move = lambda t: t.to(device, copy=True)  # noqa: E731
+                p = tree_map(move, params)
+                opt = optim.momentum(0.9)
+                step = ts.make_train_step(cfg, rt, opt)
+                state = ts.TrainState(p, opt.init(p), 0)
+                dev_batch = tree_map(move, batch)
+                _zero(counted)
+                out = []
+                for lr in Q_LRS:
+                    state, m = step(state, dev_batch, lr)
+                    out.append(float(m["loss"]))
+                losses[device] = np.array(out)
+                if device == "cuda":
+                    launches = _read(counted)
+            err = float(np.abs(losses["cuda"] - losses["cpu"]).max())
+            label = (f"{cfg.name} {str(dtype).split('.')[-1]} "
+                     f"(N {cfg.ssm.d_state}, hd {cfg.hd() if cfg.n_heads else '-'})")
+            log(f"[4o (iv) card vs cpu] {label}, momentum, 3 steps of "
+                f"{O_CPU_SEQ}-token sequences: losses "
+                f"{losses['cuda'].tolist()} vs {losses['cpu'].tolist()} (max "
+                f"abs err {err:.3g}, tol {tol}); launches on the card "
+                f"{launches}")
+            if not np.allclose(losses["cuda"], losses["cpu"], rtol=tol,
+                               atol=tol):
+                raise AssertionError(f"4o (iv) {label}: losses {losses}")
+            _o_launches_ok(f"(iv) {label}", launches, cfg, len(Q_LRS),
+                           cfg.family == "hybrid")
+            report["card_vs_cpu"][label] = {"loss_max_abs_err": err,
+                                            "tol": tol,
+                                            "launches": launches}
+    return report
+
+
+def ssd_bwd_work(ins, dy):
+    """Bytes (each input read once, each output written once, in its
+    input's type) and operations of one SSD backward at any S: the dual
+    form within 16-token segments (:func:`ssd_work`'s terms over each
+    segment's token pairs) and, where S > 16, the boundary terms, 10 a
+    (token, row, n) (the carry's B product and x.gB, h_start.C and dy.hC,
+    dC's and dB's boundary sums, the carry) and pass 1's segment-end state,
+    34 a (segment, row, n)."""
+    x, dt, a, bm, cm = ins
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    nbytes = 2 * sum(map(size, ins)) + size(dy)
+    segs = [min(16, s - t0) for t0 in range(0, s, 16)]
+    pairs = b * sum(t * (t + 1) // 2 for t in segs)
+    ops = pairs * h * (4 * p + 8) + pairs * g * 4 * n + b * s * h * (p + 4)
+    if len(segs) > 1:
+        ops += b * s * h * p * n * 10 + b * (len(segs) - 1) * h * p * n * 34
+    return nbytes, ops
+
+
+def _bf16_outputs_close(torch, names, got, plain, label):
+    """bf16 outputs within :func:`bf16_tols` of the plain versions (the
+    float32 ones, ddt, dA and D, within the same); returns the max abs
+    err over them."""
+    worst = 0.0
+    for name, a, p in zip(names, got, plain):
+        rtol, atol = bf16_tols(p)
+        err = float((a.float() - p.float()).abs().max())
+        if a.dtype != p.dtype or not torch.allclose(a.float(), p.float(),
+                                                    rtol=rtol, atol=atol):
+            raise AssertionError(f"{label} {name}: {a.dtype} beyond rtol "
+                                 f"{rtol}, atol {atol:.3g} of the plain "
+                                 f"version (max abs err {err:.3g})")
+        worst = max(worst, err)
+    return worst
+
+
+def train_ssd_rows(torch, kssd):
+    """B3' at phase 4o's train_4k layers (:data:`O_SSD`), f32 and bf16 (x,
+    Bm, Cm, dy in bf16, dt and A f32): against its plain version (f32:
+    within O_SSD_TOL of it and of it run in float64, :func:`close_to_plain`;
+    bf16: :func:`bf16_tols` against the plain float32 arithmetic on the
+    same bf16 values, rounded once), run twice bitwise, and the sequence
+    alone bitwise the same sequence among O_AMONG (each its own copy of A);
+    its cold-L2 time (CUDA events and the profiler's card time), the plain
+    version's, the bound of :func:`ssd_bwd_work` and the kernels'
+    resources.  Returns the rows; raises AssertionError."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    names = ("dx", "ddt", "dA", "dBm", "dCm")
+    for arch, (_, s, h, p, g, n, chunk) in O_SSD.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"6 B3' {arch} {(1, s, h, p, g, n)} {dtype}"
+            ins, dy = ssd_inputs(torch, gen, O_AMONG, 1, s, h, p, g, n)
+            if dtype == torch.bfloat16:
+                ins = tuple(t if i in (1, 2) else t.bfloat16()
+                            for i, t in enumerate(ins))
+                dy = dy.bfloat16()
+            one = tuple(t[:1] for t in ins)
+
+            def kern(one=one, dy=dy):
+                return kssd.ssd_scan_bwd(*one, dy[:1], chunk=chunk)
+
+            def plain(one=one, dy=dy):
+                return kssd.ssd_scan_bwd_plain(*one, dy[:1], chunk=chunk)
+
+            got = kern()
+            if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+                raise AssertionError(f"{label}: two runs differ")
+            among = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+            if not all(torch.equal(a, m[:1]) for a, m in zip(got, among)):
+                raise AssertionError(f"{label}: the sequence alone is not "
+                                     f"bitwise itself among {O_AMONG}")
+            del among
+            want = plain()
+            row = {"shape": [1, s, h, p, g, n], "dtype": str(dtype)[6:]}
+            if dtype == torch.float32:
+                exact = kssd.ssd_scan_bwd_plain(
+                    *(t.double() for t in one), dy[:1].double(), chunk=chunk)
+                # the least rtol = atol at which each output holds against
+                # float64: the kernel's, and the float32 plain version's
+                row["tol_needed"], row["plain_tol_needed"] = (max(
+                    float(((a.double() - e).abs() / (1 + e.abs())).max())
+                    for a, e in zip(outs, exact)) for outs in (got, want))
+                errs = [close_to_plain(torch, a, w, e, O_SSD_TOL,
+                                       f"{label} {name}")
+                        for name, a, w, e in zip(names, got, want, exact)]
+                row.update(max_abs_err=max(e[0] for e in errs),
+                           vs_f64=max(e[1] for e in errs),
+                           plain_vs_f64=max(e[2] for e in errs),
+                           left_out=sum(e[3] for e in errs), tol=O_SSD_TOL)
+                del exact
+            else:
+                row.update(max_abs_err=_bf16_outputs_close(
+                    torch, names, got, want, label), tol="bf16_tols")
+            nbytes, ops = ssd_bwd_work(one, dy[:1])
+            rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
+                    else F32_OPS_PER_S)
+            bound_ms, bound_by = bound(nbytes, ops, rate)
+            row.update(
+                ms=cold_ms(torch, kern, iters=5),
+                device_ms=device_ms(torch, kern, "ssd_bwd_kernel",
+                                    iters=5)[0],
+                plain_ms=cold_ms(torch, plain, iters=3), library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                units=kssd.bwd_units(h, p, g, n),
+                resources=kssd.bwd_resources(h, p, g, n, dtype, s))
+            rows[f"{arch}_{row['dtype']}"] = row
+            del ins, dy, one, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def train_attention_rows(torch, F, kfa):
+    """B4, B4' and B4'' at zamba2-7b's shared block (:data:`O_ATTN`, head
+    dim 112) in f32 and bf16, and at qwen1.5-4b's step shape
+    (:data:`Q_SHAPE`) in bf16, causal: each against its plain version
+    (f32: the forward within 2e-5, dq, D, dk and dv within O_ATTN_TOL;
+    bf16: :func:`bf16_tols`), the three run twice bitwise, and the
+    sequence alone bitwise the same sequence among O_AMONG; cold-L2 times
+    (CUDA events and the profiler's card time), the plain versions', the
+    bounds, ``scaled_dot_product_attention``'s forward, forward + backward
+    and backward alone, and the instances' resources.  Returns the rows by
+    (shape, dtype), each with the three kernels; raises AssertionError."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for shape, dtype in ((O_ATTN, torch.float32), (O_ATTN, torch.bfloat16),
+                         (Q_SHAPE, torch.bfloat16)):
+        b, s, hq, hkv, hd = shape
+        label = f"6 attention {shape} {dtype}"
+        q, k, v = attention_inputs(torch, gen, O_AMONG, s, hq, hkv, hd,
+                                   dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+
+        def three(q, k, v, do):
+            o, lse = kfa.flash_attention_fwd(q, k, v)
+            dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+            return (o, lse, dq, dsum,
+                    *kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum))
+
+        among = three(q, k, v, do)
+        q, k, v, do = (t[:b].contiguous() for t in (q, k, v, do))
+        got = three(q, k, v, do)
+        if not all(torch.equal(a, m[:b]) for a, m in zip(got, among)):
+            raise AssertionError(f"{label}: the sequence alone is not "
+                                 f"bitwise itself among {O_AMONG}")
+        del among
+        if not all(torch.equal(a, c) for a, c in zip(got, three(q, k, v,
+                                                                 do))):
+            raise AssertionError(f"{label}: two runs differ")
+        o, lse, dq, dsum, dk, dv = got
+        po, plse = kfa.flash_attention_fwd_plain(q, k, v)
+        pdq, pdsum = kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do)
+        pdk, pdv = kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum)
+        # (kernel, output, plain, tolerance): f32 outputs within a fixed
+        # tolerance (lse and D in bf16 runs too: both sides compute them
+        # in float32 from the same values), bf16 ones within bf16_tols
+        bf = dtype == torch.bfloat16
+        checks = (("flash_attention_fwd", o, po, None if bf else 2e-5),
+                  ("flash_attention_fwd", lse, plse, 2e-5),
+                  ("flash_attention_bwd_dq", dq, pdq,
+                   None if bf else O_ATTN_TOL),
+                  ("flash_attention_bwd_dq", dsum, pdsum, O_ATTN_TOL),
+                  ("flash_attention_bwd_dkdv", dk, pdk,
+                   None if bf else O_ATTN_TOL),
+                  ("flash_attention_bwd_dkdv", dv, pdv,
+                   None if bf else O_ATTN_TOL))
+        errs = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkdv"), 0.0)
+        for name, a, p, tol in checks:
+            rtol, atol = bf16_tols(p) if tol is None else (tol, tol)
+            err = float((a.float() - p.float()).abs().max())
+            if a.dtype != p.dtype or not torch.allclose(
+                    a.float(), p.float(), rtol=rtol, atol=atol):
+                raise AssertionError(f"{label} {name}: beyond rtol {rtol}, "
+                                     f"atol {atol:.3g} of the plain version "
+                                     f"(max abs err {err:.3g})")
+            errs[name] = max(errs[name], err)
+        del po, plse, pdq, pdsum, pdk, pdv
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), leaves, dot)
+
+        graph = sdpa_fwd()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(graph, leaves, dot, retain_graph=True)
+
+        runs = {
+            "flash_attention_fwd": (
+                lambda: kfa.flash_attention_fwd(q, k, v),
+                lambda: kfa.flash_attention_fwd_plain(q, k, v), sdpa_fwd,
+                attention_bound(torch, q, k, True, None), "fwd_kernel"),
+            "flash_attention_bwd_dq": (
+                lambda: kfa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+                lambda: kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse,
+                                                         do),
+                sdpa_fwd_bwd, dq_bound(torch, q, k, True, None),
+                "dq_kernel"),
+            "flash_attention_bwd_dkdv": (
+                lambda: kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum),
+                lambda: kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do,
+                                                           dsum),
+                sdpa_fwd_bwd, dkdv_bound(torch, q, k, True, None),
+                "dkdv_kernel")}
+        res_of = {"flash_attention_fwd": kfa.fwd_resources,
+                  "flash_attention_bwd_dq": kfa.dq_resources,
+                  "flash_attention_bwd_dkdv": kfa.dkdv_resources}
+        library_bwd_ms = cold_ms(torch, sdpa_bwd, iters=5)
+        key = f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}"
+        rows[key] = {}
+        for name, (kern, plain, lib, bnd, kname) in runs.items():
+            rows[key][name] = {
+                "shape": list(shape), "dtype": str(dtype)[6:],
+                "max_abs_err": errs[name],
+                "tol": ("bf16_tols" if bf else 2e-5
+                        if name == "flash_attention_fwd" else O_ATTN_TOL),
+                "ms": cold_ms(torch, kern, iters=5),
+                "device_ms": device_ms(torch, kern, kname, iters=5)[0],
+                "plain_ms": cold_ms(torch, plain, iters=3),
+                "library_ms": cold_ms(torch, lib, iters=5),
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+                "ops": bnd[3], "resources": res_of[name](hd, dtype)}
+            if name != "flash_attention_fwd":
+                rows[key][name]["library_bwd_ms"] = library_bwd_ms
+        del q, k, v, do, got, leaves, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4194,6 +4674,17 @@ def main(argv=None) -> int:
     n_report = report["production"]
     log(f"[4n production] phase wall {time.perf_counter() - t0:.1f} s")
 
+    # ---- 4o. SSM and hybrid training: B3' at full width, B4 at hd 112 ----
+    t0 = time.perf_counter()
+    try:
+        report["train_ssm"] = ssm_train_cell(
+            torch, np, train, dryrun, ts, tm, optim, get_arch, get_shape,
+            tree_map, all_kernels | {"flash_decode": kfd.flash_decode}, smi)
+    except (AssertionError, FloatingPointError) as exc:
+        return fail(f"phase {exc}")
+    o_report = report["train_ssm"]
+    log(f"[4o train] phase wall {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
                         partition="iid", seeds=(0,))]
@@ -4401,19 +4892,14 @@ def main(argv=None) -> int:
             f"library_ms none (no single PyTorch call computes it)")
     # the forward's six instances, the dQ and dK/dV kernels' three each
     attn_res = {
-        "flash_attention_fwd": (
-            "fwd_kernel",
-            {f"{str(dt).split('.')[-1]}_hd{hd}": kfa.fwd_resources(hd, dt)
-             for hd in (32, 64, 128)
-             for dt in (torch.float32, torch.bfloat16)}),
-        "flash_attention_bwd_dq": (
-            "dq_kernel",
-            {f"float32_hd{hd}": kfa.dq_resources(hd)
-             for hd in (32, 64, 128)}),
-        "flash_attention_bwd_dkdv": (
-            "dkdv_kernel",
-            {f"float32_hd{hd}": kfa.dkdv_resources(hd)
-             for hd in (32, 64, 128)})}
+        name: (kernel, {f"{str(dt).split('.')[-1]}_hd{hd}": fn(hd, dt)
+                        for hd in kfa.HEAD_DIMS
+                        for dt in (torch.float32, torch.bfloat16)})
+        for name, kernel, fn in (
+            ("flash_attention_fwd", "fwd_kernel", kfa.fwd_resources),
+            ("flash_attention_bwd_dq", "dq_kernel", kfa.dq_resources),
+            ("flash_attention_bwd_dkdv", "dkdv_kernel",
+             kfa.dkdv_resources))}
     for kernel, recs in attn_res.values():
         for key, r in recs.items():
             log(f"[6 resources] {kernel} {key}: {r['registers']} registers "
@@ -4547,6 +5033,71 @@ def main(argv=None) -> int:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} bytes, "
             f"{t['ops']} f32 ops); library_ms none (no single PyTorch call "
             f"computes the SSD scan)")
+
+    # phase 4o's training shapes: B3' at full width (f32, bf16), B4, B4'
+    # and B4'' at head dim 112 (f32, bf16) and at qwen's step in bf16
+    try:
+        t_ssd = train_ssd_rows(torch, kssd)
+        t_attn = train_attention_rows(torch, F, kfa)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    by_name = {r["name"]: r for r in records}
+    for key, t in t_ssd.items():
+        r = t["resources"]["ssd_bwd_kernel"]
+        log(f"[6 times] ssd_scan_bwd at {tuple(t['shape'])} (B, S, H, P, G, "
+            f"N; phase 4o's {key.split('_')[0]} layer), {t['dtype']}: max "
+            f"abs err {t['max_abs_err']:.3g}"
+            + (f" vs the plain version, {t['vs_f64']:.3g} vs it in float64 "
+               f"(tol {t['tol']}; the float32 plain version "
+               f"{t['plain_vs_f64']:.3g})" if t["dtype"] == "float32"
+               else " vs the plain float32 arithmetic on the same values "
+               "(bf16_tols)")
+            + f"; twice bitwise, alone bitwise among {O_AMONG}; kernel "
+            f"{t['ms']:.4f} ms ({t['device_ms']:.4f} ms on the card), plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} ops); "
+            f"{t['units'][0]} units of {t['units'][1]} rows a sequence; "
+            f"{r['registers']} registers, {r['local_bytes']} bytes of local "
+            f"memory (spills), "
+            f"{r['static_smem_bytes'] + r['dynamic_smem_bytes']} bytes of "
+            f"shared memory, {r['ctas_per_sm']} CTAs an SM; library_ms none; "
+            f"{smi}")
+        if any(x["local_bytes"] for x in t["resources"].values()):
+            return fail(f"phase 6: B3' spills at {t['shape']} {t['dtype']}")
+    for key, rows in t_attn.items():
+        for name, t in rows.items():
+            r = t["resources"]
+            log(f"[6 times] {name} at {tuple(t['shape'])} (B, S, Hq, Hkv, "
+                f"hd), causal, {t['dtype']}: max abs err "
+                f"{t['max_abs_err']:.3g} (tol {t['tol']}); twice bitwise, "
+                f"alone bitwise among {O_AMONG}; kernel {t['ms']:.4f} ms "
+                f"({t['device_ms']:.4f} ms on the card), plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} ops), "
+                f"scaled_dot_product_attention "
+                + ("forward" if name == "flash_attention_fwd"
+                   else "forward + backward")
+                + f" {t['library_ms']:.4f} ms"
+                + (f", its backward alone {t['library_bwd_ms']:.4f} ms"
+                   if "library_bwd_ms" in t else "")
+                + f"; {r['registers']} registers, {r['local_bytes']} bytes "
+                f"of local memory (spills), {r['ctas_per_sm']} CTAs an SM; "
+                f"{smi}")
+    o_paths = {
+        f"{O_TRAIN_ARCH} launch.train f32, {O_STEPS} steps, 4o":
+            o_report["train"]["launches"],
+        **{f"{r['arch']} train_4k bf16 {r['runtime']['attn_impl']}, "
+           f"{1 + O_REPEATS} steps, 4o": r["launches_run"]
+           for r in o_report["train_4k"].values()}}
+    for name in ("ssd_scan_bwd", "ssd_scan_fwd", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        by_name[name]["launches_by_path"].update(
+            {path: n[name] for path, n in o_paths.items() if n[name]})
+    by_name["ssd_scan_bwd"]["at_train"] = t_ssd
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv"):
+        by_name[name]["at_train"] = {key: rows[name]
+                                     for key, rows in t_attn.items()}
 
     dt = decode_times(torch, kfd, F)
     path = dt["path"]

@@ -18,10 +18,14 @@ same inputs: their outputs' largest differences, then cold-L2 times in
 the order old, new, new, old, beside the bound of ``chip_smoke``.
 
 * ``ssd_bwd``: the SSD-scan backward at the mamba2 cell's shape
-  (``chip_smoke.ssd_inputs``), medians of 20 CUDA-event times.  The old
-  ``ssd_scan_bwd_launch`` must take the current arguments, with the
-  workspace of the recurrence-based backward: B * G * (ceil(S / 16) - 1)
-  * N * (H / G) * P floats.
+  (``chip_smoke.ssd_inputs``) and at ``SSD_BWD_LONG``, shapes of many
+  segments that an old kernel of one CTA a (sequence, group) takes (N <=
+  64, at most 128 (head, p) rows a group), medians of 20 CUDA-event
+  times (5 at the long shapes), and each output against the plain version
+  in float64.  The old ``ssd_scan_bwd_launch`` takes the arguments of the
+  f32 dual-form backward of one CTA a (sequence, group): x, dt, A, Bm,
+  Cm, dy, the five outputs, the f64 dA partials and the workspace (B * G
+  * (ceil(S / 16) + 1) * N * (H / G) * P floats), then the dims.
 * ``ssd_fwd``: the SSD-scan forward at the mamba2 cell's shape
   (``chip_smoke.M_SHAPE``, x, Bm and Cm slices of the conv output as on
   the path) in f32 and bf16, and at chip_smoke's other phase-3c shapes
@@ -87,6 +91,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the SSD backward's long shapes (copies, B per copy, S, H, P, G, N): 128
+# segments of one group of 128 rows at N 64; 16 segments over 4 groups
+SSD_BWD_LONG = [(4, 1, 2048, 2, 64, 1, 64), (1, 2, 256, 8, 32, 4, 64)]
 
 
 def old_library(build, src: Path, tag: str):
@@ -124,7 +131,7 @@ def old_bwd(torch, kssd, lib, x, dt, A, Bm, Cm, dy):
     outs = (new(x.shape), new(dt.shape), new(A.shape), new(Bm.shape),
             new(Cm.shape))
     part = torch.empty((b, h), dtype=torch.float64, device=x.device)
-    ws = new((max(b * g * (-(-s // 16) - 1) * n * (h // g) * p, 1),))
+    ws = new((max(b * g * (-(-s // 16) + 1) * n * (h // g) * p, 1),))
     rc = lib.ssd_scan_bwd_launch(
         *(t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, *outs, part, ws)),
         *kssd._dims("old ssd_scan_bwd", x, A, Bm, Cm), kssd._stream(x))
@@ -141,28 +148,39 @@ def ssd_bwd_ab(torch, cs, build, lib, log) -> dict:
     lib.ssd_scan_bwd_launch.restype = i32
     print_report(build, log, "old", "bwd_kernel")
     b, s, h, p, g, n, chunk = cs.M_SHAPE
+    shapes = [(cs.M_COPIES, b // cs.M_COPIES, s, h, p, g, n)] + SSD_BWD_LONG
     gen = torch.Generator(device="cuda").manual_seed(4)
-    ins, dy = cs.ssd_inputs(torch, gen, cs.M_COPIES, b // cs.M_COPIES, s, h,
-                            p, g, n)
-    old = old_bwd(torch, kssd, lib, *ins, dy)
-    cur = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
-    diffs = {}
-    for name, a, o in zip(("dx", "ddt", "dA", "dBm", "dCm"), cur, old):
-        diffs[name] = float((a - o).abs().max())
-        print(f"[outputs] {name}: max abs difference {diffs[name]:.3g} "
-              f"(max |old| {float(o.abs().max()):.3g})")
-    runs = {"old": lambda: old_bwd(torch, kssd, lib, *ins, dy),
-            "new": lambda: kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)}
-    times = {"old": [], "new": []}
-    for who in ("old", "new", "new", "old"):
-        times[who].append(cs.cold_ms(torch, runs[who]))
-    bound_ms, bound_by = cs.bound(*cs.ssd_work(ins, dy)["ssd_scan_bwd"])
-    print(f"[times] ssd_scan_bwd at {cs.M_SHAPE} (B, S, H, P, G, N, chunk), "
-          f"cold L2, median of 20: old {times['old']} ms, new "
-          f"{times['new']} ms; bound {bound_ms:.4f} ms ({bound_by})")
-    return {"shape": cs.M_SHAPE, "old_ms": times["old"],
-            "new_ms": times["new"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_diff": diffs}
+    out = []
+    for copies, per, s, h, p, g, n in shapes:
+        ins, dy = cs.ssd_inputs(torch, gen, copies, per, s, h, p, g, n)
+        old = old_bwd(torch, kssd, lib, *ins, dy)
+        cur = kssd.ssd_scan_bwd(*ins, dy, chunk=s)
+        exact = kssd.ssd_scan_bwd_plain(*(t.double() for t in (*ins, dy)),
+                                        chunk=s)
+        diffs = {}
+        for name, a, o, e in zip(("dx", "ddt", "dA", "dBm", "dCm"), cur, old,
+                                 exact):
+            diffs[name] = [float((a - o).abs().max()),
+                           float((a.double() - e).abs().max()),
+                           float((o.double() - e).abs().max())]
+            print(f"[outputs] {name}: max abs difference {diffs[name][0]:.3g}"
+                  f" (max |old| {float(o.abs().max()):.3g}); against float64"
+                  f" new {diffs[name][1]:.3g}, old {diffs[name][2]:.3g}")
+        runs = {"old": lambda: old_bwd(torch, kssd, lib, *ins, dy),
+                "new": lambda: kssd.ssd_scan_bwd(*ins, dy, chunk=s)}
+        times = {"old": [], "new": []}
+        iters = 20 if s <= 16 else 5
+        for who in ("old", "new", "new", "old"):
+            times[who].append(cs.cold_ms(torch, runs[who], iters=iters))
+        shape = (copies * per, s, h, p, g, n)
+        bound_ms, bound_by = cs.bound(*cs.ssd_bwd_work(ins, dy))
+        print(f"[times] ssd_scan_bwd at {shape} (B, S, H, P, G, N), cold L2, "
+              f"median of {iters}: old {times['old']} ms, new "
+              f"{times['new']} ms; bound {bound_ms:.4f} ms ({bound_by})")
+        out.append({"shape": shape, "old_ms": times["old"],
+                    "new_ms": times["new"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_diff": diffs})
+    return {"shapes": out}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 // Flash attention for Hopper (sm_90a): the forward pass and a
-// deterministic backward, f32 accumulation throughout.
+// deterministic backward, f32 accumulation throughout.  Every kernel takes
+// f32 or bf16 inputs (q, k, v, o, dO in one type; lse and D in f32), reads
+// them in their type, computes in f32 and rounds its outputs once to it;
+// head dims 32, 64, 112 and 128.
 //
 // Layout.  q, o: (B, S, Hq, HD); k, v: (B, S, Hkv, HD), all contiguous —
 // the model's own (batch, seq, head, dim) layout, so no transpose is made
@@ -15,7 +18,6 @@
 //   o = softmax(scale * q k^T, masked) v with an online softmax (running
 //   max m and sum l in f32), o = acc / max(l, 1e-30) in the input type;
 //   also writes the row log-sum-exp lse = m + log(l) for the backward.
-//   f32 or bf16 inputs.
 // flash_attention_bwd_dq (no TPU counterpart: the TPU package has no
 // backward kernel)
 //   D = rowsum(dO * O) (written for the dK/dV kernel), then
@@ -61,7 +63,10 @@
 // result depends only on its own visible tiles, in increasing key order, and
 // not on the unit it falls in, on B, or on the CTA or stage that ran it
 // (batch-invariant).  o is stored as HD/16 consecutive elements a thread
-// (one 16-byte store for f32 at HD 64).
+// (one 16-byte store for f32 at HD 64; element by element at HD 112,
+// whose 7 columns a thread do not make a 16-byte vector).  Rows in shared
+// memory are HD plus one 16-byte copy long, so the 16-byte copies divide
+// every head dim (HD 112: 28 of f32, 14 of bf16).
 //
 // The dQ kernel.  Its work unit is the forward's (sequence b, KV head, head
 // chunk, query tile of 32 rows over the group's query heads), so each K/V
@@ -257,8 +262,10 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
-// N (2, 4 or 8) consecutive elements as f32, from shared memory, and back
-// to global memory in T: one access of 4 * N bytes (f32) or 2 * N (bf16).
+// N consecutive elements as f32, from shared memory, and back to global
+// memory in T: one access of 4 * N bytes (f32) or 2 * N (bf16) for N 2, 4
+// or 8; element by element otherwise (N 1 and 7: head dim 112's columns,
+// 28 bytes of f32 at 4-byte alignment).
 template <int N>
 __device__ __forceinline__ void loadn(const float* p, float (&out)[N]) {
   if constexpr (N == 8) {
@@ -266,9 +273,12 @@ __device__ __forceinline__ void loadn(const float* p, float (&out)[N]) {
   } else if constexpr (N == 4) {
     const float4 a = *reinterpret_cast<const float4*>(p);
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  } else {
+  } else if constexpr (N == 2) {
     const float2 a = *reinterpret_cast<const float2*>(p);
     out[0] = a.x; out[1] = a.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
   }
 }
 template <int N>
@@ -276,7 +286,7 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p,
                                       float (&out)[N]) {
   if constexpr (N == 8) {
     load8(p, out);
-  } else {
+  } else if constexpr (N % 2 == 0) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
@@ -284,6 +294,9 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p,
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
   }
 }
 template <int N>
@@ -293,8 +306,11 @@ __device__ __forceinline__ void storen(float* p, const float (&in)[N]) {
     reinterpret_cast<float4*>(p)[1] = make_float4(in[4], in[5], in[6], in[7]);
   } else if constexpr (N == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else {
+  } else if constexpr (N == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = in[i];
   }
 }
 template <int N>
@@ -313,9 +329,12 @@ __device__ __forceinline__ void storen(__nv_bfloat16* p,
     h[0] = __floats2bfloat162_rn(in[0], in[1]);
     h[1] = __floats2bfloat162_rn(in[2], in[3]);
     *reinterpret_cast<uint2*>(p) = raw;
-  } else {
+  } else if constexpr (N == 2) {
     *reinterpret_cast<__nv_bfloat162*>(p) =
         __floats2bfloat162_rn(in[0], in[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(in[i]);
   }
 }
 
@@ -625,58 +644,60 @@ constexpr int kDLanes = kDqThreads / kUnitRows;      // threads a row for D
 // banks, and rows stay 16-byte aligned
 constexpr int kDsLd = 24;
 
-// Floats of 32 rows padded by one 16-byte copy: a unit's q, dO or o rows,
-// or a stage of the ring (a K tile, then a V tile, 16 rows each).
-template <int HD>
+// Elements of 32 rows in T padded by one 16-byte copy: a unit's q, dO or
+// o rows, or a stage of the ring (a K tile, then a V tile, 16 rows each).
+template <typename T, int HD>
 __host__ __device__ constexpr int dq_row_elems() {
-  return kUnitRows * (HD + 4);
+  return kUnitRows * (HD + Vec<T>::n);
 }
-// Bytes: `blocks` blocks of 32 rows (q and dO in two slots, the ring's two
-// stages, and o where it has a slot of its own), lse in two slots, D, and
-// p / dS.
-template <int HD>
+// Bytes: `blocks` blocks of 32 rows in T (q and dO in two slots, the ring's
+// two stages, and o where it has a slot of its own), then lse in two
+// slots, D, and p / dS in f32.
+template <typename T, int HD>
 __host__ __device__ constexpr int dq_bytes(int blocks) {
-  return (blocks * dq_row_elems<HD>() + 3 * kUnitRows + kUnitRows * kDsLd) *
-         static_cast<int>(sizeof(float));
+  return blocks * dq_row_elems<T, HD>() * static_cast<int>(sizeof(T)) +
+         (3 * kUnitRows + kUnitRows * kDsLd) *
+             static_cast<int>(sizeof(float));
 }
 // o has a slot of its own where the shared memory admits kMaxResident CTAs
-// an SM with it (hd 32, 64); else it takes the ring's stage ahead of a
-// unit's first key tile (hd 128: 2 CTAs an SM).  The CTAs an SM must hold,
-// for the register budget: as many as the shared memory admits, up to
-// kMaxResident.
-template <int HD> struct DqLayout {
+// an SM with it (hd 32, 64; every bf16 instance); else it takes the ring's
+// stage ahead of a unit's first key tile (f32 at hd 112, 128: 2 CTAs an
+// SM).  The CTAs an SM must hold, for the register budget: as many as the
+// shared memory admits, up to kMaxResident.
+template <typename T, int HD> struct DqLayout {
   static constexpr bool o_slot =
-      kSmemPerSM / (dq_bytes<HD>(7) + kSmemReserved) >= kMaxResident;
-  static constexpr int smem = dq_bytes<HD>(o_slot ? 7 : 6);
+      kSmemPerSM / (dq_bytes<T, HD>(7) + kSmemReserved) >= kMaxResident;
+  static constexpr int smem = dq_bytes<T, HD>(o_slot ? 7 : 6);
   static constexpr int by_smem = kSmemPerSM / (smem + kSmemReserved);
   static constexpr int resident =
       by_smem < 1 ? 1 : (by_smem < kMaxResident ? by_smem : kMaxResident);
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kDqThreads, DqLayout<HD>::resident)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ o,
-          const float* __restrict__ lse, const float* __restrict__ dout,
-          float* __restrict__ dq, float* __restrict__ dsum, Shape sh,
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDqThreads, DqLayout<T, HD>::resident)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ o,
+          const float* __restrict__ lse, const T* __restrict__ dout,
+          T* __restrict__ dq, float* __restrict__ dsum, Shape sh,
           FwdPlan pl) {
-  constexpr int VEC = 4, LD = HD + VEC, CH = HD / VEC;
-  constexpr int RE = dq_row_elems<HD>(), KE = kKeyTile * LD;
-  constexpr bool O_SLOT = DqLayout<HD>::o_slot;
+  constexpr int VEC = Vec<T>::n, LD = HD + VEC, CH = HD / VEC;
+  constexpr int RE = dq_row_elems<T, HD>(), KE = kKeyTile * LD;
+  constexpr bool O_SLOT = DqLayout<T, HD>::o_slot;
   constexpr int RING = O_SLOT ? 0 : 1;        // steps a unit before its
                                               // first key tile (o's)
   constexpr int HALF = kDqThreads / 2;
   constexpr int KH = kKeyTile / 2;            // keys j and j + KH a thread
   constexpr int CPT = HD / kKeyTile;          // dQ columns a thread
-  // the score loop over HD unrolled by 4 (all of it at HD 128), as dK/dV's
-  constexpr int D_UNROLL = HD > 64 ? CH : 4;
+  // the score loop reads 4 elements a row at a time (16 bytes of f32, 8
+  // of bf16), unrolled by 4 (all of it at f32 HD 112, 128), as dK/dV's
+  constexpr int D_UNROLL = VEC == 4 && HD > 64 ? HD / 4 : 4;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                           // [2][rows][LD]
-  float* dos = qs + 2 * RE;                   // [2][rows][LD]
-  float* ring = dos + 2 * RE;                 // [kStages][K 16, V 16][LD]
-  float* os = ring + kStages * RE;            // [rows][LD], where o has a
+  T* qs = reinterpret_cast<T*>(smem);         // [2][rows][LD]
+  T* dos = qs + 2 * RE;                       // [2][rows][LD]
+  T* ring = dos + 2 * RE;                     // [kStages][K 16, V 16][LD]
+  T* os = ring + kStages * RE;                // [rows][LD], where o has a
                                               // slot
-  float* lses = os + (O_SLOT ? RE : 0);       // [2][rows]
+  float* lses = reinterpret_cast<float*>(os + (O_SLOT ? RE : 0));  // [2][rows]
   float* dr = lses + 2 * kUnitRows;           // [rows]: D
   float* pds = dr + kUnitRows;                // [rows][kDsLd]: p, then dS
   const int tid = threadIdx.x;
@@ -706,15 +727,16 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // read anew, so the copies' addresses are not hoisted out of the loop
     // into registers (at 80 a thread they spilled)
     const int ft = fresh_tid();
-    float* stage = ring + to * RE;
+    T* stage = ring + to * RE;
     if (e == 0) {
-      float* qd = qs + slot * RE;
-      float* od = dos + slot * RE;
-      float* oo = O_SLOT ? os : stage;
-      constexpr int N = kUnitRows * CH;       // a multiple of kDqThreads
+      T* qd = qs + slot * RE;
+      T* od = dos + slot * RE;
+      T* oo = O_SLOT ? os : stage;
+      constexpr int N = kUnitRows * CH;
 #pragma unroll
-      for (int i = 0; i < N / kDqThreads; ++i) {
+      for (int i = 0; i < (N + kDqThreads - 1) / kDqThreads; ++i) {
         const int el = ft + i * kDqThreads;
+        if (N % kDqThreads != 0 && el >= N) break;   // hd 112, bf16 hd 32
         const int r = el / CH, col = (el % CH) * VEC;
         int hi;
         const int pos = row_of(x, r, hi);
@@ -781,16 +803,23 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // D = rowsum(dO o) of the unit's rows: kDLanes threads a row, each
       // over every kDLanes-th 16-byte chunk in order, then a butterfly
       const int dt = fresh_tid(), r = dt / kDLanes, lane = dt % kDLanes;
-      const float* dor = dos + slot * RE + r * LD;
-      const float* orow = (O_SLOT ? os : ring + st * RE) + r * LD;
+      const T* dor = dos + slot * RE + r * LD;
+      const T* orow = (O_SLOT ? os : ring + st * RE) + r * LD;
       float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < CH / kDLanes; ++i) {
+      auto chunk = [&](int cc) {
         float a[VEC], b[VEC];
-        loadn<VEC>(dor + (lane + i * kDLanes) * VEC, a);
-        loadn<VEC>(orow + (lane + i * kDLanes) * VEC, b);
+        loadn<VEC>(dor + cc * VEC, a);
+        loadn<VEC>(orow + cc * VEC, b);
 #pragma unroll
         for (int w = 0; w < VEC; ++w) sum = fmaf(a[w], b[w], sum);
+      };
+      if constexpr (CH % kDLanes == 0) {
+#pragma unroll
+        for (int i = 0; i < CH / kDLanes; ++i) chunk(lane + i * kDLanes);
+      } else {                            // hd 112, bf16 hd 32
+#pragma unroll
+        for (int i = 0; i < (CH + kDLanes - 1) / kDLanes; ++i)
+          if (lane + i * kDLanes < CH) chunk(lane + i * kDLanes);
       }
 #pragma unroll
       for (int off = kDLanes / 2; off > 0; off >>= 1)
@@ -821,8 +850,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int t = x.t_begin + e - RING;
       // scores: s = q.k (half 0) or dp = dO.v (half 1) of keys j, j + 8
       // against rows rg, rg + 16, as four partial sums each
-      const float* rows = (half ? dos : qs) + slot * RE;
-      const float* keys = ring + st * RE + half * KE;
+      const T* rows = (half ? dos : qs) + slot * RE;
+      const T* keys = ring + st * RE + half * KE;
       float part[2][2][4];                // [key][row][partial sum]
 #pragma unroll
       for (int a = 0; a < 2; ++a)
@@ -831,20 +860,20 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int w = 0; w < 4; ++w) part[a][i][w] = 0.f;
 #pragma unroll(D_UNROLL)
-      for (int d = 0; d < HD; d += VEC) {
-        float kv[2][VEC], rv[2][VEC];
+      for (int d = 0; d < HD; d += 4) {
+        float kv[2][4], rv[2][4];
 #pragma unroll
-        for (int a = 0; a < 2; ++a) loadn<VEC>(keys + (j + a * KH) * LD + d,
-                                               kv[a]);
+        for (int a = 0; a < 2; ++a) loadn<4>(keys + (j + a * KH) * LD + d,
+                                             kv[a]);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          loadn<VEC>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
+          loadn<4>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int w = 0; w < VEC; ++w)
+            for (int w = 0; w < 4; ++w)
               part[a][i][w] = fmaf(rv[i][w], kv[a][w], part[a][i][w]);
       }
       // half 0: p = exp(s scale - lse) into pds, then signal half 1;
@@ -887,7 +916,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();                    // dS is the CTA's
 
       // dQ += dS K: rows rr, rr + 16, columns cg * CPT .., keys in order
-      const float* kc = ring + st * RE + cg * CPT;
+      const T* kc = ring + st * RE + cg * CPT;
 #pragma unroll
       for (int j0 = 0; j0 < kKeyTile; j0 += 4) {
         float dsv[2][4];
@@ -957,30 +986,31 @@ struct DkdvPlan {
   FastDiv by_hc, by_nkt, by_hkv;
 };
 
-// Floats of a stage's q (or dO) rows and of a slot's K (or V) tile; rows
-// are padded by one 16-byte copy, as the forward's.
-template <int HD>
+// Elements (in T) of a stage's q (or dO) rows and of a slot's K (or V)
+// tile; rows are padded by one 16-byte copy, as the forward's.
+template <typename T, int HD>
 __host__ __device__ constexpr int dkdv_row_elems() {
-  return kUnitRows * (HD + 4);
+  return kUnitRows * (HD + Vec<T>::n);
 }
-template <int HD>
+template <typename T, int HD>
 __host__ __device__ constexpr int dkdv_key_elems() {
-  return kKeyTile * (HD + 4);
+  return kKeyTile * (HD + Vec<T>::n);
 }
-// Bytes: the ring of q and dO rows, lse and D, the K and V slots, then P^T
-// and (dP - D)^T.
-template <int HD>
+// Bytes: the ring of q and dO rows (T), lse and D (f32), the K and V slots
+// (T), then P^T and (dP - D)^T (f32).
+template <typename T, int HD>
 __host__ __device__ constexpr int dkdv_smem() {
-  return (kStages * (2 * dkdv_row_elems<HD>() + 2 * kUnitRows +
-                     2 * dkdv_key_elems<HD>()) +
-          2 * kKeyTile * kPld) *
-         static_cast<int>(sizeof(float));
+  return kStages * (2 * dkdv_row_elems<T, HD>() +
+                    2 * dkdv_key_elems<T, HD>()) *
+             static_cast<int>(sizeof(T)) +
+         (kStages * 2 * kUnitRows + 2 * kKeyTile * kPld) *
+             static_cast<int>(sizeof(float));
 }
 // The CTAs an SM must hold, for the register budget: as many as the shared
-// memory admits, up to kMaxResident (2 at HD 128).
-template <int HD> struct DkdvResident {
+// memory admits, up to kMaxResident (2 for f32 at HD 112 and 128).
+template <typename T, int HD> struct DkdvResident {
   static constexpr int by_smem =
-      kSmemPerSM / (dkdv_smem<HD>() + kSmemReserved);
+      kSmemPerSM / (dkdv_smem<T, HD>() + kSmemReserved);
   static constexpr int value =
       by_smem < 1 ? 1 : (by_smem < kMaxResident ? by_smem : kMaxResident);
 };
@@ -1005,30 +1035,38 @@ __device__ __forceinline__ DkUnit dkdv_unit(const Shape& sh,
   return x;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kDkdvThreads, DkdvResident<HD>::value)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ lse,
-            const float* __restrict__ dout, const float* __restrict__ dsum,
-            float* __restrict__ dk, float* __restrict__ dv, Shape sh,
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDkdvThreads, DkdvResident<T, HD>::value)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const float* __restrict__ lse,
+            const T* __restrict__ dout, const float* __restrict__ dsum,
+            T* __restrict__ dk, T* __restrict__ dv, Shape sh,
             DkdvPlan pl) {
-  constexpr int VEC = 4, LD = HD + VEC, CH = HD / VEC;
-  constexpr int RE = dkdv_row_elems<HD>(), KE = dkdv_key_elems<HD>();
+  constexpr int VEC = Vec<T>::n, LD = HD + VEC, CH = HD / VEC;
+  constexpr int RE = dkdv_row_elems<T, HD>(), KE = dkdv_key_elems<T, HD>();
   constexpr int HALF = kDkdvThreads / 2;
   constexpr int KH = kKeyTile / 2;            // keys j and j + KH a thread
   constexpr int CPT = HD / kColGroups;        // columns a thread
-  constexpr int CW = CPT < VEC ? CPT : VEC;   // columns of one access
+  // columns of one access: VEC where it divides CPT, CPT where that
+  // divides VEC, else one (hd 112's 7 columns a thread, spread by 16)
+  constexpr int CW = CPT % VEC == 0                   ? VEC
+                     : CPT < VEC && VEC % CPT == 0 ? CPT
+                                                     : 1;
   constexpr int NP = CPT / CW;                // accesses a row
-  // the score loop over HD unrolled by 4 (all of it at HD 128): fewer
-  // loads in flight keep the instance within its registers, without spills
-  constexpr int D_UNROLL = HD > 64 ? CH : 4;
+  // the score loop reads 4 elements a row at a time (16 bytes of f32, 8
+  // of bf16), unrolled by 4 (all of it at f32 HD 112, 128): fewer loads in
+  // flight keep the instance within its registers, without spills
+  constexpr int D_UNROLL = VEC == 4 && HD > 64 ? HD / 4 : 4;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                       // [kStages][rows][LD]
-  float* dos = qs + kStages * RE;         // [kStages][rows][LD]
-  float* stat = dos + kStages * RE;       // [kStages][lse, D][rows]
-  float* ks = stat + kStages * 2 * kUnitRows;   // [slots][16][LD]
-  float* vs = ks + kStages * KE;          // [slots][16][LD]
-  float* pt = vs + kStages * KE;          // [16][kPld]: P^T
+  T* qs = reinterpret_cast<T*>(smem);        // [kStages][rows][LD]
+  T* dos = qs + kStages * RE;                // [kStages][rows][LD]
+  float* stat = reinterpret_cast<float*>(dos + kStages * RE);
+                                             // [kStages][lse, D][rows]
+  T* ks = reinterpret_cast<T*>(stat + kStages * 2 * kUnitRows);
+                                             // [slots][16][LD]
+  T* vs = ks + kStages * KE;                 // [slots][16][LD]
+  float* pt = reinterpret_cast<float*>(vs + kStages * KE);
+                                             // [16][kPld]: P^T
   float* et = pt + kKeyTile * kPld;       // [16][kPld]: (dP - D)^T
   const int tid = threadIdx.x;
   // The two halves of the CTA (four warps each) split the work by product:
@@ -1060,8 +1098,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto fetch_rows = [&](const DkUnit& x, int e, int to) {
     int q0;
     const int c = step_of(x, e, q0);
-    float* qd = qs + to * RE;
-    float* od = dos + to * RE;
+    T* qd = qs + to * RE;
+    T* od = dos + to * RE;
     constexpr int N = kUnitRows * CH;
 #pragma unroll
     for (int i = 0; i < (N + kDkdvThreads - 1) / kDkdvThreads; ++i) {
@@ -1144,8 +1182,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // scores: s = q.k (half 0) or dp = dO.v (half 1) of keys j, j + 8
     // against rows rg, rg + 16, as four partial sums each
     {
-      const float* rows = (half ? dos : qs) + st * RE;
-      const float* keys = (half ? vs : ks) + slot * KE;
+      const T* rows = (half ? dos : qs) + st * RE;
+      const T* keys = (half ? vs : ks) + slot * KE;
       float part[2][2][4];                // [key][row][partial sum]
 #pragma unroll
       for (int a = 0; a < 2; ++a)
@@ -1154,20 +1192,20 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int w = 0; w < 4; ++w) part[a][i][w] = 0.f;
 #pragma unroll(D_UNROLL)
-      for (int d = 0; d < HD; d += VEC) {
-        float kv[2][VEC], rv[2][VEC];
+      for (int d = 0; d < HD; d += 4) {
+        float kv[2][4], rv[2][4];
 #pragma unroll
-        for (int a = 0; a < 2; ++a) loadn<VEC>(keys + (j + a * KH) * LD + d,
-                                               kv[a]);
+        for (int a = 0; a < 2; ++a) loadn<4>(keys + (j + a * KH) * LD + d,
+                                             kv[a]);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          loadn<VEC>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
+          loadn<4>(rows + (rg + i * kRowGroups) * LD + d, rv[i]);
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int w = 0; w < VEC; ++w)
+            for (int w = 0; w < 4; ++w)
               part[a][i][w] = fmaf(rv[i][w], kv[a][w], part[a][i][w]);
       }
       const float* sb = stat + st * 2 * kUnitRows + half * kUnitRows;
@@ -1198,7 +1236,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // dV += P^T dO (half 0) or dK += dS^T q with dS = P (dP - D) (half 1):
     // keys jo, jo + 8, the columns of group cg, the step's rows in order
     {
-      const float* rows = (half ? qs : dos) + st * RE;
+      const T* rows = (half ? qs : dos) + st * RE;
 #pragma unroll
       for (int r0 = 0; r0 < kUnitRows; r0 += 4) {
         float coef[2][4];
@@ -1232,7 +1270,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     if (last) {                           // write the unit's rows out
-      float* dst = half ? dk : dv;
+      T* dst = half ? dk : dv;
       const float mul = half ? sh.scale : 1.f;
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
@@ -1328,18 +1366,18 @@ int fwd_prepare(const Prepared** out) {
                  kFwdThreads, out);
 }
 
-template <int HD>
+template <typename T, int HD>
 int dq_prepare(const Prepared** out) {
   static Prepared by_device[kMaxDevices];
-  return prepare(by_device, dq_kernel<HD>, DqLayout<HD>::smem, kDqThreads,
-                 out);
+  return prepare(by_device, dq_kernel<T, HD>, DqLayout<T, HD>::smem,
+                 kDqThreads, out);
 }
 
-template <int HD>
+template <typename T, int HD>
 int dkdv_prepare(const Prepared** out) {
   static Prepared by_device[kMaxDevices];
-  return prepare(by_device, dkdv_kernel<HD>, dkdv_smem<HD>(), kDkdvThreads,
-                 out);
+  return prepare(by_device, dkdv_kernel<T, HD>, dkdv_smem<T, HD>(),
+                 kDkdvThreads, out);
 }
 
 // What a prepared instance takes on the current device, into out[6]:
@@ -1396,24 +1434,26 @@ int fwd_resources(int* out) {
   return resources(inst, out);
 }
 
-template <int HD>
-int dq(const float* q, const float* k, const float* v, const float* o,
-       const float* lse, const float* dout, float* dq_, float* dsum,
+template <typename T, int HD>
+int dq(const void* q, const void* k, const void* v, const void* o,
+       const float* lse, const void* dout, void* dq_, float* dsum,
        const Shape& sh, cudaStream_t stream) {
   const Prepared* inst = nullptr;
-  if (const int err = dq_prepare<HD>(&inst)) return err;
+  if (const int err = dq_prepare<T, HD>(&inst)) return err;
   const FwdPlan pl = fwd_plan(sh);
   if (pl.units <= 0) return kBadShape;
   const int grid = min(pl.units, inst->sms * inst->per_sm);
-  dq_kernel<HD><<<grid, kDqThreads, inst->bytes, stream>>>(
-      q, k, v, o, lse, dout, dq_, dsum, sh, pl);
+  dq_kernel<T, HD><<<grid, kDqThreads, inst->bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o), lse,
+      static_cast<const T*>(dout), static_cast<T*>(dq_), dsum, sh, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <typename T, int HD>
 int dq_resources(int* out) {
   const Prepared* inst = nullptr;
-  if (const int err = dq_prepare<HD>(&inst)) return err;
+  if (const int err = dq_prepare<T, HD>(&inst)) return err;
   return resources(inst, out);
 }
 
@@ -1433,25 +1473,44 @@ DkdvPlan dkdv_plan(const Shape& sh) {
   return pl;
 }
 
-template <int HD>
-int dkdv(const float* q, const float* k, const float* v, const float* lse,
-         const float* dout, const float* dsum, float* dk, float* dv,
+template <typename T, int HD>
+int dkdv(const void* q, const void* k, const void* v, const float* lse,
+         const void* dout, const float* dsum, void* dk, void* dv,
          const Shape& sh, cudaStream_t stream) {
   const Prepared* inst = nullptr;
-  if (const int err = dkdv_prepare<HD>(&inst)) return err;
+  if (const int err = dkdv_prepare<T, HD>(&inst)) return err;
   const DkdvPlan pl = dkdv_plan(sh);
   if (pl.units <= 0) return kBadShape;
   const int grid = min(pl.units, inst->sms * inst->per_sm);
-  dkdv_kernel<HD><<<grid, kDkdvThreads, inst->bytes, stream>>>(
-      q, k, v, lse, dout, dsum, dk, dv, sh, pl);
+  dkdv_kernel<T, HD><<<grid, kDkdvThreads, inst->bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lse, static_cast<const T*>(dout), dsum,
+      static_cast<T*>(dk), static_cast<T*>(dv), sh, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <typename T, int HD>
 int dkdv_resources(int* out) {
   const Prepared* inst = nullptr;
-  if (const int err = dkdv_prepare<HD>(&inst)) return err;
+  if (const int err = dkdv_prepare<T, HD>(&inst)) return err;
   return resources(inst, out);
+}
+
+// Call f with the instance tag of a head dim (f(HdTag<HD>{})); -1 for a
+// head dim no kernel takes.
+template <int HD> struct HdTag {
+  static constexpr int hd = HD;
+};
+
+template <typename F>
+int with_head_dim(int hd, F&& f) {
+  switch (hd) {
+    case 32: return f(HdTag<32>{});
+    case 64: return f(HdTag<64>{});
+    case 112: return f(HdTag<112>{});
+    case 128: return f(HdTag<128>{});
+    default: return kBadHeadDim;
+  }
 }
 
 }  // namespace
@@ -1459,10 +1518,10 @@ int dkdv_resources(int* out) {
 extern "C" {
 
 // q, o: (B, S, Hq, hd); k, v: (B, S, Hkv, hd); lse: (B, Hq, S) f32.
-// bf16 != 0: q, k, v, o are bf16, else f32.  hd in {32, 64, 128}.  q, k,
-// v and o must be 16-byte aligned (the copies and stores are 16-byte
-// vectors); returns -3 otherwise, -1 for another hd, -2 for a shape with
-// no unit or too many.
+// bf16 != 0: q, k, v, o are bf16, else f32.  hd in {32, 64, 112, 128}.
+// q, k, v and o must be 16-byte aligned (the copies are 16-byte vectors);
+// returns -3 otherwise, -1 for another hd, -2 for a shape with no unit or
+// too many.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int S, int Hq,
                                int Hkv, int hd, int causal, int window,
@@ -1473,44 +1532,34 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
       15)
     return kUnaligned;
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv) return kBadShape;
-  if (bf16) {
-    if (hd == 32) return fwd<__nv_bfloat16, 32>(q, k, v, o, lse, sh, stream);
-    if (hd == 64) return fwd<__nv_bfloat16, 64>(q, k, v, o, lse, sh, stream);
-    if (hd == 128)
-      return fwd<__nv_bfloat16, 128>(q, k, v, o, lse, sh, stream);
-  } else {
-    if (hd == 32) return fwd<float, 32>(q, k, v, o, lse, sh, stream);
-    if (hd == 64) return fwd<float, 64>(q, k, v, o, lse, sh, stream);
-    if (hd == 128) return fwd<float, 128>(q, k, v, o, lse, sh, stream);
-  }
-  return kBadHeadDim;
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? fwd<__nv_bfloat16, HD>(q, k, v, o, lse, sh, stream)
+                : fwd<float, HD>(q, k, v, o, lse, sh, stream);
+  });
 }
 
 // The forward instance's resources on the current device (see resources),
 // into out[6]; returns a cudaError_t, or -1 for another hd.
 int flash_attention_fwd_resources(int hd, int bf16, int* out) {
-  if (bf16) {
-    if (hd == 32) return fwd_resources<__nv_bfloat16, 32>(out);
-    if (hd == 64) return fwd_resources<__nv_bfloat16, 64>(out);
-    if (hd == 128) return fwd_resources<__nv_bfloat16, 128>(out);
-  } else {
-    if (hd == 32) return fwd_resources<float, 32>(out);
-    if (hd == 64) return fwd_resources<float, 64>(out);
-    if (hd == 128) return fwd_resources<float, 128>(out);
-  }
-  return kBadHeadDim;
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? fwd_resources<__nv_bfloat16, HD>(out)
+                : fwd_resources<float, HD>(out);
+  });
 }
 
-// f32 throughout; dout, dq like q; dsum: (B, Hq, S) f32 output.  q, k,
-// v, o, dout and dq must be 16-byte aligned (the copies and stores are
-// 16-byte vectors); returns -3 otherwise, -1 for another hd, -2 for a
-// shape with no unit or too many.
-int flash_attention_bwd_dq_launch(const float* q, const float* k,
-                                  const float* v, const float* o,
-                                  const float* lse, const float* dout,
-                                  float* dq_, float* dsum, int B, int S,
+// q, k, v, o, dout and dq in one type (bf16 != 0: bf16, else f32), dout
+// and dq like q; lse and dsum: (B, Hq, S) f32, dsum an output.  q, k, v,
+// o, dout and dq must be 16-byte aligned (the copies are 16-byte
+// vectors); returns -3 otherwise, -1 for another hd, -2 for a shape with
+// no unit or too many.
+int flash_attention_bwd_dq_launch(const void* q, const void* k,
+                                  const void* v, const void* o,
+                                  const float* lse, const void* dout,
+                                  void* dq_, float* dsum, int B, int S,
                                   int Hq, int Hkv, int hd, int causal,
-                                  int window, float scale,
+                                  int window, float scale, int bf16,
                                   cudaStream_t stream) {
   const Shape sh{B, S, Hq, Hkv, causal, window, scale};
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -1519,32 +1568,36 @@ int flash_attention_bwd_dq_launch(const float* q, const float* k,
       15)
     return kUnaligned;
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv) return kBadShape;
-  if (hd == 32) return dq<32>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
-  if (hd == 64) return dq<64>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
-  if (hd == 128)
-    return dq<128>(q, k, v, o, lse, dout, dq_, dsum, sh, stream);
-  return kBadHeadDim;
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? dq<__nv_bfloat16, HD>(q, k, v, o, lse, dout, dq_, dsum, sh,
+                                        stream)
+                : dq<float, HD>(q, k, v, o, lse, dout, dq_, dsum, sh,
+                                stream);
+  });
 }
 
 // The dQ instance's resources on the current device (see resources), into
 // out[6]; returns a cudaError_t, or -1 for another hd.
-int flash_attention_bwd_dq_resources(int hd, int* out) {
-  if (hd == 32) return dq_resources<32>(out);
-  if (hd == 64) return dq_resources<64>(out);
-  if (hd == 128) return dq_resources<128>(out);
-  return kBadHeadDim;
+int flash_attention_bwd_dq_resources(int hd, int bf16, int* out) {
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? dq_resources<__nv_bfloat16, HD>(out)
+                : dq_resources<float, HD>(out);
+  });
 }
 
-// f32 throughout; dsum from flash_attention_bwd_dq_launch; dk, dv like k.
-// q, k, v, dout, dk and dv must be 16-byte aligned (the copies and stores
-// are 16-byte vectors); returns -3 otherwise, -1 for another hd, -2 for a
-// shape with no unit or too many.
-int flash_attention_bwd_dkdv_launch(const float* q, const float* k,
-                                    const float* v, const float* lse,
-                                    const float* dout, const float* dsum,
-                                    float* dk, float* dv, int B, int S,
+// q, k, v, dout, dk and dv in one type (bf16 != 0: bf16, else f32); dsum
+// from flash_attention_bwd_dq_launch; dk, dv like k.  q, k, v, dout, dk
+// and dv must be 16-byte aligned (the copies are 16-byte vectors);
+// returns -3 otherwise, -1 for another hd, -2 for a shape with no unit or
+// too many.
+int flash_attention_bwd_dkdv_launch(const void* q, const void* k,
+                                    const void* v, const float* lse,
+                                    const void* dout, const float* dsum,
+                                    void* dk, void* dv, int B, int S,
                                     int Hq, int Hkv, int hd, int causal,
-                                    int window, float scale,
+                                    int window, float scale, int bf16,
                                     cudaStream_t stream) {
   const Shape sh{B, S, Hq, Hkv, causal, window, scale};
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -1553,20 +1606,23 @@ int flash_attention_bwd_dkdv_launch(const float* q, const float* k,
       15)
     return kUnaligned;
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv) return kBadShape;
-  if (hd == 32) return dkdv<32>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
-  if (hd == 64) return dkdv<64>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
-  if (hd == 128)
-    return dkdv<128>(q, k, v, lse, dout, dsum, dk, dv, sh, stream);
-  return kBadHeadDim;
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? dkdv<__nv_bfloat16, HD>(q, k, v, lse, dout, dsum, dk, dv,
+                                          sh, stream)
+                : dkdv<float, HD>(q, k, v, lse, dout, dsum, dk, dv, sh,
+                                  stream);
+  });
 }
 
 // The dK/dV instance's resources on the current device (see resources),
 // into out[6]; returns a cudaError_t, or -1 for another hd.
-int flash_attention_bwd_dkdv_resources(int hd, int* out) {
-  if (hd == 32) return dkdv_resources<32>(out);
-  if (hd == 64) return dkdv_resources<64>(out);
-  if (hd == 128) return dkdv_resources<128>(out);
-  return kBadHeadDim;
+int flash_attention_bwd_dkdv_resources(int hd, int bf16, int* out) {
+  return with_head_dim(hd, [&](auto tag) {
+    constexpr int HD = decltype(tag)::hd;
+    return bf16 ? dkdv_resources<__nv_bfloat16, HD>(out)
+                : dkdv_resources<float, HD>(out);
+  });
 }
 
 }  // extern "C"

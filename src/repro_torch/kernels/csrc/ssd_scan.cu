@@ -1,5 +1,5 @@
 // The Mamba-2 SSD scan for Hopper (sm_90a): the forward pass and a
-// deterministic backward, f32 arithmetic throughout.
+// deterministic backward, f32 arithmetic throughout on f32 or bf16 inputs.
 //
 // Layout.  x: (B, S, H, P); dt: (B, S, H); Bm, Cm: (B, S, G, N) with head h
 // reading group h / (H / G); y, dy, dx: (B, S, H, P); A: (copies, H) f32,
@@ -69,13 +69,29 @@
 //   one segment to the one before; both add their boundary terms (dC from
 //   the state entering the segment, dB and dx from the carry, and three
 //   terms of d log a).  At S <= kSeg (the mamba2 cell) pass 1 does not run
-//   and no state exists.
+//   and no state exists.  x, B, C and dy in f32 or bf16 (read as f32), dt
+//   in f32; dx, dB and dC are written in f32 (the wrapper rounds them to
+//   the inputs' type).  N up to 128, P a power of two up to 128.
 //
-//   Mapping.  One 256-thread CTA owns one (sequence, group) and walks its
-//   heads in blocks of up to kBlockRows (head, p) rows: kSlots (head,
-//   p-chunk) slots x kSeg tokens, a thread per (slot, token s), owning
-//   min(P, 8) p values of one head (P > 8: P / 8 neighbouring lanes share
-//   a head, and K is summed over them by shuffles).  Each step (segment,
+//   Mapping.  A group's heads go in blocks of up to kBlockRows (head, p)
+//   rows: kSlots (head, p-chunk) slots x kSeg tokens, a thread per (slot,
+//   token s), owning min(P, 8) p values of one head (P > 8: P / 8
+//   neighbouring lanes share a head, and K is summed over them by
+//   shuffles).  One 256-thread CTA owns a unit: a (sequence, group) whole
+//   where the group has at most 512 (N <= 16), 256 (N <= 32) or 128 (head,
+//   p) rows, else one head block of it (mamba2-2.7b's 80 heads of 64 at N
+//   128: 40 units a sequence; zamba2-7b's 112 at N 64: 56), and walks its
+//   blocks segment by segment; the workspace holds each unit's states and
+//   carries, of its own rows.  Beyond one segment (its own instance, with
+//   a 128-register budget) a step first copies its head block's rows of
+//   the entering state and of the carry into shared memory (rows padded to
+//   N + 1 floats against bank conflicts) with the coefficients Q[t][r] =
+//   pre(t) dy_t and U[t][r] = post(t) dt_t x_t, and runs the boundary
+//   terms as register-tiled products over them: a warp a token pair, its
+//   lanes over rows for (a g) . B_t and h_start . C_t (then summed over a
+//   head's rows by shuffles) and over n for dC and dB, and tiles of 4 rows
+//   by 4 n for the carry and pass 1's states, so that each shared-memory
+//   read feeds several FMAs.  Each step (segment,
 //   head block) stages its x, dy and dt in shared memory with 16-byte
 //   cp.async copies (4-byte where a row is not 16-byte aligned), issued as
 //   soon as the step before has read its rows, so a step's loads overlap
@@ -96,7 +112,8 @@
 //       terms;
 //     dB, dC: per (token, n), over the tokens of the segment in order,
 //       then the boundary sums (over the rows in order, head block by head
-//       block);
+//       block); with several units a group, each unit writes its partial
+//       and ssd_dbc_reduce_kernel sums them in unit order;
 //     dA: per (sequence, head), dt_t d log a_t in f64, over the 16 tokens
 //       of a segment by xor shuffles, then over the segments in order;
 //       ssd_dA_reduce_kernel sums the per-sequence partials per copy in
@@ -114,7 +131,10 @@
 // ~17 and waited on shuffles, so it was latency-bound at one 512-thread
 // CTA an SM.  At 49 792 bytes of shared memory (N 16, 64 heads a group)
 // and at most 64 registers a thread, four CTAs (32 warps) are resident on
-// an SM, and their staged copies keep the memory busy.
+// an SM, and their staged copies keep the memory busy.  Beyond one
+// segment the boundary terms' operations bound it (~12 N a (token, row)):
+// at mamba2-2.7b's layer (one 4096-token sequence, 40 units) the 227 KB
+// of shared memory a CTA holds one CTA an SM on 40 of the 132.
 //
 // C interface (bound with ctypes): every entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -135,7 +155,14 @@ constexpr int kBwdThreads = kSeg * kSlots;
 constexpr int kChunk = 8;          // p values a backward thread owns
 constexpr int kBlockRows = 128;    // (head, p) rows of a head block
 constexpr int kHeadMat = kSeg * kSeg + 1;   // a head's kSeg x kSeg, padded
+// CTAs an SM the backward's register budget is set for: one segment (S
+// <= kSeg) in f32, 64 registers a thread; in bf16, 80; beyond one
+// segment, 128 (its staged rows hold it to 1-3 CTAs an SM anyway)
 constexpr int kBwdBlocksPerSM = 4;
+constexpr int kBwdBlocksPerSMBf16 = 3;
+constexpr int kBwdBlocksPerSMMulti = 2;
+constexpr int kBwdMaxState = 128;  // N the backward takes
+constexpr int kBwdMaxP = 128;      // P the backward takes (kChunk x kSlots)
 
 struct Dims {
   int B, S, H, P, G, N;
@@ -156,41 +183,70 @@ __device__ __forceinline__ float seg_sum(float v, int width) {
   return v;
 }
 
-// ---- backward ----------------------------------------------------------
+// ---- copies into shared memory (both kernels) ---------------------------
+
+constexpr int kThreads = 256;        // threads of a CTA, in both kernels
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Copy `rows` rows of `cols` floats (row r at src + r * ld) into dst (row
-// stride dst_ld) with cp.async: 16 bytes a copy where every row is
-// 16-byte aligned in both places, else 4.  The caller commits and waits.
-__device__ void copy_rows_async(float* dst, int dst_ld, const float* src,
-                                long long ld, int rows, int cols) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15) == 0 &&
-      ((ld | dst_ld | cols) & 3) == 0;
-  if (aligned) {
-    const int q = cols / 4;
-    for (int e = threadIdx.x; e < rows * q; e += blockDim.x) {
-      const int r = e / q, v = e % q;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_u32(dst + r * dst_ld + 4 * v)),
-                   "l"(src + r * ld + 4 * v));
-    }
+// Copy `rows` rows of `cols` elements (row r at src + r * ld) into dst (row
+// stride dst_ld) as cp.async copies of BYTES each.
+template <int BYTES, typename T>
+__device__ __forceinline__ void copy_chunks(T* dst, int dst_ld, const T* src,
+                                            long long ld, int rows,
+                                            int cols) {
+  constexpr int PER = BYTES / static_cast<int>(sizeof(T));
+  const int q = cols / PER, tid = threadIdx.x;
+  auto one = [&](int r, int v) {
+    const unsigned to = smem_u32(dst + r * dst_ld + v * PER);
+    const T* from = src + r * ld + v * PER;
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                   "l"(from));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+                   "l"(from));
+  };
+  if (q > 0 && kThreads % q == 0) {      // a fixed chunk of a row a thread
+    const int sh = __ffs(q) - 1;          // q is a power of two here
+    for (int r = tid >> sh; r < rows; r += kThreads >> sh)
+      one(r, tid & (q - 1));
   } else {
-    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
-      const int r = e / cols, v = e % cols;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       smem_u32(dst + r * dst_ld + v)),
-                   "l"(src + r * ld + v));
-    }
+    for (int e = tid; e < rows * q; e += kThreads) one(e / q, e % q);
   }
 }
 
-// n (<= kChunk) floats from shared memory into v, zeros past n; 16-byte
-// loads when n is 8 (p is then a multiple of 8, so the row is aligned).
+// The same, 16 bytes a copy where every row is 16-byte aligned in both
+// places, else 4, else (bf16 at odd offsets) plain copies.  The caller
+// commits and waits.
+template <typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, int dst_ld,
+                                                const T* src, long long ld,
+                                                int rows, int cols) {
+  constexpr long long kE = sizeof(T);
+  const long long lay =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(src) |
+                             reinterpret_cast<uintptr_t>(dst)) |
+      (ld * kE) | (dst_ld * kE) | (cols * kE);
+  if ((lay & 15) == 0) {
+    copy_chunks<16>(dst, dst_ld, src, ld, rows, cols);
+  } else if ((lay & 3) == 0) {
+    copy_chunks<4>(dst, dst_ld, src, ld, rows, cols);
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads)
+      dst[(e / cols) * dst_ld + e % cols] = src[(e / cols) * ld + e % cols];
+  }
+}
+
+// ---- backward ----------------------------------------------------------
+
+static_assert(kBwdThreads == kThreads, "one thread count for the copies");
+
+// n (<= kChunk) values from shared memory as f32 into v, zeros past n;
+// one 16-byte load (bf16) or two (f32) when n is 8 (p is then a multiple
+// of 8, so the row is aligned).
 __device__ __forceinline__ void load_chunk(float (&v)[kChunk],
                                            const float* p, int n) {
   if (n == kChunk) {
@@ -203,10 +259,30 @@ __device__ __forceinline__ void load_chunk(float (&v)[kChunk],
     for (int i = 0; i < kChunk; ++i) v[i] = i < n ? p[i] : 0.f;
   }
 }
+__device__ __forceinline__ void load_chunk(float (&v)[kChunk],
+                                           const __nv_bfloat16* p, int n) {
+  if (n == kChunk) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < kChunk / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) v[i] = i < n ? to_f32(p[i]) : 0.f;
+  }
+}
 
 // Shared memory of the backward (byte offsets): the fixed part at
-// compile-time offsets, then B, C and the boundary sums (kSeg x N f32
-// each) and dA (the group's heads, f64).
+// compile-time offsets (x and dy staged in the input type, in f32-sized
+// slots), then B, C and the boundary sums (kSeg x N f32 each), with S >
+// kSeg a head block's rows of the entering state and of the carry
+// (kBlockRows x (N + 1) f32 each, rows padded against bank conflicts) and
+// the boundary products' coefficients Q and U (kSeg x kBlockRows f32
+// each), and dA (the group's heads, f64).
 constexpr int kOffD2 = 0;                          // f64 (head, token)
 constexpr int kOffX = kOffD2 + 8 * kSlots * kSeg;  // (token, block row)
 constexpr int kOffDY = kOffX + 4 * kSeg * kBlockRows;
@@ -224,23 +300,57 @@ constexpr int kOffM = kOffK4 + 4 * kSlots;              // (head, kHeadMat)
 constexpr int kOffB = kOffM + 4 * kSlots * kHeadMat;    // then C, sums, dA
 static_assert(kOffB % 16 == 0, "the N-sized arrays stay 16-byte aligned");
 
-__host__ __device__ constexpr int bwd_smem_bytes(int hg, int N) {
-  return kOffB + 4 * 4 * kSeg * N + 8 * hg;
+__host__ __device__ constexpr int bwd_staged_floats(int N, bool staged) {
+  return staged ? 2 * kBlockRows * (N + 1) + 2 * kSeg * kBlockRows : 0;
+}
+__host__ __device__ constexpr int bwd_smem_bytes(int hg, int N, bool staged) {
+  return kOffB + 4 * (4 * kSeg * N + bwd_staged_floats(N, staged)) + 8 * hg;
 }
 
-template <bool kWide>                // P >= 8: every chunk is 8 p values
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
-    ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ Cm, const float* __restrict__ dy,
+// The partition of a group's (head, p) rows into units, fixed by H, P, G
+// and N: head blocks of `heads` heads (kSlots slots of min(P, 8) p
+// values), and units of up to `bpu` head blocks, at most 512 (N <= 16),
+// 256 (N <= 32) or 128 rows (a whole head block where it is wider).  A
+// group within that many rows is one unit.
+struct BwdPlan {
+  int heads;     // heads of a head block
+  int nhb;       // head blocks of a group
+  int bpu;       // head blocks of a unit, at most
+  int units;     // units of a group
+  int urows;     // (head, p) rows of a unit, at most
+};
+
+BwdPlan bwd_plan(int H, int P, int G, int N) {
+  BwdPlan pl;
+  const int hg = H / G, nc = P >= kChunk ? P / kChunk : 1;
+  pl.heads = kSlots / nc;
+  pl.nhb = (hg + pl.heads - 1) / pl.heads;
+  const int most = N <= 16 ? 512 : N <= 32 ? 256 : 128;
+  pl.bpu = max(1, most / (pl.heads * P));
+  pl.units = (pl.nhb + pl.bpu - 1) / pl.bpu;
+  pl.urows = min(hg, pl.bpu * pl.heads) * P;
+  return pl;
+}
+
+// kWide: P >= 8, every chunk is 8 p values; kMulti: S > kSeg, states
+// and carries cross the segments (pass 1 and the boundary terms)
+template <typename T, bool kWide, bool kMulti>
+__global__ void __launch_bounds__(kBwdThreads,
+                                  kMulti             ? kBwdBlocksPerSMMulti
+                                  : sizeof(T) == 2 ? kBwdBlocksPerSMBf16
+                                                     : kBwdBlocksPerSM)
+    ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const T* __restrict__ Bm,
+                   const T* __restrict__ Cm, const T* __restrict__ dy,
                    float* __restrict__ dx, float* __restrict__ ddt,
-                   double* __restrict__ dA_part, float* __restrict__ dBm,
-                   float* __restrict__ dCm, float* __restrict__ ws, Dims d) {
+                   double* __restrict__ dA_part, float* __restrict__ dB_out,
+                   float* __restrict__ dC_out, float* __restrict__ ws, Dims d,
+                   BwdPlan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hg = d.H / d.G, N = d.N;
   double* sD2 = reinterpret_cast<double*>(smem + kOffD2);
-  float* sX = reinterpret_cast<float*>(smem + kOffX);
-  float* sDY = reinterpret_cast<float*>(smem + kOffDY);
+  T* sX = reinterpret_cast<T*>(smem + kOffX);
+  T* sDY = reinterpret_cast<T*>(smem + kOffDY);
   float* sDt = reinterpret_cast<float*>(smem + kOffDt);
   float* sA = reinterpret_cast<float*>(smem + kOffA);
   float* sPre = reinterpret_cast<float*>(smem + kOffPre);
@@ -257,19 +367,29 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
   float* sC = sB + kSeg * N;
   float* sAccB = sC + kSeg * N;
   float* sAccC = sAccB + kSeg * N;
-  double* sDA = reinterpret_cast<double*>(sAccC + kSeg * N);
+  const int nseg = kMulti ? (d.S + kSeg - 1) / kSeg : 1, lds = N + 1;
+  float* sH0 = sAccC + kSeg * N;          // with nseg > 1: the block's
+  float* sCin = sH0 + kBlockRows * lds;   // rows of h_start and the carry,
+  float* sQc = sCin + kBlockRows * lds;   // Q[t][r] = pre(t) dy_t[r],
+  float* sUc = sQc + kSeg * kBlockRows;   // U[t][r] = post(t) dt_t x_t[r]
+  double* sDA = reinterpret_cast<double*>(
+      sAccC + kSeg * N + bwd_staged_floats(N, nseg > 1));
 
   const int w8 = kWide ? kChunk : d.P, nc = kWide ? d.P / kChunk : 1;
-  const int heads = kSlots / nc;
-  const int nhb = (hg + heads - 1) / heads, nseg = (d.S + kSeg - 1) / kSeg;
-  const int b = blockIdx.x / d.G, g = blockIdx.x % d.G;
+  const int heads = pl.heads;
+  // this CTA's unit: (sequence, group) and its head blocks [hb0, hb0 + nhb)
+  const int unit = blockIdx.x % pl.units, bg = blockIdx.x / pl.units;
+  const int b = bg / d.G, g = bg % d.G;
+  const int hb0 = unit * pl.bpu, nhb = min(pl.bpu, pl.nhb - hb0);
   const int copy = b / d.per_copy;
   const int tid = threadIdx.x, s = tid / kSlots, q = tid % kSlots;
   const int c = q % nc, j = q / nc;            // slot: head j, p-chunk c
+  const int psh = __ffs(d.P) - 1;              // log2 P: a row's head
+  const int warp = tid >> 5, lane = tid & 31;
   const int col = j * d.P + c * w8;            // the chunk in a staged row
-  // the workspace (S > kSeg): the state at the end of each segment but the
-  // last, for each CTA, then two carry slots for each CTA
-  const long long state = static_cast<long long>(hg) * d.P * N;
+  // the workspace (S > kSeg): the state of the unit's rows at the end of
+  // each segment but the last, for each CTA, then two carry slots for each
+  const long long state = static_cast<long long>(pl.urows) * N;
   auto state_at = [&](int seg) {
     return ws + (static_cast<long long>(blockIdx.x) * (nseg - 1) + seg) *
                     state;
@@ -283,13 +403,13 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
     const int t0 = seg * kSeg, n_t = min(kSeg, d.S - t0);
     const int h0 = g * hg + hb * heads, nh = min(heads, hg - hb * heads);
     const long long tok = static_cast<long long>(b) * d.S + t0;
-    copy_rows_async(sX, kBlockRows, x + tok * d.ldx + h0 * d.P, d.ldx, n_t,
+    copy_tile_async(sX, kBlockRows, x + tok * d.ldx + h0 * d.P, d.ldx, n_t,
                     nh * d.P);
     if (with_dy)
-      copy_rows_async(sDY, kBlockRows, dy + (tok * d.H + h0) * d.P,
+      copy_tile_async(sDY, kBlockRows, dy + (tok * d.H + h0) * d.P,
                       static_cast<long long>(d.H) * d.P, n_t, nh * d.P);
-    copy_rows_async(sDt + buf * kSeg * kSlots, kSlots, dt + tok * d.H + h0,
-                    d.H, n_t, nh);
+    copy_tile_async(sDt + buf * kSeg * kSlots, kSlots, dt + tok * d.H + h0,
+                    static_cast<long long>(d.H), n_t, nh);
     asm volatile("cp.async.commit_group;\n" ::);
   };
   auto wait_stage = [] { asm volatile("cp.async.wait_all;\n" ::: "memory"); };
@@ -313,33 +433,81 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
     }
   };
 
+  // Q[t][r] (with_q) and U[t][r] of the block's first nrow rows, 0 at t >=
+  // n_t: the coefficients of the boundary products, one a (token, row)
+  auto fill_coefs = [&](const float* sdt, int n_t, int nrow, bool with_q) {
+    for (int e = tid; e < kSeg * nrow; e += kBwdThreads) {
+      const int t = e / nrow, r = e - t * nrow, jj = r >> psh;
+      const bool in = t < n_t;
+      if (with_q)
+        sQc[t * kBlockRows + r] =
+            in ? sPre[t * kSlots + jj] * to_f32(sDY[t * kBlockRows + r]) : 0.f;
+      sUc[t * kBlockRows + r] =
+          in ? sPost[t * kSlots + jj] *
+                   (sdt[t * kSlots + jj] * to_f32(sX[t * kBlockRows + r]))
+             : 0.f;
+    }
+  };
+  // out[r][n] = sum_{t < n_t} coef[t][r] M[t][n] (t in order) for the
+  // block's rows r < nrow, handed to epi(r, n, out): warp w takes rows 16 w
+  // .. 16 w + 15, four at a time, a lane n = lane + 32 m, so a coefficient
+  // read serves four n and a row of M four rows
+  auto row_products = [&](const float* coef, const float* M, int n_t,
+                          int nrow, auto&& epi) {
+#pragma unroll 1
+    for (int r0 = 16 * warp; r0 < min(nrow, 16 * warp + 16); r0 += 4) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) acc[i][m] = 0.f;
+#pragma unroll 1
+      for (int t = 0; t < n_t; ++t) {
+        float cf[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cf[i] = coef[t * kBlockRows + r0 + i];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int n = lane + 32 * m;
+          const float mv = n < N ? M[t * N + n] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][m] = fmaf(cf[i], mv, acc[i][m]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (r0 + i < nrow && lane + 32 * m < N)
+            epi(r0 + i, lane + 32 * m, acc[i][m]);
+    }
+  };
+
   // ---- pass 1 (S > kSeg): the state at the end of each segment ----------
-  for (int seg = 0; seg < nseg - 1; ++seg) {   // full segments
+  for (int seg = 0; kMulti && seg < nseg - 1; ++seg) {   // full segments
     const long long tok0 = static_cast<long long>(b) * d.S + seg * kSeg;
-    for (int hb = 0; hb < nhb; ++hb) {
+    for (int hb = hb0; hb < hb0 + nhb; ++hb) {
       const int hbase = g * hg + hb * heads, nh = min(heads, hg - hb * heads);
       __syncthreads();
       stage(seg, hb, false, 0);
-      if (hb == 0)
+      if (hb == hb0)
         for (int e = tid; e < kSeg * N; e += kBwdThreads)
-          sB[e] = Bm[(tok0 + e / N) * d.ldb + g * N + e % N];
+          sB[e] = to_f32(Bm[(tok0 + e / N) * d.ldb + g * N + e % N]);
       wait_stage();
       __syncthreads();
       decays(sDt, hbase, nh, kSeg, true);
       // h_end = pre(last) h_start + sum_s post(s) u_s B_s
-      const long long rbase = static_cast<long long>(hb) * heads * d.P;
-      for (int e = tid; e < nh * d.P * N; e += kBwdThreads) {
-        const int r = e / N, n = e % N, jj = r / d.P;
+      const long long rbase = static_cast<long long>(hb - hb0) * heads * d.P;
+      const int nrow = nh * d.P;
+      fill_coefs(sDt, kSeg, nrow, false);
+      __syncthreads();
+      row_products(sUc, sB, kSeg, nrow, [&](int r, int n, float v) {
         const long long at = (rbase + r) * N + n;
-        float v = 0.f;
-        for (int t = 0; t < kSeg; ++t)
-          v = fmaf(sPost[t * kSlots + jj] *
-                       (sDt[t * kSlots + jj] * sX[t * kBlockRows + r]),
-                   sB[t * N + n], v);
         if (seg > 0)
-          v = fmaf(sPre[(kSeg - 1) * kSlots + jj], state_at(seg - 1)[at], v);
+          v = fmaf(sPre[(kSeg - 1) * kSlots + (r >> psh)],
+                   state_at(seg - 1)[at], v);
         state_at(seg)[at] = v;
-      }
+      });
     }
   }
 
@@ -348,24 +516,24 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
   float wacc = 0.f;                  // sum_h W[t][s] of (t, s) = (s, q)
   const int nsteps = nseg * nhb;
   __syncthreads();
-  stage(nseg - 1, 0, true, 0);
+  stage(nseg - 1, hb0, true, 0);
   for (int k = 0; k < nsteps; ++k) {
-    const int seg = nseg - 1 - k / nhb, hb = k % nhb;
+    const int seg = nseg - 1 - k / nhb, hb = hb0 + k % nhb;
     const int t0 = seg * kSeg, n_t = min(kSeg, d.S - t0);
     const int hbase = g * hg + hb * heads, nh = min(heads, hg - hb * heads);
     const bool has_h0 = seg > 0, has_carry = seg < nseg - 1;
     const float* sdt = sDt + (k & 1) * kSeg * kSlots;
     const long long tok0 = static_cast<long long>(b) * d.S + t0;
-    const long long rbase = static_cast<long long>(hb) * heads * d.P;
+    const long long rbase = static_cast<long long>(hb - hb0) * heads * d.P;
 
     wait_stage();
     __syncthreads();
-    if (hb == 0) {            // the segment's B, C and C_t . B_s
+    if (hb == hb0) {          // the segment's B, C and C_t . B_s
       for (int e = tid; e < kSeg * N; e += kBwdThreads) {
         const int t = e / N, n = e % N;
         const bool in = t < n_t;
-        sB[e] = in ? Bm[(tok0 + t) * d.ldb + g * N + n] : 0.f;
-        sC[e] = in ? Cm[(tok0 + t) * d.ldc + g * N + n] : 0.f;
+        sB[e] = in ? to_f32(Bm[(tok0 + t) * d.ldb + g * N + n]) : 0.f;
+        sC[e] = in ? to_f32(Cm[(tok0 + t) * d.ldc + g * N + n]) : 0.f;
         sAccB[e] = 0.f;
         sAccC[e] = 0.f;
       }
@@ -378,8 +546,8 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
     decays(sdt, hbase, nh, n_t, nseg > 1);
 
     // thread (s, head j, chunk c): the sums over t >= s
+    const bool live = j < nh && s < n_t;
     {
-      const bool live = j < nh && s < n_t;
       float xs[kChunk], du[kChunk], dyv[kChunk];
       load_chunk(xs, sX + s * kBlockRows + col, w8);
 #pragma unroll
@@ -431,82 +599,150 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
       }
     }
     __syncthreads();
-    if (nseg > 1) {           // the boundary terms of the block's heads
+    if (kMulti) {             // the boundary terms of the block's heads
       const int nrow = nh * d.P;
-      const float* h0 = state_at(seg - 1);   // if has_h0
-      const float* cin = carry_at(seg);      // if has_carry: a_{t1} g_{t1}
-      {                       // thread (t, head jj), over the head's rows
-        const int t = tid / kSlots, jj = tid % kSlots;
-        if (t < n_t && jj < nh) {
-          const float post = sPost[tid], dtv = sdt[tid];
-          float e = 0.f, qv = 0.f, k4 = 0.f;
-          for (int p = 0; p < d.P; ++p) {
-            const int r = jj * d.P + p;
-            const long long at = (rbase + r) * N;
-            if (has_carry) {  // dx_t += dt_t post(t) (a g) B_t
-              float gb = 0.f;
-              for (int n = 0; n < N; ++n)
-                gb = fmaf(cin[at + n], sB[t * N + n], gb);
-              float* o = dx + ((tok0 + t) * d.H + hbase + jj) * d.P + p;
-              *o = fmaf(dtv * post, gb, *o);
-              e = fmaf(sX[t * kBlockRows + r], gb, e);
-            }
-            if (has_h0) {     // q_t = dy_t . (h_start C_t)
-              float hc = 0.f;
-              for (int n = 0; n < N; ++n)
-                hc = fmaf(h0[at + n], sC[t * N + n], hc);
-              qv = fmaf(sDY[t * kBlockRows + r], hc, qv);
-            }
-            if (has_carry && has_h0 && t == 0)   // (a g) . h_start
-              for (int n = 0; n < N; ++n)
-                k4 = fmaf(cin[at + n], h0[at + n], k4);
-          }
-          if (has_carry) {
-            sXd[tid] = fmaf(post, e, sXd[tid]);
-            sT3[tid] = post * dtv * e;
-          }
-          if (has_h0) sQ[tid] = sPre[tid] * qv;
-          if (has_carry && has_h0 && t == 0)
-            sK4[jj] = sPre[(n_t - 1) * kSlots + jj] * k4;
-        }
-      }
-      for (int e = tid; e < n_t * N; e += kBwdThreads) {
-        const int t = e / N, n = e % N;
-        if (has_h0) {         // dC_t += sum pre(t) dy_t h_start
-          float v = 0.f;
-          for (int r = 0; r < nrow; ++r)
-            v = fmaf(sPre[t * kSlots + r / d.P] * sDY[t * kBlockRows + r],
-                     h0[(rbase + r) * N + n], v);
-          sAccC[e] += v;
-        }
-        if (has_carry) {      // dB_s += sum post(s) u_s a_{t1} g_{t1}
-          float v = 0.f;
-          for (int r = 0; r < nrow; ++r) {
-            const int jj = r / d.P;
-            v = fmaf(sPost[t * kSlots + jj] *
-                         (sdt[t * kSlots + jj] * sX[t * kBlockRows + r]),
-                     cin[(rbase + r) * N + n], v);
-          }
-          sAccB[e] += v;
-        }
-      }
-      if (has_h0) {           // the carry into the segment before
+      {                       // the block's rows of h_start and of the
+                              // carry a_{t1} g_{t1} into shared memory
+        const float* h0 = state_at(seg - 1) + rbase * N;     // if has_h0
+        const float* cin = carry_at(seg) + rbase * N;    // if has_carry
+#pragma unroll 4
         for (int e = tid; e < nrow * N; e += kBwdThreads) {
-          const int r = e / N, n = e % N, jj = r / d.P;
-          float v = 0.f;
-          for (int t = 0; t < n_t; ++t)
-            v = fmaf(sPre[t * kSlots + jj] * sDY[t * kBlockRows + r],
-                     sC[t * N + n], v);
+          const int r = e / N, n = e % N;
+          if (has_h0) sH0[r * lds + n] = h0[e];
+          if (has_carry) sCin[r * lds + n] = cin[e];
+        }
+      }
+      fill_coefs(sdt, n_t, nrow, true);
+      __syncthreads();
+      {                       // warp w: tokens 2 w, 2 w + 1; lane: rows r =
+                              // lane + 32 m.  gb = (a g)_r . B_t, hc =
+                              // h_start_r . C_t (n in order), k4 = (a g)_r .
+                              // h_start_r
+        const int t0 = 2 * warp;
+        float gb[2][4], hc[2][4], k4r[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          gb[0][m] = gb[1][m] = hc[0][m] = hc[1][m] = k4r[m] = 0.f;
+        }
+#pragma unroll 2
+        for (int n = 0; n < N; ++n) {
+          const float b0 = sB[t0 * N + n], b1 = sB[(t0 + 1) * N + n];
+          const float c0 = sC[t0 * N + n], c1 = sC[(t0 + 1) * N + n];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int r = lane + 32 * m;
+            const float ci = sCin[r * lds + n], hi = sH0[r * lds + n];
+            gb[0][m] = fmaf(ci, b0, gb[0][m]);
+            gb[1][m] = fmaf(ci, b1, gb[1][m]);
+            hc[0][m] = fmaf(hi, c0, hc[0][m]);
+            hc[1][m] = fmaf(hi, c1, hc[1][m]);
+            k4r[m] = fmaf(ci, hi, k4r[m]);
+          }
+        }
+        // dx_t += dt_t post(t) gb; then e = x_t . gb, q = dy_t . hc and k4
+        // summed over each head's rows: a head's slots in m order, then
+        // its lanes by xor shuffles (P >= 32), or its P lanes (P < 32)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int t = t0 + i;
+          float ev[4], qv[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int r = lane + 32 * m, th = t * kSlots + (r >> psh);
+            ev[m] = qv[m] = 0.f;
+            if (t < n_t && r < nrow) {
+              if (has_carry) {
+                float* o = dx + ((tok0 + t) * d.H + hbase) * d.P + r;
+                *o = fmaf(sdt[th] * sPost[th], gb[i][m], *o);
+                ev[m] = to_f32(sX[t * kBlockRows + r]) * gb[i][m];
+              }
+              if (has_h0) qv[m] = to_f32(sDY[t * kBlockRows + r]) * hc[i][m];
+            }
+          }
+          auto put = [&](int jj, float e, float qs, float k4) {
+            if (t >= n_t || jj >= nh) return;
+            const int th = t * kSlots + jj;
+            if (has_carry) {
+              sXd[th] = fmaf(sPost[th], e, sXd[th]);
+              sT3[th] = sPost[th] * sdt[th] * e;
+            }
+            if (has_h0) sQ[th] = sPre[th] * qs;
+            if (has_carry && has_h0 && t == 0)
+              sK4[jj] = sPre[(n_t - 1) * kSlots + jj] * k4;
+          };
+          if (d.P >= 32) {
+            float e = 0.f, qs = 0.f, k4 = 0.f;
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              e += ev[m];
+              qs += qv[m];
+              k4 += lane + 32 * m < nrow ? k4r[m] : 0.f;
+              if (m == 3 || (32 * (m + 1)) >> psh != (32 * m) >> psh) {
+                e = seg_sum(e, 32);
+                qs = seg_sum(qs, 32);
+                k4 = seg_sum(k4, 32);
+                if (lane == 0) put((32 * m) >> psh, e, qs, k4);
+                e = qs = k4 = 0.f;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int r = lane + 32 * m;
+              const float e = seg_sum(ev[m], d.P), qs = seg_sum(qv[m], d.P);
+              const float k4 = seg_sum(r < nrow ? k4r[m] : 0.f, d.P);
+              if ((lane & (d.P - 1)) == 0 && r < nrow) put(r >> psh, e, qs, k4);
+            }
+          }
+        }
+      }
+      {                       // warp w: tokens 2 w, 2 w + 1; lane: n = lane
+                              // + 32 m.  dC_t += sum_r Q[t][r] h_start_r,
+                              // dB_t += sum_r U[t][r] (a g)_r (r in order)
+        const int t0 = 2 * warp;
+        float dc[2][4], db[2][4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) dc[0][m] = dc[1][m] = db[0][m] = db[1][m] = 0.f;
+#pragma unroll 2
+        for (int r = 0; r < nrow; ++r) {
+          const float q0 = sQc[t0 * kBlockRows + r];
+          const float q1 = sQc[(t0 + 1) * kBlockRows + r];
+          const float u0 = sUc[t0 * kBlockRows + r];
+          const float u1 = sUc[(t0 + 1) * kBlockRows + r];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int n = lane + 32 * m;
+            if (n < N) {
+              const float hi = sH0[r * lds + n], ci = sCin[r * lds + n];
+              dc[0][m] = fmaf(q0, hi, dc[0][m]);
+              dc[1][m] = fmaf(q1, hi, dc[1][m]);
+              db[0][m] = fmaf(u0, ci, db[0][m]);
+              db[1][m] = fmaf(u1, ci, db[1][m]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int t = t0 + i, n = lane + 32 * m;
+            if (t < n_t && n < N) {
+              if (has_h0) sAccC[t * N + n] += dc[i][m];
+              if (has_carry) sAccB[t * N + n] += db[i][m];
+            }
+          }
+      }
+      if (has_h0)             // the carry into the segment before
+        row_products(sQc, sC, n_t, nrow, [&](int r, int n, float v) {
           if (has_carry)
-            v = fmaf(sPre[(n_t - 1) * kSlots + jj], cin[(rbase + r) * N + n],
+            v = fmaf(sPre[(n_t - 1) * kSlots + (r >> psh)], sCin[r * lds + n],
                      v);
           carry_at(seg + 1)[(rbase + r) * N + n] = v;
-        }
-      }
+        });
       __syncthreads();
     }
     if (k + 1 < nsteps)       // the next step's rows, while this one ends
-      stage(nseg - 1 - (k + 1) / nhb, (k + 1) % nhb, true, (k + 1) & 1);
+      stage(nseg - 1 - (k + 1) / nhb, hb0 + (k + 1) % nhb, true, (k + 1) & 1);
 
     {                         // thread (t, head jj): d log a_t, ddt_t
       const int t = tid / kSlots, jj = tid % kSlots;
@@ -537,7 +773,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
         v += __shfl_xor_sync(kFull, v, off);
       if (t == 0 && jj < nh) sDA[hb * heads + jj] += v;
     }
-    if (hb == nhb - 1) {      // the segment's dB and dC
+    if (hb == hb0 + nhb - 1) {   // the segment's dB and dC (the unit's)
       const int t = tid / kSeg, u = tid % kSeg;
       sWg[tid] = (t < n_t && u <= t) ? wacc : 0.f;
       wacc = 0.f;
@@ -551,14 +787,20 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
           db = fmaf(sWg[v * kSeg + tt], sC[v * N + n], db);
         if (has_h0) dc += sAccC[e];
         if (has_carry) db += sAccB[e];
-        const long long at = (tok0 + tt) * d.G * N + g * N + n;
-        dCm[at] = dc;
-        dBm[at] = db;
+        // the outputs themselves where a group is one unit, else the
+        // unit's slice of the partial sums
+        const long long at =
+            static_cast<long long>(blockIdx.x % pl.units) * d.B * d.S * d.G *
+                N +
+            (tok0 + tt) * d.G * N + g * N + n;
+        dC_out[at] = dc;
+        dB_out[at] = db;
       }
     }
   }
   __syncthreads();
-  for (int e = tid; e < hg; e += kBwdThreads)
+  for (int e = hb0 * heads + tid; e < min(hg, (hb0 + nhb) * heads);
+       e += kBwdThreads)
     dA_part[static_cast<long long>(b) * d.H + g * hg + e] = sDA[e];
 }
 
@@ -576,9 +818,28 @@ __global__ void ssd_dA_reduce_kernel(const double* __restrict__ part,
   dA[i] = static_cast<float>(s);
 }
 
+// dB and dC (`count` elements each) = the sums of the units' partials
+// (dB's `units` slices, then dC's), in unit order.
+__global__ void ssd_dbc_reduce_kernel(const float* __restrict__ part,
+                                      float* __restrict__ dB,
+                                      float* __restrict__ dC,
+                                      long long count, int units) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const float* pc = part + static_cast<long long>(units) * count;
+  float sb = 0.f, sc = 0.f;
+  for (int u = 0; u < units; ++u) {
+    sb += part[u * count + i];
+    sc += pc[u * count + i];
+  }
+  dB[i] = sb;
+  dC[i] = sc;
+}
+
 // ---- forward -----------------------------------------------------------
 
-constexpr int kFwdThreads = 256;
+constexpr int kFwdThreads = kThreads;
 constexpr int kFwdRows = 256;        // (head, p) rows of a unit, at most
 constexpr int kFwdHeads = 32;        // heads of a unit, at most
 constexpr int kStateElems = 4096;    // rows x N of a unit with a state: 16
@@ -681,55 +942,6 @@ template <typename T, int NMAX> struct FwdSmem {
                     kBC % 16 == 0 && kOffYc % 16 == 0,
                 "every array stays 16-byte aligned");
 };
-
-// Copy `rows` rows of `cols` elements (row r at src + r * ld) into dst (row
-// stride dst_ld) as cp.async copies of BYTES each.
-template <int BYTES, typename T>
-__device__ __forceinline__ void copy_chunks(T* dst, int dst_ld, const T* src,
-                                            long long ld, int rows,
-                                            int cols) {
-  constexpr int PER = BYTES / static_cast<int>(sizeof(T));
-  const int q = cols / PER, tid = threadIdx.x;
-  auto one = [&](int r, int v) {
-    const unsigned to = smem_u32(dst + r * dst_ld + v * PER);
-    const T* from = src + r * ld + v * PER;
-    if constexpr (BYTES == 16)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
-                   "l"(from));
-    else
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
-                   "l"(from));
-  };
-  if (q > 0 && kFwdThreads % q == 0) {   // a fixed chunk of a row a thread
-    const int sh = __ffs(q) - 1;          // q is a power of two here
-    for (int r = tid >> sh; r < rows; r += kFwdThreads >> sh)
-      one(r, tid & (q - 1));
-  } else {
-    for (int e = tid; e < rows * q; e += kFwdThreads) one(e / q, e % q);
-  }
-}
-
-// The same, 16 bytes a copy where every row is 16-byte aligned in both
-// places, else 4, else (bf16 at odd offsets) plain copies.  The caller
-// commits and waits.
-template <typename T>
-__device__ __forceinline__ void copy_tile_async(T* dst, int dst_ld,
-                                                const T* src, long long ld,
-                                                int rows, int cols) {
-  constexpr long long kE = sizeof(T);
-  const long long lay =
-      static_cast<long long>(reinterpret_cast<uintptr_t>(src) |
-                             reinterpret_cast<uintptr_t>(dst)) |
-      (ld * kE) | (dst_ld * kE) | (cols * kE);
-  if ((lay & 15) == 0) {
-    copy_chunks<16>(dst, dst_ld, src, ld, rows, cols);
-  } else if ((lay & 3) == 0) {
-    copy_chunks<4>(dst, dst_ld, src, ld, rows, cols);
-  } else {
-    for (int e = threadIdx.x; e < rows * cols; e += kFwdThreads)
-      dst[(e / cols) * dst_ld + e % cols] = src[(e / cols) * ld + e % cols];
-  }
-}
 
 // V consecutive elements as f32 from shared memory, and back to global
 // memory in T: one access of 4 V bytes (f32) or 2 V (bf16).
@@ -1019,24 +1231,95 @@ int allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// The shapes the backward takes: N <= 64, P a power of two, (H / G) * P
-// up to 512 (N <= 16), 256 (N <= 32) or 128.
+// The shapes the backward takes: N <= 128, P a power of two up to 128.
 bool bwd_takes(int H, int P, int G, int N) {
-  const int most = N <= 16 ? 512 : N <= 32 ? 256 : 128;
-  return N >= 1 && N <= 64 && P >= 1 && (P & (P - 1)) == 0 && G >= 1 &&
-         H % G == 0 && H / G * P <= most;
+  return N >= 1 && N <= kBwdMaxState && P >= 1 && P <= kBwdMaxP &&
+         (P & (P - 1)) == 0 && G >= 1 && H % G == 0;
 }
 
-// The backward's instance for P, its dynamic shared memory opted in; 0
-// or a cudaError_t.
-using BwdKernel = decltype(&ssd_bwd_kernel<true>);
-int bwd_prepare(int hg, int P, int N, BwdKernel* kernel, int* bytes) {
-  *kernel = P >= kChunk ? ssd_bwd_kernel<true> : ssd_bwd_kernel<false>;
-  *bytes = bwd_smem_bytes(hg, N);
+// The backward's instance for a type and P, its dynamic shared memory at
+// S (the state's rows staged where S > kSeg) opted in; 0 or a
+// cudaError_t.
+template <typename T>
+using BwdKernel = decltype(&ssd_bwd_kernel<T, true, true>);
+
+template <typename T>
+int bwd_prepare(int hg, int P, int N, int S, BwdKernel<T>* kernel,
+                int* bytes) {
+  if (S > kSeg)
+    *kernel = P >= kChunk ? ssd_bwd_kernel<T, true, true>
+                          : ssd_bwd_kernel<T, false, true>;
+  else
+    *kernel = P >= kChunk ? ssd_bwd_kernel<T, true, false>
+                          : ssd_bwd_kernel<T, false, false>;
+  *bytes = bwd_smem_bytes(hg, N, S > kSeg);
   cudaFuncSetAttribute(*kernel,
                        cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
   return allow_smem(*kernel, *bytes);
+}
+
+template <typename T>
+int bwd(const void* x, const float* dt, const float* A, const void* Bm,
+        const void* Cm, const void* dy, float* dx, float* ddt, float* dA,
+        float* dBm, float* dCm, double* dA_part, float* ws, float* dbc,
+        const Dims& d, cudaStream_t stream) {
+  const BwdPlan pl = bwd_plan(d.H, d.P, d.G, d.N);
+  BwdKernel<T> kernel;
+  int bytes = 0;
+  if (const int err =
+          bwd_prepare<T>(d.H / d.G, d.P, d.N, d.S, &kernel, &bytes))
+    return err;
+  const long long grid = static_cast<long long>(d.B) * d.G * pl.units;
+  if (grid < 1 || grid > 0x7fffffffLL) return kBadShape;
+  // a group of one unit writes dB and dC itself; more write partials
+  const long long count = static_cast<long long>(d.B) * d.S * d.G * d.N;
+  float* out_b = pl.units > 1 ? dbc : dBm;
+  float* out_c = pl.units > 1 ? dbc + pl.units * count : dCm;
+  kernel<<<static_cast<int>(grid), kBwdThreads, bytes, stream>>>(
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const T*>(dy), dx, ddt, dA_part,
+      out_b, out_c, ws, d, pl);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  const int n = d.B / d.per_copy * d.H;
+  ssd_dA_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      dA_part, dA, d.B / d.per_copy, d.per_copy, d.H);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  if (pl.units > 1)
+    ssd_dbc_reduce_kernel<<<static_cast<unsigned>((count + 255) / 256), 256,
+                            0, stream>>>(dbc, dBm, dCm, count, pl.units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_resources(int H, int P, int G, int N, int S, int* out) {
+  BwdKernel<T> kernel;
+  int bytes = 0;
+  if (const int err = bwd_prepare<T>(H / G, P, N, S, &kernel, &bytes))
+    return err;
+  const void* kernels[3] = {
+      reinterpret_cast<const void*>(kernel),
+      reinterpret_cast<const void*>(ssd_dA_reduce_kernel),
+      reinterpret_cast<const void*>(ssd_dbc_reduce_kernel)};
+  const int threads[3] = {kBwdThreads, 256, 256};
+  const int dynamic[3] = {bytes, 0, 0};
+  for (int i = 0; i < 3; ++i) {
+    cudaFuncAttributes fa;
+    if (const cudaError_t err = cudaFuncGetAttributes(&fa, kernels[i]))
+      return static_cast<int>(err);
+    int blocks = 0;
+    if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernels[i], threads[i], dynamic[i]))
+      return static_cast<int>(err);
+    int* o = out + 6 * i;
+    o[0] = fa.numRegs;
+    o[1] = static_cast<int>(fa.localSizeBytes);
+    o[2] = static_cast<int>(fa.sharedSizeBytes);
+    o[3] = dynamic[i];
+    o[4] = blocks;
+    o[5] = threads[i];
+  }
+  return 0;
 }
 
 // The forward's instance, prepared once a device: its shared memory
@@ -1205,62 +1488,54 @@ int ssd_scan_fwd_resources(int H, int P, int G, int N, int S, int bf16,
   });
 }
 
-// f32 throughout.  dx like x (contiguous), ddt like dt, dA like A, dBm and
-// dCm like Bm (contiguous); dA_part: (B, H) f64 scratch; ws: with S > 16,
-// the segment-end states and the carries, B * G * (ceil(S / 16) + 1) * N *
-// (H / G) * P floats (nothing with S <= 16).  N <= 64; P a power of two;
-// (H / G) * P <= 512 (N <= 16), 256 (N <= 32) or 128.
-int ssd_scan_bwd_launch(const float* x, const float* dt, const float* A,
-                        const float* Bm, const float* Cm, const float* dy,
+// x, Bm, Cm and dy in bf16 (bf16 != 0) or f32; dt, A f32.  dx (like x),
+// ddt (like dt), dA (like A), dBm and dCm (like Bm) are f32 and
+// contiguous; dA_part: (B, H) f64 scratch; ws: with S > 16, the
+// segment-end states and the carries of each unit, B * G * units *
+// (ceil(S / 16) + 1) * N * rows floats (nothing with S <= 16); dbc: with
+// more than one unit a group, the units' partial dB and dC, 2 * units * B
+// * S * G * N floats (units and rows from ssd_scan_bwd_units).  N <= 128;
+// P a power of two up to 128.  Returns a cudaError_t, or -1 for a shape
+// the kernel does not take.
+int ssd_scan_bwd_launch(const void* x, const float* dt, const float* A,
+                        const void* Bm, const void* Cm, const void* dy,
                         float* dx, float* ddt, float* dA, float* dBm,
-                        float* dCm, double* dA_part, float* ws, int B, int S,
-                        int H, int P, int G, int N, int per_copy,
-                        long long ldx, long long ldb, long long ldc,
-                        cudaStream_t stream) {
-  if (!bwd_takes(H, P, G, N)) return kBadShape;
+                        float* dCm, double* dA_part, float* ws, float* dbc,
+                        int B, int S, int H, int P, int G, int N,
+                        int per_copy, long long ldx, long long ldb,
+                        long long ldc, int bf16, cudaStream_t stream) {
+  if (!bwd_takes(H, P, G, N) || B < 1 || S < 1 || per_copy < 1)
+    return kBadShape;
   const Dims d{B, S, H, P, G, N, per_copy, ldx, ldb, ldc};
-  BwdKernel kernel;
-  int bytes = 0;
-  if (const int err = bwd_prepare(H / G, P, N, &kernel, &bytes)) return err;
-  kernel<<<B * G, kBwdThreads, bytes, stream>>>(
-      x, dt, A, Bm, Cm, dy, dx, ddt, dA_part, dBm, dCm, ws, d);
-  if (const int err = static_cast<int>(cudaGetLastError())) return err;
-  const int n = B / per_copy * H;
-  ssd_dA_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      dA_part, dA, B / per_copy, per_copy, H);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? bwd<__nv_bfloat16>(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm,
+                                   dCm, dA_part, ws, dbc, d, stream)
+              : bwd<float>(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm,
+                           dA_part, ws, dbc, d, stream);
 }
 
-// The backward's resources at a shape, into out[12]: for ssd_bwd_kernel,
-// then ssd_dA_reduce_kernel, six ints each: registers a thread, local
-// memory a thread (spills; bytes), static and dynamic shared memory a CTA
-// (bytes), resident CTAs an SM, threads a CTA.  Returns a cudaError_t, or
-// -1 for a shape the kernel does not take.
-int ssd_scan_bwd_resources(int H, int P, int G, int N, int* out) {
+// The backward's units a group and (head, p) rows of a unit at most, at a
+// shape, into out[2].  Returns 0, or -1 for a shape the kernel does not
+// take.
+int ssd_scan_bwd_units(int H, int P, int G, int N, int* out) {
   if (!bwd_takes(H, P, G, N)) return kBadShape;
-  BwdKernel kernel;
-  int bytes = 0;
-  if (const int err = bwd_prepare(H / G, P, N, &kernel, &bytes)) return err;
-  const void* kernels[2] = {reinterpret_cast<const void*>(kernel),
-                            reinterpret_cast<const void*>(ssd_dA_reduce_kernel)};
-  const int threads[2] = {kBwdThreads, 256}, dynamic[2] = {bytes, 0};
-  for (int i = 0; i < 2; ++i) {
-    cudaFuncAttributes fa;
-    if (const cudaError_t err = cudaFuncGetAttributes(&fa, kernels[i]))
-      return static_cast<int>(err);
-    int blocks = 0;
-    if (const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, kernels[i], threads[i], dynamic[i]))
-      return static_cast<int>(err);
-    int* o = out + 6 * i;
-    o[0] = fa.numRegs;
-    o[1] = static_cast<int>(fa.localSizeBytes);
-    o[2] = static_cast<int>(fa.sharedSizeBytes);
-    o[3] = dynamic[i];
-    o[4] = blocks;
-    o[5] = threads[i];
-  }
+  const BwdPlan pl = bwd_plan(H, P, G, N);
+  out[0] = pl.units;
+  out[1] = pl.urows;
   return 0;
+}
+
+// The backward's resources at a shape (S > 16: with the state's rows
+// staged) and type, into out[18]: for
+// ssd_bwd_kernel, ssd_dA_reduce_kernel and ssd_dbc_reduce_kernel, six
+// ints each: registers a thread, local memory a thread (spills; bytes),
+// static and dynamic shared memory a CTA (bytes), resident CTAs an SM,
+// threads a CTA.  Returns a cudaError_t, or -1 for a shape the kernel does
+// not take.
+int ssd_scan_bwd_resources(int H, int P, int G, int N, int S, int bf16,
+                           int* out) {
+  if (!bwd_takes(H, P, G, N) || S < 1) return kBadShape;
+  return bf16 ? bwd_resources<__nv_bfloat16>(H, P, G, N, S, out)
+              : bwd_resources<float>(H, P, G, N, S, out);
 }
 
 }  // extern "C"

@@ -21,17 +21,20 @@ run from 0 to S-1; any S is taken (the TPU kernel needs ``S % block == 0``).
 On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/flash_attention.cu`` and adds one to its ``launches`` count; on a
 CPU tensor it runs the plain version beside it.  There is no fallback: a
-CUDA tensor either launches the kernel or raises.  The forward takes
-float32 or bfloat16, head dims 32, 64 and 128, any group size Hq / Hkv
-and tensors whose data start on a 16-byte boundary (its copies and
-stores are 16-byte vectors); it runs on a persistent grid of units
-(sequence, KV head, query tile) that cover a KV head's query heads
-together (:func:`fwd_resources` reports its instances).  The backward
-takes float32 only and q, k, v, o and dO on a 16-byte boundary; its dQ
-kernel runs on the forward's units, its dK/dV kernel on a persistent grid
-of units (sequence, KV head, 16-key tile) that cover the KV head's query
+CUDA tensor either launches the kernel or raises.  Every kernel takes
+float32 or bfloat16 (q, k, v, o and dO in one type; lse and D float32),
+head dims 32, 64, 112 and 128, any group size Hq / Hkv and tensors whose
+data start on a 16-byte boundary (the copies are 16-byte vectors); each
+reads its inputs in their type, computes in float32 and rounds its
+outputs once to that type.  The forward runs on a persistent grid of
+units (sequence, KV head, query tile) that cover a KV head's query heads
+together (:func:`fwd_resources` reports its instances); the dQ kernel
+runs on the forward's units, the dK/dV kernel on a persistent grid of
+units (sequence, KV head, 16-key tile) that cover the KV head's query
 heads together, and :func:`dq_resources` and :func:`dkdv_resources`
-report their instances.
+report their instances.  In bf16 the plain versions compute in float32
+on the bf16 values and round each gradient once, as the reference's
+oracle does under autograd.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 @functools.cache
@@ -55,13 +58,14 @@ def _library():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [i32] * 7 + [f32]        # B, S, Hq, Hkv, hd, causal, window, scale
     c.flash_attention_fwd_launch.argtypes = [ptr] * 5 + shape + [i32, ptr]
-    c.flash_attention_bwd_dq_launch.argtypes = [ptr] * 8 + shape + [ptr]
-    c.flash_attention_bwd_dkdv_launch.argtypes = [ptr] * 8 + shape + [ptr]
+    c.flash_attention_bwd_dq_launch.argtypes = [ptr] * 8 + shape + [i32,
+                                                                     ptr]
+    c.flash_attention_bwd_dkdv_launch.argtypes = [ptr] * 8 + shape + [i32,
+                                                                       ptr]
     # hd, bf16; out[6]
     c.flash_attention_fwd_resources.argtypes = [i32, i32, ptr]
-    # hd; out[6]
-    c.flash_attention_bwd_dq_resources.argtypes = [i32, ptr]
-    c.flash_attention_bwd_dkdv_resources.argtypes = [i32, ptr]
+    c.flash_attention_bwd_dq_resources.argtypes = [i32, i32, ptr]
+    c.flash_attention_bwd_dkdv_resources.argtypes = [i32, i32, ptr]
     for fn in (c.flash_attention_fwd_launch, c.flash_attention_bwd_dq_launch,
                c.flash_attention_bwd_dkdv_launch,
                c.flash_attention_fwd_resources,
@@ -189,11 +193,10 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool = True,
                                  window: Optional[int] = None):
     """Plain PyTorch dQ kernel: ``(dq, D)``."""
-    b, s, hq, hd = q.shape
-    dsum = (do * o).sum(-1).transpose(1, 2).contiguous()     # (B, Hq, S)
+    dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     _, ds, _, _, scale = _grad_scores(q, k, v, lse, do, dsum, causal, window)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
-    return dq.reshape(q.shape).contiguous(), dsum
+    return dq.reshape(q.shape).to(q.dtype).contiguous(), dsum
 
 
 def flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum, *,
@@ -204,7 +207,7 @@ def flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum, *,
                                          window)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
-    return dk.contiguous(), dv.contiguous()
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
@@ -265,23 +268,25 @@ def fwd_resources(hd: int, dtype=torch.float32) -> dict:
                       int(dtype == torch.bfloat16))
 
 
-def dq_resources(hd: int) -> dict:
-    """What the dQ kernel's instance for a head dim takes on the current
-    card, with :func:`fwd_resources`'s keys."""
-    return _resources("flash_attention_bwd_dq_resources", hd)
+def dq_resources(hd: int, dtype=torch.float32) -> dict:
+    """What the dQ kernel's instance for a head dim and type takes on the
+    current card, with :func:`fwd_resources`'s keys."""
+    return _resources("flash_attention_bwd_dq_resources", hd,
+                      int(dtype == torch.bfloat16))
 
 
-def dkdv_resources(hd: int) -> dict:
-    """What the dK/dV kernel's instance for a head dim takes on the current
-    card, with :func:`fwd_resources`'s keys."""
-    return _resources("flash_attention_bwd_dkdv_resources", hd)
+def dkdv_resources(hd: int, dtype=torch.float32) -> dict:
+    """What the dK/dV kernel's instance for a head dim and type takes on
+    the current card, with :func:`fwd_resources`'s keys."""
+    return _resources("flash_attention_bwd_dkdv_resources", hd,
+                      int(dtype == torch.bfloat16))
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                            window: Optional[int] = None):
     """``(dq, D)``: dq like q, ``D = rowsum(dO∘O)`` (B, Hq, S) float32."""
-    _check("flash_attention_bwd_dq", q, k, v, window, (torch.float32,),
-           o, do)
+    _check("flash_attention_bwd_dq", q, k, v, window,
+           (torch.float32, torch.bfloat16), o, do)
     _check_stats("flash_attention_bwd_dq", q, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
@@ -294,8 +299,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     _raise_on(_library().flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
-        *_shape_args(q, k, causal, window), _stream(q)),
-        "flash_attention_bwd_dq")
+        *_shape_args(q, k, causal, window), int(q.dtype == torch.bfloat16),
+        _stream(q)), "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq, dsum
 
@@ -307,8 +312,8 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, *, causal: bool = True,
                              window: Optional[int] = None):
     """``(dk, dv)``, each like k, from the ``D`` of
     :func:`flash_attention_bwd_dq`."""
-    _check("flash_attention_bwd_dkdv", q, k, v, window, (torch.float32,),
-           do)
+    _check("flash_attention_bwd_dkdv", q, k, v, window,
+           (torch.float32, torch.bfloat16), do)
     _check_stats("flash_attention_bwd_dkdv", q, lse, dsum)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum,
@@ -321,8 +326,8 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, *, causal: bool = True,
     _raise_on(_library().flash_attention_bwd_dkdv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, k, causal, window), _stream(q)),
-        "flash_attention_bwd_dkdv")
+        *_shape_args(q, k, causal, window), int(q.dtype == torch.bfloat16),
+        _stream(q)), "flash_attention_bwd_dkdv")
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 

@@ -23,9 +23,14 @@ tensor it runs the plain version beside it.  There is no fallback: a CUDA
 tensor either launches the kernel or raises.  The forward takes x, Bm and
 Cm in float32 or bfloat16 (one type), dt in float32 (as the reference's
 scan reads it) or in x's type, and N up to 128; the kernel reads dt in
-float32.  The backward takes
-float32, N up to 64, P a power of two and ``(H // G) * P`` up to 512
-(N <= 16), 256 (N <= 32) or 128.  Both kernels sum over token pairs
+float32.  The backward takes the same types and N, and P a power of two
+up to 128: it reads bf16 x, Bm, Cm and dy, computes in float32, and
+writes dx, dBm and dCm in float32, which the wrapper rounds once to
+their inputs' type (ddt to dt's, dA stays float32 as A).  Its CTAs own
+units of a group's (head, p) rows: the whole group where it has at most
+512 (N <= 16), 256 (N <= 32) or 128 rows, else head blocks of that many
+rows, whose partial dBm and dCm a second pass sums in unit order.  Both
+kernels sum over token pairs
 within 16-token tiles (the dual form; states cross tiles only when S >
 16): the forward y, the backward the gradient of the per-token
 recurrence; the plain versions are the chunked
@@ -44,7 +49,8 @@ from repro_torch.kernels import build
 from repro_torch.models.mamba2 import ssd_reference
 
 FWD_MAX_STATE = 128       # N the forward kernel takes
-BWD_MAX_STATE = 64        # N the backward kernel takes
+BWD_MAX_STATE = 128       # N the backward kernel takes
+BWD_MAX_P = 128           # P the backward kernel takes (a power of two)
 SEGMENT = 16              # tokens of one backward segment (csrc kSeg)
 
 
@@ -55,11 +61,13 @@ def _library():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dims = [i32] * 7 + [i64] * 3     # B, S, H, P, G, N, per_copy, ld x/B/C
     c.ssd_scan_fwd_launch.argtypes = [ptr] * 6 + dims + [i32, ptr]
-    c.ssd_scan_bwd_launch.argtypes = [ptr] * 13 + dims + [ptr]
+    c.ssd_scan_bwd_launch.argtypes = [ptr] * 14 + dims + [i32, ptr]
+    c.ssd_scan_bwd_units.argtypes = [i32] * 4 + [ptr]
     c.ssd_scan_fwd_resources.argtypes = [i32] * 6 + [ptr]
-    c.ssd_scan_bwd_resources.argtypes = [i32] * 4 + [ptr]
+    c.ssd_scan_bwd_resources.argtypes = [i32] * 6 + [ptr]
     c.ssd_scan_fwd_launch.restype = i32
     c.ssd_scan_bwd_launch.restype = i32
+    c.ssd_scan_bwd_units.restype = i32
     c.ssd_scan_fwd_resources.restype = i32
     c.ssd_scan_bwd_resources.restype = i32
     return c
@@ -148,7 +156,9 @@ def ssd_scan_fwd_plain(x, dt, A, Bm, Cm, *, chunk: int = 256):
 
 def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
     """Plain PyTorch backward: autograd of :func:`ssd_scan_fwd_plain`,
-    ``(dx, ddt, dA, dBm, dCm)``."""
+    ``(dx, ddt, dA, dBm, dCm)``, each in its input's type (in bf16 the
+    scan computes in float32 and each gradient is rounded once, as the
+    reference's oracle)."""
     leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
     with torch.enable_grad():
         y = ssd_scan_fwd_plain(*leaves, chunk=chunk)
@@ -182,38 +192,63 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
 ssd_scan_fwd.launches = 0
 
 
+def bwd_units(h: int, p: int, g: int, n: int) -> tuple:
+    """``(units, rows)``: the backward's units a group and (head, p) rows
+    of a unit at most, at a shape (H, P, G, N) it takes, as the kernel
+    cuts them (``csrc/ssd_scan.cu::bwd_plan``)."""
+    out = (ctypes.c_int * 2)()
+    rc = _library().ssd_scan_bwd_units(h, p, g, n, out)
+    if rc != 0:
+        raise ValueError(f"ssd_scan_bwd: the kernel does not take (H, P, "
+                         f"G, N) = {(h, p, g, n)}")
+    return out[0], out[1]
+
+
 def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
-    """``(dx, ddt, dA, dBm, dCm)``, each like its input (contiguous)."""
+    """``(dx, ddt, dA, dBm, dCm)``, each like its input (contiguous); dt
+    float32 or x's dtype."""
     what = "ssd_scan_bwd"
-    _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32,), BWD_MAX_STATE,
-           dy)
+    _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32, torch.bfloat16),
+           BWD_MAX_STATE, dy, dt_f32=True)
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    rows = h // g * p
-    most = 512 if n <= 16 else 8192 // (32 if n <= 32 else 64)
-    if p & (p - 1) or rows > most:
-        raise ValueError(f"{what}: the kernel takes P a power of two and "
-                         f"(H // G) * P up to {most} at N={n}, got P={p}, "
-                         f"(H // G) * P={rows}")
+    if p & (p - 1) or p > BWD_MAX_P:
+        raise ValueError(f"{what}: the kernel takes P a power of two up to "
+                         f"{BWD_MAX_P}, got P={p}")
+    dt_in = dt.dtype
+    dt = dt.float()                  # exact; the kernel reads dt in f32
+    units, rows = bwd_units(h, p, g, n)
     dims = _dims(what, x, A, Bm, Cm)
     new = functools.partial(torch.empty, device=x.device,
                             dtype=torch.float32)
     dx, ddt, dA = new(x.shape), new(dt.shape), new(A.shape)
     dBm, dCm = new(Bm.shape), new(Cm.shape)
     if x.numel() == 0 or Bm.numel() == 0:
-        return dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
-    part = torch.empty((b, h), dtype=torch.float64, device=x.device)
-    segments = -(-s // SEGMENT)     # states and carries only across segments
-    ws = new((b * g * (segments + 1) * n * rows if segments > 1 else 1,))
-    _raise_on(_library().ssd_scan_bwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), part.data_ptr(),
-        ws.data_ptr(), *dims, _stream(x)), what)
-    ssd_scan_bwd.launches += 1
-    return dx, ddt, dA, dBm, dCm
+        grads = (dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(),
+                 dCm.zero_())
+    else:
+        part = torch.empty((b, h), dtype=torch.float64, device=x.device)
+        # the states and carries only across segments, per unit
+        segments = -(-s // SEGMENT)
+        ws = new((b * g * units * (segments + 1) * n * rows
+                  if segments > 1 else 1,))
+        # each unit's dBm and dCm where a group has more than one
+        dbc = new((2 * units * Bm.numel(),) if units > 1 else (1,))
+        _raise_on(_library().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), part.data_ptr(),
+            ws.data_ptr(), dbc.data_ptr(), *dims,
+            int(x.dtype == torch.bfloat16), _stream(x)), what)
+        ssd_scan_bwd.launches += 1
+        grads = (dx, ddt, dA, dBm, dCm)
+    dx, ddt, dA, dBm, dCm = grads
+    # the kernel writes float32; each gradient is rounded once to its
+    # input's type
+    return (dx.to(x.dtype), ddt.to(dt_in), dA, dBm.to(Bm.dtype),
+            dCm.to(Cm.dtype))
 
 
 ssd_scan_bwd.launches = 0
@@ -223,16 +258,22 @@ _RESOURCE_KEYS = ("registers", "local_bytes", "static_smem_bytes",
                   "dynamic_smem_bytes", "ctas_per_sm", "threads")
 
 
-def bwd_resources(h: int, p: int, g: int, n: int) -> dict:
-    """What the backward's two kernels take on the current card at a shape
-    (H, P, G, N): for ``ssd_bwd_kernel`` and ``ssd_dA_reduce_kernel``,
-    registers and local memory (spills) a thread, static and dynamic
-    shared memory a CTA, resident CTAs and warps an SM, threads a CTA."""
-    out = (ctypes.c_int * 12)()
-    _raise_on(_library().ssd_scan_bwd_resources(h, p, g, n, out),
-              "ssd_scan_bwd_resources")
+def bwd_resources(h: int, p: int, g: int, n: int, dtype=torch.float32,
+                  s: int = SEGMENT) -> dict:
+    """What the backward's kernels take on the current card at a shape
+    (H, P, G, N), sequence length S (beyond one segment the kernel stages
+    a head block's state rows in shared memory) and input type: for
+    ``ssd_bwd_kernel``,
+    ``ssd_dA_reduce_kernel`` and ``ssd_dbc_reduce_kernel``, registers and
+    local memory (spills) a thread, static and dynamic shared memory a
+    CTA, resident CTAs and warps an SM, threads a CTA."""
+    out = (ctypes.c_int * 18)()
+    _raise_on(_library().ssd_scan_bwd_resources(
+        h, p, g, n, s, int(dtype == torch.bfloat16), out),
+        "ssd_scan_bwd_resources")
     res = {}
-    for i, name in enumerate(("ssd_bwd_kernel", "ssd_dA_reduce_kernel")):
+    for i, name in enumerate(("ssd_bwd_kernel", "ssd_dA_reduce_kernel",
+                              "ssd_dbc_reduce_kernel")):
         rec = dict(zip(_RESOURCE_KEYS, out[6 * i:6 * i + 6]))
         rec["warps_per_sm"] = rec["ctas_per_sm"] * rec["threads"] // 32
         res[name] = rec

@@ -360,10 +360,10 @@ def test_attention_forward_spills_nothing(cuda):
     kfa.flash_attention_fwd(*_qkv(cuda, 2, 16, 4, 2, 64))
     report = build.ptxas_report(build.load("flash_attention").log)
     instances = {n: r for n, r in report.items() if "fwd_kernel" in n}
-    assert len(instances) == 6, report       # 2 types x 3 head dims
+    assert len(instances) == 8, report       # 2 types x 4 head dims
     for name, r in instances.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
-    for hd in (32, 64, 128):
+    for hd in (32, 64, 112, 128):
         for dtype in (torch.float32, torch.bfloat16):
             res = kfa.fwd_resources(hd, dtype)
             assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
@@ -375,9 +375,22 @@ def test_attention_wrappers_raise_instead_of_falling_back(cuda):
     o, lse = kfa.flash_attention_fwd(q, k, v)
     with pytest.raises(ValueError):                  # head dim 48: no kernel
         kfa.flash_attention_fwd(*_qkv(cuda, 2, 16, 4, 2, 48))
-    with pytest.raises(ValueError):                  # bf16 backward
-        bf = [t.bfloat16() for t in (q, k, v, o)]
-        kfa.flash_attention_bwd_dq(*bf, lse, bf[0])
+    with pytest.raises(ValueError):                  # head dim 48, dQ
+        q48, k48, v48 = _qkv(cuda, 2, 16, 4, 2, 48)
+        kfa.flash_attention_bwd_dq(q48, k48, v48, q48,
+                                   torch.zeros_like(lse), q48)
+    # the bf16 backward launches its kernels (it raised before they took
+    # bf16), each gradient in bf16
+    bf = [t.bfloat16() for t in (q, k, v, o)]
+    before = (kfa.flash_attention_bwd_dq.launches,
+              kfa.flash_attention_bwd_dkdv.launches)
+    dq, dsum = kfa.flash_attention_bwd_dq(*bf, lse, bf[0])
+    dk, dv = kfa.flash_attention_bwd_dkdv(*bf[:3], lse, bf[0], dsum)
+    assert (kfa.flash_attention_bwd_dq.launches,
+            kfa.flash_attention_bwd_dkdv.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
+    assert dsum.dtype == torch.float32
     with pytest.raises(ValueError):                  # lse on the CPU
         kfa.flash_attention_bwd_dq(q, k, v, o, lse.cpu(), q)
     with pytest.raises(ValueError):                  # non-contiguous q
@@ -448,13 +461,14 @@ def test_attention_dq_spills_nothing(cuda):
     kfa.flash_attention_bwd_dq(q, k, v, o, lse, torch.randn_like(q))
     report = build.ptxas_report(build.load("flash_attention").log)
     instances = {n: r for n, r in report.items() if "dq_kernel" in n}
-    assert len(instances) == 3, report       # 3 head dims
+    assert len(instances) == 8, report       # 2 types x 4 head dims
     for name, r in instances.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
-    for hd in (32, 64, 128):
-        res = kfa.dq_resources(hd)
-        assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
-        assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
+    for hd in (32, 64, 112, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = kfa.dq_resources(hd, dtype)
+            assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
+            assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
 
 
 def test_attention_dq_raises_on_unaligned_tensors(cuda):
@@ -520,13 +534,14 @@ def test_attention_dkdv_spills_nothing(cuda):
                                                       None), seed=0))
     report = build.ptxas_report(build.load("flash_attention").log)
     instances = {n: r for n, r in report.items() if "dkdv_kernel" in n}
-    assert len(instances) == 3, report       # 3 head dims
+    assert len(instances) == 8, report       # 2 types x 4 head dims
     for name, r in instances.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (name, r)
-    for hd in (32, 64, 128):
-        res = kfa.dkdv_resources(hd)
-        assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
-        assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
+    for hd in (32, 64, 112, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = kfa.dkdv_resources(hd, dtype)
+            assert res["local_bytes"] == 0 and res["static_smem_bytes"] == 0
+            assert res["ctas_per_sm"] >= 1 and res["threads"] == 256, res
 
 
 def test_attention_dkdv_raises_on_unaligned_tensors(cuda):
@@ -712,18 +727,26 @@ def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                  # N = 129: no kernel
         big, _ = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 129)
         kssd.ssd_scan_fwd(*big, chunk=4)
-    with pytest.raises(ValueError):                  # N = 128: no backward
-        big, bdy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 128)
+    with pytest.raises(ValueError):                  # N = 256: no backward
+        big, bdy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 256)
         kssd.ssd_scan_bwd(*big, bdy, chunk=4)
     with pytest.raises(ValueError):                  # P = 12: not 2^k
         odd, ody = _ssd_inputs(cuda, 1, 2, 16, 4, 12, 1, 16)
         kssd.ssd_scan_bwd(*odd, ody, chunk=4)
     with pytest.raises(ValueError):                  # A on the CPU
         kssd.ssd_scan_fwd(ins[0], ins[1], ins[2].cpu(), *ins[3:], chunk=4)
-    with pytest.raises(ValueError):                  # bf16 backward
-        bf = [t.bfloat16() for t in ins]
-        bf[2] = ins[2]
-        kssd.ssd_scan_bwd(*bf, dy.bfloat16(), chunk=4)
+    # N 128 and the bf16 backward (dt float32) launch the kernel (they
+    # raised before it took them), each gradient in its input's type
+    big, bdy = _ssd_inputs(cuda, 1, 2, 16, 4, 8, 1, 128)
+    bf = [t.bfloat16() for t in ins]
+    bf[1], bf[2] = ins[1], ins[2]
+    for args, grad in ((big, bdy), (bf, dy.bfloat16())):
+        before = kssd.ssd_scan_bwd.launches
+        got = kssd.ssd_scan_bwd(*args, grad, chunk=4)
+        assert kssd.ssd_scan_bwd.launches == before + 1
+        assert [t.dtype for t in got] == [args[0].dtype, torch.float32,
+                                          torch.float32, args[3].dtype,
+                                          args[4].dtype]
 
 
 def test_mamba2_run_on_the_card_matches_the_cpu_path(cuda):
@@ -971,3 +994,152 @@ def test_sbc_uplink_matches_plain_on_a_2_27_leaf(cuda):
     torch.testing.assert_close(g, want_out[0], rtol=1e-6, atol=0)
     val = float(want_out.abs().max())
     torch.testing.assert_close(r, want_res[0], rtol=0, atol=1e-6 * val)
+
+
+# ---------------------------------------------------------------------------
+# the training shapes of mamba2-2.7b and zamba2-7b: B3' at full width (N
+# 128 over 80 heads of 64, N 64 over 112 heads) and the attention kernels
+# at head dim 112, in f32 and in bf16 (the bf16 ones against the plain
+# versions' float32 arithmetic on the same bf16 values, rounded once)
+# ---------------------------------------------------------------------------
+
+SSD_WIDE = [  # (copies, B per copy, S, H, P, G, N, chunk): full width, S cut
+    (1, 1, 48, 80, 64, 1, 128, 48),        # mamba2-2.7b: 40 units
+    (1, 1, 48, 112, 64, 1, 64, 48),        # zamba2-7b: 56 units
+    (1, 2, 16, 80, 64, 1, 128, 16),        # one segment, two sequences
+]
+ATTN_TRAIN = [  # (B, S, Hq, Hkv, hd, causal, window)
+    (2, 64, 4, 4, 112, True, None),        # zamba2-7b's shared block (MHA)
+    (2, 100, 4, 2, 112, True, 16),         # ragged S, a window, g 2
+    (1, 33, 2, 1, 112, False, None),
+    (2, 64, 4, 2, 64, True, None),         # the other head dims in bf16
+    (1, 80, 4, 4, 128, True, None),
+    (2, 40, 2, 2, 32, False, 8),
+]
+
+
+def _bf16_close(got, plain):
+    """rtol 2e-2 (bf16 keeps 8 bits; both round one float32 result) and
+    atol 2e-2 of the plain output's mean magnitude."""
+    assert got.dtype == plain.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2 * float(plain.float().abs().mean()))
+
+
+def _bf16_ssd(ins, dy):
+    bf = [t.bfloat16() for t in ins]
+    bf[1], bf[2] = ins[1], ins[2]                    # dt and A float32
+    return bf, dy.bfloat16()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_WIDE)
+def test_ssd_backward_at_full_width_matches_plain(cuda, case, dtype):
+    copies, per, s, h, p, g, n, chunk = case
+    ins, dy = _ssd_inputs(cuda, copies, per, s, h, p, g, n, seed=h)
+    if dtype == torch.bfloat16:
+        ins, dy = _bf16_ssd(ins, dy)
+    before = kssd.ssd_scan_bwd.launches
+    got = kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)
+    assert kssd.ssd_scan_bwd.launches == before + 1
+    plain = kssd.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
+    if dtype == torch.float32:
+        exact = kssd.ssd_scan_bwd_plain(*(t.double() for t in (*ins, dy)),
+                                        chunk=chunk)
+        for a, pl, ex in zip(got, plain, exact):
+            _close_to_plain(a, pl, ex, 1e-4)
+    else:
+        for name, a, pl in zip(("dx", "ddt", "dA", "dBm", "dCm"), got,
+                               plain):
+            if name in ("ddt", "dA"):            # float32, as dt and A
+                assert a.dtype == torch.float32
+                torch.testing.assert_close(a, pl, rtol=2e-2, atol=2e-2 *
+                                           float(pl.abs().mean()))
+            else:
+                _bf16_close(a, pl)
+    assert torch.equal(got[0], kssd.ssd_scan_bwd(*ins, dy, chunk=chunk)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n", [(80, 128), (112, 64)])
+def test_ssd_backward_at_full_width_is_bitwise_alone_and_among_8(cuda, h, n,
+                                                                 dtype):
+    ins, dy = _ssd_inputs(cuda, 8, 1, 32, h, 64, 1, n, seed=3)
+    if dtype == torch.bfloat16:
+        ins, dy = _bf16_ssd(ins, dy)
+    among = kssd.ssd_scan_bwd(*ins, dy, chunk=32)
+    for a, b in zip(among, kssd.ssd_scan_bwd(*ins, dy, chunk=32)):
+        assert torch.equal(a, b)
+    for k in (0, 5):
+        one = slice(k, k + 1)
+        alone = kssd.ssd_scan_bwd(*(t[one] for t in ins), dy[one],
+                                  chunk=32)
+        for name, a, m in zip(("dx", "ddt", "dA", "dBm", "dCm"), alone,
+                              among):
+            assert torch.equal(a, m[one]), (k, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,g,n", [(80, 64, 1, 128), (112, 64, 1, 64)])
+def test_ssd_backward_spills_nothing_at_full_width(cuda, h, p, g, n, dtype):
+    assert kssd.bwd_units(h, p, g, n) == (h * p // 128, 128)
+    for s in (16, 4096):        # one segment; the state's rows staged
+        for name, res in kssd.bwd_resources(h, p, g, n, dtype, s).items():
+            assert res["local_bytes"] == 0 and res["ctas_per_sm"] >= 1, (
+                s, name, res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_TRAIN)
+def test_attention_train_shapes_match_plain_and_repeat_bitwise(cuda, case,
+                                                               dtype):
+    """Forward, dQ (with D) and dK/dV at head dim 112 and, in bf16, at the
+    other head dims: against the plain versions (f32: 2e-5 forward, 1e-4
+    backward), each run twice bitwise."""
+    b, s, hq, hkv, hd, causal, window = case
+    q, k, v = _qkv(cuda, b, s, hq, hkv, hd, dtype, seed=hd + s)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    opts = dict(causal=causal, window=window)
+    runs = []
+    for _ in range(2):
+        o, lse = kfa.flash_attention_fwd(q, k, v, **opts)
+        dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do, **opts)
+        dk, dv = kfa.flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, **opts)
+        runs.append((o, lse, dq, dsum, dk, dv))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    o, lse, dq, dsum, dk, dv = runs[0]
+    po, plse = kfa.flash_attention_fwd_plain(q, k, v, **opts)
+    pdq, pdsum = kfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                  **opts)
+    pdk, pdv = kfa.flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum,
+                                                  **opts)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(dsum, pdsum, rtol=1e-4, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, rtol=2e-5, atol=2e-5)
+        for got, plain in ((dq, pdq), (dk, pdk), (dv, pdv)):
+            torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    else:
+        for got, plain in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
+            _bf16_close(got, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_at_head_dim_112_is_batch_invariant(cuda, dtype):
+    """Sequences 0 and 5 of 8 alone give the same bits of o, lse, dq, D,
+    dk and dv as the same rows of the whole launch."""
+    q, k, v = _qkv(cuda, 8, 48, 4, 4, 112, dtype, seed=8)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+
+    def all_three(q, k, v, do):
+        o, lse = kfa.flash_attention_fwd(q, k, v)
+        dq, dsum = kfa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+        return (o, lse, dq, dsum, *kfa.flash_attention_bwd_dkdv(
+            q, k, v, lse, do, dsum))
+
+    among = all_three(q, k, v, do)
+    for i in (0, 5):
+        one = slice(i, i + 1)
+        for a, m in zip(all_three(q[one], k[one], v[one], do[one]), among):
+            assert torch.equal(a, m[one]), i

@@ -19,7 +19,8 @@ kernel only where the kernel fuses a multiply and an add.
   TPU package has no backward kernel) and against the port's
   ``flash_attention_bwd_dkdv_plain``: at the seams S ∈ {1, 15, 16, 17, 33},
   window ∈ {None, 1, 8, 16, 17}, causal and not, with g ∈ {1, 2, 4} and
-  hd ∈ {32, 64, 128} taken in turn, and at chip_smoke's attention cases
+  hd ∈ {32, 64, 128} taken in turn, at head dim 112 (5 more seams), and
+  at chip_smoke's attention cases
   with B cut to 2.  1e-4, the backward's tolerance.
 * Batch invariance: a sequence alone and inside a batch give the same
   bits."""
@@ -209,6 +210,15 @@ SEAMS = [
         for w in (None, 1, 8, 16, 17) for c in (True, False))
     for g, hd in [((1, 2, 4)[i % 3], (32, 64, 128)[i // 3 % 3])]]
 
+# head dim 112 (zamba2-7b's shared block: 7 output columns a thread, 28
+# 16-byte chunks a row in float32): each S once, the (window, causal)
+# pairs and g taken in turn
+SEAMS_112 = [
+    (2, s, 2 * g, 2, 112, causal, window)
+    for i, s in enumerate((1, 15, 16, 17, 33))
+    for (window, causal), g in [(((None, True), (8, True), (17, False))[i % 3],
+                                 (1, 2, 4)[i % 3])]]
+
 # chip_smoke's attention cases with B cut to 2
 CHIP_CASES = [(2, 16, 4, 2, 64, True, None), (2, 128, 4, 2, 64, True, None),
               (2, 256, 4, 2, 128, True, 64), (2, 100, 4, 2, 64, True, 16),
@@ -246,7 +256,7 @@ def test_partition_sums_each_visible_pair_once(s, hq, hkv, causal, window):
     assert len(summed) == len(set(summed)) and set(summed) == want
 
 
-@pytest.mark.parametrize("case", SEAMS)
+@pytest.mark.parametrize("case", SEAMS + SEAMS_112)
 def test_mirror_matches_reference_vjp_at_seams(case):
     b, s, hq, hkv, hd, causal, window = case
     err = _check(case, seed=s * 7 + hd + hq)

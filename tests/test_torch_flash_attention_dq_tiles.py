@@ -22,7 +22,9 @@ multiply and an add.
   reference's o) and against the port's ``flash_attention_bwd_dq_plain``:
   at the seams S ∈ {1, 15, 16, 17, 33}, window ∈ {None, 1, 8, 16, 17},
   causal and not, with g ∈ {1, 2, 4} and hd ∈ {32, 64, 128} taken in
-  turn, and at chip_smoke's attention cases with B cut to 2.  1e-4, the
+  turn, at head dim 112 (5 more seams: 28 chunks a row, lanes 0-3 take
+  four, lanes 4-7 three), and at chip_smoke's attention cases with B cut
+  to 2.  1e-4, the
   backward's tolerance.
 * Batch invariance: a sequence alone and inside a batch give the same
   bits of dq and D."""
@@ -97,14 +99,15 @@ def _four_sums(a, b):
 
 def _row_sums(dor, orow):
     """D of (U, 32, hd) rows: lane l of a row sums the elements of chunks
-    l, l + 8, ... in order, then the lanes' xor butterfly (4, 2, 1)."""
+    l, l + 8, ... (as many as the row has) in order, then the lanes' xor
+    butterfly (4, 2, 1)."""
     u, rows, hd = dor.shape
-    prod = (dor * orow).reshape(u, rows, hd // (VEC * D_LANES), D_LANES,
-                                VEC)
+    prod = (dor * orow).reshape(u, rows, hd // VEC, VEC)
     lanes = torch.zeros((u, rows, D_LANES))
-    for i in range(prod.shape[2]):
+    for c in range(hd // VEC):
         for w in range(VEC):
-            lanes = lanes + prod[:, :, i, :, w]
+            lanes[..., c % D_LANES] = lanes[..., c % D_LANES] + prod[:, :, c,
+                                                                     w]
     idx = torch.arange(D_LANES)
     off = D_LANES // 2
     while off:
@@ -208,6 +211,15 @@ SEAMS = [
         for w in (None, 1, 8, 16, 17) for c in (True, False))
     for g, hd in [((1, 2, 4)[i % 3], (32, 64, 128)[i // 3 % 3])]]
 
+# head dim 112 (zamba2-7b's shared block: 7 output columns a thread, 28
+# 16-byte chunks a row in float32): each S once, the (window, causal)
+# pairs and g taken in turn
+SEAMS_112 = [
+    (2, s, 2 * g, 2, 112, causal, window)
+    for i, s in enumerate((1, 15, 16, 17, 33))
+    for (window, causal), g in [(((None, True), (8, True), (17, False))[i % 3],
+                                 (1, 2, 4)[i % 3])]]
+
 # chip_smoke's attention cases with B cut to 2
 CHIP_CASES = [(2, 16, 4, 2, 64, True, None), (2, 128, 4, 2, 64, True, None),
               (2, 256, 4, 2, 128, True, 64), (2, 100, 4, 2, 64, True, 16),
@@ -248,7 +260,7 @@ def test_partition_sums_each_visible_pair_once(s, hq, hkv, causal, window):
     assert len(summed) == len(set(summed)) and set(summed) == want
 
 
-@pytest.mark.parametrize("case", SEAMS)
+@pytest.mark.parametrize("case", SEAMS + SEAMS_112)
 def test_mirror_matches_reference_vjp_at_seams(case):
     b, s, hq, hkv, hd, causal, window = case
     err = _check(case, seed=s * 7 + hd + hq)

@@ -18,7 +18,9 @@
   against ``jax.vjp`` of the reference's ``ssd_reference`` (vmapped over
   parameter copies for a per-copy A of shape (copies, H)) and against
   torch autograd of the plain forward, 1e-4.
-* The wrappers refuse what they do not take, on the CPU too."""
+* The wrappers refuse what they do not take, on the CPU too; the
+  backward in bf16 (dt float32) computes there, each gradient in its
+  input's type, within 2e-2 of ``jax.vjp`` of the reference in bf16."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,9 +174,23 @@ def test_wrappers_refuse_what_they_do_not_take_on_the_cpu():
     with pytest.raises(ValueError):                  # H % G
         ks.ssd_scan_fwd(x, dt, A[0], Bm[:, :, :1].repeat(1, 1, 3, 1),
                         Cm[:, :, :1].repeat(1, 1, 3, 1), chunk=4)
-    with pytest.raises(ValueError):                  # bf16 backward
-        ks.ssd_scan_bwd(*(t.bfloat16() for t in (x, dt)), A[0],
-                        *(t.bfloat16() for t in (Bm, Cm, x)), chunk=4)
+    # the bf16 backward (x, Bm, Cm, dy in bf16, dt in float32) computes on
+    # the CPU and matches jax.vjp of the reference's scan in bf16: each
+    # gradient in its input's type, within bf16's 2e-2
+    bx, bbm, bcm, bdy = (t.bfloat16() for t in (x, Bm, Cm, x.flip(1)))
+    got = ks.ssd_scan_bwd(bx, dt, A[0], bbm, bcm, bdy, chunk=4)
+    _, vjp = jax.vjp(lambda *a: ref_ssd_reference(*a, 4)[0],
+                     *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                       if t.dtype == torch.bfloat16 else jnp.asarray(
+                           t.numpy()) for t in (bx, dt, A[0], bbm, bcm)))
+    want = vjp(jnp.asarray(bdy.float().numpy()).astype(jnp.bfloat16))
+    for name, gr, w, like in zip(("dx", "ddt", "dA", "dBm", "dCm"), got,
+                                 want, (bx, dt, A[0], bbm, bcm)):
+        assert gr.dtype == like.dtype and gr.shape == like.shape, name
+        w = np.asarray(w.astype(jnp.float32))
+        scale = max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(gr.float().numpy() - w).max())
+        assert err <= 2e-2 * scale, (name, err, scale)
     y = ks.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=4)
     assert y.shape == x.shape
     assert ks.ssd_scan_fwd.launches == ks.ssd_scan_bwd.launches == 0
