@@ -166,7 +166,16 @@ its plain PyTorch version on the card:
      under B4, B4′ and B4″ at head dim 112, its first loss against
      blockwise's within ``bf16_tols``; (iv) reduced mamba2 at N 128 and
      zamba2 at head dim 112, 3 momentum steps card vs CPU path, f32
-     (1e-4) and bf16 (2e-2); every run's launches checked;
+     (1e-4) and bf16 (2e-2); every run's launches checked; 4p. the
+     static analysis (``repro_torch.analysis``): (i) the main cell
+     through ``Experiment.run(periods=3, audit=True)``, its report ok,
+     B1/B2 6 a period, losses and ledgers bitwise the unaudited run, both
+     walls and the probe's seconds a bucket; (ii) 4i's service tape with
+     ``audit=True``: each cold admission probed once, no warm one; (iii)
+     ``python -m repro_torch.analysis.audit`` (default grid, its run on
+     the card) exits 0 with every program certified; (iv) the SBC
+     stand-ins' rule: zero segments give zero stats, approximation and
+     residual, a segment alone is bitwise itself among the rest;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -242,6 +251,7 @@ import io
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2666,26 +2676,22 @@ def _watch_admissions(svc):
     return groups
 
 
-def service_cell(env, counted, device=None):
-    """Phase 4i: ``repro_torch.serve.ExperimentService`` at the main
-    cell's full width under serve_load's traffic (the constants above),
-    with the kernels' launch counts set to 0 after the warm-up and read
-    after the drain, held against 6 B1/B2 a dispatched feel-mlp period
-    and the families' formulas.  Then every ticket is held bitwise
-    against its admission group's ``Experiment`` twin (chunked as the
-    service chunks) and against its solo twin (ledgers bitwise, losses
-    1e-4; the gap printed).  Raises AssertionError."""
+def _drive_tape(env, counted, device=None, audit=False):
+    """serve_load's traffic through a fresh ``ExperimentService`` (the
+    constants above): an untimed warm-up, then the launch counts set to 0
+    and the tape driven on a virtual clock advanced by the host's time
+    and drained.  Returns ``(svc, tickets, groups, stats, wall, t_warm,
+    launches, want)``, ``want`` the launches the tape must make."""
     from repro_torch.serve import ExperimentService, ProgramCache
     from repro_torch.testing import (VirtualClock, assign_templates,
                                      poisson_arrivals)
-    torch, np = env.torch, env.np
     hot = [_service_specs(env, partition="noniid", seeds=(0, 1)),
            _service_specs(env, partition="iid", seeds=(2, 3))]
     clock = VirtualClock()
     svc = ExperimentService(env.data, env.test, device=device,
                             chunk_periods=I_CHUNK, window=I_WINDOW,
                             max_batch=I_MAX_BATCH, clock=clock,
-                            cache=ProgramCache(shared=False))
+                            cache=ProgramCache(shared=False), audit=audit)
     # untimed warm-up: the single-request (2-row) and paired (4-row) hot
     # shapes, as serve_load warms them
     t0 = time.perf_counter()
@@ -2700,7 +2706,7 @@ def service_cell(env, counted, device=None):
     for fn in counted.values():
         fn.launches = 0
     if device is None:
-        torch.cuda.reset_peak_memory_stats()
+        env.torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tickets = [svc.submit(_service_specs(env, partition="iid", seeds=(4,)),
                           periods=I_LONG, priority=5)]
@@ -2725,8 +2731,6 @@ def service_cell(env, counted, device=None):
     svc.drain()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
-    peak = (torch.cuda.max_memory_allocated() / 2**30 if device is None
-            else float("nan"))
     s = stats.to_dict()
     feel_periods = I_HOT * (s["admissions"] - 3) + I_LONG
     full = {name: I_FEEL_SBC * feel_periods
@@ -2735,6 +2739,24 @@ def service_cell(env, counted, device=None):
         for name, n in per.items():
             full[name] = full.get(name, 0) + n * I_FAMILY
     want = {name: full.get(name, 0) for name in counted}
+    return svc, tickets, groups, s, wall, t_warm, launches, want
+
+
+def service_cell(env, counted, device=None):
+    """Phase 4i: ``repro_torch.serve.ExperimentService`` at the main
+    cell's full width under serve_load's traffic (the constants above),
+    with the kernels' launch counts set to 0 after the warm-up and read
+    after the drain, held against 6 B1/B2 a dispatched feel-mlp period
+    and the families' formulas.  Then every ticket is held bitwise
+    against its admission group's ``Experiment`` twin (chunked as the
+    service chunks) and against its solo twin (ledgers bitwise, losses
+    1e-4; the gap printed).  Raises AssertionError."""
+    torch, np = env.torch, env.np
+    _, tickets, groups, s, wall, t_warm, launches, want = _drive_tape(
+        env, counted, device)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device is None
+            else float("nan"))
+    feel_periods = I_HOT * (s["admissions"] - 3) + I_LONG
     lat, first = s["latency"], s["first_result_latency"]
     log(f"[4i service] {len(tickets)} tickets ({I_ARRIVALS} hot arrivals at "
         f"{I_RATE:g}/s, seed {I_SEED}; a {I_LONG}-period background; a "
@@ -4242,6 +4264,196 @@ def train_attention_rows(torch, F, kfa):
     return rows
 
 
+P_PERIODS = 3                 # phase 4p's audited run of the main cell
+P_ZERO_LENGTHS = (786_432, 2_560)   # 4p(iv)'s SBC segments (main-cell leaves)
+
+
+def _audit_summary(report):
+    """Per bucket program of an ``AuditReport``: its taint summary and its
+    hygiene summary, by program name."""
+    return {name: (prog, report.programs.get(f"{name}/hygiene", {}))
+            for name, prog in report.programs.items()
+            if prog["pass"] == "taint"}
+
+
+def audit_cell(env, specs, counted, all_kernels, csbc, ksbc, smi):
+    """Phase 4p: the static analysis (``repro_torch.analysis``) on the
+    card.  (i) The main cell's grid through ``Experiment.run(periods=3,
+    audit=True)``: the report ok, its buckets' certified reductions,
+    ledger events and probe seconds; B1/B2 launch 6 a period (the probe
+    launches nothing); losses and ledgers bitwise the same run without
+    ``audit``; both walls.  (ii) 4i's service tape with ``audit=True``:
+    every cold admission probed once before it dispatches, no warm one
+    probed, the report ok, the launches 4i's.  (iii) ``python -m
+    repro_torch.analysis.audit`` (default grid, run on the card) exits 0
+    with every program certified.  (iv) The SBC stand-ins' rule on the
+    card: segments of exact zeros give exact zeros in the stats, the
+    approximation and the residual, and every other segment is bitwise
+    itself run alone.  Raises AssertionError."""
+    torch, np = env.torch, env.np
+    out = {}
+    fields = ("losses", "accs", "times", "global_batch")
+    # (i) the main cell, audited against unaudited
+    exp = env.Experiment(env.data, env.test, specs)
+    exp.run(P_PERIODS)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = exp.run(P_PERIODS)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    for fn in counted.values():
+        fn.launches = 0
+    from repro_torch.analysis import AuditError
+    t0 = time.perf_counter()
+    try:
+        audited = exp.run(P_PERIODS, audit=True)
+    except AuditError as exc:
+        raise AssertionError(f"4p (i): {exc}") from exc
+    torch.cuda.synchronize()
+    t_audit = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    want = {name: len(LEAF_LENGTHS) * P_PERIODS for name in counted}
+    report = audited.audit
+    bitwise = all(np.array_equal(getattr(audited, f), getattr(plain, f))
+                  for f in fields)
+    ledger = report.programs["trace-ledger"]
+    buckets = _audit_summary(report)
+    for name, (prog, hyg) in buckets.items():
+        log(f"[4p (i) audit] bucket {name}: ok {prog['ok']}, "
+            f"{prog['n_certified_reductions']} certified reductions over "
+            f"{prog['n_eqns']} graph nodes, {prog['periods_traced']} period "
+            f"traced (induction), probe {prog['probe_seconds']:.3f} s; "
+            f"hygiene: {hyg.get('n_x64_leaks')} 64-bit leaks, "
+            f"{hyg.get('n_int64_intermediates')} int64 intermediates; {smi}")
+    log(f"[4p (i) audit] Experiment.run(periods={P_PERIODS}, audit=True) on "
+        f"the main cell ({audited.rows} rows x K {DEVICES}, 3072-dim data, "
+        f"SBC {RATIO}): report ok {report.ok}, {len(report.errors())} "
+        f"errors, {len(report.warnings())} warnings; ledger "
+        f"{ledger['n_traces']} events, {ledger['n_retraces']} retraces; "
+        f"launches {launches} (expected {want}); losses and ledgers "
+        f"bitwise the unaudited run: {'yes' if bitwise else 'NO'}; wall "
+        f"{t_audit:.3f} s audited vs {t_plain:.3f} s without "
+        f"(+{t_audit - t_plain:.3f} s); {smi}")
+    if not (report.ok and bitwise and launches == want
+            and ledger["n_retraces"] == 0 and buckets):
+        raise AssertionError(f"4p (i): report ok {report.ok}, bitwise "
+                             f"{bitwise}, launches {launches} (expected "
+                             f"{want}), retraces {ledger['n_retraces']}")
+    out["main"] = {"ok": report.ok, "bitwise": bitwise,
+                   "launches": launches, "wall_audit_s": t_audit,
+                   "wall_plain_s": t_plain, "ledger": ledger,
+                   "buckets": {n: {"taint": p, "hygiene": h}
+                               for n, (p, h) in buckets.items()}}
+    # (ii) the service tape, audited: one probe a cold admission
+    from repro_torch.serve import ExperimentService, ProgramCache
+    probes, colds = [], []
+    audit_cold, admit = ExperimentService._audit_cold, ProgramCache.admit
+
+    def counting_audit(self, bucket, chunk_len):
+        t1 = time.perf_counter()
+        audit_cold(self, bucket, chunk_len)
+        probes.append(time.perf_counter() - t1)
+
+    def counting_admit(self, keys):
+        hits, misses = admit(self, keys)
+        colds.append(misses > 0)
+        return hits, misses
+    ExperimentService._audit_cold = counting_audit
+    ProgramCache.admit = counting_admit
+    try:
+        svc, tickets, groups, s, wall, t_warm, launches, want = _drive_tape(
+            env, all_kernels, audit=True)
+    except AuditError as exc:
+        raise AssertionError(f"4p (ii): {exc}") from exc
+    finally:
+        ExperimentService._audit_cold = audit_cold
+        ProgramCache.admit = admit
+    report = svc.audit_report
+    n_cold = sum(colds)
+    log(f"[4p (ii) service audit] 4i's tape with audit=True: "
+        f"{len(colds)} admissions (warm-up included), {n_cold} cold, each "
+        f"probed once before dispatch ({len(probes)} probes, "
+        f"{sum(probes):.3f} s, {max(probes):.3f} s the longest), "
+        f"{len(colds) - n_cold} warm with no probe; report ok {report.ok} "
+        f"over {len(_audit_summary(report))} programs; tape {wall:.3f} s "
+        f"(warm-up {t_warm:.2f} s); launches {launches} (expected {want}); "
+        f"{smi}")
+    if not (report.ok and len(probes) == n_cold and launches == want
+            and all(t.done for t in tickets)
+            and s["warm_admission_traces"] == 0):
+        raise AssertionError(f"4p (ii): report ok {report.ok}, {len(probes)}"
+                             f" probes for {n_cold} cold admissions, "
+                             f"launches {launches} (expected {want})")
+    out["service"] = {"admissions": len(colds), "cold": n_cold,
+                      "probe_s": probes, "tape_s": wall, "ok": report.ok,
+                      "launches": launches}
+    # (iii) the audit CLI, its executed run on the card
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.audit", "--out",
+         str(OUT_DIR / "AUDIT_report.json")], capture_output=True, text=True,
+        timeout=900, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    t_cli = time.perf_counter() - t0
+    for line in cli.stdout.splitlines():
+        _Log.file.write(f"[4p (iii) cli] {line}\n")
+    js = json.loads((OUT_DIR / "AUDIT_report.json").read_text()) \
+        if cli.returncode in (0, 1) else {}
+    taint_progs = {n: p for n, p in js.get("programs", {}).items()
+                   if p["pass"] == "taint"}
+    models = [n for n in taint_progs if n.startswith("models:")]
+    log(f"[4p (iii) cli] python -m repro_torch.analysis.audit (users "
+        f"4,8,16, periods 3, replan 2, the run on the card): exit "
+        f"{cli.returncode} in {t_cli:.1f} s; "
+        f"{cli.stdout.strip().splitlines()[0] if cli.stdout else ''}; "
+        f"{sum(p['ok'] for p in taint_progs.values())} of "
+        f"{len(taint_progs)} programs certified ({len(models)} models "
+        f"programs: {sum(taint_progs[n]['ok'] for n in models)} ok); {smi}")
+    if cli.returncode != 0 or not taint_progs or not models \
+            or not all(p["ok"] for p in taint_progs.values()):
+        raise AssertionError(f"4p (iii): the audit CLI exited "
+                             f"{cli.returncode}: {cli.stderr[-2000:]}")
+    out["cli"] = {"rc": cli.returncode, "seconds": t_cli,
+                  "programs": len(taint_progs), "models": len(models),
+                  "summary": cli.stdout.strip().splitlines()[0]}
+    # (iv) the SBC stand-ins' rule on the card
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    segs = ROWS * DEVICES
+    zero = torch.arange(segs, device="cuda") % 3 == 1   # every third one
+    for n in P_ZERO_LENGTHS:
+        x = torch.randn((segs, n), generator=gen, device="cuda")
+        x[zero] = 0.0
+        thr = csbc.topk_threshold_bisect(x.abs(), csbc.n_keep(n, RATIO))
+        stats = ksbc.sbc_stats(x, thr)
+        scalars = csbc.group_scalars(thr, stats)
+        approx, res = ksbc.sbc_apply(x, scalars)
+        zeros_hold = not (stats[zero].any() or approx[zero].any()
+                          or res[zero].any())
+        alone = all(
+            torch.equal(ksbc.sbc_stats(x[i:i + 1], thr[i:i + 1]),
+                        stats[i:i + 1])
+            and all(torch.equal(a, b[i:i + 1]) for a, b in zip(
+                ksbc.sbc_apply(x[i:i + 1], scalars[i:i + 1]),
+                (approx, res)))
+            for i in (0, 2, segs - 1))
+        log(f"[4p (iv) stand-ins] sbc_stats / sbc_apply on the card at "
+            f"({segs}, {n}), {int(zero.sum())} segments exact zeros: stats, "
+            f"approximation and residual exact zeros there: "
+            f"{'yes' if zeros_hold else 'NO'}; segments 0, 2 and {segs - 1}"
+            f" alone bitwise themselves among {segs}: "
+            f"{'yes' if alone else 'NO'}")
+        if not (zeros_hold and alone):
+            raise AssertionError(f"4p (iv): the SBC stand-in rule fails on "
+                                 f"the card at n={n}")
+    log("[4p (iv) stand-ins] the attention and SSD stand-ins' rules (axis 0 "
+        "independent; zero dO / dy give zero gradients) rest on phase 3's "
+        "and 3c's checks: a sequence alone bitwise itself among the batch "
+        "(forward, dQ with D, dK/dV) and a copy alone bitwise itself among "
+        "8 (the SSD backward)")
+    out["stand_ins"] = {"lengths": list(P_ZERO_LENGTHS), "segments": segs}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4684,6 +4896,17 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     o_report = report["train_ssm"]
     log(f"[4o train] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4p. the static analysis on the card --------------------------------
+    t0 = time.perf_counter()
+    try:
+        report["audit"] = audit_cell(
+            env, specs, {"sbc_stats": ksbc.sbc_stats,
+                         "sbc_apply": ksbc.sbc_apply}, all_kernels, csbc,
+            ksbc, smi)
+    except AssertionError as exc:
+        return fail(f"phase {exc}")
+    log(f"[4p audit] phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",

@@ -19,7 +19,8 @@ collects.  ``specs`` may be a :class:`~repro_torch.api.study.Study`: its
 swept axes then surface as extra ``Results`` coordinates.  ``replan=R``
 closes the Algorithm-1 loop for every FEEL bucket of a run: R-period
 chunks, each chunk's realized loss decays fed to the ξ estimators before
-the next is planned.
+the next is planned.  ``audit=True`` adds the static analysis' report
+(``Results.audit``).
 
 The experiment runs on the GPU: ``device=None`` resolves to ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
@@ -28,6 +29,7 @@ port's CPU path (the plain versions of the kernels).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from dataclasses import replace as _dc_replace
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -72,7 +74,8 @@ class Experiment:
         return group_rows(self.specs, replan=replan, bands=bands)
 
     def run(self, periods: int, executor: Optional[Executor] = None,
-            replan: Optional[int] = None, bands: bool = False) -> Results:
+            replan: Optional[int] = None, audit: bool = False,
+            bands: bool = False) -> Results:
         """Run the whole grid and return the complete ``Results``.
 
         ``replan=R`` turns every FEEL-family bucket closed-loop for this
@@ -81,14 +84,54 @@ class Experiment:
         ξ estimators before the next chunk is planned (Algorithm 1 with
         live feedback).  Dev-scheme buckets have no ξ loop and ignore it.
 
+        ``audit=True`` runs the static-analysis passes after the
+        computation (see :mod:`repro_torch.analysis`): the padding-taint
+        certificate and graph-hygiene checks over every bucket's program
+        (traced by ``lowering.trace_bucket`` under fake tensors — no
+        device work and no dispatch-ledger event, but host planning runs
+        once more per bucket), the determinism lint, and a dispatch-ledger
+        audit scoped to this run proving zero retraces across chunks and
+        replan rounds.  The run itself is the normal run, on the card
+        through its kernels.  The report attaches as ``Results.audit``;
+        error-severity findings raise
+        :class:`repro_torch.analysis.AuditError`.  Audit composes with any
+        executor — the passes inspect programs and ledgers, not the
+        execution schedule.
+
         ``bands=True`` splits each bucket by power-of-two K band
         (``repro_torch.topology.band_width``), so a mixed-K grid pads each
         row to its band instead of the grid's largest fleet: one device
         loop per band, host ledgers bitwise the unbanded run's."""
+        if audit:
+            from repro_torch.fed import engine
+            mark = len(engine.trace_events())
         builder = None
         for builder in self._collected(periods, executor, replan, bands):
             pass
-        return builder.build()
+        res = builder.build()
+        if audit:
+            report = self._audit(periods, replan, mark, bands=bands)
+            res = _dc_replace(res, audit=report)
+            report.raise_on_error()
+        return res
+
+    def _audit(self, periods: int, replan: Optional[int], mark: int,
+               bands: bool = False):
+        """The ``run(audit=True)`` pass bundle (see
+        :mod:`repro_torch.analysis`)."""
+        from repro_torch.analysis import compile_audit, determinism
+        from repro_torch.analysis.report import AuditReport
+        from repro_torch.api import lowering
+        from repro_torch.fed import engine
+
+        report = AuditReport()
+        compile_audit.audit_traces(engine.trace_events()[mark:],
+                                   label="trace-ledger", report=report)
+        for bucket in self.lower(replan=replan, bands=bands):
+            plan = lowering.plan_bucket(bucket, self.data, periods)
+            lowering.audit_bucket_taint(plan, self.data, self.test, report)
+        determinism.lint_sources(report=report)
+        return report
 
     def stream(self, periods: int, executor: Optional[Executor] = None,
                replan: Optional[int] = None,

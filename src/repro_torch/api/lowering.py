@@ -571,6 +571,236 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
                         state=state, energy=plan.energy, decays=decays)
 
 
+# ---------------------------------------------------------------------------
+# phase 2b: probe (trace the bucket's program without running it — the
+# static analysis' entry point)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TracedBucket:
+    """One bucket program traced for inspection, with taint labels.
+
+    ``graph`` is the aten graph (a ``torch.fx.GraphModule``) of one period
+    of the exact program the dispatch phase runs, each kernel one stand-in
+    node (``kernels.probe``); ``in_labels`` / ``out_contracts`` are the
+    padding-taint annotations aligned with its flattened inputs / outputs
+    (see :mod:`repro_torch.analysis.taint`); ``premise`` lists the ways
+    the program breaks the induction's premise (empty: it holds);
+    ``seconds`` is the probe's host time.  Built by :func:`trace_bucket`.
+    """
+    program: str
+    graph: object                # torch.fx.GraphModule
+    in_labels: list
+    out_contracts: dict
+    bucket: Bucket
+    periods: int
+    premise: list
+    seconds: float
+
+
+def trace_bucket(plan: BucketPlan, data, test) -> TracedBucket:
+    """Trace one planned bucket's device program to a labeled aten graph.
+
+    Mirrors :func:`dispatch_bucket`'s argument assembly exactly (fresh
+    state), then traces the program with ``make_fx`` under fake tensors
+    instead of running it: nothing runs on the card, and the program runs
+    under ``engine.suspend_trace_count`` so the probe records nothing in
+    the dispatch ledger.  Inside ``kernels.probe.probing`` each kernel is
+    one stand-in node, so neither a kernel nor its plain version runs, and
+    the graph is the card's op for op.  The fake tensors live on the CPU:
+    with every kernel a stand-in, the program's graph does not depend on
+    the device (the wrappers' device preconditions — head dims, 16-byte
+    alignment — are the run's to check).
+
+    **One period, by induction.**  The program is a Python loop over
+    periods, so its trace grows with the horizon; the probe traces the
+    program at P = 1 and the certificate covers any horizon by induction,
+    as the reference's covers chunks.  Premise: each period slices the
+    period-axis inputs (``xs``, ``active``, the hierarchy's ``cloud``,
+    the dev loop's ``idx``) at p and runs the same body on the carry.
+    :attr:`TracedBucket.premise` checks it on the graph: every use of a
+    period-axis input is ``select(·, 1, 0)``, and the carry leaves come
+    out with the shapes and dtypes they went in with.  Step: the carry's
+    output contracts are the next period's input labels — the SBC
+    residual ``Known(0)`` on padded lanes, the global parameters (and the
+    hierarchy's per-edge replicas) free of any user lane — and the next
+    period's slices carry the same labels.  So period p + 1 starts from
+    the labels period p was certified under, and the cost of the trace
+    does not grow with the horizon.
+
+    The labels state the padded-lane facts the schedule construction
+    guarantees:
+
+    * FEEL: ``residual0`` and ``active`` hold exact zeros on padded
+      lanes; ``idx``/``weight``/``batch`` padded lanes are *variant* —
+      deliberately weaker than ``pad_schedule`` provides, so the
+      certificate also covers hand-built (garbage) schedules and rests
+      only on the program's own ``w*=active`` / ``bk*=active`` masking;
+      the hierarchy's ``member`` columns of padded users are zero too;
+    * dev: per-device params are variant on padded lanes, ``active`` is
+      zero; the program's masked means must do all the work.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.analysis.taint import NO_LABEL, LaneLabel, OutContract
+    from repro_torch.kernels import probe
+
+    t0 = time.perf_counter()
+    bucket = plan.bucket
+    rows = bucket.rows
+    spec0 = rows[0].spec
+    k_pad = bucket.k_pad
+    n = len(rows)
+    periods = plan.times.shape[1]
+    local_steps = spec0.local_steps if plan.tau is None else plan.tau
+    name = f"{bucket.key}/P{periods}"
+    if bucket.band is not None:
+        name += f"/B{bucket.band}"
+    if plan.tau is not None:
+        name += f"/T{local_steps}"
+    cpu = torch.device("cpu")
+    arrays = DeviceData(data, test, cpu)
+    # period 0 of a time-varying (n, P, K) mask; a static (n, K) one as is
+    active = engine.normalize_active(
+        plan.active[:, :1] if np.ndim(plan.active) == 3 else plan.active,
+        n, 1, k_pad, cpu)
+    params0 = _init_params_batch(rows, plan.input_dim, cpu)
+
+    def label(tree, lab):
+        return pytree.tree_map(lambda _: lab, tree)
+
+    data_labels = (NO_LABEL,) * 4
+    if bucket.kind == "dev":
+        dev_params0 = _broadcast_rows(params0, k_pad)
+        idx = engine.host_to_device(plan.idx[:, :1], cpu)
+        lr = engine.host_to_device(plan.lr, cpu)
+        fn = engine.dev_trajectory_program(
+            average=(spec0.scheme == "model_fl"))
+        args = (dev_params0, idx, lr, active, *arrays.features)
+        labels = (label(dev_params0, LaneLabel(1, "variant")),
+                  LaneLabel(2), NO_LABEL, LaneLabel(2, 0.0), *data_labels)
+        periodic = (label(dev_params0, False), True, False, True,
+                    *(False,) * 4)
+        n_carry = len(pytree.tree_leaves(dev_params0))
+        contracts = {}
+    else:
+        residual0 = engine.zero_residual(params0, k_pad)
+        xs = engine.stack_schedules(
+            [engine.slice_schedule(s, 0, 1) for s in plan.schedules], cpu)
+        xs_labels = {key: LaneLabel(2) if key in ("idx", "weight", "batch")
+                     else NO_LABEL for key in xs}
+        compress, ratio = spec0.compress, spec0.compression
+        res_labels = label(residual0, LaneLabel(1, 0.0))
+        if plan.member is not None:
+            # member's padded-user columns are all-zero one-hots — the
+            # monoid identity of the routing contraction — and active's
+            # padded lanes are zero; per-edge replicas are global values
+            # (no user lane), so NO_LABEL
+            n_edges = plan.member.shape[1]
+            params0 = _broadcast_rows(params0, n_edges)
+            cloud = engine.host_to_device(plan.cloud[:, :1], cpu)
+            fn = engine.hier_trajectory_program(local_steps, compress,
+                                                ratio, n_edges)
+            member = engine.host_to_device(plan.member, cpu)
+            args = (params0, residual0, member, active, cloud, xs,
+                    *arrays.features)
+            labels = (label(params0, NO_LABEL), res_labels,
+                      LaneLabel(2, 0.0), LaneLabel(2, 0.0), NO_LABEL,
+                      xs_labels, *data_labels)
+            periodic = (label(params0, False), label(residual0, False),
+                        False, True, True, label(xs, True), *(False,) * 4)
+        else:
+            if spec0.model_family != "feel_mlp":
+                fn = model_engine.model_trajectory_program(
+                    spec0.model_family, spec0.hidden, spec0.depth,
+                    compress, ratio)
+                data_args = arrays.tokens
+            else:
+                fn = engine.trajectory_program(local_steps, compress, ratio)
+                data_args = arrays.features
+            args = (params0, residual0, active, xs, *data_args)
+            labels = (label(params0, NO_LABEL), res_labels,
+                      LaneLabel(2, 0.0), xs_labels, *data_labels)
+            periodic = (label(params0, False), label(residual0, False),
+                        True, label(xs, True), *(False,) * 4)
+        # outputs: (params, residual, (losses, accs, decays)): the carry's
+        # contracts are the next period's labels
+        n_leaves = len(pytree.tree_leaves(params0))
+        n_carry = 2 * n_leaves
+        contracts = {i: OutContract(axis=None) for i in range(n_leaves)}
+        contracts.update({n_leaves + i: OutContract(axis=1, value=0.0)
+                          for i in range(n_leaves)})
+    with engine.suspend_trace_count(), probe.probing(), torch.no_grad():
+        gm = make_fx(fn, tracing_mode="fake")(*args)
+    # the trace records ops whose values reach no output (a view taken
+    # only for its numel); they compute nothing the program returns
+    gm.graph.eliminate_dead_code()
+    premise = _period_premise(gm, pytree.tree_leaves(periodic), n_carry)
+    return TracedBucket(program=name, graph=gm,
+                        in_labels=pytree.tree_leaves(labels),
+                        out_contracts=contracts, bucket=bucket,
+                        periods=periods, premise=premise,
+                        seconds=time.perf_counter() - t0)
+
+
+def _period_premise(gm, periodic: Sequence[bool], n_carry: int) -> list:
+    """How a one-period trace breaks the induction's premise: a
+    period-axis input used other than as its period-0 slice, or a carry
+    leaf whose shape or dtype changes."""
+    from torch.utils import _pytree as pytree
+
+    select = torch.ops.aten.select.int
+    placeholders = [node for node in gm.graph.nodes
+                    if node.op == "placeholder"]
+    out = []
+    for node, is_periodic in zip(placeholders, periodic):
+        for user in node.users if is_periodic else ():
+            if user.target is not select or tuple(user.args[1:]) != (1, 0):
+                out.append(f"{node.name}: period-axis input used by "
+                           f"{user.target} {user.args[1:]}, not as its "
+                           "period slice select(1, 0)")
+    output = next(node for node in gm.graph.nodes if node.op == "output")
+    outs = pytree.tree_leaves(output.args[0])
+    for i, (node, o) in enumerate(zip(placeholders[:n_carry],
+                                      outs[:n_carry])):
+        a, b = node.meta["val"], o.meta["val"]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            out.append(f"carry leaf {i} ({node.name}) enters as "
+                       f"{tuple(a.shape)} {a.dtype} and leaves as "
+                       f"{tuple(b.shape)} {b.dtype}")
+    return out
+
+
+def audit_bucket_taint(plan: BucketPlan, data, test, report=None, *,
+                       prefix: str = ""):
+    """Run the padding-taint and graph-hygiene passes over one planned
+    bucket's program: the per-bucket step of ``Experiment.run(audit=True)``,
+    ``ExperimentService(audit=True)`` and the audit CLI.  A broken
+    induction premise is a ``taint.induction-premise`` error.  The
+    program's taint summary gains ``periods_traced`` and
+    ``probe_seconds``; ``prefix`` goes before the program's name (the
+    CLI's grid label)."""
+    from repro_torch.analysis import compile_audit, taint
+    from repro_torch.analysis.report import AuditReport, Severity
+
+    if report is None:
+        report = AuditReport()
+    traced = trace_bucket(plan, data, test)
+    program = prefix + traced.program
+    for text in traced.premise:
+        report.add("taint.induction-premise", Severity.ERROR,
+                   f"{program}:premise", text)
+    taint.analyze_graph(traced.graph, traced.in_labels,
+                        traced.out_contracts, program=program, report=report)
+    report.programs[program].update(periods_traced=1,
+                                    probe_seconds=traced.seconds)
+    compile_audit.audit_graph_hygiene(traced.graph, program=program,
+                                      report=report)
+    return report
+
+
 def collect_bucket(handle: BucketHandle):
     """Wait for the bucket's device values; returns ``(losses, accs,
     times, global_batch)`` — (n, P) host arrays, one row per computed row."""

@@ -89,6 +89,7 @@ class Results:
     global_batch: np.ndarray           # (rows, periods)
     n_buckets: int = 1                 # compiled programs this run lowered to
     complete: bool = True              # False for streamed partials
+    audit: object = None               # AuditReport when run(audit=True)
 
     @property
     def rows(self) -> int:
@@ -156,7 +157,8 @@ class Results:
             coords={k: v[mask] for k, v in self.coords.items()},
             losses=self.losses[mask], accs=self.accs[mask],
             times=self.times[mask], global_batch=self.global_batch[mask],
-            n_buckets=self.n_buckets, complete=self.complete)
+            n_buckets=self.n_buckets, complete=self.complete,
+            audit=self.audit)
 
     def unique(self, name: str) -> Tuple:
         """Unique values of one coordinate, first-seen (row) order —

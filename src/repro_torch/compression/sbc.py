@@ -25,9 +25,12 @@ import torch
 from repro_torch.kernels.sbc import sbc_apply, sbc_stats
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-# f32 constants of the reference's bisection bracket hi = max·(1+1e-6)+1e-30
-_HI_SCALE = torch.tensor(1.0 + 1e-6, dtype=torch.float32)
-_HI_FLOOR = torch.tensor(1e-30, dtype=torch.float32)
+# f32 constants of the reference's bisection bracket hi = max·(1+1e-6)+1e-30,
+# held as the Python floats of their f32 values: a float32 tensor times a
+# Python scalar computes in float32, bitwise the product with a 0-dim f32
+# tensor, and a traced program then holds no module-level tensor
+_HI_SCALE = float(torch.tensor(1.0 + 1e-6, dtype=torch.float32))
+_HI_FLOOR = float(torch.tensor(1e-30, dtype=torch.float32))
 
 
 def n_keep(n: int, ratio: float) -> int:

@@ -152,7 +152,9 @@ def ratio_key(compress: bool, ratio: float):
 # Host planners work in numpy float64 (the latency ledgers are cumulative
 # sums where 32-bit drift would change simulated-time results); device
 # programs are strictly 32-bit.  ``host_to_device`` is the one crossing:
-# floats → float32, ints → int32.  ``times``/``global_batch`` never cross.
+# floats → float32, ints → int32.  ``times``/``global_batch`` never cross,
+# and ``assert_device_safe`` (called by every ``run_*`` function) guards
+# the program boundary.
 
 _DEVICE_DTYPES = {"f": torch.float32, "i": torch.int32, "u": torch.int32,
                   "b": torch.bool}
@@ -168,6 +170,23 @@ def host_to_device(tree, device):
     a = np.asarray(tree)
     return torch.from_numpy(np.ascontiguousarray(a)).to(
         device=device, dtype=_DEVICE_DTYPES[a.dtype.kind])
+
+
+def assert_device_safe(tree, where: str = "program boundary"):
+    """Raise if any leaf about to enter a device program is 64-bit."""
+    for leaf in tree_leaves(tree):
+        if leaf is None:
+            continue
+        dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
+            else np.asarray(leaf).dtype
+        wide = (dtype.itemsize == 8 and dtype != torch.bool)\
+            if isinstance(dtype, torch.dtype) \
+            else (dtype.itemsize == 8 and dtype.kind in "fiuc")
+        if wide:
+            raise TypeError(
+                f"64-bit array ({dtype}) reached {where}; host planners "
+                "must cross through engine.host_to_device first")
+    return tree
 
 
 def full_f32(device) -> None:
@@ -447,6 +466,16 @@ def _trajectory_fn(local_steps: int, compress: bool, ratio, batched: bool):
                     run if batched else _one_row(run, 4))
 
 
+def trajectory_program(local_steps: int = 1, compress: bool = True,
+                       ratio: float = 0.005, batched: bool = True):
+    """The (cached) FEEL trajectory program for a static config — the
+    object :func:`run_trajectory_batch` dispatches.  Public accessor for
+    introspection: ``analysis``' probe traces it with ``make_fx`` under
+    :func:`suspend_trace_count`."""
+    return _trajectory_fn(local_steps, compress, ratio_key(compress, ratio),
+                          batched)
+
+
 @torch.no_grad()
 def run_trajectory(state: EngineState, schedule: Schedule, arrays, *,
                    compress: bool = True, ratio: float = 0.005, active=None,
@@ -463,6 +492,8 @@ def run_trajectory(state: EngineState, schedule: Schedule, arrays, *,
     active = _single_row_active(active, periods, k, device)
     fn = _trajectory_fn(local_steps, compress, ratio_key(compress, ratio),
                         False)
+    assert_device_safe((state.params, state.residual, active, xs, arrays),
+                       "run_trajectory")
     params, residual, series = fn(state.params, state.residual, active, xs,
                                   *arrays)
     return EngineState(params, residual), series
@@ -496,6 +527,8 @@ def run_trajectory_batch(state: EngineState, schedules: Sequence[Schedule],
     active = normalize_active(active, rows, periods, k, device)
     fn = _trajectory_fn(local_steps, compress, ratio_key(compress, ratio),
                         True)
+    assert_device_safe((state.params, state.residual, active, xs, arrays),
+                       "run_trajectory_batch")
     params, residual, series = fn(state.params, state.residual, active, xs,
                                   *arrays)
     return EngineState(params, residual), series
@@ -557,6 +590,11 @@ def _dev_trajectory_fn(average: bool, batched: bool):
                     run if batched else _one_row(run, 4))
 
 
+def dev_trajectory_program(average: bool, batched: bool = True):
+    """The (cached) dev-family program (see :func:`trajectory_program`)."""
+    return _dev_trajectory_fn(bool(average), batched)
+
+
 @torch.no_grad()
 def run_dev_trajectory(state: EngineState, idx, lr: float, arrays, *,
                        average: bool, active=None):
@@ -571,6 +609,8 @@ def run_dev_trajectory(state: EngineState, idx, lr: float, arrays, *,
     active = _single_row_active(active, periods, k, device)
     lr = host_to_device(np.float32(lr), device)
     fn = _dev_trajectory_fn(bool(average), False)
+    assert_device_safe((state.params, idx, lr, active, arrays),
+                       "run_dev_trajectory")
     dev_params, series = fn(state.params, idx, lr, active, *arrays)
     return EngineState(dev_params), series
 
@@ -595,6 +635,8 @@ def run_dev_trajectory_batch(state: EngineState, idx, lr, arrays, *,
     rows, periods, k = idx.shape[:3]
     active = normalize_active(active, rows, periods, k, device)
     fn = _dev_trajectory_fn(bool(average), True)
+    assert_device_safe((state.params, idx, lr, active, arrays),
+                       "run_dev_trajectory_batch")
     dev_params, series = fn(state.params, idx, lr, active, *arrays)
     return EngineState(dev_params), series
 
@@ -687,6 +729,16 @@ def _hier_trajectory_fn(local_steps: int, compress: bool, ratio,
                     run)
 
 
+def hier_trajectory_program(local_steps: int = 1, compress: bool = True,
+                            ratio: float = 0.005, n_edges: int = 1,
+                            batched: bool = True):
+    """The (cached) hierarchical FEEL program (see
+    :func:`trajectory_program`)."""
+    return _hier_trajectory_fn(local_steps, compress,
+                               ratio_key(compress, ratio), int(n_edges),
+                               batched)
+
+
 @torch.no_grad()
 def run_hier_trajectory_batch(state: EngineState, member, cloud,
                               schedules: Sequence[Schedule], arrays, *,
@@ -713,6 +765,8 @@ def run_hier_trajectory_batch(state: EngineState, member, cloud,
     fn = _hier_trajectory_fn(local_steps, compress,
                              ratio_key(compress, ratio),
                              int(member.shape[1]), True)
+    assert_device_safe((state.params, state.residual, member, active,
+                        cloud, xs, arrays), "run_hier_trajectory_batch")
     params, residual, series = fn(state.params, state.residual, member,
                                   active, cloud, xs, *arrays)
     return EngineState(params, residual), series

@@ -40,7 +40,8 @@ import torch
 from repro_torch.compression.sbc import compress_dense
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.fed.engine import (EngineState, _Program,
-                                    aggregation_weights, full_f32,
+                                    aggregation_weights, assert_device_safe,
+                                    full_f32,
                                     host_to_device, normalize_active,
                                     ratio_key, stack_schedules)
 from repro_torch.fed.train_step import TrainState, make_loss_fn
@@ -205,6 +206,18 @@ def _model_trajectory_fn(model_family: str, hidden: int, depth: int,
                               batched), run)
 
 
+def model_trajectory_program(model_family: str, hidden: int, depth: int,
+                             compress: bool = True, ratio: float = 0.005,
+                             batched: bool = True):
+    """The (cached) big-model FEEL program — the object
+    :func:`run_model_trajectory_batch` dispatches.  Public accessor for
+    introspection: ``analysis``' probe traces it with ``make_fx`` under
+    ``engine.suspend_trace_count``."""
+    return _model_trajectory_fn(model_family, int(hidden), int(depth),
+                                bool(compress), ratio_key(compress, ratio),
+                                batched)
+
+
 @torch.no_grad()
 def run_model_trajectory_batch(state: EngineState, schedules: Sequence,
                                arrays, *, model_family: str, hidden: int,
@@ -227,6 +240,8 @@ def run_model_trajectory_batch(state: EngineState, schedules: Sequence,
     fn = _model_trajectory_fn(model_family, int(hidden), int(depth),
                               bool(compress), ratio_key(compress, ratio),
                               True)
+    assert_device_safe((state.params, state.residual, active, xs, arrays),
+                       "run_model_trajectory_batch")
     params, residual, series = fn(state.params, state.residual, active, xs,
                                   *arrays)
     return EngineState(params, residual), series

@@ -21,7 +21,8 @@ run from 0 to S-1; any S is taken (the TPU kernel needs ``S % block == 0``).
 On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/flash_attention.cu`` and adds one to its ``launches`` count; on a
 CPU tensor it runs the plain version beside it.  There is no fallback: a
-CUDA tensor either launches the kernel or raises.  Every kernel takes
+CUDA tensor either launches the kernel or raises (inside
+``probe.probing()`` each emits its traced stand-in).  Every kernel takes
 float32 or bfloat16 (q, k, v, o and dO in one type; lse and D float32),
 head dims 32, 64, 112 and 128, any group size Hq / Hkv and tensors whose
 data start on a 16-byte boundary (the copies are 16-byte vectors); each
@@ -45,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, probe
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128)
@@ -230,6 +231,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """``(o, lse)``: o like q, lse (B, Hq, S) float32."""
     _check("flash_attention_fwd", q, k, v, window,
            (torch.float32, torch.bfloat16))
+    if probe.active():
+        return probe.ops().flash_attention_fwd(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)
@@ -288,6 +291,9 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     _check("flash_attention_bwd_dq", q, k, v, window,
            (torch.float32, torch.bfloat16), o, do)
     _check_stats("flash_attention_bwd_dq", q, lse)
+    if probe.active():
+        return probe.ops().flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                  causal, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
                                             causal=causal, window=window)
@@ -315,6 +321,9 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, *, causal: bool = True,
     _check("flash_attention_bwd_dkdv", q, k, v, window,
            (torch.float32, torch.bfloat16), do)
     _check_stats("flash_attention_bwd_dkdv", q, lse, dsum)
+    if probe.active():
+        return probe.ops().flash_attention_bwd_dkdv(q, k, v, lse, do, dsum,
+                                                    causal, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkdv_plain(q, k, v, lse, do, dsum,
                                               causal=causal, window=window)

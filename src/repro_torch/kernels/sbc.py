@@ -12,7 +12,8 @@ tensor it launches the hand-written kernel in ``csrc/sbc.cu`` (which
 replaces the TPU package's ``kernels/sbc.py::_stats_kernel`` and
 ``_apply_kernel``) and adds one to its ``launches`` count; on a CPU tensor
 it runs the plain PyTorch version beside it.  There is no fallback: a
-CUDA tensor either launches the kernel or raises.
+CUDA tensor either launches the kernel or raises.  Inside
+``probe.probing()`` each emits its traced stand-in instead.
 
 The threshold itself is computed outside the kernels (the exact top-k in
 :mod:`.ops`, the bisection in ``compression.sbc``), as ``lax.top_k`` stays
@@ -26,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, probe
 
 
 @functools.cache
@@ -99,6 +100,8 @@ def sbc_stats(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """x: (S, n) f32; thr: (S,) f32 → (S, 4) f32
     ``[pos_sum, neg_sum, pos_cnt, neg_cnt]``."""
     _check(x, thr, 1, "sbc_stats")
+    if probe.active():
+        return probe.ops().sbc_stats(x, thr)
     if x.device.type == "cpu":
         return sbc_stats_plain(x, thr)
     lib = _library()
@@ -159,8 +162,9 @@ def sbc_apply(x: torch.Tensor, scalars: torch.Tensor, *, out=None,
     _check(x, scalars, 3, "sbc_apply")
     _check_destination(out, x, "out")
     _check_destination(res, x, "res")
-    if x.device.type == "cpu":
-        p_out, p_res = sbc_apply_plain(x, scalars)
+    if probe.active() or x.device.type == "cpu":
+        p_out, p_res = (probe.ops().sbc_apply(x, scalars) if probe.active()
+                        else sbc_apply_plain(x, scalars))
         return (p_out if out is None else out.copy_(p_out),
                 p_res if res is None else res.copy_(p_res))
     lib = _library()

@@ -20,7 +20,8 @@ output): the kernels read them with their token stride, no copy.
 On a CUDA tensor each function launches its hand-written kernel in
 ``csrc/ssd_scan.cu`` and adds one to its ``launches`` count; on a CPU
 tensor it runs the plain version beside it.  There is no fallback: a CUDA
-tensor either launches the kernel or raises.  The forward takes x, Bm and
+tensor either launches the kernel or raises (inside ``probe.probing()``
+each emits its traced stand-in).  The forward takes x, Bm and
 Cm in float32 or bfloat16 (one type), dt in float32 (as the reference's
 scan reads it) or in x's type, and N up to 128; the kernel reads dt in
 float32.  The backward takes the same types and N, and P a power of two
@@ -45,7 +46,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, probe
 from repro_torch.models.mamba2 import ssd_reference
 
 FWD_MAX_STATE = 128       # N the forward kernel takes
@@ -174,6 +175,8 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """y (B, S, H, P) in x's dtype; dt float32 or x's dtype."""
     _check("ssd_scan_fwd", x, dt, A, Bm, Cm, chunk,
            (torch.float32, torch.bfloat16), FWD_MAX_STATE, dt_f32=True)
+    if probe.active():
+        return probe.ops().ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
     dt = dt.float()                  # exact; the kernel reads dt in f32
@@ -210,6 +213,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
     what = "ssd_scan_bwd"
     _check(what, x, dt, A, Bm, Cm, chunk, (torch.float32, torch.bfloat16),
            BWD_MAX_STATE, dy, dt_f32=True)
+    if probe.active():
+        return probe.ops().ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk)
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk)
     b, s, h, p = x.shape

@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 VOCAB_PAD_MULTIPLE = 128
@@ -126,8 +127,13 @@ def _rope_freqs_on(head_dim: int, theta: float,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-halves RoPE.  x: (..., S, heads, head_dim); positions:
-    (..., S) integers."""
-    inv = _rope_freqs_on(x.shape[-1], theta, x.device)
+    (..., S) integers.  Under a fake-tensor trace (the static analysis'
+    probe) the frequencies are computed in the traced graph and the cache
+    is left alone: it holds real tensors only."""
+    if isinstance(x, FakeTensor):
+        inv = rope_freqs(x.shape[-1], theta).to(x.device)
+    else:
+        inv = _rope_freqs_on(x.shape[-1], theta, x.device)
     ang = positions[..., :, None].float() * inv          # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]

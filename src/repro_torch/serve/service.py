@@ -140,20 +140,19 @@ class ExperimentService:
     instead of whatever fleet happens to share the window, so the
     program-cache key space stays small and recurring across a
     massive-fleet mix.  ``mesh`` is a one-device batch mesh on
-    ``device`` (``api.executor``'s rule).  ``audit=True`` raises: the
-    static passes it runs in the reference (padding taint, compile
-    hygiene) are ROADMAP Queue A item 10, not ported.
+    ``device`` (``api.executor``'s rule).  ``audit=True`` runs the static
+    passes (padding taint + graph hygiene, :mod:`repro_torch.analysis`)
+    over every cold admission's program before it dispatches — a probe
+    only: no device work and no dispatch-ledger event — and keeps their
+    findings in :attr:`audit_report`; warm admissions skip the probe.
+    Error findings raise :class:`repro_torch.analysis.AuditError` before
+    the admission dispatches.
     """
 
     def __init__(self, data, test, *, device=None, chunk_periods: int = 1,
                  window: float = 0.0, max_batch: Optional[int] = None,
                  clock=None, cache: Optional[ProgramCache] = None,
                  mesh=None, audit: bool = False, bands: bool = False):
-        if audit:
-            raise NotImplementedError(
-                "audit=True runs the static passes of the reference's "
-                "analysis package (padding taint, compile hygiene), which "
-                "the port has not ported yet (ROADMAP Queue A item 10)")
         if chunk_periods < 1:
             raise ValueError(
                 f"chunk_periods must be >= 1, got {chunk_periods}")
@@ -166,6 +165,8 @@ class ExperimentService:
         self.cache = cache if cache is not None else ProgramCache()
         self.mesh = None if mesh is None else _check_mesh(mesh, self.device)
         self.bands = bands
+        self.audit = audit
+        self.audit_report = None
         self.stats = ServiceStats()
         self._admission = AdmissionQueue(window=window, max_batch=max_batch)
         self._scheduler = PreemptiveScheduler(stats=self.stats)
@@ -267,6 +268,8 @@ class ExperimentService:
         hits, misses = self.cache.admit(keys)
         self.stats.on_admission([r.ticket.record for r in group], now,
                                 hits=hits, misses=misses)
+        if self.audit and misses:
+            self._audit_cold(bucket, min(chunk, periods))
         run = lowering.BucketRun(bucket, self.data, periods, chunk,
                                  self.arrays)
         srun = ServiceRun(
@@ -288,6 +291,18 @@ class ExperimentService:
             srun.deliveries.append((req.ticket, take))
             offset += len(req.spec.seeds)
         self._scheduler.add(srun)
+
+    def _audit_cold(self, bucket, chunk_len: int) -> None:
+        """The static passes over a cold admission's program (padding
+        taint + graph hygiene; a probe only — no device work, no ledger
+        event).  Error findings raise before anything dispatches."""
+        from repro_torch.analysis.report import AuditReport
+        if self.audit_report is None:
+            self.audit_report = AuditReport()
+        plan = lowering.plan_bucket(bucket, self.data, chunk_len)
+        lowering.audit_bucket_taint(plan, self.data, self.test,
+                                    self.audit_report)
+        self.audit_report.raise_on_error()
 
     def _run_one_chunk(self) -> bool:
         srun = self._scheduler.pick()

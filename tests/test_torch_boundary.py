@@ -50,6 +50,10 @@ new |= {"repro_torch.serve", "repro_torch.testing", "repro_torch.fed.sweep",
         "repro_torch.fed.trainer"}
 new |= {"repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
         "repro_torch.launch.train", "repro_torch.configs.qwen1p5_4b"}
+new |= {"repro_torch.analysis." + m for m in ("audit", "compile_audit",
+                                              "determinism", "report",
+                                              "taint")}
+new |= {"repro_torch.analysis", "repro_torch.kernels.probe"}
 bad += sorted(new - set(names))
 print(len(names), bad)
 """

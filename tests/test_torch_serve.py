@@ -5,9 +5,8 @@ reference's ``repro.serve`` and trace ledger on the same inputs.
   packages' ``Experiment`` records the same number of events with the
   same ``(kind, key)`` sequence, monolithic and chunked; a warm re-run
   records none; ``program_key``s are equal as tuples.
-* Every test of the reference's ``tests/test_serve.py`` except its audit
-  one, as a port counterpart (``audit=True`` raises here: the analysis
-  package is not ported).
+* Every test of the reference's ``tests/test_serve.py`` as a port
+  counterpart (its audit one with ``repro_torch.analysis``).
 * One seeded Poisson tape on a virtual clock advanced by fixed steps
   through both services, with the reference's weights carried across:
   ``stats.to_dict()`` equal, each ticket's ledgers bitwise, losses within
@@ -444,6 +443,24 @@ def test_closed_loop_replan_through_service(dataset, fleet):
                         PERIODS))
 
 
+def test_audit_runs_on_cold_admissions_only(dataset, fleet):
+    """audit=True runs the static passes over each cold admission's
+    program before dispatch; warm admissions skip the probe."""
+    data, test = dataset
+    svc = _service(data, test, audit=True)
+    t = svc.submit(_spec(fleet, partition="noniid", seeds=(0, 1),
+                         compress=False), periods=PERIODS)
+    svc.drain()
+    assert t.done
+    report = svc.audit_report
+    assert report is not None and report.ok and not report.errors()
+    n_findings = len(report.findings)
+    svc.submit(_spec(fleet, partition="iid", seeds=(2, 3), compress=False),
+               periods=PERIODS)
+    svc.drain()
+    assert len(svc.audit_report.findings) == n_findings   # warm: no probe
+
+
 def test_submit_and_construction_validation(dataset, fleet, monkeypatch):
     data, test = dataset
     svc = _service(data, test)
@@ -460,9 +477,14 @@ def test_submit_and_construction_validation(dataset, fleet, monkeypatch):
         _service(data, test, window=-0.1)
     with pytest.raises(ValueError, match="max_batch"):
         _service(data, test, max_batch=0)
-    # the analysis package is not ported: the flag raises, never skips
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        _service(data, test, audit=True)
+    # audit=True probes a cold admission's program before it dispatches
+    audited = _service(data, test, audit=True)
+    assert audited.audit_report is None
+    audited.submit(_spec(fleet, compress=False), periods=3)
+    audited.drain()
+    from repro_torch.analysis import AuditReport
+    assert isinstance(audited.audit_report, AuditReport)
+    assert audited.audit_report.ok
     # a mesh must be one device, the service's own
     from repro_torch.launch.mesh import make_batch_mesh
     assert _service(data, test,
