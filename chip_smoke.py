@@ -175,7 +175,20 @@ its plain PyTorch version on the card:
      ``python -m repro_torch.analysis.audit`` (default grid, its run on
      the card) exits 0 with every program certified; (iv) the SBC
      stand-ins' rule: zero segments give zero stats, approximation and
-     residual, a segment alone is bitwise itself among the rest;
+     residual, a segment alone is bitwise itself among the rest; 4q. the
+     mesh half of ``launch``: (i) the sharding rules over every assigned
+     arch at full width x the four shapes on the 16 x 16 and 2 x 16 x 16
+     production meshes (host only): sharded leaves and argument bytes a
+     device, with zero1 lower on every train shape; (ii) 4n's decode_32k
+     under B5 again with ``multi_pod`` (mesh 2x16x16, 40 launches a step,
+     the last logits bitwise 4n's) and ``launch.perf --multi-pod`` on
+     train_4k at 2 layers (zero1's argument bytes a device below
+     baseline's); (iii) the batch mesh over two entries of the card: the
+     main cell, a 3-row ragged bucket (padded to 4), ``AsyncExecutor``
+     on the main cell and a 3-ticket ``ExperimentService`` tape, each
+     against ``SerialExecutor`` on the card alone (ledgers bitwise, losses
+     and accuracies within 1e-5; B1/B2 6 a period a shard), with both
+     walls;
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -488,6 +501,20 @@ O_AMONG = 8                   # sequences a batch-invariance check runs
 # version 4.2e-3 and 1.6e-2 (phase 6 on an NVIDIA H100 80GB HBM3, 700 W)
 O_SSD_TOL = 1e-4
 O_ATTN_TOL = 2e-5             # f32 B4' and B4'' at O_ATTN (rtol = atol)
+# the mesh half of launch (phase 4q): (i) the sharding rules at full width
+# on the two production meshes (abstract: they size, nothing is placed);
+# (ii) phase 4n's decode_32k pallas run again with multi_pod, and the perf
+# driver's --multi-pod on one train pair at Q_PERF_LAYERS layers; (iii)
+# the batch mesh: two entries of the one card, the main cell (16 rows), a
+# 3-row ragged bucket (K 12, 12 and 10; padded to 4 rows), AsyncExecutor
+# on the main cell and a short service tape, each against SerialExecutor
+# on the card alone: ledgers bitwise, losses and accuracies within 1e-5
+# (the reference's own test's tolerance)
+Q_MESHES = ("16x16", "2x16x16")
+Q_PERF_LAYERS = 2
+Q_RAGGED_K = (12, 12, 10)
+Q_TOL = 1e-5
+Q_SERVICE_PERIODS, Q_SERVICE_CHUNK = 6, 2
 
 
 class _Log:
@@ -3770,8 +3797,11 @@ def production_cell(torch, F, dryrun, perf, ts, tm, get_arch, get_shape,
                                  attn_impl=impl)
         _zero(counted)
         r = dryrun.run_pair(N_ARCH, "decode_32k", rt=rt,
-                            batch=N_DECODE_BATCH, repeats=N_DECODE_STEPS - 1)
+                            batch=N_DECODE_BATCH, repeats=N_DECODE_STEPS - 1,
+                            keep_output=(impl == "pallas"))
         r["launches_run"] = _read(counted)
+        if impl == "pallas":              # phase 4q's multi_pod run's twin
+            report["_decode_output"] = r.pop("output")
         want = {name: (cfg.n_layers * N_DECODE_STEPS if name == kernel
                        else 0) for name in counted}
         if r["launches_run"] != want:
@@ -4454,6 +4484,258 @@ def audit_cell(env, specs, counted, all_kernels, csbc, ksbc, smi):
     return out
 
 
+def mesh_cell(env, specs, api, dryrun, perf, get_arch, get_shape, counted,
+              n_decode_out, smi, device=None):
+    """Phase 4q: the mesh half of ``launch`` and the batch mesh over
+    several devices.  (i) For every assigned arch at full width and every
+    shape, on the 16 × 16 and 2 × 16 × 16 production meshes (abstract:
+    host only), the sharding rules' count of sharded leaves and
+    ``argument_bytes_per_device`` (with ``zero1`` too on train shapes):
+    every sharded dim exists (``sharded_arguments`` raises otherwise),
+    per-device bytes <= whole, ``zero1`` lowers them on train shapes.
+    (ii) ``run_pair(N_ARCH, "decode_32k", multi_pod=True)`` under
+    ``"pallas"`` at 4n's depth, batch and steps: its row's ``mesh`` is
+    ``2x16x16``, B5 launches 40 a step, and its last logits are bitwise
+    4n's run's; ``perf.main([... "--multi-pod"])`` on train_4k at
+    ``Q_PERF_LAYERS`` layers, baseline and zero1.  (iii) The batch mesh of
+    two entries of the card: the main cell, a 3-row ragged bucket,
+    ``AsyncExecutor(mesh=)`` on the main cell and a short
+    ``ExperimentService(mesh=)`` tape (against its admission group's
+    twin), each against ``SerialExecutor`` on the card alone (ledgers bitwise, losses and accuracies within
+    ``Q_TOL``), its B1/B2 launches checked and its wall beside the serial
+    one's.  ``device="cpu"`` rehearses the phase on the port's CPU path
+    (with configs and shapes the caller cuts).  Raises AssertionError."""
+    import torch
+    from repro_torch.configs import ASSIGNED, SHAPES
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+    from repro_torch.serve import ExperimentService, ProgramCache
+    from repro_torch.testing import VirtualClock
+    np = env.np
+    out = {"sizing": {}}
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+    # (i) sizing on the production meshes
+    t0 = time.perf_counter()
+    for arch in ASSIGNED:
+        cfg = get_arch(arch)
+        for shape_name, shape in SHAPES.items():
+            row = {}
+            for mesh_name in Q_MESHES:
+                multi = mesh_name == "2x16x16"
+                mesh = make_production_mesh(multi_pod=multi)
+                rt = dryrun.runtime_for(cfg, shape, multi)
+                sized = {"base": dryrun.sharded_arguments(cfg, shape, rt,
+                                                          mesh)}
+                if shape.mode == "train":
+                    sized["zero1"] = dryrun.sharded_arguments(
+                        cfg, shape, rt, mesh, zero1=True)
+                for key, r in sized.items():
+                    if not (0 < r["argument_bytes_per_device"]
+                            <= r["argument_bytes"]):
+                        raise AssertionError(
+                            f"4q (i) {arch} x {shape_name} x {mesh_name} "
+                            f"{key}: {r}")
+                if "zero1" in sized and not (
+                        sized["zero1"]["argument_bytes_per_device"]
+                        < sized["base"]["argument_bytes_per_device"]):
+                    raise AssertionError(f"4q (i) {arch} x {shape_name} x "
+                                         f"{mesh_name}: zero1 {sized}")
+                row[mesh_name] = sized
+            out["sizing"][f"{arch} x {shape_name}"] = row
+            base = row["16x16"]["base"]
+
+            def gib(r):
+                return f"{r['argument_bytes_per_device'] / 2**30:.4f}"
+            log(f"[4q (i) sizing] {arch} x {shape_name}: "
+                f"{base['sharded_leaves']} of {base['leaves']} leaves "
+                f"sharded, {base['argument_bytes'] / 2**30:.3f} GiB whole; "
+                "a device: " + "; ".join(
+                    f"{m} {gib(row[m]['base'])} GiB"
+                    + (f" (zero1 {gib(row[m]['zero1'])})"
+                       if "zero1" in row[m] else "") for m in Q_MESHES))
+    out["sizing_s"] = time.perf_counter() - t0
+    log(f"[4q (i) sizing] {len(out['sizing'])} (arch, shape) pairs x "
+        f"{len(Q_MESHES)} meshes sized in {out['sizing_s']:.2f} s (host "
+        "only; every sharded dim exists, per-device <= whole, zero1 "
+        "lower on every train shape)")
+    # (ii) the drivers under multi_pod
+    cfg = get_arch(N_ARCH)
+    dec_shape = get_shape("decode_32k")
+    rt = dataclasses.replace(
+        dryrun.runtime_for(cfg, dec_shape, multi_pod=True),
+        attn_impl="pallas")
+    _zero(counted)
+    r = dryrun.run_pair(N_ARCH, "decode_32k", rt=rt, multi_pod=True,
+                        batch=N_DECODE_BATCH, repeats=N_DECODE_STEPS - 1,
+                        keep_output=True, device=device)
+    got = r.pop("output")
+    r["launches_run"] = _read(counted)
+    want = {name: (cfg.n_layers * N_DECODE_STEPS if name == "flash_decode"
+                   else 0) for name in counted}
+    same = bool(torch.equal(got, n_decode_out))
+    del got
+    log(_row_line("(ii) decode pallas multi_pod", r, smi).replace(
+        "[4n ", "[4q ") + f"; mesh {r['mesh']}, "
+        f"{r['memory']['argument_bytes_per_device']} argument bytes a "
+        f"device; last logits bitwise 4n's run: {'yes' if same else 'NO'}")
+    if r["mesh"] != "2x16x16" or r["launches_run"] != want or not same:
+        raise AssertionError(f"4q (ii): mesh {r['mesh']}, launches "
+                             f"{r['launches_run']} (expected {want}), "
+                             f"bitwise {same}")
+    if r["runtime"]["moe_shard_axes"] != str(("pod", "data")):
+        raise AssertionError(f"4q (ii): runtime {r['runtime']}")
+    out["decode_multi_pod"] = r
+    rows_file = OUT_DIR / "perf_multi_pod.jsonl"
+    rows_file.unlink(missing_ok=True)
+    perf.main(["--arch", N_ARCH, "--shape", "train_4k", "--variants",
+               "baseline,zero1", "--layers", str(Q_PERF_LAYERS),
+               "--multi-pod", "--out", str(rows_file)]
+              + ([] if device is None else ["--device", device]))
+    rows = [json.loads(line) for line in rows_file.read_text().splitlines()]
+    if (len(rows) != 2 or any("error" in x or x["mesh"] != "2x16x16"
+                              for x in rows)
+            or not (rows[1]["memory"]["argument_bytes_per_device"]
+                    < rows[0]["memory"]["argument_bytes_per_device"])):
+        raise AssertionError(f"4q (ii) perf --multi-pod: {rows}")
+    out["perf_multi_pod"] = rows
+    log(f"[4q (ii) perf --multi-pod] {N_ARCH} x train_4k at "
+        f"{Q_PERF_LAYERS} layers: baseline / zero1 "
+        + " / ".join(f"{x['ms_per_step']:.1f}" for x in rows)
+        + " ms a step, arguments a device of 2x16x16 "
+        + " / ".join(f"{x['memory']['argument_bytes_per_device'] / 2**30:.3f}"
+                     for x in rows) + f" GiB; {smi}")
+    gc.collect()
+    if device is None:
+        torch.cuda.empty_cache()
+    # (iii) the batch mesh: two entries of the one card
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if device is None else torch.device(device))
+    mesh = Mesh((card, card))
+    fields = ("times", "global_batch")
+    ragged = [_service_specs(env, partition=p, seeds=(0,), name=f"K{k}",
+                             fleet=fleet(env.DeviceProfile, k))
+              for p, k in zip(("iid", "noniid", "iid"), Q_RAGGED_K)]
+    runs = (("main cell, MeshExecutor", specs, api.MeshExecutor(mesh)),
+            ("ragged 3 rows, MeshExecutor", ragged, api.MeshExecutor(mesh)),
+            ("main cell, AsyncExecutor", specs, api.AsyncExecutor(mesh=mesh)))
+    out["batch_mesh"] = {}
+    serial_runs = {}
+    for label, run_specs, executor in runs:
+        exp = env.Experiment(env.data, env.test, run_specs, device=device)
+        key = id(run_specs)
+        if key not in serial_runs:
+            exp.run(1)                                  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            serial_runs[key] = (exp.run(PERIODS,
+                                        executor=env.SerialExecutor()),
+                                None)
+            sync()
+            serial_runs[key] = (serial_runs[key][0],
+                                time.perf_counter() - t0)
+        serial, serial_wall = serial_runs[key]
+        exp.run(1, executor=executor)                    # warm-up
+        sync()
+        _zero(counted)
+        t0 = time.perf_counter()
+        res = exp.run(PERIODS, executor=executor)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _read(counted)
+        buckets = exp.lower()
+        if len(buckets) != 1:
+            raise AssertionError(f"4q (iii) {label}: {len(buckets)} "
+                                 "buckets, expected one")
+        n = len(buckets[0].rows)
+        shards = mesh.size
+        want = {name: (len(LEAF_LENGTHS) * PERIODS * shards
+                       if name in ("sbc_stats", "sbc_apply") else 0)
+                for name in counted}
+        gaps = {f: float(np.abs(getattr(res, f) - getattr(serial, f)).max())
+                for f in ("losses", "accs")}
+        bitwise = all(np.array_equal(getattr(res, f), getattr(serial, f))
+                      for f in fields)
+        out["batch_mesh"][label] = {
+            "rows": n, "padded_to": n + (-n) % shards, "wall_s": wall,
+            "serial_wall_s": serial_wall, "launches": launches,
+            "ledgers_bitwise": bitwise, "max_abs_gap": gaps}
+        log(f"[4q (iii) batch mesh] {label}: {n} rows padded to "
+            f"{n + (-n) % shards} over 2 entries of the card, {PERIODS} "
+            f"periods in {wall:.3f} s = {1e3 * wall / PERIODS:.1f} "
+            f"ms/period against SerialExecutor on the card alone "
+            f"{serial_wall:.3f} s = {1e3 * serial_wall / PERIODS:.1f} "
+            f"ms/period; ledgers bitwise: {'yes' if bitwise else 'NO'}; "
+            f"max |gap| losses {gaps['losses']:.3g}, accuracies "
+            f"{gaps['accs']:.3g} (tol {Q_TOL}); launches {launches} "
+            f"(expected {want}); {smi}")
+        if (not bitwise or launches != want
+                or max(gaps.values()) > Q_TOL):
+            raise AssertionError(f"4q (iii) {label}: ledgers bitwise "
+                                 f"{bitwise}, gaps {gaps}, launches "
+                                 f"{launches} (expected {want})")
+    # a short service tape over the mesh against SerialExecutor twins
+    tape = [_service_specs(env, partition="iid", seeds=(0, 1)),
+            _service_specs(env, partition="noniid", seeds=(2,)),
+            _service_specs(env, partition="iid", seeds=(3,),
+                           name=f"K{Q_RAGGED_K[-1]}",
+                           fleet=fleet(env.DeviceProfile, Q_RAGGED_K[-1]))]
+    svc = ExperimentService(env.data, env.test, device=device, mesh=mesh,
+                            chunk_periods=Q_SERVICE_CHUNK,
+                            clock=VirtualClock(),
+                            cache=ProgramCache(shared=False))
+    _zero(counted)
+    t0 = time.perf_counter()
+    tickets = [svc.submit(spec, periods=Q_SERVICE_PERIODS) for spec in tape]
+    svc.drain()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _read(counted)
+    # the admission group's twin: its rows in one bucket, unsharded
+    t0 = time.perf_counter()
+    twin = env.Experiment(env.data, env.test, tape, device=device).run(
+        Q_SERVICE_PERIODS,
+        executor=env.SerialExecutor(chunk_periods=Q_SERVICE_CHUNK))
+    sync()
+    serial_wall = time.perf_counter() - t0
+    gaps = {"losses": 0.0, "accs": 0.0}
+    bitwise, row = True, 0
+    for ticket, spec in zip(tickets, tape):
+        got, take = ticket.result(), slice(row, row + len(spec.seeds))
+        row += len(spec.seeds)
+        bitwise &= all(np.array_equal(getattr(got, f),
+                                      getattr(twin, f)[take])
+                       for f in fields)
+        for f in gaps:
+            gaps[f] = max(gaps[f], float(np.abs(
+                getattr(got, f) - getattr(twin, f)[take]).max()))
+    s = svc.stats.to_dict()
+    out["batch_mesh"]["service"] = {
+        "tickets": len(tickets), "admissions": s["admissions"],
+        "wall_s": wall, "serial_twin_wall_s": serial_wall,
+        "launches": launches, "ledgers_bitwise": bitwise,
+        "max_abs_gap": gaps}
+    log(f"[4q (iii) batch mesh] ExperimentService(mesh=) tape: "
+        f"{len(tickets)} tickets ({[len(sp.seeds) for sp in tape]} rows, "
+        f"K {[sp.k for sp in tape]}), {s['admissions']} admissions, "
+        f"{Q_SERVICE_PERIODS} periods in chunks of {Q_SERVICE_CHUNK}, in "
+        f"{wall:.3f} s against its admission group's SerialExecutor twin "
+        f"on the card alone {serial_wall:.3f} s; ledgers bitwise: "
+        f"{'yes' if bitwise else 'NO'}; max |gap| losses "
+        f"{gaps['losses']:.3g}, accuracies {gaps['accs']:.3g} (tol "
+        f"{Q_TOL}); launches {launches}; {smi}")
+    # every admission dispatches one shard an entry of the mesh
+    want = {name: (s["admissions"] * len(LEAF_LENGTHS) * Q_SERVICE_PERIODS
+                   * mesh.size if name in ("sbc_stats", "sbc_apply") else 0)
+            for name in counted}
+    if not bitwise or max(gaps.values()) > Q_TOL or launches != want:
+        raise AssertionError(f"4q (iii) service: ledgers bitwise {bitwise},"
+                             f" gaps {gaps}, launches {launches} (expected "
+                             f"{want})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4884,6 +5166,7 @@ def main(argv=None) -> int:
     except (AssertionError, FloatingPointError) as exc:
         return fail(f"phase {exc}")
     n_report = report["production"]
+    n_decode_out = n_report.pop("_decode_output")
     log(f"[4n production] phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 4o. SSM and hybrid training: B3' at full width, B4 at hd 112 ----
@@ -4907,6 +5190,18 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase {exc}")
     log(f"[4p audit] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4q. the mesh half of launch, the batch mesh over two entries -------
+    t0 = time.perf_counter()
+    try:
+        report["mesh"] = mesh_cell(
+            env, specs, api, dryrun, perf, get_arch, get_shape,
+            all_kernels | {"flash_decode": kfd.flash_decode},
+            n_decode_out, smi)
+    except (AssertionError, FloatingPointError, ValueError) as exc:
+        return fail(f"phase {exc}")
+    q_mesh = report["mesh"]
+    log(f"[4q mesh] phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",
@@ -5102,7 +5397,11 @@ def main(argv=None) -> int:
                                      k_sbc[name],
                                  f"{M4_SBC_ARCH} at {M4_SBC_LAYERS} layers, "
                                  f"make_train_step --compress-uplink, "
-                                 f"{M4_SBC_STEPS} steps, 4m": m4_sbc[name]},
+                                 f"{M4_SBC_STEPS} steps, 4m": m4_sbc[name],
+                                 **{f"batch mesh of 2 entries, {label}, 4q":
+                                    run["launches"][name]
+                                    for label, run in
+                                    q_mesh["batch_mesh"].items()}},
             "max_abs_err": errs[name],
             "at_w_down": report["sbc_w_down"][name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -5333,6 +5632,10 @@ def main(argv=None) -> int:
                              f"{N_ARCH} decode_32k bf16, batch "
                              f"{N_DECODE_BATCH}, {N_DECODE_STEPS} steps, 4n":
                                  n_report["decode"]["pallas"][
+                                     "launches_run"]["flash_decode"],
+                             f"{N_ARCH} decode_32k bf16 multi_pod, batch "
+                             f"{N_DECODE_BATCH}, {N_DECODE_STEPS} steps, 4q":
+                                 q_mesh["decode_multi_pod"][
                                      "launches_run"]["flash_decode"]},
         "at_prod_bf16": {**{f: dt["prod_bf16"][f] for f in (
             "shape", "pos", "dtype", "ms", "device_ms", "plain_ms",

@@ -18,15 +18,22 @@ are bitwise equal in results; they differ only in wall time.
   the caller enqueues; what the schedule hides is the card's queued tail,
   which runs on while the host plans the next chunk instead of waiting in
   a per-chunk collect.
-* :class:`MeshExecutor` — the serial schedule over a one-device
-  ``launch.mesh`` batch mesh, built over the experiment's device type when
-  none is given: the bucket runs on that device.
+* :class:`MeshExecutor` — the serial schedule over a ``launch.mesh``
+  batch mesh, built over every device of the experiment's device type
+  when none is given.
 
-A mesh (``mesh=`` on any executor) must be a ``"batch"`` mesh of one
-device, the experiment's own: a mesh of several devices raises
-``NotImplementedError`` (sharding the batch axis over several cards waits
-for a multi-card path), and a mesh on another device raises
-``ValueError`` — an executor does not move data behind the caller's back.
+A mesh (``mesh=`` on any executor) is a ``"batch"`` mesh.  Of one
+device, it must be the experiment's own, and the bucket runs there
+unchanged; of several, each must be of the experiment's device type (its
+entries may repeat one device), and every bucket's rows are padded
+cyclically to a multiple of the mesh, cut into one contiguous shard a
+device and dispatched shard after shard, each against a copy of the data
+sets on its device; the collect gathers them in shard order and slices
+back (``api.lowering.dispatch_bucket``).  Host ledgers are the plain
+run's bitwise; device series agree to float tolerance, since a shard's
+batched products run at another row count.  A mesh on another device
+(type) raises ``ValueError`` — an executor does not move an experiment
+behind the caller's back.
 
 A bucket whose specs set ``replan=`` (or run under
 ``Experiment.run(replan=)``) is closed-loop: it chunks at the replan
@@ -50,30 +57,31 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.api.lowering import Bucket, BucketRun
-from repro_torch.launch.mesh import ensure_batch_mesh, make_batch_mesh
+from repro_torch.launch.mesh import (canonical_device, ensure_batch_mesh,
+                                     make_batch_mesh)
 
 BucketSeries = Tuple[Bucket, tuple]
 
 
-def _canonical(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def _check_mesh(mesh, device):
-    """A validated one-device batch mesh on ``device``."""
+    """A validated batch mesh for an experiment on ``device``: one device,
+    the experiment's own, or several of its device type."""
     mesh = ensure_batch_mesh(mesh)
-    if len(mesh.devices) != 1:
-        raise NotImplementedError(
-            f"a batch mesh of {len(mesh.devices)} devices: sharding the "
-            "batch axis over several cards is not ported; pass "
-            "max_devices=1 or a one-device mesh")
-    if _canonical(mesh.devices[0]) != _canonical(device):
+    if mesh.abstract:
+        raise ValueError("an abstract mesh holds no devices to run on")
+    if mesh.size == 1:
+        if canonical_device(mesh.devices[0]) != canonical_device(device):
+            raise ValueError(
+                f"the mesh's device {mesh.devices[0]} is not the "
+                f"experiment's device {device}; build the Experiment on "
+                "the mesh's device")
+        return mesh
+    kind = torch.device(device).type
+    other = [d for d in mesh.devices if torch.device(d).type != kind]
+    if other:
         raise ValueError(
-            f"the mesh's device {mesh.devices[0]} is not the experiment's "
-            f"device {device}; build the Experiment on the mesh's device")
+            f"the mesh's devices {other} are not of the experiment's "
+            f"device type {kind!r}; build the Experiment on that type")
     return mesh
 
 
@@ -87,9 +95,15 @@ class Executor:
         self.mesh = mesh
         self.chunk_periods = chunk_periods
         self.timings = {}
+        self._mesh = None
 
     def _resolve_mesh(self, device):
         return None if self.mesh is None else _check_mesh(self.mesh, device)
+
+    def _start(self, device) -> None:
+        """Validate the mesh and zero the timings before a run."""
+        self._mesh = self._resolve_mesh(device)
+        self.timings = {}
 
     def _chunk_for(self, bucket: Bucket) -> Optional[int]:
         """The bucket's chunk size, or ``None`` for one monolithic chunk.
@@ -103,7 +117,8 @@ class Executor:
     def _run(self, bucket: Bucket, data, arrays, periods: int) -> BucketRun:
         chunk = self._chunk_for(bucket)
         return BucketRun(bucket, data, periods,
-                         periods if chunk is None else chunk, arrays)
+                         periods if chunk is None else chunk, arrays,
+                         mesh=self._mesh)
 
     def _bank(self, run: BucketRun) -> None:
         for key, sec in run.seconds.items():
@@ -122,8 +137,7 @@ class SerialExecutor(Executor):
     """One bucket at a time, plan → dispatch → collect per chunk."""
 
     def execute(self, buckets, data, arrays, periods):
-        self._resolve_mesh(arrays.device)
-        self.timings = {}
+        self._start(arrays.device)
         for bucket in buckets:
             run = self._run(bucket, data, arrays, periods)
             series = run.run_serial()
@@ -161,8 +175,7 @@ class AsyncExecutor(Executor):
         return run.bucket, series
 
     def execute(self, buckets, data, arrays, periods):
-        self._resolve_mesh(arrays.device)
-        self.timings = {}
+        self._start(arrays.device)
         cap = self.max_in_flight or len(buckets)
         pending: deque = deque()
         for bucket in buckets:
@@ -177,7 +190,7 @@ class AsyncExecutor(Executor):
 
 
 class MeshExecutor(SerialExecutor):
-    """The serial schedule over a one-device batch mesh; builds
+    """The serial schedule over a batch mesh; builds
     ``make_batch_mesh(max_devices)`` over the experiment's device type
     when no mesh is given."""
 

@@ -40,6 +40,16 @@ is bitwise equal to the monolithic one.  Its planning step touches no
 torch, so a pipelined executor plans the next chunk while the card still
 runs what the current one enqueued.
 
+On a batch mesh of several devices (``launch.mesh.make_batch_mesh``, or
+a :class:`~repro_torch.launch.mesh.Mesh` whose devices repeat one
+device), :func:`dispatch_bucket` pads the bucket's n rows cyclically to
+a multiple of the mesh (``pad_batch``, the reference's ``_pad_rows``),
+cuts them into ``mesh.size`` contiguous shards, and enqueues shard i on
+``devices[i]`` against a copy of the data sets there
+(:meth:`DeviceData.on`), shard after shard with no sync between them;
+:func:`collect_bucket` gathers the shards in order and slices back to n.
+Planning never sees the mesh: host ledgers are the unsharded run's.
+
 Because planning happens between chunks, a bucket whose specs set
 ``replan=`` (or run under ``Experiment.run(replan=)``) closes the
 Algorithm-1 loop: chunk *c*'s realized loss decays are copied to the host
@@ -66,6 +76,7 @@ from repro_torch.core.scheduler import (DevScheduler, FeelScheduler,
 from repro_torch.data.pipeline import (FederatedBatcher, partition_iid,
                                        partition_noniid)
 from repro_torch.fed import engine, feel_model, model_engine
+from repro_torch.launch.mesh import canonical_device, pad_batch
 from repro_torch.topology import band_width
 from repro_torch.tree import tree_map
 
@@ -169,10 +180,22 @@ class DeviceData:
     engine reads — features for feel-mlp (``engine.dataset_to_device``),
     token sequences for the big-model families
     (``model_engine.tokens_to_device``) — each uploaded once, at first
-    use."""
+    use.  :meth:`on` gives the same data on another device of a batch
+    mesh, one copy a device."""
     data: object
     test: object
     device: object
+    _copies: dict = field(default_factory=dict, repr=False)
+
+    def on(self, device) -> "DeviceData":
+        """This data on ``device``: itself on its own device, else a copy
+        made at the first call for that device and kept."""
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self
+        if device not in self._copies:
+            self._copies[device] = DeviceData(self.data, self.test, device)
+        return self._copies[device]
 
     @cached_property
     def features(self) -> tuple:
@@ -275,15 +298,17 @@ class BucketHandle:
     """Phase-2 output: in-flight device series + finished host ledgers,
     and the engine carry after this dispatch.  ``decays`` (FEEL buckets)
     are the realized per-period loss decays, the closed loop's ξ
-    feedback."""
+    feedback.  Dispatched over a batch mesh of several devices, each
+    device series is a tuple of the shards' (n_pad / size, P) tensors in
+    shard order and ``state`` a list of the shards' carries."""
     bucket: Bucket
-    losses: torch.Tensor         # (n, P) on the device
-    accs: torch.Tensor           # (n, P) on the device
+    losses: object               # (n, P) on the device, or its shards
+    accs: object                 # (n, P) on the device, or its shards
     times: np.ndarray
     global_batch: np.ndarray
-    state: engine.EngineState
+    state: object                # engine.EngineState, or one a shard
     energy: Optional[np.ndarray] = None   # (n, P, k_pad) host joules
-    decays: Optional[torch.Tensor] = None  # (n, P) on the device, feel
+    decays: object = None        # (n, P) on the device (feel), or shards
 
 
 class _FeelPlanner:
@@ -517,8 +542,61 @@ def _broadcast_rows(params, n: int):
         (a.shape[0], n) + a.shape[1:]).contiguous(), params)
 
 
-def dispatch_bucket(plan: BucketPlan, arrays: DeviceData,
-                    state=None) -> BucketHandle:
+def _take_rows(plan: BucketPlan, take: np.ndarray) -> BucketPlan:
+    """The plan of the rows ``take`` (indices into the bucket's rows, in
+    order, repeats allowed), padded to the bucket's ``k_pad``."""
+    bucket = plan.bucket
+
+    def rows(a):
+        return None if a is None else a[take]
+    # band pins the shard's k_pad to the whole bucket's
+    sub = replace(bucket, rows=[bucket.rows[j] for j in take],
+                  band=bucket.k_pad)
+    return replace(plan, bucket=sub, times=plan.times[take],
+                   global_batch=plan.global_batch[take],
+                   schedules=(None if plan.schedules is None
+                              else [plan.schedules[j] for j in take]),
+                   active=plan.active[take], energy=rows(plan.energy),
+                   member=rows(plan.member), cloud=rows(plan.cloud),
+                   idx=rows(plan.idx), lr=rows(plan.lr))
+
+
+def shard_rows(n: int, mesh) -> list:
+    """The row indices of each of ``mesh``'s shards: the n rows padded
+    cyclically to a multiple of the mesh (the reference's ``_pad_rows``,
+    valid when the mesh is larger than the bucket) and cut into
+    ``mesh.size`` contiguous pieces."""
+    wrap = np.arange(n + pad_batch(n, mesh)) % n
+    return np.split(wrap, mesh.size)
+
+
+def dispatch_bucket(plan: BucketPlan, arrays: DeviceData, state=None,
+                    mesh=None) -> BucketHandle:
+    """Enqueue one planned bucket's device loop, on ``arrays``' device, or
+    over a batch ``mesh`` of several devices: shard i of
+    :func:`shard_rows` on ``mesh.devices[i]``, against ``arrays.on`` it,
+    the shards enqueued back to back (``state``: one carry a shard).  A
+    mesh of one device is the plain path."""
+    if mesh is None or mesh.size == 1:
+        return _dispatch(plan, arrays, state)
+    states = state if state is not None else [None] * mesh.size
+    handles = [_dispatch(_take_rows(plan, take), arrays.on(device), st)
+               for take, device, st in zip(shard_rows(len(plan.bucket.rows),
+                                                      mesh),
+                                           mesh.devices, states)]
+
+    def shards(name):
+        series = tuple(getattr(h, name) for h in handles)
+        return None if series[0] is None else series
+    return BucketHandle(bucket=plan.bucket, losses=shards("losses"),
+                        accs=shards("accs"), times=plan.times,
+                        global_batch=plan.global_batch,
+                        state=[h.state for h in handles],
+                        energy=plan.energy, decays=shards("decays"))
+
+
+def _dispatch(plan: BucketPlan, arrays: DeviceData,
+              state=None) -> BucketHandle:
     """Enqueue one planned bucket's device loop: the dev loop for a dev
     bucket (the reference's ``_dispatch_dev``); else, as the reference's
     ``_dispatch_feel``, the hierarchical loop under a topology, the
@@ -801,10 +879,19 @@ def audit_bucket_taint(plan: BucketPlan, data, test, report=None, *,
     return report
 
 
+def _to_host(series, n: int) -> np.ndarray:
+    """A device series as an (n, P) host array: one tensor, or the shards
+    of a batch mesh gathered in shard order and sliced back to n rows."""
+    if isinstance(series, torch.Tensor):
+        return series.cpu().numpy()
+    return np.concatenate([s.cpu().numpy() for s in series])[:n]
+
+
 def collect_bucket(handle: BucketHandle):
     """Wait for the bucket's device values; returns ``(losses, accs,
     times, global_batch)`` — (n, P) host arrays, one row per computed row."""
-    return (handle.losses.cpu().numpy(), handle.accs.cpu().numpy(),
+    n = len(handle.bucket.rows)
+    return (_to_host(handle.losses, n), _to_host(handle.accs, n),
             handle.times, handle.global_batch)
 
 
@@ -833,6 +920,7 @@ class BucketRun:
       run ahead as far as it likes.
 
     ``seconds`` sums the host clock spent in each of the three.
+    ``mesh`` is the executor's batch mesh (None: ``arrays``' device).
 
     With ξ frozen (open loop) any chunk size, and any interleaving of the
     three, is bitwise equal to the monolithic three-phase path."""
@@ -841,6 +929,7 @@ class BucketRun:
     periods: int
     chunk: int
     arrays: DeviceData
+    mesh: object = None
     planned: int = 0
     dispatched: int = 0
     collected: int = 0
@@ -903,7 +992,8 @@ class BucketRun:
         if self.dispatched >= self.planned:
             raise RuntimeError("no planned chunk awaits dispatch")
         t0 = time.perf_counter()
-        handle = dispatch_bucket(plan, self.arrays, state=self._state)
+        handle = dispatch_bucket(plan, self.arrays, state=self._state,
+                                 mesh=self.mesh)
         # the carry lives on in the next chunk; a handle in flight keeps
         # only its series
         self._state, handle.state = handle.state, None
@@ -933,7 +1023,7 @@ class BucketRun:
         p_c, handle = self._pending.popleft()
         chunk = collect_bucket(handle)
         if self.closed_loop:
-            decays = handle.decays.cpu().numpy()
+            decays = _to_host(handle.decays, len(self.bucket.rows))
             self._decays.append(decays)
             self._planner.observe(decays, handle.global_batch)
         self._chunks.append(chunk)
@@ -946,15 +1036,19 @@ class BucketRun:
     def park(self) -> list:
         """Suspend the run at the current chunk boundary: collect every
         chunk in flight (returned oldest first, so a caller can still
-        stream them) and fence the engine carry (a CUDA synchronize; a
-        no-op on the CPU).  Resuming a parked run with plain
-        :meth:`advance` is bitwise equal to never having parked."""
+        stream them) and fence the engine carry (a CUDA synchronize of
+        each device the run uses; a no-op on the CPU).  Resuming a parked
+        run with plain :meth:`advance` is bitwise equal to never having
+        parked."""
         banked = []
         while self._pending:
             banked.append(self.collect())
-        device = torch.device(self.arrays.device)
-        if self._state is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if self._state is not None:
+            devices = ((self.arrays.device,) if self.mesh is None
+                       else self.mesh.devices)
+            for device in {canonical_device(d) for d in devices}:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
         return banked
 
     @property

@@ -1,40 +1,41 @@
-"""Registry: ``--arch <id>`` -> ArchConfig, for the architectures the port
-runs (the reference's ``configs/__init__.py``, cut to them).
+"""Registry: ``--arch <id>`` -> ArchConfig (port of the reference's
+``configs/__init__.py``).
 
-``get_arch`` returns only configs that ``models.model`` runs.  The
-reference's other architectures are named in :data:`NOT_PORTED`, and
-asking for one raises ``NotImplementedError``; an unknown name raises
-``KeyError``.  ``configs/feel_mlp.py`` holds the paper's classifier's
-constants, not an ``ArchConfig``.
+:data:`ARCHS` holds the reference's eleven configs: the ten decoder
+architectures of :data:`ASSIGNED`, in the reference's order, and
+``feel-mlp``, the paper's classifier (family ``"mlp"``), which
+:mod:`repro_torch.fed.feel_model` runs and ``models.model`` refuses.  An
+unknown name raises ``KeyError``.
 """
 from repro_torch.configs import (arctic_480b, deepseek_v2_lite_16b,
-                                 granite_34b, llava_next_mistral_7b,
-                                 mamba2_2p7b, minicpm3_4b, mistral_nemo_12b,
+                                 feel_mlp, granite_34b,
+                                 llava_next_mistral_7b, mamba2_2p7b,
+                                 minicpm3_4b, mistral_nemo_12b,
                                  musicgen_large, qwen1p5_4b, zamba2_7b)
 from repro_torch.configs.base import (SHAPES, ArchConfig, MLAConfig,
                                       MoEConfig, ShapeConfig, SSMConfig,
                                       get_shape)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (deepseek_v2_lite_16b, arctic_480b, granite_34b,
-                   minicpm3_4b, mistral_nemo_12b, musicgen_large, zamba2_7b,
-                   mamba2_2p7b, qwen1p5_4b, llava_next_mistral_7b)}
+         for m in (granite_34b, deepseek_v2_lite_16b, mistral_nemo_12b,
+                   musicgen_large, zamba2_7b, mamba2_2p7b, arctic_480b,
+                   qwen1p5_4b, llava_next_mistral_7b, minicpm3_4b,
+                   feel_mlp)}
 
-# the reference's registry names that are not decoder configs: feel-mlp is
-# the paper's classifier (``configs/feel_mlp.py`` holds its constants)
-NOT_PORTED = ("feel-mlp",)
+# the 10 assigned decoder architectures (feel-mlp is the paper's own extra)
+ASSIGNED = [
+    "granite-34b", "deepseek-v2-lite-16b", "mistral-nemo-12b",
+    "musicgen-large", "zamba2-7b", "mamba2-2.7b", "arctic-480b",
+    "qwen1.5-4b", "llava-next-mistral-7b", "minicpm3-4b",
+]
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; the PyTorch port runs "
-            f"{sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
 
 
 __all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-           "ShapeConfig", "SHAPES", "ARCHS",
-           "NOT_PORTED", "get_arch", "get_shape"]
+           "ShapeConfig", "SHAPES", "ARCHS", "ASSIGNED", "get_arch",
+           "get_shape"]

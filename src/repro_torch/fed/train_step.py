@@ -32,9 +32,11 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.model import (Runtime, _one_copy, decode_step,
                                       forward, init_cache)
 from repro_torch.optim import Optimizer
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (register_node, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
+@register_node
 @dataclass
 class TrainState:
     params: Any

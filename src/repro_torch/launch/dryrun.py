@@ -27,13 +27,24 @@ collectives.  It adds ``ms_per_step`` (and its spread), ``tokens_per_s``,
 formula, :mod:`.cost`), ``launches`` (each kernel's, in the counted step)
 and ``mfu``, the model FLOPs a second over the H100 SXM's dense peak of
 the run's dtype (:data:`PEAK_FLOPS`).  On the CPU the device terms
-(``compute_s``, ``memory_s``, ``mfu``) are None.  ``zero1`` is the
-identity on one card: ZeRO-1 shards the optimizer state over a data axis
-of size 1.
+(``compute_s``, ``memory_s``, ``mfu``) are None.
+
+The production mesh sizes the row as the reference's does: ``mesh`` is
+``"16x16"``, or ``"2x16x16"`` with ``multi_pod`` (which also gives
+``runtime_for`` the reference's ``moe_shard_axes``), and
+``memory.argument_bytes_per_device`` is what one device of that mesh
+holds of the *uncut* pair's arguments — parameters and train state (or
+cache and inputs) at full depth and the full global batch — by the
+sharding rules (:func:`sharded_arguments`).  ``zero1`` shards the
+optimizer state over the data axes there, so it lowers that figure on a
+train shape; ``chips`` stays 1, since the measured step ran on one card.
+The measured step places its parameters, state, inputs and cache through
+:func:`repro_torch.launch.sharding.place` over the card's (1, 1) host
+mesh, which on one card is the identity.
 
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b --shape train_4k
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b \\
-        --shape decode_32k --device cpu --layers 2 --batch 1
+        --shape decode_32k --device cpu --layers 2 --batch 1 --multi-pod
 
 It runs on the GPU unless ``--device cpu`` is given, and raises when CUDA
 is not available.
@@ -45,6 +56,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,7 +65,7 @@ import time
 import torch
 
 from repro_torch.api.experiment import resolve_device
-from repro_torch.configs import ARCHS, get_arch, get_shape, SHAPES
+from repro_torch.configs import ASSIGNED, get_arch, get_shape, SHAPES
 from repro_torch.fed.engine import full_f32
 from repro_torch.fed.train_step import (TrainState, input_specs,
                                         make_prefill_step, make_serve_step,
@@ -63,10 +75,12 @@ from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import sbc as ksbc
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.launch import cost
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.model import Runtime, init
+from repro_torch.models.model import Runtime, init, param_spec
 from repro_torch.optim import momentum
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_leaves_with_path
 
 # NVIDIA H100 SXM (data sheet): dense peaks by dtype, HBM rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -88,14 +102,70 @@ KERNELS = {"flash_attention_fwd": kfa.flash_attention_fwd,
            "sbc_stats": ksbc.sbc_stats, "sbc_apply": ksbc.sbc_apply}
 
 
-def runtime_for(cfg, shape):
+def runtime_for(cfg, shape, multi_pod: bool = False):
     window = None
     if (shape.name == "long_500k" and cfg.attn_kind == "gqa"
             and cfg.n_heads and cfg.family not in ("ssm",)):
         window = LONG_CTX_WINDOW
     return Runtime(dtype=torch.bfloat16, attn_impl="blockwise", block_q=512,
                    window=window, remat=(shape.mode == "train"),
-                   moe_shard_axes=("data",))
+                   moe_shard_axes=(("pod", "data") if multi_pod
+                                   else ("data",)))
+
+
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _argument_shardings(mode: str, mesh, zero1: bool, args) -> list:
+    """``(tree, shardings)`` of each argument of the pair's step, by the
+    reference's rules: the train state and batch (train), the parameters
+    and batch (prefill), the parameters and the cache and tokens
+    (decode).  ``args`` is ``(params, state, inputs)``, ``state`` None
+    but for training."""
+    params, state, inputs = args
+    if mode == "train":
+        rule = shd.state_shardings_zero1 if zero1 else shd.state_shardings
+        return [(state, rule(mesh, state)),
+                (inputs, shd.batch_shardings(mesh, inputs))]
+    if mode == "prefill":
+        return [(params, shd.params_shardings(mesh, params)),
+                (inputs, shd.batch_shardings(mesh, inputs))]
+    return [(params, shd.params_shardings(mesh, params)),
+            (inputs, shd.decode_input_shardings(mesh, inputs))]
+
+
+def sharded_arguments(cfg, shape, rt, mesh, opt=None,
+                      zero1: bool = False) -> dict:
+    """The bytes of the pair's step arguments (``param_spec`` and
+    ``input_specs`` on the ``meta`` device, at ``cfg``'s depth and
+    ``shape``'s global batch), whole and on one device of ``mesh`` by the
+    sharding rules (``shard_shape`` rounds an uneven dimension up), with
+    the count of tensor leaves and of those the rules shard.  Raises
+    ``ValueError`` when a spec names a dimension the leaf lacks."""
+    params = param_spec(cfg, rt.dtype)
+    state = None
+    if shape.mode == "train":
+        state = TrainState(params, (opt or momentum(0.9)).init(params), 0)
+    pairs = _argument_shardings(shape.mode, mesh, zero1,
+                                (params, state, input_specs(cfg, shape, rt)))
+    out = dict.fromkeys(("argument_bytes", "argument_bytes_per_device",
+                         "leaves", "sharded_leaves"), 0)
+    for tree, shardings in pairs:
+        for (path, leaf), (_, sh) in zip(tree_leaves_with_path(tree),
+                                         tree_leaves_with_path(shardings)):
+            if not isinstance(leaf, torch.Tensor):      # the step count
+                continue
+            if len(sh.spec) > leaf.dim():
+                raise ValueError(f"{cfg.name} x {shape.name}: spec {sh.spec} "
+                                 f"for a {leaf.dim()}-d leaf at {path}")
+            size = leaf.element_size()
+            out["argument_bytes"] += leaf.numel() * size
+            out["argument_bytes_per_device"] += size * math.prod(
+                sh.shard_shape(tuple(leaf.shape)))
+            out["leaves"] += 1
+            out["sharded_leaves"] += any(a is not None for a in sh.spec)
+    return out
 
 
 def model_flops(cfg, shape) -> float:
@@ -151,15 +221,22 @@ def _cache(specs, gen, device, pos: int):
     return cache
 
 
-def _build(cfg, shape, rt, opt, params, gen, device, steps: int):
+def _build(cfg, shape, rt, opt, zero1, params, gen, device, steps: int):
     """``(one, state)``: one step of the pair as a callable returning what
     is checked for finite values, and the tensors it holds beside the
-    parameters."""
+    parameters; every argument placed by the sharding rules over the
+    device's host mesh (the identity on one device)."""
     specs = input_specs(cfg, shape, rt)
+    host = make_host_mesh(device)
+
+    def placed(*args):
+        return [shd.place(tree, shardings) for tree, shardings
+                in _argument_shardings(shape.mode, host, zero1, args)]
     if shape.mode == "train":
         opt = opt or momentum(0.9)
-        box = [TrainState(params, opt.init(params), 0)]
-        batch = _batch(cfg, specs, gen, device)
+        state, batch = placed(None, TrainState(params, opt.init(params), 0),
+                              _batch(cfg, specs, gen, device))
+        box = [state]
         step = make_train_step(cfg, rt, opt)
 
         def one():
@@ -167,7 +244,7 @@ def _build(cfg, shape, rt, opt, params, gen, device, steps: int):
             return metrics["total_loss"]
         return one, {"opt": box[0].opt, "batch": batch}
     if shape.mode == "prefill":
-        batch = _batch(cfg, specs, gen, device)
+        params, batch = placed(params, None, _batch(cfg, specs, gen, device))
         prefill = make_prefill_step(cfg, rt)
 
         def one():
@@ -177,6 +254,8 @@ def _build(cfg, shape, rt, opt, params, gen, device, steps: int):
     cache = _cache(specs["cache"], gen, device, shape.seq_len - steps)
     tokens = torch.randint(0, cfg.vocab, specs["tokens"].shape,
                            generator=gen, dtype=torch.int32, device=device)
+    params, inputs = placed(params, None, {"cache": cache, "tokens": tokens})
+    cache, tokens = inputs["cache"], inputs["tokens"]
     serve = make_serve_step(cfg, rt)
 
     def one():
@@ -216,14 +295,20 @@ def _finite(what: str, t):
 
 
 def run_pair(arch: str, shape_name: str, rt=None, opt=None,
-             zero1: bool = False, *, device=None, layers: int = 0,
-             batch: int = 0, repeats: int = 3) -> dict:
+             zero1: bool = False, *, multi_pod: bool = False, device=None,
+             layers: int = 0, batch: int = 0, repeats: int = 3,
+             keep_output: bool = False) -> dict:
     """Run one (arch × shape) pair on one device; see the module's
-    docstring for the row."""
+    docstring for the row.  ``keep_output`` adds the last step's output
+    (the loss, or the logits cut to the vocabulary) to the row as
+    ``output``, on the device."""
     dev = resolve_device(device)
     full_f32(dev)
     cfg, shape = get_arch(arch), get_shape(shape_name)
-    rt = rt or runtime_for(cfg, shape)
+    rt = rt or runtime_for(cfg, shape, multi_pod)
+    sized = sharded_arguments(cfg, shape, rt,
+                              make_production_mesh(multi_pod=multi_pod),
+                              opt=opt, zero1=zero1)
     reduced = {}
     if layers and layers != cfg.n_layers:
         reduced["n_layers"] = [cfg.n_layers, layers]
@@ -239,7 +324,7 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     gen = torch.Generator(device=dev).manual_seed(0)
     try:
         params = init(cfg, gen, rt.dtype)
-        one, held = _build(cfg, shape, rt, opt, params, gen, dev,
+        one, held = _build(cfg, shape, rt, opt, zero1, params, gen, dev,
                            repeats + 1)
         arg_bytes = sum(t.numel() * t.element_size()
                         for t in tree_leaves([params, held]))
@@ -267,6 +352,7 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         loss = float(out) if shape.mode == "train" else None
         opt_state = (str(tree_leaves(held["opt"])[0].dtype).split(".")[-1]
                      if shape.mode == "train" else None)
+        kept = out if keep_output else None
         del params, one, held, out
     finally:
         gc.collect()
@@ -281,8 +367,9 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     peak = PEAK_FLOPS.get(rt.dtype) if on_card else None
     terms = {"compute_s": flops / peak if peak else None,
              "memory_s": arg_bytes / HBM_BW if on_card else None}
-    return {
-        "arch": arch, "shape": shape_name, "mode": shape.mode, "chips": 1,
+    row = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
+        "mode": shape.mode, "chips": 1,
         "device": device_label(dev), "dtype": str(rt.dtype).split(".")[-1],
         "runtime": {f.name: str(getattr(rt, f.name))
                     for f in dataclasses.fields(rt)},
@@ -291,7 +378,10 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         "ms_per_step": ms, "ms_min": 1e3 * min(times),
         "ms_max": 1e3 * max(times), "repeats": repeats,
         "first_step_s": first_s, "tokens_per_s": tokens / (ms / 1e3),
-        "memory": {"argument_bytes": arg_bytes, "peak_bytes": peak_bytes},
+        "memory": {"argument_bytes": arg_bytes,
+                   "argument_bytes_per_device":
+                       sized["argument_bytes_per_device"],
+                   "peak_bytes": peak_bytes},
         **terms,
         "dominant": (max(terms, key=terms.get) if on_card and peak
                      else None),
@@ -303,12 +393,16 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         "mfu": mf / (ms / 1e3) / peak if peak else None,
         "loss": loss,
     }
+    if keep_output:
+        row["output"] = kept
+    return row
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' for the "
@@ -319,16 +413,17 @@ def main(argv=None):
                     help="global batch (default: ONE_CARD_BATCH's)")
     args = ap.parse_args(argv)
 
-    archs = [args.arch] if args.arch else list(ARCHS)
+    archs = [args.arch] if args.arch else ASSIGNED
     shapes = [args.shape] if args.shape else list(SHAPES)
     results = []
     for a in archs:
         for s in shapes:
             try:
-                rt = runtime_for(get_arch(a), get_shape(s))
-                r = run_pair(a, s, rt=rt, device=args.device,
-                             layers=args.layers, batch=args.batch)
-                print(f"[dryrun] {a} x {s} on {r['device']}: OK "
+                r = run_pair(a, s, multi_pod=args.multi_pod,
+                             device=args.device, layers=args.layers,
+                             batch=args.batch)
+                print(f"[dryrun] {a} x {s} x {r['mesh']} on {r['device']}: "
+                      f"OK "
                       f"{r['ms_per_step']:.2f} ms a step "
                       f"({r['tokens_per_s']:.1f} tokens/s), peak "
                       + (f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB"
@@ -339,9 +434,11 @@ def main(argv=None):
                       f"{r['useful_flops_ratio']:.3f}), MFU "
                       + (f"{r['mfu']:.3f}" if r["mfu"] is not None
                          else "not measured")
-                      + f", reduced {r['reduced']}", flush=True)
+                      + f", {r['memory']['argument_bytes_per_device']} "
+                      f"argument bytes a device of {r['mesh']}, reduced "
+                      f"{r['reduced']}", flush=True)
             except Exception as e:                            # noqa: BLE001
-                r = {"arch": a, "shape": s,
+                r = {"arch": a, "shape": s, "mesh": mesh_name(args.multi_pod),
                      "error": f"{type(e).__name__}: {e}"}
                 print(f"[dryrun] {a} x {s}: FAIL {r['error']}", flush=True)
             results.append(r)

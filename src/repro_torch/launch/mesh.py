@@ -1,30 +1,145 @@
-"""The sweep-batch mesh: a flat ``"batch"`` axis over devices, on which an
-executor would shard the flattened (scenario × seed) axis of a bucket.
+"""Meshes: devices (or, for a production mesh, none) along named axes
+(port of the reference's ``launch/mesh.py``).
 
-A port of the reference's sweep-mesh helpers (``make_batch_mesh``,
-``ensure_batch_mesh``, ``pad_batch``).  The mesh is a plain value — axis
-names and a tuple of ``torch.device`` — built from a function, so
-importing this module touches no device.  One device is the only layout
-the executors run today (the bucket runs on that device); sharding the
-batch axis over several cards waits for a multi-card path.
+A :class:`Mesh` is a plain value — axis names, their sizes in order
+(``mesh.shape[name]``, as the sharding rules read it) and a tuple of
+``torch.device`` — built from a function, so importing this module
+touches no device.  Three kinds are built here:
+
+* **Production meshes** (:func:`make_production_mesh`): ``("data",
+  "model")`` at 16 × 16, or ``("pod", "data", "model")`` at 2 × 16 × 16
+  with ``multi_pod``.  They are *abstract*: they hold no devices, since
+  256 cards are not there.  They size the sharding rules
+  (:mod:`.sharding`) from one host, as the reference's dry run does on
+  forced host devices.
+* **The host mesh** (:func:`make_host_mesh`): (1, 1) over one device
+  with the production axis names; the dry-run driver places its step's
+  tensors through it.
+* **The sweep-batch mesh** (:func:`make_batch_mesh`): a flat ``"batch"``
+  axis over devices, on which the executors shard the flattened
+  (scenario × seed) axis of a bucket (rows padded cyclically to a
+  multiple of the mesh, :func:`pad_batch`).  Its devices may repeat one
+  device: several entries of ``cpu`` stand in for the reference's
+  forced host devices.
+
+:class:`P` and :class:`NamedSharding` are plain values as well: a
+partition spec (one entry a dimension: an axis name, a tuple of names,
+or None) and its mesh.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 
+class P(tuple):
+    """A partition spec, as the reference's ``PartitionSpec``: one entry a
+    leading dimension — an axis name, a tuple of names (the dimension
+    split over their product), or None (replicated); dimensions past the
+    end are replicated.  Compares as the tuple of its entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """Devices along named axes (a 1-D ``("batch",)`` mesh for sweeps)."""
+    """Devices along named axes.  ``axis_sizes`` defaults to
+    ``len(devices)`` along the first axis and 1 along the others; an
+    *abstract* mesh has sizes and no devices."""
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("batch",)
+    axis_sizes: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.axis_sizes is None:
+            object.__setattr__(self, "axis_sizes", (len(self.devices),) + (
+                1,) * (len(self.axis_names) - 1))
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"axes {self.axis_names} with sizes "
+                             f"{self.axis_sizes}")
+        if self.devices and math.prod(self.axis_sizes) != len(self.devices):
+            raise ValueError(f"a mesh of {self.axis_sizes} over "
+                             f"{len(self.devices)} devices")
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, in axis order."""
+        return dict(zip(self.axis_names, self.axis_sizes))
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return math.prod(self.axis_sizes)
+
+    @property
+    def abstract(self) -> bool:
+        return not self.devices
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's partition ``spec`` over ``mesh``'s axes."""
+    mesh: Mesh
+    spec: P
+
+    def shard_shape(self, shape) -> tuple:
+        """The per-device shape of a leaf of ``shape``: each dimension
+        over the product of its axes' sizes, rounded up where it does not
+        divide (GSPMD pads an uneven dimension, as arctic's 56 heads over
+        16)."""
+        out = list(shape)
+        for d, axes in enumerate(self.spec):
+            if axes is None:
+                continue
+            names = axes if isinstance(axes, tuple) else (axes,)
+            ways = math.prod(self.mesh.shape[a] for a in names)
+            out[d] = -(-out[d] // ways)
+        return tuple(out)
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with a CUDA index filled in (``cuda`` is the current
+    card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16×16 = 256 chips a pod; 2 pods = 512 chips when ``multi_pod``.
+    Abstract: no devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh((), axes, shape)
+
+
+def make_host_mesh(device="cuda") -> Mesh:
+    """A (1, 1) mesh over one device, with the production axis names.
+    Raises when CUDA is asked for and not available."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available for a host mesh; "
+                           "pass device='cpu' for the CPU")
+    return Mesh((canonical_device(device),), ("data", "model"), (1, 1))
+
+
+def data_axes(mesh) -> tuple:
+    """Every axis that carries the batch (all but ``"model"``)."""
+    return tuple(n for n in mesh.axis_names if n != "model")
+
+
+def data_size(mesh) -> int:
+    out = 1
+    for n in data_axes(mesh):
+        out *= mesh.shape[n]
+    return out
 
 
 def make_batch_mesh(max_devices: Optional[int] = None,
@@ -46,6 +161,15 @@ def make_batch_mesh(max_devices: Optional[int] = None,
     return Mesh(tuple(devs), ("batch",))
 
 
+def batch_sharding(mesh) -> NamedSharding:
+    """Leading axis split over ``"batch"``, remaining dims replicated."""
+    return NamedSharding(mesh, P("batch"))
+
+
+def replicated_sharding(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
 def pad_batch(n: int, mesh: Mesh) -> int:
     """Rows to append so a length-``n`` batch axis divides the mesh."""
     return (-n) % mesh.size
@@ -54,7 +178,7 @@ def pad_batch(n: int, mesh: Mesh) -> int:
 def ensure_batch_mesh(mesh) -> Mesh:
     """Validate a sweep mesh: the executors place the flattened
     (scenario × seed) axis on a ``"batch"`` axis, so a mesh without one
-    fails here."""
+    (e.g. the production meshes above) fails here."""
     if "batch" not in getattr(mesh, "axis_names", ()):
         raise ValueError(
             f"expected a 1-D sweep mesh with a 'batch' axis "

@@ -4,11 +4,13 @@ FLOPs against ``baseline`` (port of the reference's ``launch/perf.py``,
 which compares the roofline terms of compiled TPU programs).
 
     python -m repro_torch.launch.perf --arch qwen1.5-4b --shape train_4k \\
-        --variants baseline,remat_attn,flashjnp,opt_bf16
+        --variants baseline,remat_attn,flashjnp,opt_bf16 [--multi-pod]
 
 A variant is ``+``-joined knobs over :func:`repro_torch.launch.dryrun.
 runtime_for` (:func:`build`).  A variant that fails prints FAIL and the
-driver goes on, as the reference's.
+driver goes on, as the reference's.  ``--multi-pod`` sizes the rows on
+the 2 × 16 × 16 mesh (``mesh``, ``memory.argument_bytes_per_device``),
+as the dry run's does.
 """
 from __future__ import annotations
 
@@ -23,9 +25,9 @@ from repro_torch.launch.dryrun import run_pair, runtime_for
 from repro_torch.optim import momentum
 
 
-def build(variant: str, cfg, shape):
+def build(variant: str, cfg, shape, multi_pod: bool = False):
     """variant: '+'-joined knobs -> (rt, opt, zero1)."""
-    rt = runtime_for(cfg, shape)
+    rt = runtime_for(cfg, shape, multi_pod)
     opt = None
     zero1 = False
     for knob in variant.split("+"):
@@ -69,6 +71,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variants", default="baseline")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' for the "
@@ -84,11 +87,11 @@ def main(argv=None):
     results = []
     base = None
     for variant in args.variants.split(","):
-        rt, opt, zero1 = build(variant, cfg, shape)
+        rt, opt, zero1 = build(variant, cfg, shape, args.multi_pod)
         try:
             r = run_pair(args.arch, args.shape, rt=rt, opt=opt, zero1=zero1,
-                         device=args.device, layers=args.layers,
-                         batch=args.batch)
+                         multi_pod=args.multi_pod, device=args.device,
+                         layers=args.layers, batch=args.batch)
             r["variant"] = variant
             r["peak_bytes"] = r["memory"]["peak_bytes"] or 0
             if variant == "baseline":
@@ -101,7 +104,10 @@ def main(argv=None):
             print(f"[perf] {args.arch} x {args.shape} [{variant}] on "
                   f"{r['device']}: {r['ms_per_step']:.2f} ms a step, peak "
                   f"{r['peak_bytes'] / 2**30:.2f} GiB, {r['flops']:.4g} "
-                  f"FLOPs{d}", flush=True)
+                  f"FLOPs, "
+                  f"{r['memory']['argument_bytes_per_device'] / 2**30:.3f} "
+                  f"GiB of arguments a device of {r['mesh']}{d}",
+                  flush=True)
         except Exception as e:                             # noqa: BLE001
             r = {"variant": variant, "arch": args.arch,
                  "shape": args.shape, "error": f"{type(e).__name__}: {e}"}

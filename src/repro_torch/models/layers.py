@@ -58,11 +58,22 @@ def _per_copy(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def scaled_normal(gen: torch.Generator, shape, std: float,
+                  dtype=torch.float32) -> torch.Tensor:
+    """float32 N(0, std²) draws of ``shape`` from ``gen``, on its device,
+    rounded once to ``dtype``; on the ``meta`` device
+    (``models.model.MetaGenerator``) an empty tensor of the shape and
+    dtype, which is all a draw there gives, without the meta kernels'
+    cost."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
-    std = scale / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                        device=gen.device) * std).to(dtype)
+    return scaled_normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):
@@ -75,9 +86,8 @@ def padded_vocab(vocab: int) -> int:
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32):
-    table = torch.randn((padded_vocab(vocab), d), generator=gen,
-                        dtype=torch.float32, device=gen.device) * 0.02
-    return {"table": table.to(dtype)}
+    return {"table": scaled_normal(gen, (padded_vocab(vocab), d), 0.02,
+                                   dtype)}
 
 
 FFN_KINDS = ("swiglu", "mlp")

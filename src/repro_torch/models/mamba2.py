@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (_per_copy, dense_init, linear,
-                                       rmsnorm, rmsnorm_init)
+                                       rmsnorm, rmsnorm_init, scaled_normal)
 
 
 def dims(cfg: ArchConfig):
@@ -43,8 +43,7 @@ def mamba2_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     proj_out = 2 * d_in + 2 * s.n_groups * s.d_state + H   # z, x, B, C, dt
     dev = gen.device
     in_proj = dense_init(gen, cfg.d_model, proj_out, dtype)
-    conv_w = (torch.randn((s.d_conv, conv_ch), generator=gen,
-                          dtype=torch.float32, device=dev) * 0.1).to(dtype)
+    conv_w = scaled_normal(gen, (s.d_conv, conv_ch), 0.1, dtype)
     out_proj = dense_init(gen, d_in, cfg.d_model, dtype)
     return {"in_proj": in_proj,
             "conv_w": conv_w,

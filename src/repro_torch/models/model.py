@@ -122,6 +122,11 @@ def _admits(want, got) -> bool:
 def _require_ported(cfg: ArchConfig):
     """Refuse a config that asks for what the port does not run, rather
     than run a different model."""
+    if cfg.family == "mlp":
+        raise NotImplementedError(
+            f"{cfg.name!r} is family 'mlp', the paper's classifier: its "
+            "model is repro_torch.fed.feel_model, not this decoder stack "
+            "(the reference's models.model does not run it either)")
     if cfg.family not in _FAMILY_FIELDS:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; the PyTorch "

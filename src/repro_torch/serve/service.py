@@ -55,6 +55,7 @@ from repro_torch.api.experiment import resolve_device
 from repro_torch.api.results import Results, assign_row_coords, empty_coords
 from repro_torch.api.spec import ScenarioSpec
 from repro_torch.fed import engine
+from repro_torch.launch.mesh import canonical_device, pad_batch
 from repro_torch.serve.admission import AdmissionQueue, PendingRequest
 from repro_torch.serve.program_cache import ProgramCache
 from repro_torch.serve.scheduler import PreemptiveScheduler, ServiceRun
@@ -139,12 +140,16 @@ class ExperimentService:
     (``repro_torch.topology.band_width``): requests pad to their band
     instead of whatever fleet happens to share the window, so the
     program-cache key space stays small and recurring across a
-    massive-fleet mix.  ``mesh`` is a one-device batch mesh on
-    ``device`` (``api.executor``'s rule).  ``audit=True`` runs the static
-    passes (padding taint + graph hygiene, :mod:`repro_torch.analysis`)
-    over every cold admission's program before it dispatches — a probe
-    only: no device work and no dispatch-ledger event — and keeps their
-    findings in :attr:`audit_report`; warm admissions skip the probe.
+    massive-fleet mix.  ``mesh`` is a batch mesh for ``device``
+    (``api.executor``'s rule: one device, the service's own, or several
+    of its type); over several, an admission's rows are padded
+    cyclically to a multiple of the mesh and sharded over it, and its
+    program keys name the mesh's devices and the padded row count.
+    ``audit=True`` runs the static passes (padding taint + graph
+    hygiene, :mod:`repro_torch.analysis`) over every cold admission's
+    program before it dispatches — a probe only: no device work and no
+    dispatch-ledger event — and keeps their findings in
+    :attr:`audit_report`; warm admissions skip the probe.
     Error findings raise :class:`repro_torch.analysis.AuditError` before
     the admission dispatches.
     """
@@ -258,20 +263,26 @@ class ExperimentService:
         chunk = (bucket.replan if bucket.replan is not None
                  else self.chunk_periods)
         periods = group[0].periods
-        # the mesh holds one device, so the rows dispatch unpadded; a key
-        # carries the service's device (a program warm on one device is
-        # cold on another)
-        keys = [(str(self.device),) + key for key in
-                lowering.bucket_program_keys(bucket, len(bucket.rows),
-                                             periods, chunk, self.data,
-                                             self.test)]
+        # rows dispatch padded to the mesh (the reference's n_exec); a key
+        # carries the devices the shards run on (a program warm on one
+        # device is cold on another)
+        n = len(bucket.rows)
+        if self.mesh is None or self.mesh.size == 1:
+            where, n_exec = (str(self.device),), n
+        else:
+            where = tuple(str(canonical_device(d))
+                          for d in self.mesh.devices)
+            n_exec = n + pad_batch(n, self.mesh)
+        keys = [where + key for key in
+                lowering.bucket_program_keys(bucket, n_exec, periods, chunk,
+                                             self.data, self.test)]
         hits, misses = self.cache.admit(keys)
         self.stats.on_admission([r.ticket.record for r in group], now,
                                 hits=hits, misses=misses)
         if self.audit and misses:
             self._audit_cold(bucket, min(chunk, periods))
         run = lowering.BucketRun(bucket, self.data, periods, chunk,
-                                 self.arrays)
+                                 self.arrays, mesh=self.mesh)
         srun = ServiceRun(
             run=run, requests=list(group),
             priority=min(r.priority for r in group),

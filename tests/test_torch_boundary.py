@@ -53,7 +53,8 @@ new |= {"repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
 new |= {"repro_torch.analysis." + m for m in ("audit", "compile_audit",
                                               "determinism", "report",
                                               "taint")}
-new |= {"repro_torch.analysis", "repro_torch.kernels.probe"}
+new |= {"repro_torch.analysis", "repro_torch.kernels.probe",
+        "repro_torch.launch.sharding"}
 bad += sorted(new - set(names))
 print(len(names), bad)
 """

@@ -26,10 +26,11 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import ASSIGNED as REF_ASSIGNED
 from repro.configs import get_arch as ref_get_arch
 from repro.models import model as rm
 
-from repro_torch.configs import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs import ARCHS, ASSIGNED, get_arch
 from repro_torch.fed.train_step import make_serve_step
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve
@@ -66,7 +67,7 @@ def _as_dict(cfg):
     return {k: v for k, v in d.items() if v is not None}
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(ASSIGNED))
 def test_configs_equal_the_reference(name):
     assert _as_dict(get_arch(name)) == _as_dict(ref_get_arch(name))
     assert (_as_dict(get_arch(name).reduced())
@@ -76,11 +77,14 @@ def test_configs_equal_the_reference(name):
 
 
 def test_registry_refuses_what_is_not_ported():
-    assert set(ARCHS) | set(NOT_PORTED) == set(REF_ARCHS)
-    assert not set(ARCHS) & set(NOT_PORTED)
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_arch(name)
+    """The registry is the reference's (feel-mlp included, field for
+    field); the decoder stack refuses family "mlp", whose model is
+    ``fed.feel_model``."""
+    assert set(ARCHS) == set(REF_ARCHS)
+    assert ASSIGNED == REF_ASSIGNED
+    assert _as_dict(get_arch("feel-mlp")) == _as_dict(ref_get_arch("feel-mlp"))
+    with pytest.raises(NotImplementedError, match=r"fed\.feel_model"):
+        tm.init(get_arch("feel-mlp"), torch.Generator().manual_seed(0))
     with pytest.raises(KeyError):
         get_arch("gpt-5")
 
@@ -159,7 +163,7 @@ def test_init_fills_the_stacked_layers_with_the_same_stream():
     tables and heads drawn one a codebook, a hybrid's shared block last,
     a MoE model's dense blocks first, its experts drawn into their
     slots)."""
-    for name in ARCHS:
+    for name in ASSIGNED:
         cfg = get_arch(name).reduced()
         got = tm.init(cfg, torch.Generator().manual_seed(5))
         gen = torch.Generator().manual_seed(5)
@@ -211,7 +215,7 @@ def test_interop_carries_a_decode_cache_across_and_back():
                                atol=TOL)
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(ASSIGNED))
 def test_serve_main_runs_on_the_cpu(name, capsys):
     rate = serve.main(["--arch", name, "--device", "cpu", "--batch", "2",
                        "--prompt-len", "6", "--gen", "4", "--ctx", "16"])

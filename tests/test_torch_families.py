@@ -35,7 +35,7 @@ from repro.configs import SHAPES as REF_SHAPES
 from repro.fed import train_step as ref_ts
 from repro.models import model as rm
 
-from repro_torch.configs import ARCHS, SHAPES, get_arch
+from repro_torch.configs import ASSIGNED, SHAPES, get_arch
 from repro_torch.fed import train_step as ts
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve, train
@@ -105,7 +105,7 @@ def test_configs_and_init_trees_match_the_reference(name):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", sorted(ARCHS))
+@pytest.mark.parametrize("name", sorted(ASSIGNED))
 def test_param_count_matches_the_reference_at_full_width(name):
     assert get_arch(name).param_count() == REF_ARCHS[name].param_count()
 

@@ -52,7 +52,7 @@ from repro.configs import ARCHS as REF_ARCHS
 from repro.fed import train_step as ref_ts
 from repro.models import model as rm
 
-from repro_torch.configs import ARCHS, SHAPES, get_arch
+from repro_torch.configs import ARCHS, ASSIGNED, SHAPES, get_arch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.fed import train_step as ts
 from repro_torch.kernels import ssd_scan as kssd
@@ -62,7 +62,7 @@ from repro_torch.models import model as tm
 from repro_torch.models import moe as moe_mod
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-NAMES = sorted(ARCHS)
+NAMES = sorted(ASSIGNED)
 VARIANTS = ("baseline", "flashjnp", "blockwise", "seq_parallel",
             "no_remat", "remat_attn", "opt_bf16", "zero1", "cap1.0",
             "expert_choice", "gqa_expand", "window4096", "blockq256",
