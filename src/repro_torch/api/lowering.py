@@ -40,15 +40,17 @@ is bitwise equal to the monolithic one.  Its planning step touches no
 torch, so a pipelined executor plans the next chunk while the card still
 runs what the current one enqueued.
 
-On a batch mesh of several devices (``launch.mesh.make_batch_mesh``, or
-a :class:`~repro_torch.launch.mesh.Mesh` whose devices repeat one
-device), :func:`dispatch_bucket` pads the bucket's n rows cyclically to
-a multiple of the mesh (``pad_batch``, the reference's ``_pad_rows``),
-cuts them into ``mesh.size`` contiguous shards, and enqueues shard i on
-``devices[i]`` against a copy of the data sets there
-(:meth:`DeviceData.on`), shard after shard with no sync between them;
-:func:`collect_bucket` gathers the shards in order and slices back to n.
-Planning never sees the mesh: host ledgers are the unsharded run's.
+Dispatch runs over a batch mesh (``launch.mesh.make_batch_mesh``, or a
+:class:`~repro_torch.launch.mesh.Mesh` whose devices repeat one device;
+without one, the single device of the data): :func:`dispatch_bucket`
+pads the bucket's n rows cyclically to a multiple of the mesh
+(``pad_batch``, the reference's ``_pad_rows``), cuts them into
+``mesh.size`` contiguous shards, and enqueues shard i on ``devices[i]``
+against a copy of the data sets there (:meth:`DeviceData.on`), shard
+after shard with no sync between them; :func:`collect_bucket` gathers
+the shards in order and slices back to n.  A mesh of one device is one
+shard of every row, the bucket's own plan.  Planning never sees the
+mesh: host ledgers are the unsharded run's.
 
 Because planning happens between chunks, a bucket whose specs set
 ``replan=`` (or run under ``Experiment.run(replan=)``) closes the
@@ -76,7 +78,7 @@ from repro_torch.core.scheduler import (DevScheduler, FeelScheduler,
 from repro_torch.data.pipeline import (FederatedBatcher, partition_iid,
                                        partition_noniid)
 from repro_torch.fed import engine, feel_model, model_engine
-from repro_torch.launch.mesh import canonical_device, pad_batch
+from repro_torch.launch.mesh import Mesh, canonical_device, pad_batch
 from repro_torch.topology import band_width
 from repro_torch.tree import tree_map
 
@@ -298,17 +300,17 @@ class BucketHandle:
     """Phase-2 output: in-flight device series + finished host ledgers,
     and the engine carry after this dispatch.  ``decays`` (FEEL buckets)
     are the realized per-period loss decays, the closed loop's ξ
-    feedback.  Dispatched over a batch mesh of several devices, each
-    device series is a tuple of the shards' (n_pad / size, P) tensors in
-    shard order and ``state`` a list of the shards' carries."""
+    feedback.  Each device series is a tuple of the batch mesh's shards,
+    (n_pad / size, P) tensors in shard order, and ``state`` a tuple of
+    the shards' carries; on one device, one shard of all n rows."""
     bucket: Bucket
-    losses: object               # (n, P) on the device, or its shards
-    accs: object                 # (n, P) on the device, or its shards
+    losses: tuple                # shards of (n_pad, P), on their devices
+    accs: tuple
     times: np.ndarray
     global_batch: np.ndarray
-    state: object                # engine.EngineState, or one a shard
+    state: tuple                 # an engine.EngineState a shard
     energy: Optional[np.ndarray] = None   # (n, P, k_pad) host joules
-    decays: object = None        # (n, P) on the device (feel), or shards
+    decays: Optional[tuple] = None        # shards of (n_pad, P), feel
 
 
 class _FeelPlanner:
@@ -544,8 +546,11 @@ def _broadcast_rows(params, n: int):
 
 def _take_rows(plan: BucketPlan, take: np.ndarray) -> BucketPlan:
     """The plan of the rows ``take`` (indices into the bucket's rows, in
-    order, repeats allowed), padded to the bucket's ``k_pad``."""
+    order, repeats allowed), padded to the bucket's ``k_pad``: the plan
+    itself when ``take`` is every row in order."""
     bucket = plan.bucket
+    if np.array_equal(take, np.arange(len(bucket.rows))):
+        return plan
 
     def rows(a):
         return None if a is None else a[take]
@@ -570,16 +575,20 @@ def shard_rows(n: int, mesh) -> list:
     return np.split(wrap, mesh.size)
 
 
+def one_device_mesh(arrays: DeviceData) -> Mesh:
+    """The batch mesh of ``arrays``' one device."""
+    return Mesh((torch.device(arrays.device),))
+
+
 def dispatch_bucket(plan: BucketPlan, arrays: DeviceData, state=None,
                     mesh=None) -> BucketHandle:
-    """Enqueue one planned bucket's device loop, on ``arrays``' device, or
-    over a batch ``mesh`` of several devices: shard i of
-    :func:`shard_rows` on ``mesh.devices[i]``, against ``arrays.on`` it,
-    the shards enqueued back to back (``state``: one carry a shard).  A
-    mesh of one device is the plain path."""
-    if mesh is None or mesh.size == 1:
-        return _dispatch(plan, arrays, state)
-    states = state if state is not None else [None] * mesh.size
+    """Enqueue one planned bucket's device loop over a batch ``mesh``
+    (None: :func:`one_device_mesh`): shard i of :func:`shard_rows` on
+    ``mesh.devices[i]``, against ``arrays.on`` it, the shards enqueued
+    back to back.  ``state`` resumes a previous dispatch's carries, one a
+    shard."""
+    mesh = one_device_mesh(arrays) if mesh is None else mesh
+    states = (None,) * mesh.size if state is None else state
     handles = [_dispatch(_take_rows(plan, take), arrays.on(device), st)
                for take, device, st in zip(shard_rows(len(plan.bucket.rows),
                                                       mesh),
@@ -591,13 +600,13 @@ def dispatch_bucket(plan: BucketPlan, arrays: DeviceData, state=None,
     return BucketHandle(bucket=plan.bucket, losses=shards("losses"),
                         accs=shards("accs"), times=plan.times,
                         global_batch=plan.global_batch,
-                        state=[h.state for h in handles],
-                        energy=plan.energy, decays=shards("decays"))
+                        state=shards("state"), energy=plan.energy,
+                        decays=shards("decays"))
 
 
 def _dispatch(plan: BucketPlan, arrays: DeviceData,
               state=None) -> BucketHandle:
-    """Enqueue one planned bucket's device loop: the dev loop for a dev
+    """Enqueue one shard's device loop: the dev loop for a dev
     bucket (the reference's ``_dispatch_dev``); else, as the reference's
     ``_dispatch_feel``, the hierarchical loop under a topology, the
     big-model engine for a ``model_family`` bucket, or the flat feel-mlp
@@ -879,11 +888,9 @@ def audit_bucket_taint(plan: BucketPlan, data, test, report=None, *,
     return report
 
 
-def _to_host(series, n: int) -> np.ndarray:
-    """A device series as an (n, P) host array: one tensor, or the shards
-    of a batch mesh gathered in shard order and sliced back to n rows."""
-    if isinstance(series, torch.Tensor):
-        return series.cpu().numpy()
+def _to_host(series: tuple, n: int) -> np.ndarray:
+    """A device series' shards gathered to the host in shard order and
+    sliced back to the bucket's n rows: an (n, P) array."""
     return np.concatenate([s.cpu().numpy() for s in series])[:n]
 
 
@@ -920,7 +927,8 @@ class BucketRun:
       run ahead as far as it likes.
 
     ``seconds`` sums the host clock spent in each of the three.
-    ``mesh`` is the executor's batch mesh (None: ``arrays``' device).
+    ``mesh`` is the executor's batch mesh (None:
+    :func:`one_device_mesh`).
 
     With ξ frozen (open loop) any chunk size, and any interleaving of the
     three, is bitwise equal to the monolithic three-phase path."""
@@ -946,6 +954,8 @@ class BucketRun:
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         self.chunk = min(self.chunk, self.periods)
+        if self.mesh is None:
+            self.mesh = one_device_mesh(self.arrays)
         self.closed_loop = (self.bucket.replan is not None
                             and self.bucket.kind == "feel")
 
@@ -1044,9 +1054,7 @@ class BucketRun:
         while self._pending:
             banked.append(self.collect())
         if self._state is not None:
-            devices = ((self.arrays.device,) if self.mesh is None
-                       else self.mesh.devices)
-            for device in {canonical_device(d) for d in devices}:
+            for device in {canonical_device(d) for d in self.mesh.devices}:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
         return banked

@@ -242,10 +242,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                       dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    _raise_on(_library().flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *_shape_args(q, k, causal, window),
-        int(q.dtype == torch.bfloat16), _stream(q)), "flash_attention_fwd")
+    with torch.cuda.device(q.device):
+        _raise_on(_library().flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *_shape_args(q, k, causal, window),
+            int(q.dtype == torch.bfloat16), _stream(q)),
+            "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -302,11 +304,13 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     dsum = torch.empty_like(lse)
     if q.numel() == 0:
         return dq, dsum
-    _raise_on(_library().flash_attention_bwd_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
-        *_shape_args(q, k, causal, window), int(q.dtype == torch.bfloat16),
-        _stream(q)), "flash_attention_bwd_dq")
+    with torch.cuda.device(q.device):
+        _raise_on(_library().flash_attention_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
+            *_shape_args(q, k, causal, window),
+            int(q.dtype == torch.bfloat16), _stream(q)),
+            "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq, dsum
 
@@ -332,11 +336,13 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, dsum, *, causal: bool = True,
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    _raise_on(_library().flash_attention_bwd_dkdv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, k, causal, window), int(q.dtype == torch.bfloat16),
-        _stream(q)), "flash_attention_bwd_dkdv")
+    with torch.cuda.device(q.device):
+        _raise_on(_library().flash_attention_bwd_dkdv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_shape_args(q, k, causal, window),
+            int(q.dtype == torch.bfloat16), _stream(q)),
+            "flash_attention_bwd_dkdv")
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 

@@ -147,11 +147,12 @@ def flash_decode(q, k, v, pos, *, window: Optional[int] = None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, arrivals = _scratch_for(q.device, stream, b * hq * MAX_SPLITS
                                   * (hd + 4), b * hkv)
-    rc = _library().flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        part.data_ptr(), arrivals.data_ptr(), o.data_ptr(), b, ctx, hq, hkv,
-        hd, 0 if window is None else int(window), 1.0 / hd ** 0.5,
-        int(q.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(q.device):     # the kernel sizes by its SMs
+        rc = _library().flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            part.data_ptr(), arrivals.data_ptr(), o.data_ptr(), b, ctx, hq,
+            hkv, hd, 0 if window is None else int(window), 1.0 / hd ** 0.5,
+            int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {rc}")

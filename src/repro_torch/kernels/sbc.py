@@ -112,9 +112,11 @@ def sbc_stats(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     tiles = math.ceil(n / lib.sbc_tile())
     partials = torch.empty(segments * tiles * lib.sbc_partial_bytes(),
                            dtype=torch.uint8, device=x.device)
-    _raise_on(lib.sbc_stats_launch(x.data_ptr(), thr.data_ptr(),
-                                   partials.data_ptr(), out.data_ptr(),
-                                   segments, n, vec4, stream), "sbc_stats")
+    with torch.cuda.device(x.device):
+        _raise_on(lib.sbc_stats_launch(x.data_ptr(), thr.data_ptr(),
+                                       partials.data_ptr(), out.data_ptr(),
+                                       segments, n, vec4, stream),
+                  "sbc_stats")
     sbc_stats.launches += 1
     return out
 
@@ -173,9 +175,11 @@ def sbc_apply(x: torch.Tensor, scalars: torch.Tensor, *, out=None,
     segments, n, vec4, stream = _launch_args(x, out, res)
     if n == 0:
         return out, res
-    _raise_on(lib.sbc_apply_launch(x.data_ptr(), scalars.data_ptr(),
-                                   out.data_ptr(), res.data_ptr(),
-                                   segments, n, vec4, stream), "sbc_apply")
+    with torch.cuda.device(x.device):
+        _raise_on(lib.sbc_apply_launch(x.data_ptr(), scalars.data_ptr(),
+                                       out.data_ptr(), res.data_ptr(),
+                                       segments, n, vec4, stream),
+                  "sbc_apply")
     sbc_apply.launches += 1
     return out, res
 

@@ -184,10 +184,11 @@ def ssd_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y
-    _raise_on(_library().ssd_scan_fwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), *dims, int(x.dtype == torch.bfloat16),
-        _stream(x)), "ssd_scan_fwd")
+    with torch.cuda.device(x.device):
+        _raise_on(_library().ssd_scan_fwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), *dims,
+            int(x.dtype == torch.bfloat16), _stream(x)), "ssd_scan_fwd")
     ssd_scan_fwd.launches += 1
     return y
 
@@ -241,12 +242,13 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256):
                   if segments > 1 else 1,))
         # each unit's dBm and dCm where a group has more than one
         dbc = new((2 * units * Bm.numel(),) if units > 1 else (1,))
-        _raise_on(_library().ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), part.data_ptr(),
-            ws.data_ptr(), dbc.data_ptr(), *dims,
-            int(x.dtype == torch.bfloat16), _stream(x)), what)
+        with torch.cuda.device(x.device):
+            _raise_on(_library().ssd_scan_bwd_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+                part.data_ptr(), ws.data_ptr(), dbc.data_ptr(), *dims,
+                int(x.dtype == torch.bfloat16), _stream(x)), what)
         ssd_scan_bwd.launches += 1
         grads = (dx, ddt, dA, dBm, dCm)
     dx, ddt, dA, dBm, dCm = grads

@@ -38,9 +38,6 @@ cache and inputs) at full depth and the full global batch — by the
 sharding rules (:func:`sharded_arguments`).  ``zero1`` shards the
 optimizer state over the data axes there, so it lowers that figure on a
 train shape; ``chips`` stays 1, since the measured step ran on one card.
-The measured step places its parameters, state, inputs and cache through
-:func:`repro_torch.launch.sharding.place` over the card's (1, 1) host
-mesh, which on one card is the identity.
 
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b --shape train_4k
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b \\
@@ -76,7 +73,7 @@ from repro_torch.kernels import sbc as ksbc
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.launch import cost
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.model import Runtime, init, param_spec
 from repro_torch.optim import momentum
@@ -117,24 +114,6 @@ def mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
 
-def _argument_shardings(mode: str, mesh, zero1: bool, args) -> list:
-    """``(tree, shardings)`` of each argument of the pair's step, by the
-    reference's rules: the train state and batch (train), the parameters
-    and batch (prefill), the parameters and the cache and tokens
-    (decode).  ``args`` is ``(params, state, inputs)``, ``state`` None
-    but for training."""
-    params, state, inputs = args
-    if mode == "train":
-        rule = shd.state_shardings_zero1 if zero1 else shd.state_shardings
-        return [(state, rule(mesh, state)),
-                (inputs, shd.batch_shardings(mesh, inputs))]
-    if mode == "prefill":
-        return [(params, shd.params_shardings(mesh, params)),
-                (inputs, shd.batch_shardings(mesh, inputs))]
-    return [(params, shd.params_shardings(mesh, params)),
-            (inputs, shd.decode_input_shardings(mesh, inputs))]
-
-
 def sharded_arguments(cfg, shape, rt, mesh, opt=None,
                       zero1: bool = False) -> dict:
     """The bytes of the pair's step arguments (``param_spec`` and
@@ -144,11 +123,21 @@ def sharded_arguments(cfg, shape, rt, mesh, opt=None,
     the count of tensor leaves and of those the rules shard.  Raises
     ``ValueError`` when a spec names a dimension the leaf lacks."""
     params = param_spec(cfg, rt.dtype)
-    state = None
+    inputs = input_specs(cfg, shape, rt)
+    # the step's arguments by the reference's rules: the train state and
+    # batch (train), the parameters and batch (prefill), the parameters
+    # and the cache and tokens (decode)
     if shape.mode == "train":
         state = TrainState(params, (opt or momentum(0.9)).init(params), 0)
-    pairs = _argument_shardings(shape.mode, mesh, zero1,
-                                (params, state, input_specs(cfg, shape, rt)))
+        rule = shd.state_shardings_zero1 if zero1 else shd.state_shardings
+        pairs = [(state, rule(mesh, state)),
+                 (inputs, shd.batch_shardings(mesh, inputs))]
+    elif shape.mode == "prefill":
+        pairs = [(params, shd.params_shardings(mesh, params)),
+                 (inputs, shd.batch_shardings(mesh, inputs))]
+    else:
+        pairs = [(params, shd.params_shardings(mesh, params)),
+                 (inputs, shd.decode_input_shardings(mesh, inputs))]
     out = dict.fromkeys(("argument_bytes", "argument_bytes_per_device",
                          "leaves", "sharded_leaves"), 0)
     for tree, shardings in pairs:
@@ -221,22 +210,15 @@ def _cache(specs, gen, device, pos: int):
     return cache
 
 
-def _build(cfg, shape, rt, opt, zero1, params, gen, device, steps: int):
+def _build(cfg, shape, rt, opt, params, gen, device, steps: int):
     """``(one, state)``: one step of the pair as a callable returning what
     is checked for finite values, and the tensors it holds beside the
-    parameters; every argument placed by the sharding rules over the
-    device's host mesh (the identity on one device)."""
+    parameters."""
     specs = input_specs(cfg, shape, rt)
-    host = make_host_mesh(device)
-
-    def placed(*args):
-        return [shd.place(tree, shardings) for tree, shardings
-                in _argument_shardings(shape.mode, host, zero1, args)]
     if shape.mode == "train":
         opt = opt or momentum(0.9)
-        state, batch = placed(None, TrainState(params, opt.init(params), 0),
-                              _batch(cfg, specs, gen, device))
-        box = [state]
+        box = [TrainState(params, opt.init(params), 0)]
+        batch = _batch(cfg, specs, gen, device)
         step = make_train_step(cfg, rt, opt)
 
         def one():
@@ -244,7 +226,7 @@ def _build(cfg, shape, rt, opt, zero1, params, gen, device, steps: int):
             return metrics["total_loss"]
         return one, {"opt": box[0].opt, "batch": batch}
     if shape.mode == "prefill":
-        params, batch = placed(params, None, _batch(cfg, specs, gen, device))
+        batch = _batch(cfg, specs, gen, device)
         prefill = make_prefill_step(cfg, rt)
 
         def one():
@@ -254,8 +236,6 @@ def _build(cfg, shape, rt, opt, zero1, params, gen, device, steps: int):
     cache = _cache(specs["cache"], gen, device, shape.seq_len - steps)
     tokens = torch.randint(0, cfg.vocab, specs["tokens"].shape,
                            generator=gen, dtype=torch.int32, device=device)
-    params, inputs = placed(params, None, {"cache": cache, "tokens": tokens})
-    cache, tokens = inputs["cache"], inputs["tokens"]
     serve = make_serve_step(cfg, rt)
 
     def one():
@@ -296,12 +276,9 @@ def _finite(what: str, t):
 
 def run_pair(arch: str, shape_name: str, rt=None, opt=None,
              zero1: bool = False, *, multi_pod: bool = False, device=None,
-             layers: int = 0, batch: int = 0, repeats: int = 3,
-             keep_output: bool = False) -> dict:
+             layers: int = 0, batch: int = 0, repeats: int = 3) -> dict:
     """Run one (arch × shape) pair on one device; see the module's
-    docstring for the row.  ``keep_output`` adds the last step's output
-    (the loss, or the logits cut to the vocabulary) to the row as
-    ``output``, on the device."""
+    docstring for the row."""
     dev = resolve_device(device)
     full_f32(dev)
     cfg, shape = get_arch(arch), get_shape(shape_name)
@@ -324,7 +301,7 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     gen = torch.Generator(device=dev).manual_seed(0)
     try:
         params = init(cfg, gen, rt.dtype)
-        one, held = _build(cfg, shape, rt, opt, zero1, params, gen, dev,
+        one, held = _build(cfg, shape, rt, opt, params, gen, dev,
                            repeats + 1)
         arg_bytes = sum(t.numel() * t.element_size()
                         for t in tree_leaves([params, held]))
@@ -352,7 +329,6 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         loss = float(out) if shape.mode == "train" else None
         opt_state = (str(tree_leaves(held["opt"])[0].dtype).split(".")[-1]
                      if shape.mode == "train" else None)
-        kept = out if keep_output else None
         del params, one, held, out
     finally:
         gc.collect()
@@ -367,7 +343,7 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     peak = PEAK_FLOPS.get(rt.dtype) if on_card else None
     terms = {"compute_s": flops / peak if peak else None,
              "memory_s": arg_bytes / HBM_BW if on_card else None}
-    row = {
+    return {
         "arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
         "mode": shape.mode, "chips": 1,
         "device": device_label(dev), "dtype": str(rt.dtype).split(".")[-1],
@@ -393,9 +369,6 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         "mfu": mf / (ms / 1e3) / peak if peak else None,
         "loss": loss,
     }
-    if keep_output:
-        row["output"] = kept
-    return row
 
 
 def main(argv=None):

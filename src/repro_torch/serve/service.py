@@ -141,8 +141,8 @@ class ExperimentService:
     instead of whatever fleet happens to share the window, so the
     program-cache key space stays small and recurring across a
     massive-fleet mix.  ``mesh`` is a batch mesh for ``device``
-    (``api.executor``'s rule: one device, the service's own, or several
-    of its type); over several, an admission's rows are padded
+    (``api.executor``'s rule: one device, the service's own and the
+    default, or several of its type): an admission's rows are padded
     cyclically to a multiple of the mesh and sharded over it, and its
     program keys name the mesh's devices and the padded row count.
     ``audit=True`` runs the static passes (padding taint + graph
@@ -168,7 +168,8 @@ class ExperimentService:
         self.chunk_periods = chunk_periods
         self.clock = clock if clock is not None else WallClock()
         self.cache = cache if cache is not None else ProgramCache()
-        self.mesh = None if mesh is None else _check_mesh(mesh, self.device)
+        self.mesh = _check_mesh(lowering.one_device_mesh(self.arrays)
+                                if mesh is None else mesh, self.device)
         self.bands = bands
         self.audit = audit
         self.audit_report = None
@@ -267,15 +268,12 @@ class ExperimentService:
         # carries the devices the shards run on (a program warm on one
         # device is cold on another)
         n = len(bucket.rows)
-        if self.mesh is None or self.mesh.size == 1:
-            where, n_exec = (str(self.device),), n
-        else:
-            where = tuple(str(canonical_device(d))
-                          for d in self.mesh.devices)
-            n_exec = n + pad_batch(n, self.mesh)
+        where = tuple(str(canonical_device(d)) for d in self.mesh.devices)
         keys = [where + key for key in
-                lowering.bucket_program_keys(bucket, n_exec, periods, chunk,
-                                             self.data, self.test)]
+                lowering.bucket_program_keys(bucket,
+                                             n + pad_batch(n, self.mesh),
+                                             periods, chunk, self.data,
+                                             self.test)]
         hits, misses = self.cache.admit(keys)
         self.stats.on_admission([r.ticket.record for r in group], now,
                                 hits=hits, misses=misses)

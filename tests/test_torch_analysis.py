@@ -504,21 +504,22 @@ def test_garbage_on_padded_lanes_moves_no_active_value(dataset, scheme):
         dev = lowering._broadcast_rows(params, 8)
         for leaf in tree_leaves(dev):
             leaf[0, 4:] = BIG
-        state = engine.EngineState(dev)
+        state = (engine.EngineState(dev),)      # one shard's carry
     clean = lowering.dispatch_bucket(plan, arrays)
     moved = lowering.dispatch_bucket(dirty, arrays, state=state)
-    np.testing.assert_array_equal(clean.losses[0].numpy(),
-                                  moved.losses[0].numpy())
-    np.testing.assert_array_equal(clean.accs[0].numpy(),
-                                  moved.accs[0].numpy())
+    # one device: one shard of both rows
+    np.testing.assert_array_equal(clean.losses[0][0].numpy(),
+                                  moved.losses[0][0].numpy())
+    np.testing.assert_array_equal(clean.accs[0][0].numpy(),
+                                  moved.accs[0][0].numpy())
     lanes = slice(None) if scheme == "feel" else slice(0, 4)
-    for a, b in zip(tree_leaves(clean.state.params),
-                    tree_leaves(moved.state.params)):
+    for a, b in zip(tree_leaves(clean.state[0].params),
+                    tree_leaves(moved.state[0].params)):
         np.testing.assert_array_equal(a[0][lanes].numpy(),
                                       b[0][lanes].numpy())
     if scheme == "feel":
-        for a, b in zip(tree_leaves(clean.state.residual),
-                        tree_leaves(moved.state.residual)):
+        for a, b in zip(tree_leaves(clean.state[0].residual),
+                        tree_leaves(moved.state[0].residual)):
             np.testing.assert_array_equal(a[0, :4].numpy(),
                                           b[0, :4].numpy())
             assert not b[0, 4:].any()

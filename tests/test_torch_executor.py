@@ -130,11 +130,10 @@ def test_mesh_executor_rejects_non_batch_mesh(dataset, fleet):
 
 @pytest.mark.parametrize("executor", [MeshExecutor, AsyncExecutor,
                                       SerialExecutor])
-def test_mesh_of_several_devices_is_not_ported(dataset, fleet, executor,
-                                               serial):
-    """A mesh of several devices shards the rows (it raised
-    ``NotImplementedError`` before the batch mesh was ported): over two
-    ``cpu`` entries the three buckets (4, 1 and 1 rows, padded to 4, 2
+def test_mesh_of_several_devices_shards_rows(dataset, fleet, executor,
+                                             serial):
+    """A mesh of several devices shards the rows: over two ``cpu``
+    entries the three buckets (4, 1 and 1 rows, padded to 4, 2
     and 2) equal the one-device serial run, ledgers bitwise and losses
     within 1e-5 (a shard's products run at another row count).  A mesh of
     another device type is still refused."""
