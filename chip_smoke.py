@@ -516,6 +516,18 @@ Q_RAGGED_K = (12, 12, 10)
 Q_TOL = 1e-5
 Q_SERVICE_PERIODS, Q_SERVICE_CHUNK = 6, 2
 
+# the sharded step on the one card (phase 4r): a one-rank NCCL world on a
+# (1, 1) ("data", "model") mesh, qwen1.5-4b at full width and R_LAYERS of
+# its 40 layers under attn_impl="pallas": (i) train_4k (one 4096-token
+# sequence, bf16, remat, momentum) R_TRAIN_STEPS steps unsharded, on the
+# mesh, and on the mesh under ZeRO-1 (B4, B4' and B4'' through local_map);
+# (ii) decode_32k at batch R_DECODE_BATCH, R_DECODE_STEPS steps up to the
+# last slot of a 32k cache (B5 through local_map); every sharded run held
+# bitwise to the unsharded one (losses, parameters, logits, caches) with
+# its kernel launches equal
+R_LAYERS, R_TRAIN_STEPS = 4, 2
+R_DECODE_BATCH, R_DECODE_STEPS = 4, 4
+
 
 class _Log:
     """Where log lines also go once the run has a card: the report
@@ -1152,12 +1164,14 @@ def decode_checks(torch, kfd):
     (g 7: the R = 2 instance with the last warp's second row empty, also
     at the runs' seams ``D_SEAMS_G7``), and phase 4n's qwen1.5-4b batch of
     4 at the last slot of a 32k cache (``N_DECODE``); every case run twice
-    and required bitwise equal.  Returns the max abs errors (hd 112, g 7
-    and phase 4n's shape apart too); raises AssertionError."""
+    and required bitwise equal, and a third time with its log-sum-exp (o
+    bitwise, lse within 1e-4 of the plain version's).  Returns the max abs
+    errors (hd 112, g 7, phase 4n's shape and lse apart too); raises
+    AssertionError."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {"flash_decode": 0.0, "bf16": 0.0, "hd112": 0.0,
             "hd112_bf16": 0.0, "g7": 0.0, "g7_bf16": 0.0, "prod": 0.0,
-            "prod_bf16": 0.0}
+            "prod_bf16": 0.0, "lse": 0.0}
     b, ctx, hq, hkv, hd = D_SHAPE
     cases = [D_SHAPE + (D_POS, None), Q_DECODE + (D_POS, None),
              D_SHAPE + (0, None),
@@ -1191,6 +1205,19 @@ def decode_checks(torch, kfd):
                                                      window=window)):
                 raise AssertionError(f"{label} {dtype}: not bitwise "
                                      "reproducible")
+            # the output with the log-sum-exp (a sequence split over
+            # cards merges its parts by it): o bitwise, lse 1e-4
+            got2, lse = kfd.flash_decode(q, k, v, p, window=window, lse=True)
+            _, want_lse = kfd.flash_decode_plain(q, k, v, p, window=window,
+                                                 lse=True)
+            if not (torch.equal(got2, got) and torch.allclose(
+                    lse, want_lse, rtol=1e-4, atol=1e-4)):
+                raise AssertionError(
+                    f"{label} {dtype}: with lse, o bitwise "
+                    f"{torch.equal(got2, got)}, lse max abs err "
+                    f"{float((lse - want_lse).abs().max()):.3g}")
+            errs["lse"] = max(errs["lse"],
+                              float((lse - want_lse).abs().max()))
             errs[key] = max(errs[key], err)
             for apart, case in (("hd112", hd == 112),
                                 ("g7", hq == 7 * hkv),
@@ -4746,6 +4773,162 @@ def batch_mesh_cell(env, specs, api, counted, smi, mesh, device=None,
 
 
 
+def sharded_cell(torch, ts, tm, optim, dryrun, get_arch, get_shape, counted,
+                 smi, device="cuda", cfg=None, seq=None, ctx=None):
+    """Phase 4r: the sharded step on one card — a one-rank world (NCCL on
+    the card, gloo on the CPU) on a (1, 1) ``("data", "model")`` mesh,
+    every argument a DTensor, against the same step on plain tensors:
+    (i) train_4k under ``attn_impl="pallas"`` for ``R_TRAIN_STEPS``
+    steps, baseline and ZeRO-1 (``place_state``), losses and parameters
+    bitwise; (ii) decode_32k for ``R_DECODE_STEPS`` steps, logits and
+    caches bitwise.  Each run's kernel counts are set to 0 just before it
+    and read just after, and must be equal.  ``cfg``, ``seq`` and ``ctx``
+    cut the shapes (the CPU check of this function).  Tears its world
+    down.  Returns the report; raises AssertionError."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_world, make_device_mesh
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = cfg or dataclasses.replace(get_arch(N_ARCH), n_layers=R_LAYERS)
+    train_shape, dec_shape = get_shape("train_4k"), get_shape("decode_32k")
+    seq, ctx = seq or train_shape.seq_len, ctx or dec_shape.seq_len
+    leaves = lambda tree: [t for _, t in tree_leaves_with_path(tree)]  # noqa
+    same = lambda a, b: all(torch.equal(x, y)                           # noqa
+                            for x, y in zip(leaves(a), leaves(b)))
+    sync = ((lambda: torch.cuda.synchronize()) if device == "cuda"
+            else (lambda: None))
+    report = {"train": {}, "decode": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("nccl" if device == "cuda" else "gloo",
+                   init_method=f"file://{tmp}/rendezvous", rank=0,
+                   world_size=1)
+        try:
+            mesh = make_device_mesh((1, 1))
+            # (i) train_4k under the flash kernels
+            rt = dataclasses.replace(dryrun.runtime_for(cfg, train_shape),
+                                     attn_impl="pallas")
+            gen = torch.Generator(device=device).manual_seed(41)
+            params0 = tm.init(cfg, gen, rt.dtype)
+            toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen,
+                                 device=device, dtype=torch.int32)
+            batch = {"tokens": toks[:, :-1].contiguous(),
+                     "labels": toks[:, 1:].contiguous(),
+                     "weights": torch.ones((1, seq), device=device)}
+            opt = optim.momentum(0.9)
+            for name, zero1 in (("unsharded", None), ("baseline", False),
+                                ("zero1", True)):
+                params = tree_map(torch.clone, params0)
+                if zero1 is None:
+                    state, b = ts.TrainState(params, opt.init(params), 0), \
+                        batch
+                else:
+                    state = ts.place_state(params, opt, mesh, zero1=zero1)
+                    b = shd.place(batch, shd.batch_shardings(mesh, batch))
+                step = ts.make_train_step(cfg, rt, opt)
+                losses, times = [], []
+                _zero(counted)
+                for _ in range(R_TRAIN_STEPS):
+                    sync()
+                    t0 = time.perf_counter()
+                    state, m = step(state, b, 1e-2)
+                    sync()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    losses.append(m["loss"])
+                report["train"][name] = {
+                    "losses": torch.stack(losses), "launches": _read(counted),
+                    "params": shd.gather(state.params), "ms": times}
+                del state, params
+            base = report["train"]["unsharded"]
+            for name in ("baseline", "zero1"):
+                r = report["train"][name]
+                r["bitwise"] = (torch.equal(r["losses"], base["losses"])
+                                and same(r["params"], base["params"]))
+                if not r["bitwise"] or r["launches"] != base["launches"] \
+                        or (device == "cuda"
+                            and not any(r["launches"].values())):
+                    raise AssertionError(
+                        f"4r train {name}: losses {r['losses'].tolist()} vs "
+                        f"{base['losses'].tolist()}, bitwise {r['bitwise']}, "
+                        f"launches {r['launches']} vs {base['launches']}")
+            for name, r in report["train"].items():
+                log(f"[4r (i) train_4k] {cfg.name}, {cfg.n_layers} layers, "
+                    f"pallas, one {seq}-token sequence, {name}: ms a step "
+                    f"{[round(t, 1) for t in r['ms']]}, losses "
+                    f"{r['losses'].tolist()}, launches {r['launches']}"
+                    + (f", losses and all {len(leaves(r['params']))} "
+                       f"parameters after {R_TRAIN_STEPS} steps bitwise the "
+                       "unsharded step's" if name != "unsharded" else "")
+                    + f"; {smi}")
+            for r in report["train"].values():
+                del r["params"]
+                r["losses"] = r["losses"].tolist()
+            del params0, batch, toks
+            # (ii) decode_32k under B5
+            rt = dataclasses.replace(dryrun.runtime_for(cfg, dec_shape),
+                                     attn_impl="pallas")
+            params = tm.init(cfg, gen, rt.dtype)
+            cache0 = tm.init_cache(cfg, R_DECODE_BATCH, ctx, rt,
+                                   device=device)
+            for name, t in cache0.items():
+                if name != "pos":
+                    t.normal_(generator=gen)
+            cache0["pos"].fill_(ctx - R_DECODE_STEPS)
+            tokens = torch.randint(0, cfg.vocab,
+                                   (R_DECODE_STEPS, R_DECODE_BATCH, 1),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)
+            serve = ts.make_serve_step(cfg, rt)
+            for name in ("unsharded", "sharded"):
+                cache = tree_map(torch.clone, cache0)
+                p = params
+                if name == "sharded":
+                    p = shd.place(params, shd.params_shardings(mesh, params))
+                    cache = shd.place(cache, shd.cache_shardings(mesh, cache))
+                logits, times = [], []
+                _zero(counted)
+                with torch.no_grad():
+                    for tok in tokens:
+                        if name == "sharded":
+                            tok = shd.place({"t": tok}, shd.batch_shardings(
+                                mesh, {"t": tok}))["t"]
+                        sync()
+                        t0 = time.perf_counter()
+                        out, cache = serve(p, cache, tok)
+                        sync()
+                        times.append(1e3 * (time.perf_counter() - t0))
+                        logits.append(shd.gather({"l": out})["l"])
+                report["decode"][name] = {
+                    "logits": torch.stack(logits),
+                    "cache": shd.gather(cache), "launches": _read(counted),
+                    "ms": times}
+                del cache, p
+            base, r = report["decode"]["unsharded"], report["decode"][
+                "sharded"]
+            r["bitwise"] = (torch.equal(r["logits"], base["logits"])
+                            and same(r["cache"], base["cache"]))
+            want = cfg.n_layers * R_DECODE_STEPS if device == "cuda" else 0
+            if not r["bitwise"] or r["launches"] != base["launches"] or \
+                    r["launches"].get("flash_decode") != want:
+                raise AssertionError(
+                    f"4r decode: bitwise {r['bitwise']}, launches "
+                    f"{r['launches']} vs {base['launches']} (flash_decode "
+                    f"{want} expected)")
+            for name, d in report["decode"].items():
+                log(f"[4r (ii) decode_32k] {cfg.name}, {cfg.n_layers} "
+                    f"layers, pallas, batch {R_DECODE_BATCH}, "
+                    f"{R_DECODE_STEPS} steps up to slot {ctx - 1} of {ctx}, "
+                    f"{name}: ms a step {[round(t, 2) for t in d['ms']]}, "
+                    f"launches {d['launches']}"
+                    + (", logits and caches bitwise the unsharded run's"
+                       if name == "sharded" else "") + f"; {smi}")
+            for d in report["decode"].values():
+                del d["logits"], d["cache"]
+        finally:
+            dist.destroy_process_group()
+    return report
+
+
 def describe_mesh(mesh) -> str:
     """``"2 entries of cuda:0"`` or ``"4 cards (cuda:0, ...)"``."""
     devices = [str(d) for d in mesh.devices]
@@ -4960,7 +5143,8 @@ def main(argv=None) -> int:
         f"hd 112 {dec_errs['hd112_bf16']:.3g}, g 7 "
         f"{dec_errs['g7_bf16']:.3g}, phase 4n's {N_DECODE} at pos "
         f"{N_DECODE[1] - 1} {dec_errs['prod_bf16']:.3g}); "
-        f"every case run twice bitwise equal")
+        f"every case run twice bitwise equal; with its log-sum-exp o "
+        f"bitwise and lse max abs err {dec_errs['lse']:.3g} (tol 1e-4)")
     report["decode_errors"] = dec_errs
 
     # ---- 4. the main path at full width ------------------------------------
@@ -5219,6 +5403,16 @@ def main(argv=None) -> int:
         return fail(f"phase {exc}")
     q_mesh = report["mesh"]
     log(f"[4q mesh] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4r. the sharded step on the one card: a one-rank world ----------
+    t0 = time.perf_counter()
+    try:
+        report["sharded"] = sharded_cell(
+            torch, ts, tm, optim, dryrun, get_arch, get_shape,
+            all_kernels | {"flash_decode": kfd.flash_decode}, smi)
+    except (AssertionError, FloatingPointError, ValueError) as exc:
+        return fail(f"phase {exc}")
+    log(f"[4r sharded] phase wall {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the card against the port's CPU path ---------------------------
     one = [ScenarioSpec(fleet=fleet(DeviceProfile, DEVICES), name="K12",

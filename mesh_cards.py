@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""The batch mesh over distinct cards, on a machine with two or more
-NVIDIA GPUs, in one process.
+"""The batch mesh over distinct cards, and the sharded step over a
+four-card ``torch.distributed`` world, on a machine with NVIDIA GPUs
+(two or more; four for the world).
 
-    python3 mesh_cards.py
+    python3 mesh_cards.py                  # both parts
+    python3 mesh_cards.py --parts world    # the four-card world alone
+    python3 mesh_cards.py --parts world --world a,b,d,c
 
 Phase 4q (iii) of ``chip_smoke.py`` runs the batch mesh over two entries
 of one card.  This script runs the same cell (``chip_smoke.
@@ -30,17 +33,51 @@ build the mesh of every card.  Prints each card's name and power limit,
 each run's wall beside the serial one's, and as its last line one JSON
 object; exits 1 on any failure and when fewer than two cards are
 visible.
+
+**The four-card world** (``--parts world``; four processes, one a card,
+NCCL, a (2, 2) ``("data", "model")`` mesh, ``launch.mesh.
+make_device_mesh``), the sharded step of ``launch.dryrun``:
+
+* (a) agreement with one card: qwen1.5-4b at full width and
+  ``A_LAYERS`` of its 40 layers in float32 (``runtime_for``'s blockwise
+  attention and remat, global batch 2 of 4096 tokens), under baseline,
+  ZeRO-1, ``seq_parallel`` and ``attn_impl="pallas"`` (B4, B4', B4'' on
+  each card's heads), each against the same step on card 0 alone: the
+  first loss within rtol 1e-5, the parameters after 2 steps within 1e-4;
+* (b) qwen1.5-4b at full width and depth in bf16: ``run_pair``'s
+  train_4k rows at global batch 2 under the same four variants, the first
+  loss within ``bf16_tols`` of card 0's loss of the same weights and
+  batch, and decode_32k at batch 4, 16 steps under B5 (each card its rows
+  and half of the 32k cache, merged by the kernel's log-sum-exp);
+* (c) deepseek-v2-lite-16b train_4k under ZeRO-1 and
+  ``moe_shard_axes=("data",)``: its ``C_CUT``-layer cut first, the first
+  loss within 2e-2 of card 0's, then all 27 layers.
+
+Each row gives ms a step, tokens/s, the peak GiB of the fullest card, the
+collectives by op and MFU, beside the cards' name and power limit.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIELDS = ("losses", "accs", "times", "global_batch")
+
+# the four-card world
+W_MESH = (2, 2)
+W_VARIANTS = ("baseline", "zero1", "seq_parallel", "pallas")
+A_ARCH, A_LAYERS, A_STEPS, A_LR = "qwen1.5-4b", 4, 2, 1e-2
+DECODE_BATCH, DECODE_STEPS = 4, 16
+C_ARCH, C_CUT = "deepseek-v2-lite-16b", 6
+WORLD_TIMEOUT = 1500.0
 
 
 def _same(a, b) -> bool:
@@ -85,7 +122,296 @@ def rows_alone(env, api, DeviceProfile, cs, sharded, smi) -> list:
     return out
 
 
-def main() -> int:
+def _variant(rt, name: str):
+    """``(rt, zero1)`` of a four-card variant over ``rt``."""
+    knobs = {"seq_parallel": {"seq_parallel": True},
+             "pallas": {"attn_impl": "pallas"}}
+    return dataclasses.replace(rt, **knobs.get(name, {})), name == "zero1"
+
+
+def _one_card_loss(torch, cfg, shape, rt, device):
+    """Card 0's loss (CE + aux) of the weights and batch ``run_pair``
+    draws from seed 0 on ``device``, forward only."""
+    from repro_torch.fed import train_step as ts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as tm
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tm.init(cfg, gen, rt.dtype)
+    batch = dryrun._batch(cfg, ts.input_specs(cfg, shape, rt), gen, device)
+    with torch.no_grad():
+        loss = ts.make_loss_fn(cfg, rt)(tm._one_copy(params),
+                                        tm._one_copy(batch))[0]
+    out = float(loss)
+    del params, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _row(tag, r, smi) -> str:
+    peak = r["memory"]["peak_bytes"] / 2**30
+    return (f"[world {tag}] {r['arch']} x {r['shape']} on the {r['mesh']} "
+            f"mesh ({r['chips']} cards), {r['dtype']}, batch {r['batch']}, "
+            f"zero1 {r['zero1']}, reduced {r['reduced']}: "
+            f"{r['ms_per_step']:.1f} ms a step ({r['ms_min']:.1f}-"
+            f"{r['ms_max']:.1f}) = {r['tokens_per_s']:.1f} tokens/s; peak "
+            f"{peak:.2f} GiB on the fullest card; arguments "
+            f"{r['memory']['argument_bytes_per_device'] / 2**30:.3f} GiB a "
+            f"card (sized "
+            f"{r['memory']['sized_argument_bytes_per_device'] / 2**30:.3f});"
+            f" collectives {r['collective_by_op']} bytes a card "
+            f"({r['collective_count_by_op']}), collective_s "
+            f"{r['collective_s']:.4g}, compute_s {r['compute_s']:.4g}, "
+            f"memory_s {r['memory_s']:.4g}, dominant {r['dominant']}; MFU "
+            f"{r['mfu']:.4f}; launches {r['launches']}; first loss "
+            f"{r['first_loss']}; {smi}")
+
+
+def _agreement(torch, cs, mesh, smi) -> dict:
+    """(a): qwen1.5-4b at A_LAYERS layers in float32, each variant on the
+    mesh against card 0 alone."""
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.fed import train_step as ts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as tm
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    rank, dev = dist.get_rank(), torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_arch(A_ARCH), n_layers=A_LAYERS)
+    shape = get_shape("train_4k")
+    base_rt = dataclasses.replace(dryrun.runtime_for(cfg, shape),
+                                  dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params0 = tm.init(cfg, gen, torch.float32)
+    toks = torch.randint(0, cfg.vocab, (2, shape.seq_len + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "weights": torch.ones((2, shape.seq_len), device=dev)}
+    leaves = lambda t: [x for _, x in tree_leaves_with_path(t)]  # noqa
+    one_card, out = {}, {}
+    for variant in W_VARIANTS:
+        rt, zero1 = _variant(base_rt, variant)
+        if rank == 0 and rt.attn_impl not in one_card:
+            opt = optim.momentum(0.9)
+            p = tree_map(torch.clone, params0)
+            state = ts.TrainState(p, opt.init(p), 0)
+            step = ts.make_train_step(cfg, rt, opt)
+            losses = []
+            for _ in range(A_STEPS):
+                state, m = step(state, batch, A_LR)
+                losses.append(float(m["loss"]))
+            one_card[rt.attn_impl] = (losses, leaves(state.params))
+            del state, p
+        dist.barrier()
+        opt = optim.momentum(0.9)
+        state = ts.place_state(tree_map(torch.clone, params0), opt, mesh,
+                               zero1=zero1)
+        b = shd.place(batch, shd.batch_shardings(mesh, batch))
+        step = ts.make_train_step(cfg, rt, opt)
+        losses, ms = [], []
+        for _ in range(A_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b, A_LR)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        got = leaves(shd.gather(state.params))
+        del state, b
+        if rank == 0:
+            want_losses, want = one_card[rt.attn_impl]
+            loss_gap = abs(losses[0] - want_losses[0]) / abs(want_losses[0])
+            gap = max(float((a - w).abs().max()) for a, w in zip(got, want))
+            ok = loss_gap <= 1e-5 and all(
+                torch.allclose(a, w, rtol=1e-4, atol=1e-4)
+                for a, w in zip(got, want))
+            out[variant] = {"losses": losses, "one_card": want_losses,
+                            "first_loss_rel_gap": loss_gap,
+                            "params_max_abs_gap": gap, "ms": ms, "ok": ok}
+            print(f"[world (a)] {A_ARCH} at full width, {A_LAYERS} layers, "
+                  f"f32, {rt.attn_impl}, batch 2 x {shape.seq_len} on the "
+                  f"2x2 mesh, {variant}: losses {losses} vs card 0's "
+                  f"{want_losses} (first: rel gap {loss_gap:.3g}, tol "
+                  f"1e-5); parameters after {A_STEPS} steps max abs gap "
+                  f"{gap:.3g} (tol 1e-4): {'ok' if ok else 'FAIL'}; ms a "
+                  f"step {[round(t, 1) for t in ms]}; {smi}", flush=True)
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _full_qwen(torch, cs, mesh, smi, counted) -> dict:
+    """(b): qwen1.5-4b at full width and depth in bf16, run_pair's
+    train_4k rows on the mesh, the first loss against card 0's."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    rank, dev = dist.get_rank(), torch.device("cuda", torch.cuda.current_device())
+    cfg, shape = get_arch(A_ARCH), get_shape("train_4k")
+    out = {"train": {}}
+    for variant in W_VARIANTS:
+        rt, zero1 = _variant(dryrun.runtime_for(cfg, shape), variant)
+        cs._zero(counted)
+        r = dryrun.run_pair(A_ARCH, "train_4k", rt=rt, zero1=zero1,
+                            mesh=mesh, repeats=2)
+        r["launches_run"] = cs._read(counted)
+        if rank == 0:
+            want = _one_card_loss(torch, cfg, dataclasses.replace(
+                shape, global_batch=r["batch"]), rt, dev)
+            rtol, atol = cs.bf16_tols(torch.tensor(want))
+            r["one_card_first_loss"] = want
+            r["first_loss_ok"] = abs(r["first_loss"] - want) <= atol + \
+                rtol * abs(want)
+            print(_row(f"(b) train {variant}", r, smi)
+                  + f"; card 0's first loss {want} (bf16_tols rtol {rtol}, "
+                  f"atol {atol:.3g}): "
+                  f"{'ok' if r['first_loss_ok'] else 'FAIL'}", flush=True)
+        dist.barrier()
+        out["train"][variant] = r
+    return out
+
+
+def _decode(torch, cs, mesh, smi, counted) -> dict:
+    """(b), decode: qwen1.5-4b's decode_32k at batch DECODE_BATCH under
+    B5 on the mesh, DECODE_STEPS steps up to the last slot."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    rank = dist.get_rank()
+    cfg = get_arch(A_ARCH)
+    rt = dataclasses.replace(dryrun.runtime_for(cfg, get_shape(
+        "decode_32k")), attn_impl="pallas")
+    cs._zero(counted)
+    r = dryrun.run_pair(A_ARCH, "decode_32k", rt=rt, batch=DECODE_BATCH,
+                        mesh=mesh, repeats=DECODE_STEPS - 1)
+    r["launches_run"] = cs._read(counted)
+    want = cfg.n_layers * DECODE_STEPS
+    r["launches_ok"] = r["launches_run"].get("flash_decode") == want
+    if rank == 0:
+        print(_row("(b) decode pallas", r, smi)
+              + f"; flash_decode launches on card 0 "
+              f"{r['launches_run'].get('flash_decode')} (expected {want})",
+              flush=True)
+    return r
+
+
+def _deepseek(torch, cs, mesh, smi) -> dict:
+    """(c): deepseek-v2-lite-16b train_4k under ZeRO-1, its cut against
+    card 0 first, then at full depth."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    rank, dev = dist.get_rank(), torch.device("cuda", torch.cuda.current_device())
+    cfg, shape = get_arch(C_ARCH), get_shape("train_4k")
+    rt = dryrun.runtime_for(cfg, shape)
+    out = {}
+    r = dryrun.run_pair(C_ARCH, "train_4k", rt=rt, zero1=True, mesh=mesh,
+                        layers=C_CUT, repeats=1)
+    if rank == 0:
+        want = _one_card_loss(torch, dataclasses.replace(cfg, n_layers=C_CUT),
+                              dataclasses.replace(shape,
+                                                  global_batch=r["batch"]),
+                              rt, dev)
+        r["one_card_first_loss"] = want
+        r["first_loss_ok"] = abs(r["first_loss"] - want) <= 2e-2 * abs(want)
+        print(_row(f"(c) train zero1, {C_CUT} layers", r, smi)
+              + f"; card 0's first loss {want} (rtol 2e-2): "
+              f"{'ok' if r['first_loss_ok'] else 'FAIL'}", flush=True)
+    dist.barrier()
+    out["cut"] = r
+    r = dryrun.run_pair(C_ARCH, "train_4k", rt=rt, zero1=True, mesh=mesh,
+                        repeats=2)
+    if rank == 0:
+        print(_row(f"(c) train zero1, all {cfg.n_layers} layers", r, smi),
+              flush=True)
+    out["full"] = r
+    return out
+
+
+def four_card_world(cells: tuple) -> dict:
+    """Rank body of the four-card world: the cells ``cells`` of (a), (b)
+    (``"b"`` its training, ``"d"`` its decode), (c) on a (2, 2) mesh; rank
+    0's report."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.fed.engine import full_f32
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.launch.mesh import make_device_mesh
+    full_f32("cuda")
+    smi = cs.nvidia_smi_line()
+    mesh = make_device_mesh(W_MESH, ("data", "model"))
+    counted = {"flash_attention_fwd": kfa.flash_attention_fwd,
+               "flash_attention_bwd_dq": kfa.flash_attention_bwd_dq,
+               "flash_attention_bwd_dkdv": kfa.flash_attention_bwd_dkdv,
+               "flash_decode": kfd.flash_decode}
+    out = {"devices": [str(d) for d in mesh.devices]}
+    for cell, fn in (("a", lambda: _agreement(torch, cs, mesh, smi)),
+                     ("b", lambda: _full_qwen(torch, cs, mesh, smi,
+                                              counted)),
+                     ("d", lambda: _decode(torch, cs, mesh, smi, counted)),
+                     ("c", lambda: _deepseek(torch, cs, mesh, smi))):
+        if cell in cells:
+            t0 = time.perf_counter()
+            out[cell] = fn()
+            out[f"{cell}_wall_s"] = time.perf_counter() - t0
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                print(f"[world] cell ({cell}) wall "
+                      f"{out[f'{cell}_wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _world_ok(report: dict) -> list:
+    """The four-card world's failures, by cell."""
+    bad = []
+    for v, r in report.get("a", {}).items():
+        if not r["ok"]:
+            bad.append(f"(a) {v}")
+    for v, r in report.get("b", {}).get("train", {}).items():
+        if not r.get("first_loss_ok"):
+            bad.append(f"(b) train {v}")
+    if "d" in report and not report["d"]["launches_ok"]:
+        bad.append("(b) decode launches")
+    c = report.get("c", {})
+    if c and not c["cut"].get("first_loss_ok"):
+        bad.append(f"(c) {C_CUT}-layer cut")
+    return bad
+
+
+def run_world(torch, cells) -> tuple:
+    """The four-card world from this process: the kernels built first
+    (each rank loads them), then four processes; ``(report, failures)``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    from repro_torch.testing.distributed import World
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build.load, ("flash_attention", "flash_decode")))
+    print(f"[world] kernels built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        world = World(four_card_world, (tuple(cells),), world=4,
+                      init_file=f"{tmp}/rendezvous", timeout=WORLD_TIMEOUT,
+                      backend="nccl")
+        report = world.result()
+    return report, _world_ok(report)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parts", default="batch,world",
+                    help="batch (the batch mesh) and/or world (the "
+                         "four-card world)")
+    ap.add_argument("--world", default="a,b,d,c",
+                    help="the world's cells: a, b (train), d (b's decode) "
+                         "and/or c")
+    args = ap.parse_args(argv)
+    parts = args.parts.split(",")
     import numpy as np
     import torch
 
@@ -105,14 +431,34 @@ def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("FAIL: this needs two or more CUDA devices", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if "world" in parts and torch.cuda.device_count() < 4:
+        print("FAIL: the four-card world needs four CUDA devices",
+              file=sys.stderr)
+        return 1
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     for i, line in enumerate(cards):
         print(f"[cards] {i}: {line.strip()}", flush=True)
+    summary = {"cards": cards}
+    if "world" in parts:         # first: this process holds no card yet
+        t0 = time.perf_counter()
+        try:
+            summary["world"], bad = run_world(torch, args.world.split(","))
+        except (RuntimeError, TimeoutError) as exc:
+            print(f"FAIL: the four-card world: {exc}", file=sys.stderr)
+            return 1
+        print(f"[world] wall {time.perf_counter() - t0:.1f} s", flush=True)
+        if bad:
+            print(json.dumps(summary, default=str))
+            print(f"FAIL: the four-card world: {bad}", file=sys.stderr)
+            return 1
+    if "batch" not in parts:
+        print(json.dumps(summary, default=str))
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     t0 = time.perf_counter()
     build.load("sbc")
@@ -156,11 +502,11 @@ def main() -> int:
         print(f"[mesh] {label}: {cs.describe_mesh(meshes['cards'])} "
               f"bitwise {cs.describe_mesh(meshes['entries'])}: "
               f"{'yes' if ok else 'NO'}", flush=True)
-    print(json.dumps({"cards": cards,
+    print(json.dumps({**summary,
                       "meshes": {k: [str(d) for d in m.devices]
                                  for k, m in meshes.items()},
                       "runs": runs, "cards_bitwise_entries": same,
-                      "rows_alone": alone}))
+                      "rows_alone": alone}, default=str))
     if not all(same.values()):
         print("FAIL: distinct cards differ from entries of one card",
               file=sys.stderr)

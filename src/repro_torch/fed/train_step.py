@@ -17,11 +17,23 @@ devices (or rows), each over its own examples with its own denominator
 (the FEEL engines' form).  The train, prefill and serve steps run one set in the
 reference's layout (no copy axis) and add a copy axis of 1 inside.
 
+The steps run as they stand on a mesh over a ``torch.distributed``
+world, where the state, batch and cache are DTensors (:func:`place_state`,
+:func:`repro_torch.launch.sharding.place`): the forward and backward
+insert the tensor-parallel collectives, each gradient is reduced to its
+optimizer state's placements (an all-reduce over the data axes, or under
+ZeRO-1 — ``state_shardings_zero1`` — a reduce-scatter), the update runs
+on those shards, and the parameters come back in their own layout (an
+all-gather under ZeRO-1), as XLA lowers the reference's jitted step.
+The weighted CE over data-split rows reduces across ranks.  Plain
+tensors that meet DTensors there (masks, positions) count as replicated.
+
 :func:`input_specs` gives the reference's abstract inputs of an (arch,
 shape) pair as tensors on the ``meta`` device.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any
 
@@ -29,6 +41,8 @@ import torch
 
 from repro_torch.compression.sbc import sbc_uplink
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch import sharding as shd
+from repro_torch.models import sharded
 from repro_torch.models.model import (Runtime, _one_copy, decode_step,
                                       forward, init_cache)
 from repro_torch.optim import Optimizer
@@ -131,11 +145,17 @@ def apply_in_place(opt: Optimizer, params, grads: list, state, lr):
     copied into the leaf and its state, and the gradient leaf dropped
     from ``grads`` — so one leaf's update is alive at once, not a second
     copy of the model and its state.  The same arithmetic as the
-    reference's ``apply_updates(params, opt.update(...))``."""
+    reference's ``apply_updates(params, opt.update(...))``.  On DTensors
+    an update in other placements than its parameter's (ZeRO-1's
+    shards) is brought to the parameter's (an all-gather) before it is
+    added."""
     shared = []
     for i, p in enumerate(tree_leaves(params)):
         upd, new = opt.update(grads[i], _leaf_state(state, params, i), p, lr)
-        p.add_(upd.to(p.dtype))
+        upd = upd.to(p.dtype)
+        if sharded.is_dtensor(upd) and upd.placements != p.placements:
+            upd = upd.redistribute(p.device_mesh, p.placements)
+        p.add_(upd)
         _write_state(state, new, params, i, shared)
         grads[i] = None
         del upd, new
@@ -164,21 +184,36 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
 
     def train_step(state: TrainState, batch, lr):
         leaves = tree_leaves(state.params)
-        with torch.enable_grad():
+        on_mesh = sharded.is_dtensor(leaves[0])
+        if on_mesh and compress_uplink:
+            raise NotImplementedError(
+                "compress_uplink on a mesh of several devices is not "
+                "ported; SBC runs on one card")
+        with _on_mesh(on_mesh), torch.enable_grad():
             req = [p.detach().requires_grad_() for p in leaves]
             views = _one_copy(tree_unflatten(state.params, req))
             total, ce = total_and_ce(views, _one_copy(batch))
-            grads = list(torch.autograd.grad(total[0], req))
+            # the one copy's loss: a sum of one on DTensors, whose select
+            # has no sharded backward
+            grads = list(torch.autograd.grad(
+                total.sum() if on_mesh else total[0], req))
         total, loss = total[0].detach(), ce[0].detach()
         del req, views
         residual = state.residual
         if compress_uplink:     # the gradients become their approximation
             _, residual = sbc_uplink(tree_unflatten(state.params, grads),
                                      compress_ratio, residual)
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        with torch.no_grad():
-            apply_in_place(opt, state.params, grads, state.opt, lr)
+        with _on_mesh(on_mesh):
+            if on_mesh:
+                grads = [g.redistribute(g.device_mesh,
+                                        _grad_layout(state, i, p))
+                         for i, (g, p) in enumerate(zip(grads, leaves))]
+            gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            with torch.no_grad():
+                apply_in_place(opt, state.params, grads, state.opt, lr)
         metrics = {"loss": loss, "total_loss": total, "grad_norm": gnorm}
+        if on_mesh:
+            metrics = {k: v.full_tensor() for k, v in metrics.items()}
         return TrainState(state.params, state.opt, state.step + 1,
                           residual), metrics
 
@@ -214,18 +249,57 @@ def make_multi_train_step(cfg: ArchConfig, rt: Runtime, opt: Optimizer,
 def make_prefill_step(cfg: ArchConfig, rt: Runtime):
     def prefill(params, batch):
         prefix = batch.get("prefix")
-        return forward(cfg, _one_copy(params), batch["tokens"][None],
-                       prefix_embeds=None if prefix is None else prefix[None],
-                       rt=rt)[0][0]
+        with _on_mesh(sharded.is_dtensor(batch["tokens"])):
+            return forward(cfg, _one_copy(params), batch["tokens"][None],
+                           prefix_embeds=(None if prefix is None
+                                          else prefix[None]),
+                           rt=rt)[0][0]
 
     return prefill
 
 
 def make_serve_step(cfg: ArchConfig, rt: Runtime):
     def serve(params, cache, tokens):
-        return decode_step(cfg, params, cache, tokens, rt=rt)
+        with _on_mesh(sharded.is_dtensor(tokens)):
+            return decode_step(cfg, params, cache, tokens, rt=rt)
 
     return serve
+
+
+def _on_mesh(on: bool):
+    """Plain tensors (masks, positions, ids) that meet DTensors count as
+    replicated inside a step on a mesh."""
+    if not on:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _grad_layout(state: TrainState, i: int, p) -> tuple:
+    """The placements leaf i's gradient is reduced to: its optimizer
+    state's (ZeRO-1's shards over the data axes), or its parameter's
+    where the optimizer keeps no state of its shape."""
+    for t in tree_leaves(_leaf_state(state.opt, state.params, i)):
+        if sharded.is_dtensor(t) and t.shape == p.shape:
+            return t.placements
+    return p.placements
+
+
+def place_state(params, opt: Optimizer, mesh, *,
+                zero1: bool = False) -> TrainState:
+    """A fresh ``TrainState`` of ``params`` on ``mesh`` by the reference's
+    rules (``state_shardings``, or ``state_shardings_zero1``: the
+    optimizer state also split over the data axes): the parameters
+    placed (:func:`~repro_torch.launch.sharding.place`: each rank holds
+    the same ``params`` and keeps its shards) and the optimizer's zeros
+    made straight into their shards."""
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), params)
+    spec = TrainState(like, opt.init(like), 0)
+    rule = shd.state_shardings_zero1 if zero1 else shd.state_shardings
+    sh = rule(mesh, spec)
+    return TrainState(shd.place(params, sh.params),
+                      shd.place_zeros(spec.opt, sh.opt), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,8 @@ struct Shape {
   int window;                     // <= 0: no window
   int splits;                     // 1 .. kMaxSplits, set at launch
   float scale;
+  float* lse = nullptr;           // (B, Hq) log-sum-exp of the scores, or
+                                  // not written
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -328,6 +330,8 @@ __device__ void merge_runs(const float* part, T* o, const Shape& sh, int b,
       for (int c = 0; c < PER; ++c) acc[c] = fmaf(as[c], w, acc[c]);
     }
     den = fmaxf(den, 1e-30f);
+    if (sh.lse != nullptr && lane == 0)
+      sh.lse[static_cast<size_t>(b) * sh.Hq + h] = mx + logf(den);
     T* dst = o + (static_cast<size_t>(b) * sh.Hq + h) * HD + col;
     if (lane < LANES) {
 #pragma unroll
@@ -669,6 +673,19 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         int B, int ctx, int Hq, int Hkv, int hd, int window,
                         float scale, int bf16, cudaStream_t stream) {
   const Shape sh{B, ctx, Hq, Hkv, window, 1, scale};
+  return by_shape(sh, hd, bf16,
+                  LaunchOp{q, k, v, pos, part, arrivals, o, sh, stream});
+}
+
+// The same launch, also writing lse: (B, Hq) float32, each row's
+// log-sum-exp of its scaled scores over the visible slots (about -1e30
+// where none is visible), for merging with other parts of the cache.
+int flash_decode_lse_launch(const void* q, const void* k, const void* v,
+                            const int* pos, float* part, int* arrivals,
+                            void* o, float* lse, int B, int ctx, int Hq,
+                            int Hkv, int hd, int window, float scale,
+                            int bf16, cudaStream_t stream) {
+  const Shape sh{B, ctx, Hq, Hkv, window, 1, scale, lse};
   return by_shape(sh, hd, bf16,
                   LaunchOp{q, k, v, pos, part, arrivals, o, sh, stream});
 }

@@ -54,6 +54,10 @@ def _library():
     # bf16; stream
     c.flash_decode_launch.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, ptr]
     c.flash_decode_launch.restype = i32
+    # the same with lse after o
+    c.flash_decode_lse_launch.argtypes = ([ptr] * 8 + [i32] * 6
+                                          + [f32, i32, ptr])
+    c.flash_decode_lse_launch.restype = i32
     # B, ctx, Hq, Hkv, hd, bf16; out[7]
     c.flash_decode_resources.argtypes = [i32] * 6 + [ptr]
     c.flash_decode_resources.restype = i32
@@ -111,11 +115,13 @@ def visible_slots(pos, ctx: int, window: Optional[int], device):
     return (key_pos >= 0) & (key_pos <= pos) & (key_pos > pos - window)
 
 
-def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None):
+def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None,
+                       lse: bool = False):
     """Plain PyTorch decode attention: the reference oracle's arithmetic
     (``kernels/ref.py::decode_attention_ref``: float32 scores scaled by
     ``1/√hd``, masked at -1e30, softmax, P·V) over the model's layout,
-    grouped-query heads by index.  o like q."""
+    grouped-query heads by index.  o like q; with ``lse``, ``(o, lse)``,
+    lse (B, Hq) float32 the scores' log-sum-exp."""
     b, _, hq, hd = q.shape
     ctx, hkv = k.shape[1], k.shape[2]
     if isinstance(pos, torch.Tensor):
@@ -124,7 +130,10 @@ def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None):
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (1.0 / hd ** 0.5)
     s = torch.where(visible_slots(pos, ctx, window, q.device), s, NEG_INF)
     o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v.float())
-    return o.reshape(b, 1, hq, hd).to(q.dtype)
+    o = o.reshape(b, 1, hq, hd).to(q.dtype)
+    if lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, hq)
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -132,32 +141,42 @@ def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def flash_decode(q, k, v, pos, *, window: Optional[int] = None):
-    """o (B, 1, Hq, hd) in q's dtype."""
+def flash_decode(q, k, v, pos, *, window: Optional[int] = None,
+                 lse: bool = False):
+    """o (B, 1, Hq, hd) in q's dtype; with ``lse``, ``(o, lse)``, lse (B,
+    Hq) float32 each row's log-sum-exp of its scaled scores over the
+    visible slots (about -1e30 where none is), to merge the parts of a
+    cache split over cards."""
     _check(q, k, v, pos, window)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, pos, window=window)
+        return flash_decode_plain(q, k, v, pos, window=window, lse=lse)
     b, _, hq, hd = q.shape
     ctx, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    out_lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+               if lse else None)
     if q.numel() == 0 or ctx == 0:
-        return o.zero_()
+        return (o.zero_(), out_lse.fill_(NEG_INF)) if lse else o.zero_()
     if not (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32):
         pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, arrivals = _scratch_for(q.device, stream, b * hq * MAX_SPLITS
                                   * (hd + 4), b * hkv)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            part.data_ptr(), arrivals.data_ptr(), o.data_ptr())
+    rest = (b, ctx, hq, hkv, hd, 0 if window is None else int(window),
+            1.0 / hd ** 0.5, int(q.dtype == torch.bfloat16), stream)
     with torch.cuda.device(q.device):     # the kernel sizes by its SMs
-        rc = _library().flash_decode_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            part.data_ptr(), arrivals.data_ptr(), o.data_ptr(), b, ctx, hq,
-            hkv, hd, 0 if window is None else int(window), 1.0 / hd ** 0.5,
-            int(q.dtype == torch.bfloat16), stream)
+        if lse:
+            rc = _library().flash_decode_lse_launch(
+                *args, out_lse.data_ptr(), *rest)
+        else:
+            rc = _library().flash_decode_launch(*args, *rest)
     if rc != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {rc}")
     flash_decode.launches += 1
-    return o
+    return (o, out_lse) if lse else o
 
 
 flash_decode.launches = 0

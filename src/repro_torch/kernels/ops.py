@@ -101,9 +101,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
-                 window: Optional[int] = None) -> torch.Tensor:
+                 window: Optional[int] = None, lse: bool = False):
     """q: (B, 1, Hq, hd); k, v caches: (B, ctx, Hkv, hd); ``pos`` the
     decoded token's position, a one-element integer tensor on q's device
-    (or an int) → (B, 1, Hq, hd)."""
+    (or an int) → (B, 1, Hq, hd); with ``lse`` also the rows' (B, Hq)
+    log-sum-exp of their scores."""
     return fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
-                           pos, window=window)
+                           pos, window=window, lse=lse)

@@ -20,14 +20,15 @@ A row keeps the reference's keys that mean something on one card —
 the parameters, optimizer state and inputs; ``peak_bytes``,
 ``torch.cuda.max_memory_allocated``), ``compute_s`` (the FLOPs over the
 card's peak) and ``memory_s`` (the argument bytes over its HBM rate),
-``dominant``, ``model_flops_total`` and ``useful_flops_ratio`` — and
-drops ``collective_s`` and the collective bytes: one card has no
-collectives.  It adds ``ms_per_step`` (and its spread), ``tokens_per_s``,
-``flops`` (the products PyTorch counted plus the port's kernels' by
-formula, :mod:`.cost`), ``launches`` (each kernel's, in the counted step)
-and ``mfu``, the model FLOPs a second over the H100 SXM's dense peak of
-the run's dtype (:data:`PEAK_FLOPS`).  On the CPU the device terms
-(``compute_s``, ``memory_s``, ``mfu``) are None.
+``dominant``, ``model_flops_total`` and ``useful_flops_ratio`` — and,
+on one card, which has no collectives, ``collective_s`` and the
+collective bytes are left out.  It adds ``ms_per_step`` (and its
+spread), ``tokens_per_s``, ``flops`` (the products PyTorch counted plus
+the port's kernels' by formula, :mod:`.cost`), ``launches`` (each
+kernel's, in the counted step), ``first_loss`` and ``loss`` (a train
+step's first and last) and ``mfu``, the model FLOPs a second over the
+H100 SXM's dense peak of the run's dtype (:data:`PEAK_FLOPS`).  On the
+CPU the device terms (``compute_s``, ``memory_s``, ``mfu``) are None.
 
 The production mesh sizes the row as the reference's does: ``mesh`` is
 ``"16x16"``, or ``"2x16x16"`` with ``multi_pod`` (which also gives
@@ -39,12 +40,37 @@ sharding rules (:func:`sharded_arguments`).  ``zero1`` shards the
 optimizer state over the data axes there, so it lowers that figure on a
 train shape; ``chips`` stays 1, since the measured step ran on one card.
 
+**On a mesh of several devices** (``mesh="2x2"``, or ``"2x1x2"`` with
+``multi_pod``: ``--mesh``), the step runs sharded, one process a device
+under ``torch.distributed`` (``torchrun --standalone --nproc-per-node
+4``; :func:`~repro_torch.launch.mesh.init_world` raises when there is no
+world, so the row never quietly runs on one rank).  Each rank draws the
+same parameters and inputs from seed 0 and keeps its shards
+(:func:`~repro_torch.launch.sharding.place`, ``place_state`` with
+``zero1``), the global batch is :data:`ONE_CARD_BATCH` times the mesh's
+data size (or ``batch``; a cut is listed in ``reduced``), and the
+warm-up step is counted on each device (:func:`repro_torch.launch.cost.
+count_sharded`).  The row gets back the reference's keys: ``chips`` is
+the world size, ``collective_bytes_per_device`` and ``collective_by_op``
+(rank 0's collectives, at their results' bytes), ``collective_s`` (those
+bytes over :data:`NVLINK_BW`) and ``dominant`` over the three terms;
+``compute_s`` and ``memory_s`` are per device too (the FLOPs rank 0 ran,
+its arguments).  ``memory.argument_bytes_per_device`` is measured from
+rank 0's local shards, beside ``memory.sized_argument_bytes_per_device``
+(the rules at this mesh and cut) and
+``memory.production_argument_bytes_per_device`` (the production mesh's,
+uncut); ``memory.peak_bytes`` is the largest over the ranks.  Rank 0
+returns the row (the others return it too) and ``main`` prints it on
+rank 0 only.
+
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b --shape train_4k
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b \\
         --shape decode_32k --device cpu --layers 2 --batch 1 --multi-pod
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.dryrun \\
+        --arch qwen1.5-4b --shape train_4k --mesh 2x2
 
-It runs on the GPU unless ``--device cpu`` is given, and raises when CUDA
-is not available.
+It runs on the GPU unless ``--device cpu`` is given (on a mesh, ``gloo``
+on the CPU), and raises when CUDA is not available.
 """
 from __future__ import annotations
 
@@ -60,6 +86,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.experiment import resolve_device
 from repro_torch.configs import ASSIGNED, get_arch, get_shape, SHAPES
@@ -71,17 +98,23 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import sbc as ksbc
 from repro_torch.kernels import ssd_scan as kssd
+from repro_torch.fed.train_step import place_state
 from repro_torch.launch import cost
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (data_size, init_world, make_device_mesh,
+                                     make_production_mesh, parse_mesh)
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.model import Runtime, init, param_spec
+from repro_torch.models.sharded import is_dtensor
 from repro_torch.optim import momentum
-from repro_torch.tree import tree_leaves, tree_leaves_with_path
+from repro_torch.tree import tree_leaves_with_path
 
-# NVIDIA H100 SXM (data sheet): dense peaks by dtype, HBM rate
+# NVIDIA H100 SXM (data sheet): dense peaks by dtype, HBM rate, and NVLink:
+# the sheet's 900 GB/s is both directions together, so a device takes in
+# at most half of it
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BW = 3.35e12
+NVLINK_BW = 450e9
 
 # long-context policy: full-attention GQA archs use the sliding-window
 # variant at 500k; MLA/SSM/hybrid run natively
@@ -196,9 +229,11 @@ def _batch(cfg, specs, gen, device):
     return out
 
 
-def _cache(specs, gen, device, pos: int):
+def _cache(specs, gen, device, pos: int, mesh=None):
     """A decode cache of ``input_specs``' shapes filled from ``gen``, its
-    position at ``pos``."""
+    position at ``pos``; on ``mesh`` each leaf is placed by
+    ``cache_shardings`` as soon as it is drawn, so a card holds one whole
+    leaf at a time (a 32k cache does not fit on one card whole)."""
     cache = {}
     for name, spec in specs.items():
         t = torch.empty(spec.shape, dtype=spec.dtype, device=device)
@@ -206,42 +241,69 @@ def _cache(specs, gen, device, pos: int):
             t.fill_(pos)
         else:
             t.normal_(generator=gen)
+        if mesh is not None:
+            t = shd.place({name: t}, shd.cache_shardings(mesh, {name: t}))[
+                name]
         cache[name] = t
     return cache
 
 
-def _build(cfg, shape, rt, opt, params, gen, device, steps: int):
-    """``(one, state)``: one step of the pair as a callable returning what
-    is checked for finite values, and the tensors it holds beside the
-    parameters."""
+def _build(cfg, shape, rt, opt, params, gen, device, steps: int,
+           mesh=None, zero1: bool = False):
+    """``(one, held)``: one step of the pair as a callable returning what
+    is checked for finite values, and the step's arguments (the
+    parameters, or the train state, and the inputs).  On ``mesh`` (over a
+    world) every argument is placed by the rules, the optimizer state by
+    ``zero1``'s when asked."""
     specs = input_specs(cfg, shape, rt)
+    put = (lambda tree, rule: tree) if mesh is None else (
+        lambda tree, rule: shd.place(tree, rule(mesh, tree)))
+    # DTensor runs no view under inference mode: no_grad on a mesh
+    infer = torch.inference_mode if mesh is None else torch.no_grad
     if shape.mode == "train":
         opt = opt or momentum(0.9)
-        box = [TrainState(params, opt.init(params), 0)]
-        batch = _batch(cfg, specs, gen, device)
+        box = [TrainState(params, opt.init(params), 0) if mesh is None
+               else place_state(params, opt, mesh, zero1=zero1)]
+        batch = put(_batch(cfg, specs, gen, device), shd.batch_shardings)
         step = make_train_step(cfg, rt, opt)
 
         def one():
             box[0], metrics = step(box[0], batch, 1e-2)
             return metrics["total_loss"]
-        return one, {"opt": box[0].opt, "batch": batch}
+        return one, {"state": box[0], "batch": batch}
+    params = put(params, shd.params_shardings)
     if shape.mode == "prefill":
-        batch = _batch(cfg, specs, gen, device)
+        batch = put(_batch(cfg, specs, gen, device), shd.batch_shardings)
         prefill = make_prefill_step(cfg, rt)
 
         def one():
-            with torch.inference_mode():
-                return prefill(params, batch)[..., :cfg.vocab]
-        return one, {"batch": batch}
-    cache = _cache(specs["cache"], gen, device, shape.seq_len - steps)
-    tokens = torch.randint(0, cfg.vocab, specs["tokens"].shape,
-                           generator=gen, dtype=torch.int32, device=device)
+            with infer():
+                return _whole(prefill(params, batch))[..., :cfg.vocab]
+        return one, {"params": params, "batch": batch}
+    cache = _cache(specs["cache"], gen, device, shape.seq_len - steps, mesh)
+    tokens = put({"t": torch.randint(0, cfg.vocab, specs["tokens"].shape,
+                                     generator=gen, dtype=torch.int32,
+                                     device=device)},
+                 shd.batch_shardings)["t"]
     serve = make_serve_step(cfg, rt)
 
     def one():
-        with torch.inference_mode():
-            return serve(params, cache, tokens)[0][..., :cfg.vocab]
-    return one, {"cache": cache, "tokens": tokens}
+        with infer():
+            return _whole(serve(params, cache, tokens)[0])[..., :cfg.vocab]
+    return one, {"params": params, "cache": cache, "tokens": tokens}
+
+
+def _whole(t):
+    """A DTensor as its full tensor (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _local_bytes(tree) -> int:
+    """The bytes of ``tree``'s tensors on this device (a DTensor's local
+    shard)."""
+    return sum((t.to_local() if is_dtensor(t) else t).numel()
+               * t.element_size() for _, t in tree_leaves_with_path(tree)
+               if isinstance(t, torch.Tensor))
 
 
 def _kernel_flops(cfg, shape, rt, launches: dict, visible: int) -> dict:
@@ -274,12 +336,39 @@ def _finite(what: str, t):
         raise FloatingPointError(f"{what}: non-finite values")
 
 
+def _on_mesh(mesh, multi_pod: bool, device):
+    """``(Mesh, this rank's device)`` for ``run_pair``'s ``mesh``: a Mesh
+    over the world, or its text (``"2x2"``) made over the world — which
+    must be initialised already or come from the environment
+    (:func:`init_world` raises otherwise)."""
+    if isinstance(mesh, str):
+        backend = "gloo" if torch.device(device or "cuda").type == "cpu" \
+            else None
+        init_world(backend)
+        mesh = make_device_mesh(*parse_mesh(mesh, multi_pod))
+    if mesh.device_mesh is None:
+        raise ValueError(f"mesh {mesh.shape} is not over a world; build it "
+                         "with launch.mesh.make_device_mesh")
+    return mesh, mesh.devices[dist.get_rank()]
+
+
+def _max_over_ranks(value: int, device) -> int:
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
+
+
 def run_pair(arch: str, shape_name: str, rt=None, opt=None,
              zero1: bool = False, *, multi_pod: bool = False, device=None,
-             layers: int = 0, batch: int = 0, repeats: int = 3) -> dict:
-    """Run one (arch × shape) pair on one device; see the module's
-    docstring for the row."""
-    dev = resolve_device(device)
+             layers: int = 0, batch: int = 0, repeats: int = 3,
+             mesh=None) -> dict:
+    """Run one (arch × shape) pair on one device, or sharded over ``mesh``
+    (``"2x2"``, ``"2x1x2"`` with ``multi_pod``, or a Mesh over the
+    world); see the module's docstring for the row."""
+    if mesh is not None:
+        mesh, dev = _on_mesh(mesh, multi_pod, device)
+    else:
+        dev = resolve_device(device)
     full_f32(dev)
     cfg, shape = get_arch(arch), get_shape(shape_name)
     rt = rt or runtime_for(cfg, shape, multi_pod)
@@ -290,10 +379,12 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     if layers and layers != cfg.n_layers:
         reduced["n_layers"] = [cfg.n_layers, layers]
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    b = batch or min(shape.global_batch, ONE_CARD_BATCH[shape.mode])
+    ways = data_size(mesh) if mesh is not None else 1
+    b = batch or min(shape.global_batch, ONE_CARD_BATCH[shape.mode] * ways)
     if b != shape.global_batch:
         reduced["global_batch"] = [shape.global_batch, b]
         shape = dataclasses.replace(shape, global_batch=b)
+    chips = mesh.size if mesh is not None else 1
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -302,21 +393,28 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     try:
         params = init(cfg, gen, rt.dtype)
         one, held = _build(cfg, shape, rt, opt, params, gen, dev,
-                           repeats + 1)
-        arg_bytes = sum(t.numel() * t.element_size()
-                        for t in tree_leaves([params, held]))
+                           repeats + 1, mesh=mesh, zero1=zero1)
+        del params            # on a mesh, each rank keeps its shards only
+        gc.collect()
+        arg_bytes = _local_bytes(held)
         visible = 0
         if shape.mode == "decode":
-            ctx = held["cache"]["k"].shape[2] if "k" in held["cache"] else 0
-            visible = min(int(held["cache"]["pos"]) + 1, ctx)
+            cache = held["cache"]
+            ctx = cache["k"].shape[2] if "k" in cache else 0
+            visible = min(int(_whole(cache["pos"])) + 1, ctx)
         before = {name: k.launches for name, k in KERNELS.items()}
         t0 = time.perf_counter()
-        out, counted = cost.count(one)
+        if mesh is None:
+            out, counted = cost.count(one)
+            coll = None
+        else:
+            out, counted, coll = cost.count_sharded(one)
         _sync(dev)
         first_s = time.perf_counter() - t0
         launches = {name: k.launches - before[name]
                     for name, k in KERNELS.items()}
         _finite(f"{arch} x {shape_name}, first step", out)
+        first_loss = float(out) if shape.mode == "train" else None
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
@@ -326,15 +424,21 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         _finite(f"{arch} x {shape_name}", out)
         peak_bytes = (torch.cuda.max_memory_allocated(dev)
                       if dev.type == "cuda" else None)
+        if mesh is not None and peak_bytes is not None:
+            peak_bytes = _max_over_ranks(peak_bytes, dev)
         loss = float(out) if shape.mode == "train" else None
-        opt_state = (str(tree_leaves(held["opt"])[0].dtype).split(".")[-1]
+        opt_state = (str(tree_leaves_with_path(held["state"].opt)[0][1].dtype
+                         ).split(".")[-1]
                      if shape.mode == "train" else None)
-        del params, one, held, out
+        del one, held, out
     finally:
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    kernel_flops = _kernel_flops(cfg, shape, rt, launches, visible)
+    # the kernels run on each device's rows and heads (or part of the
+    # cache): a device's share of their products
+    kernel_flops = {k: n // chips for k, n in _kernel_flops(
+        cfg, shape, rt, launches, visible).items()}
     flops = counted.flops + sum(kernel_flops.values())
     ms = 1e3 * statistics.median(times)
     tokens = b * (shape.seq_len if shape.mode != "decode" else 1)
@@ -343,9 +447,29 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
     peak = PEAK_FLOPS.get(rt.dtype) if on_card else None
     terms = {"compute_s": flops / peak if peak else None,
              "memory_s": arg_bytes / HBM_BW if on_card else None}
+    memory = {"argument_bytes": arg_bytes,
+              "argument_bytes_per_device": sized["argument_bytes_per_device"],
+              "peak_bytes": peak_bytes}
+    collectives = {}
+    if mesh is not None:
+        terms["collective_s"] = coll.bytes / NVLINK_BW if on_card else None
+        at_mesh = sharded_arguments(cfg, shape, rt, mesh, opt=opt,
+                                    zero1=zero1)
+        memory = {"argument_bytes": at_mesh["argument_bytes"],
+                  "argument_bytes_per_device": arg_bytes,
+                  "sized_argument_bytes_per_device":
+                      at_mesh["argument_bytes_per_device"],
+                  "production_argument_bytes_per_device":
+                      sized["argument_bytes_per_device"],
+                  "peak_bytes": peak_bytes}
+        collectives = {"collective_bytes_per_device": coll.bytes,
+                       "collective_by_op": coll.by_op,
+                       "collective_count_by_op": coll.count}
     return {
-        "arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
-        "mode": shape.mode, "chips": 1,
+        "arch": arch, "shape": shape_name,
+        "mesh": ("x".join(map(str, mesh.axis_sizes)) if mesh is not None
+                 else mesh_name(multi_pod)),
+        "mode": shape.mode, "chips": chips,
         "device": device_label(dev), "dtype": str(rt.dtype).split(".")[-1],
         "runtime": {f.name: str(getattr(rt, f.name))
                     for f in dataclasses.fields(rt)},
@@ -354,10 +478,8 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         "ms_per_step": ms, "ms_min": 1e3 * min(times),
         "ms_max": 1e3 * max(times), "repeats": repeats,
         "first_step_s": first_s, "tokens_per_s": tokens / (ms / 1e3),
-        "memory": {"argument_bytes": arg_bytes,
-                   "argument_bytes_per_device":
-                       sized["argument_bytes_per_device"],
-                   "peak_bytes": peak_bytes},
+        "memory": memory,
+        **collectives,
         **terms,
         "dominant": (max(terms, key=terms.get) if on_card and peak
                      else None),
@@ -365,9 +487,9 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         "kernel_flops": kernel_flops, "flops": flops,
         "launches": {k: n for k, n in launches.items() if n},
         "model_flops_total": mf,
-        "useful_flops_ratio": mf / flops if flops else None,
-        "mfu": mf / (ms / 1e3) / peak if peak else None,
-        "loss": loss,
+        "useful_flops_ratio": mf / (chips * flops) if flops else None,
+        "mfu": mf / (ms / 1e3) / (chips * peak) if peak else None,
+        "loss": loss, "first_loss": first_loss,
     }
 
 
@@ -383,7 +505,12 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=0,
-                    help="global batch (default: ONE_CARD_BATCH's)")
+                    help="global batch (default: ONE_CARD_BATCH's, times "
+                         "the mesh's data size)")
+    ap.add_argument("--mesh", default=None,
+                    help="run sharded over this mesh of the torch."
+                         "distributed world, e.g. 2x2 (2x1x2 with "
+                         "--multi-pod), under torchrun")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else ASSIGNED
@@ -394,8 +521,8 @@ def main(argv=None):
             try:
                 r = run_pair(a, s, multi_pod=args.multi_pod,
                              device=args.device, layers=args.layers,
-                             batch=args.batch)
-                print(f"[dryrun] {a} x {s} x {r['mesh']} on {r['device']}: "
+                             batch=args.batch, mesh=args.mesh)
+                say(f"[dryrun] {a} x {s} x {r['mesh']} on {r['device']}: "
                       f"OK "
                       f"{r['ms_per_step']:.2f} ms a step "
                       f"({r['tokens_per_s']:.1f} tokens/s), peak "
@@ -408,20 +535,35 @@ def main(argv=None):
                       + (f"{r['mfu']:.3f}" if r["mfu"] is not None
                          else "not measured")
                       + f", {r['memory']['argument_bytes_per_device']} "
-                      f"argument bytes a device of {r['mesh']}, reduced "
-                      f"{r['reduced']}", flush=True)
+                      f"argument bytes a device of {r['mesh']}"
+                      + (f", collectives {r['collective_by_op']} "
+                         f"({r['collective_s']} s)"
+                         if "collective_by_op" in r else "")
+                      + f", reduced {r['reduced']}")
             except Exception as e:                            # noqa: BLE001
-                r = {"arch": a, "shape": s, "mesh": mesh_name(args.multi_pod),
+                r = {"arch": a, "shape": s,
+                     "mesh": args.mesh or mesh_name(args.multi_pod),
                      "error": f"{type(e).__name__}: {e}"}
-                print(f"[dryrun] {a} x {s}: FAIL {r['error']}", flush=True)
+                say(f"[dryrun] {a} x {s}: FAIL {r['error']}")
             results.append(r)
-    if args.out:
+    if args.out and rank0():
         with open(args.out, "w") as f:
             for r in results:
                 f.write(json.dumps(r) + "\n")
     fails = [r for r in results if "error" in r]
-    print(f"[dryrun] {len(results) - len(fails)}/{len(results)} OK")
+    say(f"[dryrun] {len(results) - len(fails)}/{len(results)} OK")
     sys.exit(1 if fails else 0)
+
+
+def rank0() -> bool:
+    """Whether this process prints: rank 0 of a world, or the only one."""
+    return (not torch.distributed.is_initialized()
+            or dist.get_rank() == 0)
+
+
+def say(text: str):
+    if rank0():
+        print(text, flush=True)
 
 
 if __name__ == "__main__":

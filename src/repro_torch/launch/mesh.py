@@ -15,6 +15,14 @@ touches no device.  Three kinds are built here:
 * **The host mesh** (:func:`make_host_mesh`): (1, 1) over one device
   with the production axis names; the dry-run driver places its step's
   tensors through it.
+* **A device mesh over a world** (:func:`make_device_mesh`): the
+  production axis names at a small shape (2 × 2, or 2 × 1 × 2 with a
+  ``"pod"`` axis) over the ranks of an initialised ``torch.distributed``
+  world (:func:`init_world`), one process a device: rank r on
+  ``cuda:r`` modulo the cards it sees under NCCL, on the CPU under
+  ``gloo``.  It carries its ``torch.distributed`` ``DeviceMesh`` (without
+  the axes of size one, which split nothing), on which
+  :func:`~repro_torch.launch.sharding.place` makes DTensors.
 * **The sweep-batch mesh** (:func:`make_batch_mesh`): a flat ``"batch"``
   axis over devices, on which the executors shard the flattened
   (scenario × seed) axis of a bucket (rows padded cyclically to a
@@ -29,10 +37,12 @@ or None) and its mesh.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import os
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 class P(tuple):
@@ -52,10 +62,13 @@ class P(tuple):
 class Mesh:
     """Devices along named axes.  ``axis_sizes`` defaults to
     ``len(devices)`` along the first axis and 1 along the others; an
-    *abstract* mesh has sizes and no devices."""
+    *abstract* mesh has sizes and no devices.  ``device_mesh`` is the
+    ``torch.distributed`` ``DeviceMesh`` of a mesh over a world's ranks
+    (:func:`make_device_mesh`), else None."""
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("batch",)
     axis_sizes: Optional[Tuple[int, ...]] = None
+    device_mesh: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.axis_sizes is None:
@@ -102,6 +115,30 @@ class NamedSharding:
             out[d] = -(-out[d] // ways)
         return tuple(out)
 
+    def placements(self) -> tuple:
+        """The spec as DTensor placements, one a dimension of the mesh's
+        ``DeviceMesh``: ``Shard(d)`` on each axis that dimension d is
+        split over (a tuple of axes, as ``("pod", "data")``, shards d on
+        each of them, the first the major, as the reference orders them),
+        ``Replicate()`` on the others.  An axis of size one splits
+        nothing: it takes ``Replicate()``, or the ``DeviceMesh`` leaves it
+        out."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = tuple(self.mesh.device_mesh.mesh_dim_names)
+        out = [Replicate()] * len(names)
+        for d, axes in enumerate(self.spec):
+            if axes is None:
+                continue
+            axes = axes if isinstance(axes, tuple) else (axes,)
+            order = [self.mesh.axis_names.index(a) for a in axes]
+            if order != sorted(order):
+                raise ValueError(f"spec {self.spec}: axes {axes} out of "
+                                 f"the mesh's order {self.mesh.axis_names}")
+            for a in axes:
+                if a in names and self.mesh.shape[a] > 1:
+                    out[names.index(a)] = Shard(d)
+        return tuple(out)
+
 
 def canonical_device(device) -> torch.device:
     """``device`` with a CUDA index filled in (``cuda`` is the current
@@ -128,6 +165,86 @@ def make_host_mesh(device="cuda") -> Mesh:
         raise RuntimeError("no CUDA device available for a host mesh; "
                            "pass device='cpu' for the CPU")
     return Mesh((canonical_device(device),), ("data", "model"), (1, 1))
+
+
+def init_world(backend: Optional[str] = None, *,
+               init_method: Optional[str] = None,
+               rank: Optional[int] = None,
+               world_size: Optional[int] = None) -> int:
+    """Join (or find) the ``torch.distributed`` world and return its size.
+
+    The rank and world size come from the arguments or from ``RANK`` and
+    ``WORLD_SIZE``, the rendezvous from ``init_method`` or from
+    ``MASTER_ADDR`` and ``MASTER_PORT`` (given by hand, or by ``torchrun
+    --standalone``).  Raises ``RuntimeError`` when they are absent: it
+    never makes a one-rank world on its own.  ``backend`` defaults to
+    NCCL where CUDA is available, else ``gloo``; under NCCL the rank's
+    card (``cuda:rank`` modulo the cards it sees) becomes the current
+    one."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if rank is None and "RANK" in os.environ:
+        rank = int(os.environ["RANK"])
+    if world_size is None and "WORLD_SIZE" in os.environ:
+        world_size = int(os.environ["WORLD_SIZE"])
+    missing = [name for name, v in (("RANK", rank),
+                                    ("WORLD_SIZE", world_size)) if v is None]
+    if init_method is None:
+        missing += [n for n in ("MASTER_ADDR", "MASTER_PORT")
+                    if n not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"no torch.distributed world: {', '.join(missing)} not set; "
+            "run under torchrun --standalone --nproc-per-node N, or set "
+            "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT")
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            rank=rank, world_size=world_size)
+    return world_size
+
+
+def make_device_mesh(shape, axes=("data", "model")) -> Mesh:
+    """A mesh of ``shape`` along ``axes`` over every rank of the
+    initialised world (:func:`init_world`), row-major: rank r at
+    ``cuda:r`` modulo the cards a process sees under NCCL, or at ``cpu``
+    under ``gloo``.  Raises when no world is initialised or its size is
+    not the mesh's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a device mesh of {shape} needs an initialised torch."
+            "distributed world (launch.mesh.init_world)")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of {shape} over a world of {world}")
+    if dist.get_backend() == "nccl":
+        cards = torch.cuda.device_count()
+        devices = tuple(torch.device("cuda", r % cards) for r in range(world))
+        kind = "cuda"
+    else:
+        devices, kind = (torch.device("cpu"),) * world, "cpu"
+    # an axis of size one splits nothing: the DeviceMesh leaves it out
+    # (each of its dimensions multiplies DTensor's propagation work),
+    # unless every axis is of size one
+    kept = [(n, a) for n, a in zip(shape, axes) if n > 1] or list(
+        zip(shape, axes))
+    dm = init_device_mesh(kind, tuple(n for n, _ in kept),
+                          mesh_dim_names=tuple(a for _, a in kept))
+    return Mesh(devices, axes, shape, dm)
+
+
+def parse_mesh(text: str, multi_pod: bool = False):
+    """``"2x2"`` → ``((2, 2), ("data", "model"))``; with ``multi_pod`` a
+    three-part ``"2x1x2"`` → ``("pod", "data", "model")``."""
+    shape = tuple(int(n) for n in text.lower().split("x"))
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh {text!r} must have {len(axes)} parts "
+                         f"({'x'.join(axes)})")
+    return shape, axes
 
 
 def data_axes(mesh) -> tuple:

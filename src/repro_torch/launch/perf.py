@@ -10,7 +10,14 @@ A variant is ``+``-joined knobs over :func:`repro_torch.launch.dryrun.
 runtime_for` (:func:`build`).  A variant that fails prints FAIL and the
 driver goes on, as the reference's.  ``--multi-pod`` sizes the rows on
 the 2 × 16 × 16 mesh (``mesh``, ``memory.argument_bytes_per_device``),
-as the dry run's does.
+as the dry run's does.  With ``--mesh 2x2`` (``2x1x2`` with
+``--multi-pod``) under ``torchrun --standalone --nproc-per-node 4`` each
+variant runs sharded (``run_pair(mesh=...)``), so ``zero1`` and
+``seq_parallel`` are run on the mesh, not only sized; rank 0 prints.
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.perf \\
+        --arch qwen1.5-4b --shape train_4k --mesh 2x2 \\
+        --variants baseline,zero1,seq_parallel
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import json
 import torch
 
 from repro_torch.configs import get_arch, get_shape
-from repro_torch.launch.dryrun import run_pair, runtime_for
+from repro_torch.launch.dryrun import rank0, run_pair, runtime_for, say
 from repro_torch.optim import momentum
 
 
@@ -79,7 +86,11 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=0,
-                    help="global batch (default: dryrun.ONE_CARD_BATCH's)")
+                    help="global batch (default: dryrun.ONE_CARD_BATCH's, "
+                         "times the mesh's data size)")
+    ap.add_argument("--mesh", default=None,
+                    help="run each variant sharded over this mesh of the "
+                         "torch.distributed world, e.g. 2x2, under torchrun")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
@@ -91,7 +102,8 @@ def main(argv=None):
         try:
             r = run_pair(args.arch, args.shape, rt=rt, opt=opt, zero1=zero1,
                          multi_pod=args.multi_pod, device=args.device,
-                         layers=args.layers, batch=args.batch)
+                         layers=args.layers, batch=args.batch,
+                         mesh=args.mesh)
             r["variant"] = variant
             r["peak_bytes"] = r["memory"]["peak_bytes"] or 0
             if variant == "baseline":
@@ -101,19 +113,20 @@ def main(argv=None):
                 d = ("  Δms={:+.1%} Δpeak={:+.1%} Δflops={:+.1%}".format(
                     *(_change(r, base, k) for k in
                       ("ms_per_step", "peak_bytes", "flops"))))
-            print(f"[perf] {args.arch} x {args.shape} [{variant}] on "
-                  f"{r['device']}: {r['ms_per_step']:.2f} ms a step, peak "
-                  f"{r['peak_bytes'] / 2**30:.2f} GiB, {r['flops']:.4g} "
-                  f"FLOPs, "
-                  f"{r['memory']['argument_bytes_per_device'] / 2**30:.3f} "
-                  f"GiB of arguments a device of {r['mesh']}{d}",
-                  flush=True)
+            say(f"[perf] {args.arch} x {args.shape} [{variant}] on "
+                f"{r['device']}: {r['ms_per_step']:.2f} ms a step, peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB, {r['flops']:.4g} "
+                f"FLOPs, "
+                f"{r['memory']['argument_bytes_per_device'] / 2**30:.3f} "
+                f"GiB of arguments a device of {r['mesh']}"
+                + (f", collectives {r['collective_by_op']}"
+                   if "collective_by_op" in r else "") + d)
         except Exception as e:                             # noqa: BLE001
             r = {"variant": variant, "arch": args.arch,
                  "shape": args.shape, "error": f"{type(e).__name__}: {e}"}
-            print(f"[perf] {variant}: FAIL {r['error']}", flush=True)
+            say(f"[perf] {variant}: FAIL {r['error']}")
         results.append(r)
-    if args.out:
+    if args.out and rank0():
         with open(args.out, "a") as f:
             for r in results:
                 f.write(json.dumps(r) + "\n")

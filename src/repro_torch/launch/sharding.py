@@ -13,11 +13,17 @@ key path (:func:`repro_torch.tree.keystr`, the reference's
 ``jax.tree_util.keystr``) and shape, so on an abstract production mesh
 (:func:`~repro_torch.launch.mesh.make_production_mesh`) they give the
 reference's specs leaf for leaf, and per-device sizes through
-``shard_shape``.  :func:`place` applies a tree of shardings on a mesh of
-one device, where it puts every leaf whole on that device.  Applying them
-over several devices — one process a card under ``torch.distributed`` —
-is ROADMAP Queue A item 8's multi-process half, not ported: :func:`place`
-raises there.
+``shard_shape``.  :func:`place` applies a tree of shardings: on a mesh
+of one device it puts every leaf whole on that device; on a mesh over a
+``torch.distributed`` world (:func:`~repro_torch.launch.mesh.
+make_device_mesh`, one process a device) it makes DTensors with the
+spec's placements (:meth:`NamedSharding.placements`), each rank keeping
+its shard, so the step's operations insert the collectives that GSPMD
+inserts for the reference.  Where a rule shards a dimension its axes do
+not divide, DTensor's shards are ragged (``torch.chunk``'s) while
+``shard_shape`` pads.  :func:`place_zeros` makes an optimizer's initial
+(zero) state straight into its shards, :func:`gather` the full tensors
+back.
 """
 from __future__ import annotations
 
@@ -26,12 +32,12 @@ import re
 import torch
 
 from repro_torch.launch.mesh import NamedSharding, P, data_axes
-from repro_torch.tree import keystr, tree_map_with_path
+from repro_torch.tree import keystr, tree_map, tree_map_with_path
 
 __all__ = ["P", "NamedSharding", "param_spec_for", "params_shardings",
            "state_shardings", "state_shardings_zero1", "batch_shardings",
            "cache_shardings", "decode_input_shardings", "logits_sharding",
-           "place"]
+           "place", "place_zeros", "gather"]
 
 
 def _axis_size(mesh, name) -> int:
@@ -232,25 +238,82 @@ def logits_sharding(mesh, ndim: int, batch: int, vocab: int
 # ---------------------------------------------------------------------------
 
 
+def _mesh_of(path, sharding):
+    """The sharding's mesh, refused where nothing can be placed on it."""
+    mesh = sharding.mesh
+    if mesh.abstract:
+        raise NotImplementedError(
+            f"placing {keystr(path) or 'a leaf'} on the abstract mesh "
+            f"{mesh.shape}: it has no devices; size with NamedSharding."
+            "shard_shape, or place on a mesh over a world "
+            "(launch.mesh.make_device_mesh) or on one device "
+            "(launch.mesh.make_host_mesh)")
+    if mesh.device_mesh is None and len(mesh.devices) != 1:
+        raise NotImplementedError(
+            f"placing {keystr(path) or 'a leaf'} on a mesh of "
+            f"{mesh.shape} over several devices needs its torch."
+            "distributed DeviceMesh: build it with launch.mesh."
+            "make_device_mesh over an initialised world, one process a "
+            "device")
+    return mesh
+
+
+def _local_device(mesh) -> torch.device:
+    dm = mesh.device_mesh
+    return mesh.devices[dm.get_rank() if dm is not None else 0]
+
+
 def place(tree, shardings):
     """Put every tensor leaf of ``tree`` where its sharding (a tree of
-    :class:`NamedSharding` of the same structure) says.  On a mesh of one
-    device that is the whole leaf on that device: a leaf already there is
-    returned as it is (no copy, the same storage), and a non-tensor leaf
-    (a step count) passes through.  Raises ``NotImplementedError`` on a
-    mesh of several devices or an abstract one."""
+    :class:`NamedSharding` of the same structure) says; a non-tensor leaf
+    (a step count) passes through.
+
+    On a mesh of one device that is the whole leaf on that device: a leaf
+    already there is returned as it is (no copy, the same storage).  On a
+    mesh over a world each leaf becomes a DTensor with the spec's
+    placements: every rank holds the same leaf (drawn from the same seed)
+    and keeps its own shard, with no communication (a full-depth
+    deepseek-v2-lite-16b's bf16 leaves, 31 GB, fit a card beside their
+    shards), and a replicated leaf keeps its storage.
+    Raises ``NotImplementedError`` on an abstract mesh, or on a mesh of
+    several devices without a ``DeviceMesh``."""
     def one(path, leaf, sharding):
-        mesh = sharding.mesh
-        if mesh.abstract or len(mesh.devices) != 1:
-            raise NotImplementedError(
-                f"placing {keystr(path) or 'a leaf'} on a mesh of "
-                f"{mesh.shape}: applying shardings over several devices "
-                "(one process a card under torch.distributed) is ROADMAP "
-                "Queue A item 8's multi-process half, not ported; size "
-                "with NamedSharding.shard_shape, place on a one-device "
-                "mesh (launch.mesh.make_host_mesh)")
+        mesh = _mesh_of(path, sharding)
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return leaf.to(mesh.devices[0])
+        leaf = leaf.to(_local_device(mesh))
+        if mesh.device_mesh is None:
+            return leaf
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(leaf, mesh.device_mesh,
+                                 sharding.placements(), src_data_rank=None)
 
     return tree_map_with_path(one, tree, shardings)
+
+
+def place_zeros(spec, shardings):
+    """Zeros of each leaf's shape and dtype of ``spec`` (tensors on any
+    device, e.g. ``meta``: an optimizer's initial state drawn from the
+    parameters' spec), placed as :func:`place` would place them, each
+    rank allocating only its shard."""
+    def one(path, leaf, sharding):
+        mesh = _mesh_of(path, sharding)
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if mesh.device_mesh is None:
+            return torch.zeros(leaf.shape, dtype=leaf.dtype,
+                               device=_local_device(mesh))
+        from torch.distributed.tensor import zeros
+        return zeros(tuple(leaf.shape), dtype=leaf.dtype,
+                     device_mesh=mesh.device_mesh,
+                     placements=sharding.placements())
+
+    return tree_map_with_path(one, spec, shardings)
+
+
+def gather(tree):
+    """Every DTensor leaf of ``tree`` as its full tensor (a collective:
+    every rank calls it); other leaves pass through."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)

@@ -39,6 +39,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
+from repro_torch.models import sharded
 from repro_torch.models.layers import (_per_copy, apply_rope, checkpointed,
                                        dense_init, linear, rmsnorm,
                                        rmsnorm_init)
@@ -220,25 +221,97 @@ def gqa_forward(params, cfg: ArchConfig, x, *, window=None,
                 remat_chunks: bool = False, expand_heads: bool = False):
     """Full-sequence causal self-attention per copy: x (N, B, S, d).
     ``expand_heads`` repeats each KV head over its query group first
-    (``jnp.repeat``'s order), as the reference's uneven-GQA knob (its
-    head-dim sharding constraint has no counterpart on one card)."""
+    (``jnp.repeat``'s order), as the reference's uneven-GQA knob.  On
+    DTensors the attention runs on each rank's batch rows and heads
+    (:func:`_attend_local`), q, k and v pinned to head sharding over
+    ``"model"`` (the reference's constraint under ``expand_heads``)."""
     positions = torch.arange(x.shape[2], device=x.device)
     q, k, v = _qkv(params, cfg, x, positions)
     if expand_heads and cfg.n_kv_heads < cfg.n_heads:
         g = cfg.n_heads // cfg.n_kv_heads
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    out = attend(q, k, v, positions, positions, causal=True, window=window,
-                 impl=impl, block_q=block_q, remat_chunks=remat_chunks)
+    out = _attend_local(x, q, k, v, causal=True, window=window, impl=impl,
+                        block_q=block_q, remat_chunks=remat_chunks)
     return linear(out.reshape(x.shape[:3] + (-1,)), params["wo"])
 
 
+def _attend_local(x, q, k, v, **opts):
+    """:func:`attend` over contiguous positions; on DTensors through
+    ``local_map`` on each rank's rows (those of x (N, B, S, d)) and heads
+    — the kernel route's three kernels each on its own card."""
+    if not sharded.is_dtensor(q):
+        pos = torch.arange(q.shape[1], device=q.device)
+        return attend(q, k, v, pos, pos, **opts)
+    return sharded.on_local_heads(lambda a, b, c: attend(a, b, c, **opts),
+                                  q, k, v, sharded.sharded_axes(x, 1))
+
+
 def attend_decode(q, k, v, pos, *, window: Optional[int] = None,
-                  impl: str = "pallas"):
+                  impl: str = "pallas", lse: bool = False):
     if impl == "pallas":
-        return ops.flash_decode(q, k, v, pos, window=window)
+        return ops.flash_decode(q, k, v, pos, window=window, lse=lse)
     if impl in IMPLS:
-        return fd.flash_decode_plain(q, k, v, pos, window=window)
+        return fd.flash_decode_plain(q, k, v, pos, window=window, lse=lse)
     raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
+
+
+def _write_slot(cache, new, slot, off: int):
+    """``new`` (B, 1, ...) into ``cache`` (B, c, ...), this rank's part of
+    a sequence split over cards from slot ``off``, at the global ``slot``
+    (a 0-d tensor) where it falls in this part; nothing waits for the
+    card."""
+    c = cache.shape[1]
+    local = slot - off
+    at = local.clamp(0, c - 1).reshape(1).long()
+    inside = (local >= 0) & (local < c)
+    cache.index_copy_(1, at, torch.where(inside, new,
+                                         cache.index_select(1, at)))
+
+
+def _decode_local(q, k, v, cache_k, cache_v, pos, *, window, impl):
+    """Write and attend against DTensor caches (B, ctx, Hkv, hd) placed
+    by ``cache_shardings``: rows over the data axes, and the sequence —
+    or, where it does not divide, the heads — over ``"model"``.  The
+    kernel runs through ``local_map`` on each rank's rows and heads and
+    its part of the cache; where the sequence is split, each part's
+    output and log-sum-exp are merged over ``"model"`` (flash decoding
+    across cards: two all-reduces of (B, Hq) and one of the output)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache_k.device_mesh
+    split = bool(sharded.sharded_axes(cache_k, 1))
+    if split and window is not None:
+        raise NotImplementedError(
+            "decode against a ring-buffer (windowed) cache split on its "
+            "sequence over cards is not ported")
+    dims = {0: sharded.sharded_axes(cache_k, 0)}
+    if sharded.sharded_axes(cache_k, 2):
+        dims[2] = sharded.MODEL
+    qpl, cpl = sharded.placements(q, dims), cache_k.placements
+    q, k, v = (sharded.pin(t, qpl) for t in (q, k, v))
+    pos = sharded.pin(pos, sharded.placements(pos, {}))
+    ctx = cache_k.shape[1]
+
+    def body(q, k, v, ck, cv, pos):
+        r, m = sharded.model_rank(mesh) if split else (0, 1)
+        off = r * ck.shape[1]
+        slot = pos % ctx if window is not None else pos.clamp(max=ctx - 1)
+        _write_slot(ck, k, slot, off)
+        _write_slot(cv, v, slot, off)
+        if m == 1:
+            return attend_decode(q, ck, cv, pos, window=window, impl=impl)
+        o, lse = attend_decode(q, ck, cv, pos - off, window=window,
+                               impl=impl, lse=True)
+        top = sharded.model_reduce(lse, "max", mesh)
+        w = torch.exp(lse - top)                              # (B, Hq)
+        num = sharded.model_reduce(o.float() * w[:, None, :, None], "sum",
+                                   mesh)
+        den = sharded.model_reduce(w, "sum", mesh)
+        return (num / den[:, None, :, None]).to(o.dtype)
+
+    return local_map(body, out_placements=list(qpl),
+                     in_placements=(qpl, qpl, qpl, cpl, cpl,
+                                    pos.placements),
+                     device_mesh=mesh)(q, k, v, cache_k, cache_v, pos)
 
 
 def gqa_decode(params, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
@@ -252,9 +325,14 @@ def gqa_decode(params, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
     ``dynamic_update_slice`` clamps its start; ``pos``: a 0-d int32
     tensor on x's device, the new token's absolute position.  Slot and
     mask are computed on the device: nothing here waits for the card.
-    Returns out (1, B, 1, d)."""
+    Returns out (1, B, 1, d).  On DTensor caches the write and the
+    attention run on each rank's part (:func:`_decode_local`)."""
     ctx = cache_k.shape[1]
     q, k, v = _qkv(params, cfg, x, pos[None])
+    if sharded.is_dtensor(cache_k):
+        out = _decode_local(q, k, v, cache_k, cache_v, pos, window=window,
+                            impl=impl)
+        return linear(out.reshape(x.shape[:3] + (-1,)), params["wo"])
     slot = pos % ctx if window is not None else pos.clamp(max=ctx - 1)
     slot = slot.reshape(1).long()
     cache_k.index_copy_(1, slot, k)
@@ -337,9 +415,9 @@ def mla_forward(params, cfg: ArchConfig, x, *, impl: str = "pallas",
     k = torch.cat([k_nope.reshape(n * b, s, H, m.qk_nope_head_dim),
                    k_rope[:, :, None].expand(n * b, s, H,
                                              m.qk_rope_head_dim)], dim=-1)
-    out = attend(q, k, v.reshape(n * b, s, H, m.v_head_dim), positions,
-                 positions, causal=True, window=window, impl=impl,
-                 block_q=block_q, remat_chunks=remat_chunks)
+    out = _attend_local(x, q, k, v.reshape(n * b, s, H, m.v_head_dim),
+                        causal=True, window=window, impl=impl,
+                        block_q=block_q, remat_chunks=remat_chunks)
     return linear(out.reshape(n, b, s, H * m.v_head_dim), params["wo"])
 
 
@@ -350,26 +428,78 @@ def mla_decode(params, cfg: ArchConfig, x, cache_ckv, pos):
     in place at slot ``pos`` clamped to ``ctx - 1`` (the reference's
     ``dynamic_update_slice``); ``pos`` a 0-d int32 tensor on x's device.
     W_UK is absorbed into the query (``q_lat`` in float32) and W_UV
-    applied to the attended latent.  Returns out (1, B, 1, d)."""
+    applied to the attended latent.  Returns out (1, B, 1, d).  On a
+    DTensor cache the write and the attention over the latent run on each
+    rank's part (:func:`_mla_attend_local`)."""
     m = cfg.mla
     b, H, r = x.shape[1], cfg.n_heads, m.kv_lora_rank
     ctx = cache_ckv.shape[1]
     q_nope, q_rope = _mla_q(params, cfg, x, pos[None])        # (B,1,H,·)
     c_kv, k_rope = _mla_latent(params, cfg, x, pos[None])     # (B,1,·)
-    slot = pos.clamp(max=ctx - 1).reshape(1).long()
-    cache_ckv.index_copy_(1, slot, torch.cat([c_kv, k_rope], dim=-1))
+    new = torch.cat([c_kv, k_rope], dim=-1)
     w_uk = params["w_uk"][0].reshape(r, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk.float())
-    ckv, krope = cache_ckv[..., :r], cache_ckv[..., r:]
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv.float())
-              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
-                             krope.float())) * scale
-    valid = torch.arange(ctx, device=x.device) <= pos
-    logits = torch.where(valid, logits, NEG_INF)
-    out_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(logits, dim=-1),
-                           ckv.float())
+    if sharded.is_dtensor(cache_ckv):
+        out_lat = _mla_attend_local(q_lat, q_rope[:, 0].float(), new,
+                                    cache_ckv, pos, r, scale)
+    else:
+        slot = pos.clamp(max=ctx - 1).reshape(1).long()
+        cache_ckv.index_copy_(1, slot, new)
+        ckv, krope = cache_ckv[..., :r], cache_ckv[..., r:]
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv.float())
+                  + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                                 krope.float())) * scale
+        valid = torch.arange(ctx, device=x.device) <= pos
+        logits = torch.where(valid, logits, NEG_INF)
+        out_lat = torch.einsum("bhs,bsr->bhr",
+                               torch.softmax(logits, dim=-1), ckv.float())
     w_uv = params["w_uv"][0].reshape(r, H, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", out_lat, w_uv.float())
     return linear(out.reshape(1, b, 1, H * m.v_head_dim).to(x.dtype),
                   params["wo"])
+
+
+def _mla_attend_local(q_lat, q_rope, new, cache_ckv, pos, r: int,
+                      scale: float):
+    """MLA's write and attention over the latent against a DTensor
+    ``ckv`` cache (B, ctx, r + rope) placed by ``cache_shardings`` (rows
+    over the data axes, the sequence over ``"model"``): each rank scores
+    its part of the cache for every head; where the sequence is split the
+    softmax is merged over ``"model"`` (the maximum, the sum and the
+    weighted latent all-reduced).  q_lat (B, H, r) and q_rope (B, H,
+    rope) float32 → the attended latent (B, H, r) float32."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache_ckv.device_mesh
+    split = bool(sharded.sharded_axes(cache_ckv, 1))
+    qpl = sharded.placements(q_lat, {0: sharded.sharded_axes(cache_ckv, 0)})
+    q_lat, q_rope, new = (sharded.pin(t, qpl) for t in (q_lat, q_rope, new))
+    pos = sharded.pin(pos, sharded.placements(pos, {}))
+    ctx = cache_ckv.shape[1]
+
+    def body(q_lat, q_rope, new, cache, pos):
+        rank, m = sharded.model_rank(mesh) if split else (0, 1)
+        c = cache.shape[1]
+        off = rank * c
+        _write_slot(cache, new, pos.clamp(max=ctx - 1), off)
+        ckv, krope = cache[..., :r], cache[..., r:]
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv.float())
+                  + torch.einsum("bhd,bsd->bhs", q_rope,
+                                 krope.float())) * scale
+        valid = torch.arange(off, off + c, device=cache.device) <= pos
+        logits = torch.where(valid, logits, NEG_INF)
+        if m == 1:
+            return torch.einsum("bhs,bsr->bhr",
+                                torch.softmax(logits, dim=-1), ckv.float())
+        top = sharded.model_reduce(logits.amax(-1, keepdim=True), "max",
+                                   mesh)
+        e = torch.exp(logits - top)
+        den = sharded.model_reduce(e.sum(-1, keepdim=True), "sum", mesh)
+        num = sharded.model_reduce(
+            torch.einsum("bhs,bsr->bhr", e, ckv.float()), "sum", mesh)
+        return num / den
+
+    return local_map(body, out_placements=list(qpl),
+                     in_placements=(qpl, qpl, qpl, cache_ckv.placements,
+                                    pos.placements),
+                     device_mesh=mesh)(q_lat, q_rope, new, cache_ckv, pos)

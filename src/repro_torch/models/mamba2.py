@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import sharded
 from repro_torch.models.layers import (_per_copy, dense_init, linear,
                                        rmsnorm, rmsnorm_init, scaled_normal)
 
@@ -146,8 +147,17 @@ def ssd_reference(x, dt, A, Bm, Cm, chunk: int):
     return y.to(x.dtype), carry
 
 
+def _refuse_sharded(x):
+    if sharded.is_dtensor(x):
+        raise NotImplementedError(
+            "the Mamba-2 mixer on a mesh of several devices (the SSD scan "
+            "on each rank's heads) is not ported yet; run the SSM and "
+            "hybrid families on one card")
+
+
 def mamba2_forward(params, cfg: ArchConfig, x):
     """Full-sequence train path of N copies: x (N, B, S, d) → same."""
+    _refuse_sharded(x)
     # the kernels' module imports this one for its oracle: import late
     from repro_torch.kernels import ops
     s = cfg.ssm
@@ -181,6 +191,7 @@ def mamba2_decode(params, cfg: ArchConfig, x, conv_state, ssm_state):
     x (1, B, 1, d); conv_state (B, d_conv-1, CH) and ssm_state (B, H, P,
     N) float32, both updated in place (the reference returns new ones).
     Returns y (1, B, 1, d)."""
+    _refuse_sharded(x)
     s = cfg.ssm
     d_in, H, _ = dims(cfg)
     b = x.shape[1]

@@ -33,10 +33,17 @@ card.  MoE decode is drop-free (capacity S·top_k).
 :class:`Runtime` carries the reference's execution knobs: the
 activations' dtype (bf16 in the reference's production runtime, with the
 parameters drawn in it: :func:`param_spec`), ``remat`` (each layer body
-recomputed in the backward) and the attention and MoE switches.  The
-fields that only pin shardings on the reference's mesh
-(``moe_shard_axes``, ``seq_parallel``) are kept for parity and change
-nothing on one card.
+recomputed in the backward) and the attention and MoE switches.  On a
+mesh over a ``torch.distributed`` world, where the parameters and the
+batch are DTensors (:func:`repro_torch.launch.sharding.place`), the
+forward and decode run on them as they stand: DTensor's propagation
+inserts the tensor-parallel collectives, :mod:`.sharded` pins each
+sub-block's input and output (the Megatron pair), ``seq_parallel`` pins
+the residual stream to its sequence split over ``"model"`` at the
+reference's five points (:func:`_sp`), attention runs on each rank's
+heads and the MoE layer on each rank's experts
+(``moe_shard_axes``).  On plain tensors none of this runs, so every
+one-card path is unchanged.
 :func:`param_spec` and :func:`cache_spec` give shapes and dtypes on the
 ``meta`` device, as the reference's ``eval_shape``.
 """
@@ -46,12 +53,14 @@ from dataclasses import dataclass, fields
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig,
                                       SSMConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharded
 from repro_torch.models.layers import (FFN_KINDS, checkpointed, dense_init,
                                        embedding_init, ffn, ffn_init, linear,
                                        padded_vocab, rmsnorm, rmsnorm_init)
@@ -66,9 +75,10 @@ class Runtime:
     in it: :func:`param_spec`); ``remat`` recomputes each layer body in
     the backward (``torch.utils.checkpoint``), ``remat_attn`` each query
     chunk of the chunked attention; ``gqa_expand`` repeats the KV heads
-    before the attention.  ``moe_shard_axes`` and ``seq_parallel`` pin
-    shardings on the reference's mesh and are read by nothing on one
-    card."""
+    before the attention.  ``moe_shard_axes`` (the data axes that carry
+    the MoE layer's rows) and ``seq_parallel`` (the residual stream split
+    on its sequence over ``"model"``) are placements on a mesh of several
+    devices: they change nothing on plain tensors."""
     dtype: torch.dtype = torch.float32
     attn_impl: str = "pallas"   # auto | naive | blockwise | flashjnp | pallas
     block_q: int = 256
@@ -86,6 +96,15 @@ class Runtime:
 
 
 SMOKE_RT = Runtime(dtype=torch.float32, attn_impl="naive")
+
+
+def _sp(x, rt: Runtime):
+    """Sequence parallelism (Megatron-SP): under ``rt.seq_parallel`` a
+    DTensor residual stream (N, B, S, d) is split on its sequence over
+    ``"model"``; a plain tensor passes unchanged."""
+    if not (rt.seq_parallel and sharded.is_dtensor(x)):
+        return x
+    return sharded.pin(x, sharded.with_model(x, sharded.Shard(2)))
 
 
 def _maybe_remat(fn, rt: Runtime):
@@ -296,22 +315,36 @@ def _attn_fwd(lp, cfg: ArchConfig, x, rt: Runtime):
                             expand_heads=rt.gqa_expand)
 
 
+def _attn_res(lp, cfg: ArchConfig, x, rt: Runtime):
+    """The attention sub-block's output in the residual's placements."""
+    h = sharded.tp_in(rmsnorm(lp["ln1"], x))
+    return sharded.tp_out(_attn_fwd(lp["attn"], cfg, h, rt), x)
+
+
 def _dense_block(lp, cfg: ArchConfig, x, rt: Runtime):
-    x = x + _attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], x), rt)
-    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x))
+    x = _sp(x, rt)
+    x = x + _attn_res(lp, cfg, x, rt)
+    x = _sp(x, rt)
+    h = sharded.tp_in(rmsnorm(lp["ln2"], x))
+    return x + sharded.tp_out(ffn(lp["ffn"], h), x)
 
 
 def _moe_block(lp, cfg: ArchConfig, x, rt: Runtime):
     """A MoE block: (x, its load-balance loss (N,))."""
-    x = x + _attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], x), rt)
-    y, aux = moe_mod.moe_forward(lp["moe"], cfg, rmsnorm(lp["ln2"], x),
+    x = _sp(x, rt)
+    x = x + _attn_res(lp, cfg, x, rt)
+    x = _sp(x, rt)
+    y, aux = moe_mod.moe_forward(lp["moe"], cfg,
+                                 sharded.tp_in(rmsnorm(lp["ln2"], x)),
                                  capacity_factor=rt.capacity_factor,
-                                 impl=rt.moe_impl)
-    return x + y, aux
+                                 impl=rt.moe_impl,
+                                 shard_axes=rt.moe_shard_axes)
+    return x + sharded.tp_out(y, x), aux
 
 
 def _ssm_block(lp, cfg: ArchConfig, x, rt: Runtime):
-    return x + m2.mamba2_forward(lp["mixer"], cfg, rmsnorm(lp["ln"], x))
+    return _sp(x, rt) + m2.mamba2_forward(lp["mixer"], cfg,
+                                          rmsnorm(lp["ln"], x))
 
 
 def _layer_params(layers):
@@ -353,7 +386,7 @@ def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
     backward."""
     _require_ported(cfg)
     _require_dtype(params, rt)
-    x = _embed(params, cfg, tokens)
+    x = sharded.tp_in(_embed(params, cfg, tokens))
     if prefix_embeds is not None:
         P = prefix_embeds.shape[2]
         x = torch.cat([prefix_embeds.to(rt.dtype), x[:, :, P:]], dim=2)
@@ -373,6 +406,9 @@ def forward(cfg: ArchConfig, params, tokens, *, prefix_embeds=None,
             x = block(lp, cfg, x, rt)
         if _ends_segment(cfg, i):
             x = dense(params["shared_attn"], cfg, x, rt)
+    # the head reads every position: under seq_parallel the sequence is
+    # gathered here, as Megatron-SP does before its LM head
+    x = sharded.tp_in(x)
     return _unembed(params, cfg, rmsnorm(params["final_norm"], x)), aux
 
 
@@ -466,13 +502,15 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, *,
     pos = cache["pos"]
     # a gather (a sum of gathers over the codebooks), as the reference's
     # _embed: no gradient flows here, so the training path's one-hot
-    # product (a pass over the whole table) is not needed
+    # product (a pass over the whole table) is not needed; F.embedding,
+    # which DTensor runs on a vocab-split table without gathering it
     table = params["embed"]["table"]
     if cfg.n_codebooks == 1:
-        x = table[tokens]
+        x = F.embedding(tokens, table)
     else:
-        x = sum(table[i][tokens[..., i]] for i in range(cfg.n_codebooks))
-    x = x[None]                                           # (1, B, 1, d)
+        x = sum(F.embedding(tokens[..., i], table[i])
+                for i in range(cfg.n_codebooks))
+    x = sharded.tp_in(x)[None]                            # (1, B, 1, d)
     nd = _first_dense(cfg)
     shared = (_one_copy(params["shared_attn"]) if cfg.family == "hybrid"
               else None)

@@ -1143,3 +1143,65 @@ def test_attention_at_head_dim_112_is_batch_invariant(cuda, dtype):
         one = slice(i, i + 1)
         for a, m in zip(all_three(q[one], k[one], v[one], do[one]), among):
             assert torch.equal(a, m[one]), i
+
+
+def test_one_rank_world_train_step_is_bitwise_the_unsharded_one(cuda,
+                                                                tmp_path):
+    """A one-rank NCCL world on a (1, 1) ("data", "model") mesh: the
+    reduced qwen1.5-4b train step through the three attention kernels on
+    DTensors (baseline and ZeRO-1) gives the unsharded step's losses and
+    parameters bitwise over 2 steps, with the same kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.fed import train_step as ts
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_world, make_device_mesh
+    from repro_torch.models.model import Runtime, init
+    from repro_torch.optim import momentum
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = get_arch("qwen1.5-4b").reduced()
+    rt = Runtime(attn_impl="pallas")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params0 = init(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "weights": torch.ones((2, 64), device=cuda)}
+    kernels = (kfa.flash_attention_fwd, kfa.flash_attention_bwd_dq,
+               kfa.flash_attention_bwd_dkdv)
+    init_world("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+               world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1))
+        runs = {}
+        for name, zero1 in (("unsharded", None), ("baseline", False),
+                            ("zero1", True)):
+            params, opt = tree_map(torch.clone, params0), momentum(0.9)
+            if zero1 is None:
+                state, b = ts.TrainState(params, opt.init(params), 0), batch
+            else:
+                state = ts.place_state(params, opt, mesh, zero1=zero1)
+                b = shd.place(batch, shd.batch_shardings(mesh, batch))
+            before = [k.launches for k in kernels]
+            step = ts.make_train_step(cfg, rt, opt)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, b, 1e-2)
+                losses.append(m["loss"])
+            runs[name] = (torch.stack(losses),
+                          [t for _, t in tree_leaves_with_path(
+                              shd.gather(state.params))],
+                          [k.launches - n for k, n in zip(kernels, before)])
+    finally:
+        dist.destroy_process_group()
+    want = runs["unsharded"]
+    assert all(n > 0 for n in want[2])
+    for name in ("baseline", "zero1"):
+        got = runs[name]
+        assert torch.equal(got[0], want[0]), name
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), name
+        assert got[2] == want[2], name

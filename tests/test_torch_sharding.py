@@ -12,7 +12,9 @@ against the reference, on the CPU.
   stand-in mesh with ``NamedSharding`` bypassed, as its own
   ``tests/test_sharding.py`` does.
 * The reference's sharding tests, ported; ``shard_shape`` on an uneven
-  dim; ``place`` on the host mesh (the same storage) and off it (raises).
+  dim; ``place`` on the host mesh (the same storage), on an abstract mesh
+  and on several devices without a world's ``DeviceMesh`` (raises; a
+  world's mesh is ``tests/test_torch_distributed.py``'s).
 * The batch mesh: the reference's ``test_mesh_multi_device_sharding``
   case in-process on a mesh of 8 ``cpu`` entries (``MeshExecutor``,
   ``AsyncExecutor(mesh=)`` capped and not; a ragged FEEL bucket and a
@@ -280,7 +282,7 @@ def test_place_on_the_host_mesh_keeps_the_storage(host):
     for a, b in zip(tree_leaves(placed.params) + tree_leaves(placed.opt),
                     tree_leaves(params) + tree_leaves(state.opt)):
         assert a is b
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="abstract mesh"):
         shd.place(params, shd.params_shardings(make_production_mesh(),
                                                params))
     two = Mesh((torch.device("cpu"),) * 2, ("data", "model"), (2, 1))
