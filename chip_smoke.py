@@ -59,7 +59,11 @@ its plain PyTorch version on the card:
      over one KV head, 32 / 32 heads of 64, arctic-480b's g 7 and its
      seams, and phase 4n's batch of 4 at the last slot of a 32k cache;
      f32 2e-5, bf16 rtol 2e-2 with an atol of 2e-2 of the mean |o|;
-     bitwise twice);
+     bitwise twice; and on the parts of a ring of 64 slots split over
+     cards, ``off`` and ``ring``: windows 64 and 24, pos 10, 63, 64 and
+     200, 2 and 4 parts, each part's o and lse against the plain
+     version's and the parts merged by their lse against the whole
+     ring's call);
   4. the main path, with launch counts read around it;
   4b. the transformer cell and 4c. the mamba2 cell, each with launch
      counts read around it and held against the formula stated in
@@ -188,7 +192,13 @@ its plain PyTorch version on the card:
      on the main cell and a 3-ticket ``ExperimentService`` tape, each
      against ``SerialExecutor`` on the card alone (ledgers bitwise, losses
      and accuracies within 1e-5; B1/B2 6 a period a shard), with both
-     walls;
+     walls; 4r. the sharded step on a one-rank NCCL world, every
+     argument a DTensor, bitwise the same step on plain tensors with the
+     same launches: qwen1.5-4b at 4 layers (train_4k baseline and ZeRO-1
+     through B4-B4″, decode_32k through B5), mamba2-2.7b at 4 layers (the
+     Mamba-2 mixer on DTensors: train_4k baseline and ZeRO-1 through B3
+     and B3′, decode_32k against DTensor conv and SSM caches) and
+     zamba2-7b at 9 layers (one segment and its shared block, train_4k);
   5. the card against the port's CPU path (three periods of one row,
      and of one row per batchsize policy through ``Experiment``),
      chunked == monolithic bitwise on the card, and a padded row against
@@ -517,16 +527,29 @@ Q_TOL = 1e-5
 Q_SERVICE_PERIODS, Q_SERVICE_CHUNK = 6, 2
 
 # the sharded step on the one card (phase 4r): a one-rank NCCL world on a
-# (1, 1) ("data", "model") mesh, qwen1.5-4b at full width and R_LAYERS of
-# its 40 layers under attn_impl="pallas": (i) train_4k (one 4096-token
-# sequence, bf16, remat, momentum) R_TRAIN_STEPS steps unsharded, on the
-# mesh, and on the mesh under ZeRO-1 (B4, B4' and B4'' through local_map);
-# (ii) decode_32k at batch R_DECODE_BATCH, R_DECODE_STEPS steps up to the
-# last slot of a 32k cache (B5 through local_map); every sharded run held
-# bitwise to the unsharded one (losses, parameters, logits, caches) with
-# its kernel launches equal
-R_LAYERS, R_TRAIN_STEPS = 4, 2
+# (1, 1) ("data", "model") mesh, each cell at full width with its depth
+# cut, under attn_impl="pallas": (i) train_4k (one 4096-token sequence,
+# bf16, remat, momentum) R_TRAIN_STEPS steps unsharded, on the mesh, and
+# on the mesh under ZeRO-1 (the kernels through local_map); (ii)
+# decode_32k at batch R_DECODE_BATCH, R_DECODE_STEPS steps up to the last
+# slot of a 32k cache; every sharded run held bitwise to the unsharded
+# one (losses, parameters, logits, caches) with its kernel launches equal
+R_TRAIN_STEPS = 2
 R_DECODE_BATCH, R_DECODE_STEPS = 4, 4
+# its cells: (arch, layers, sharded train variants, decode too) — qwen at
+# 4 of 40 layers (B4-B4''; B5), mamba2-2.7b at 4 of 64 (the Mamba-2 mixer
+# on DTensors: B3 and B3'; decode on DTensor conv and SSM caches) and
+# zamba2-7b at 9 of 81 (one segment and its shared block: B3, B3', B4-B4'')
+R_CELLS = ((N_ARCH, 4, ("baseline", "zero1"), True),
+           (N_SSM_ARCH, 4, ("baseline", "zero1"), True),
+           ("zamba2-7b", 9, ("baseline",), False))
+
+# B5 on the parts of a ring split over cards (phase 3d): a ring of D_RING
+# slots under each window, at each pos (10: parts past it empty; 64: the
+# wrap), cut into each count of parts, at qwen's and zamba2's decode heads
+D_RING, D_RING_WINDOWS, D_RING_POS = 64, (64, 24), (10, 63, 64, 200)
+D_RING_PARTS = (2, 4)
+D_RING_SHAPES = ((4, 32, 8, 128), (4, 32, 32, 112))
 
 
 class _Log:
@@ -1225,6 +1248,77 @@ def decode_checks(torch, kfd):
                 if case:
                     sub = apart if key == "flash_decode" else apart + "_bf16"
                     errs[sub] = max(errs[sub], err)
+    return errs
+
+
+def ring_part_checks(torch, kfd):
+    """B5 on the parts of a ring split over cards (``off``, ``ring``), as
+    decode against a windowed cache split on its sequence runs it: a ring
+    of ``D_RING`` slots under windows ``D_RING_WINDOWS``, pos
+    ``D_RING_POS`` (10: the parts past it empty; 64: the wrap), in
+    ``D_RING_PARTS`` parts, f32 and bf16, at qwen's and zamba2's decode
+    heads (``D_RING_SHAPES``).  Each part's o against the plain version's
+    (f32 2e-5, bf16 :func:`bf16_tols`) and its lse within 1e-4; the parts
+    merged by their lse against the whole ring's call within the same;
+    off 0 and the ring's own length bitwise the call without them.
+    Returns the max abs errors; raises AssertionError."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {"part": 0.0, "part_bf16": 0.0, "lse": 0.0, "merged": 0.0,
+            "merged_bf16": 0.0, "cases": 0}
+    for (b, hq, hkv, hd), window, parts, pos in itertools.product(
+            D_RING_SHAPES, D_RING_WINDOWS, D_RING_PARTS, D_RING_POS):
+        c = D_RING // parts
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for dtype, tol, key in ((torch.float32, 2e-5, ""),
+                                (torch.bfloat16, None, "_bf16")):
+            label = (f"flash_decode ring {D_RING} in {parts} parts B={b} "
+                     f"Hq={hq} Hkv={hkv} hd={hd} pos={pos} window={window} "
+                     f"{dtype}")
+            q, k, v = decode_inputs(torch, gen, b, D_RING, hq, hkv, hd,
+                                    dtype)
+            whole, whole_lse = kfd.flash_decode(q, k, v, p, window=window,
+                                                lse=True)
+            same = kfd.flash_decode(q, k, v, p, window=window, lse=True,
+                                    off=0, ring=D_RING)
+            if not (torch.equal(same[0], whole)
+                    and torch.equal(same[1], whole_lse)):
+                raise AssertionError(f"{label}: off 0 and the ring's length "
+                                     "not bitwise the call without them")
+            got = []
+            for i in range(parts):
+                kp, vp = (t[:, i * c:(i + 1) * c].contiguous()
+                          for t in (k, v))
+                o, lse = kfd.flash_decode(q, kp, vp, p, window=window,
+                                          lse=True, off=i * c, ring=D_RING)
+                po, plse = kfd.flash_decode_plain(q, kp, vp, p,
+                                                  window=window, lse=True,
+                                                  off=i * c, ring=D_RING)
+                rtol, atol = bf16_tols(po) if tol is None else (tol, tol)
+                err = float((o.float() - po.float()).abs().max())
+                lerr = float((lse - plse).abs().max())
+                if not (torch.allclose(o.float(), po.float(), rtol=rtol,
+                                       atol=atol)
+                        and torch.allclose(lse, plse, rtol=1e-4,
+                                           atol=1e-4)):
+                    raise AssertionError(
+                        f"{label}, part {i}: o max abs err {err:.3g} (rtol "
+                        f"{rtol}, atol {atol:.3g}), lse {lerr:.3g} (1e-4)")
+                errs["part" + key] = max(errs["part" + key], err)
+                errs["lse"] = max(errs["lse"], lerr)
+                got.append((o, lse))
+            top = torch.stack([lse for _, lse in got]).amax(0)
+            w = [torch.exp(lse - top) for _, lse in got]
+            merged = sum(o.float() * wi[:, None, :, None]
+                         for (o, _), wi in zip(got, w)) / sum(w)[
+                             :, None, :, None]
+            rtol, atol = bf16_tols(whole) if tol is None else (tol, tol)
+            err = float((merged - whole.float()).abs().max())
+            if not torch.allclose(merged, whole.float(), rtol=rtol,
+                                  atol=atol):
+                raise AssertionError(f"{label}: merged parts max abs err "
+                                     f"{err:.3g} of the whole ring's call")
+            errs["merged" + key] = max(errs["merged" + key], err)
+            errs["cases"] += 1
     return errs
 
 
@@ -4774,23 +4868,27 @@ def batch_mesh_cell(env, specs, api, counted, smi, mesh, device=None,
 
 
 def sharded_cell(torch, ts, tm, optim, dryrun, get_arch, get_shape, counted,
-                 smi, device="cuda", cfg=None, seq=None, ctx=None):
+                 smi, device="cuda", cells=None, seq=None, ctx=None):
     """Phase 4r: the sharded step on one card — a one-rank world (NCCL on
     the card, gloo on the CPU) on a (1, 1) ``("data", "model")`` mesh,
-    every argument a DTensor, against the same step on plain tensors:
-    (i) train_4k under ``attn_impl="pallas"`` for ``R_TRAIN_STEPS``
-    steps, baseline and ZeRO-1 (``place_state``), losses and parameters
-    bitwise; (ii) decode_32k for ``R_DECODE_STEPS`` steps, logits and
-    caches bitwise.  Each run's kernel counts are set to 0 just before it
-    and read just after, and must be equal.  ``cfg``, ``seq`` and ``ctx``
-    cut the shapes (the CPU check of this function).  Tears its world
-    down.  Returns the report; raises AssertionError."""
+    every argument a DTensor, against the same step on plain tensors, for
+    each cell of ``R_CELLS`` (arch at full width, depth cut): (i)
+    train_4k under ``attn_impl="pallas"`` for ``R_TRAIN_STEPS`` steps,
+    baseline and ZeRO-1 (``place_state``) as the cell asks, losses and
+    parameters bitwise; (ii) where the cell asks, decode_32k for
+    ``R_DECODE_STEPS`` steps, logits and caches bitwise.  Each run's
+    kernel counts are set to 0 just before it and read just after, and
+    must be equal.  ``cells`` ((cfg, variants, decode) triples), ``seq``
+    and ``ctx`` cut the shapes (the CPU check of this function).  Tears
+    its world down.  Returns the report by arch; raises
+    AssertionError."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.mesh import init_world, make_device_mesh
     from repro_torch.tree import tree_leaves_with_path, tree_map
-    cfg = cfg or dataclasses.replace(get_arch(N_ARCH), n_layers=R_LAYERS)
+    cells = cells or [(dataclasses.replace(get_arch(a), n_layers=n), v, d)
+                      for a, n, v, d in R_CELLS]
     train_shape, dec_shape = get_shape("train_4k"), get_shape("decode_32k")
     seq, ctx = seq or train_shape.seq_len, ctx or dec_shape.seq_len
     leaves = lambda tree: [t for _, t in tree_leaves_with_path(tree)]  # noqa
@@ -4798,132 +4896,141 @@ def sharded_cell(torch, ts, tm, optim, dryrun, get_arch, get_shape, counted,
                             for x, y in zip(leaves(a), leaves(b)))
     sync = ((lambda: torch.cuda.synchronize()) if device == "cuda"
             else (lambda: None))
-    report = {"train": {}, "decode": {}}
+
+    def run_cell(mesh, cfg, variants, decode):
+        report = {"train": {}, "decode": {}}
+        # (i) train_4k under the flash kernels
+        rt = dataclasses.replace(dryrun.runtime_for(cfg, train_shape),
+                                 attn_impl="pallas")
+        gen = torch.Generator(device=device).manual_seed(41)
+        params0 = tm.init(cfg, gen, rt.dtype)
+        toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen,
+                             device=device, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous(),
+                 "weights": torch.ones((1, seq), device=device)}
+        opt = optim.momentum(0.9)
+        for name in ("unsharded",) + tuple(variants):
+            params = tree_map(torch.clone, params0)
+            if name == "unsharded":
+                state, b = ts.TrainState(params, opt.init(params), 0), batch
+            else:
+                state = ts.place_state(params, opt, mesh,
+                                       zero1=name == "zero1")
+                b = shd.place(batch, shd.batch_shardings(mesh, batch))
+            step = ts.make_train_step(cfg, rt, opt)
+            losses, times = [], []
+            _zero(counted)
+            for _ in range(R_TRAIN_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, b, 1e-2)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+                losses.append(m["loss"])
+            report["train"][name] = {
+                "losses": torch.stack(losses), "launches": _read(counted),
+                "params": shd.gather(state.params), "ms": times}
+            del state, params
+        base = report["train"]["unsharded"]
+        for name in variants:
+            r = report["train"][name]
+            r["bitwise"] = (torch.equal(r["losses"], base["losses"])
+                            and same(r["params"], base["params"]))
+            if not r["bitwise"] or r["launches"] != base["launches"] \
+                    or (device == "cuda" and not any(r["launches"].values())):
+                raise AssertionError(
+                    f"4r {cfg.name} train {name}: losses "
+                    f"{r['losses'].tolist()} vs {base['losses'].tolist()}, "
+                    f"bitwise {r['bitwise']}, launches {r['launches']} vs "
+                    f"{base['launches']}")
+        for name, r in report["train"].items():
+            log(f"[4r (i) train_4k] {cfg.name}, {cfg.n_layers} layers, "
+                f"pallas, one {seq}-token sequence, {name}: ms a step "
+                f"{[round(t, 1) for t in r['ms']]}, losses "
+                f"{r['losses'].tolist()}, launches {r['launches']}"
+                + (f", losses and all {len(leaves(r['params']))} parameters "
+                   f"after {R_TRAIN_STEPS} steps bitwise the unsharded step's"
+                   if name != "unsharded" else "") + f"; {smi}")
+        for r in report["train"].values():
+            del r["params"]
+            r["losses"] = r["losses"].tolist()
+        del params0, batch, toks
+        if not decode:
+            return report
+        # (ii) decode_32k under B5 (and the Mamba-2 step on DTensor caches)
+        rt = dataclasses.replace(dryrun.runtime_for(cfg, dec_shape),
+                                 attn_impl="pallas")
+        params = tm.init(cfg, gen, rt.dtype)
+        cache0 = tm.init_cache(cfg, R_DECODE_BATCH, ctx, rt, device=device)
+        for name, t in cache0.items():
+            if name != "pos":
+                t.normal_(generator=gen)
+        cache0["pos"].fill_(ctx - R_DECODE_STEPS)
+        tokens = torch.randint(0, cfg.vocab,
+                               (R_DECODE_STEPS, R_DECODE_BATCH, 1),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        serve = ts.make_serve_step(cfg, rt)
+        for name in ("unsharded", "sharded"):
+            cache = tree_map(torch.clone, cache0)
+            p = params
+            if name == "sharded":
+                p = shd.place(params, shd.params_shardings(mesh, params))
+                cache = shd.place(cache, shd.cache_shardings(mesh, cache))
+            logits, times = [], []
+            _zero(counted)
+            with torch.no_grad():
+                for tok in tokens:
+                    if name == "sharded":
+                        tok = shd.place({"t": tok}, shd.batch_shardings(
+                            mesh, {"t": tok}))["t"]
+                    sync()
+                    t0 = time.perf_counter()
+                    out, cache = serve(p, cache, tok)
+                    sync()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    logits.append(shd.gather({"l": out})["l"])
+            report["decode"][name] = {
+                "logits": torch.stack(logits), "cache": shd.gather(cache),
+                "launches": _read(counted), "ms": times}
+            del cache, p
+        base, r = report["decode"]["unsharded"], report["decode"]["sharded"]
+        r["bitwise"] = (torch.equal(r["logits"], base["logits"])
+                        and same(r["cache"], base["cache"]))
+        attn_layers = {"ssm": 0, "hybrid": cfg.n_layers // max(
+            cfg.hybrid_every, 1)}.get(cfg.family, cfg.n_layers)
+        want = attn_layers * R_DECODE_STEPS if device == "cuda" else 0
+        if not r["bitwise"] or r["launches"] != base["launches"] or \
+                r["launches"].get("flash_decode") != want:
+            raise AssertionError(
+                f"4r {cfg.name} decode: bitwise {r['bitwise']}, launches "
+                f"{r['launches']} vs {base['launches']} (flash_decode {want} "
+                "expected)")
+        for name, d in report["decode"].items():
+            log(f"[4r (ii) decode_32k] {cfg.name}, {cfg.n_layers} layers, "
+                f"pallas, batch {R_DECODE_BATCH}, {R_DECODE_STEPS} steps up "
+                f"to slot {ctx - 1} of {ctx}, {name}: ms a step "
+                f"{[round(t, 2) for t in d['ms']]}, launches {d['launches']}"
+                + (", logits and caches bitwise the unsharded run's"
+                   if name == "sharded" else "") + f"; {smi}")
+        for d in report["decode"].values():
+            del d["logits"], d["cache"]
+        return report
+
+    report = {}
     with tempfile.TemporaryDirectory() as tmp:
         init_world("nccl" if device == "cuda" else "gloo",
                    init_method=f"file://{tmp}/rendezvous", rank=0,
                    world_size=1)
         try:
             mesh = make_device_mesh((1, 1))
-            # (i) train_4k under the flash kernels
-            rt = dataclasses.replace(dryrun.runtime_for(cfg, train_shape),
-                                     attn_impl="pallas")
-            gen = torch.Generator(device=device).manual_seed(41)
-            params0 = tm.init(cfg, gen, rt.dtype)
-            toks = torch.randint(0, cfg.vocab, (1, seq + 1), generator=gen,
-                                 device=device, dtype=torch.int32)
-            batch = {"tokens": toks[:, :-1].contiguous(),
-                     "labels": toks[:, 1:].contiguous(),
-                     "weights": torch.ones((1, seq), device=device)}
-            opt = optim.momentum(0.9)
-            for name, zero1 in (("unsharded", None), ("baseline", False),
-                                ("zero1", True)):
-                params = tree_map(torch.clone, params0)
-                if zero1 is None:
-                    state, b = ts.TrainState(params, opt.init(params), 0), \
-                        batch
-                else:
-                    state = ts.place_state(params, opt, mesh, zero1=zero1)
-                    b = shd.place(batch, shd.batch_shardings(mesh, batch))
-                step = ts.make_train_step(cfg, rt, opt)
-                losses, times = [], []
-                _zero(counted)
-                for _ in range(R_TRAIN_STEPS):
-                    sync()
-                    t0 = time.perf_counter()
-                    state, m = step(state, b, 1e-2)
-                    sync()
-                    times.append(1e3 * (time.perf_counter() - t0))
-                    losses.append(m["loss"])
-                report["train"][name] = {
-                    "losses": torch.stack(losses), "launches": _read(counted),
-                    "params": shd.gather(state.params), "ms": times}
-                del state, params
-            base = report["train"]["unsharded"]
-            for name in ("baseline", "zero1"):
-                r = report["train"][name]
-                r["bitwise"] = (torch.equal(r["losses"], base["losses"])
-                                and same(r["params"], base["params"]))
-                if not r["bitwise"] or r["launches"] != base["launches"] \
-                        or (device == "cuda"
-                            and not any(r["launches"].values())):
-                    raise AssertionError(
-                        f"4r train {name}: losses {r['losses'].tolist()} vs "
-                        f"{base['losses'].tolist()}, bitwise {r['bitwise']}, "
-                        f"launches {r['launches']} vs {base['launches']}")
-            for name, r in report["train"].items():
-                log(f"[4r (i) train_4k] {cfg.name}, {cfg.n_layers} layers, "
-                    f"pallas, one {seq}-token sequence, {name}: ms a step "
-                    f"{[round(t, 1) for t in r['ms']]}, losses "
-                    f"{r['losses'].tolist()}, launches {r['launches']}"
-                    + (f", losses and all {len(leaves(r['params']))} "
-                       f"parameters after {R_TRAIN_STEPS} steps bitwise the "
-                       "unsharded step's" if name != "unsharded" else "")
-                    + f"; {smi}")
-            for r in report["train"].values():
-                del r["params"]
-                r["losses"] = r["losses"].tolist()
-            del params0, batch, toks
-            # (ii) decode_32k under B5
-            rt = dataclasses.replace(dryrun.runtime_for(cfg, dec_shape),
-                                     attn_impl="pallas")
-            params = tm.init(cfg, gen, rt.dtype)
-            cache0 = tm.init_cache(cfg, R_DECODE_BATCH, ctx, rt,
-                                   device=device)
-            for name, t in cache0.items():
-                if name != "pos":
-                    t.normal_(generator=gen)
-            cache0["pos"].fill_(ctx - R_DECODE_STEPS)
-            tokens = torch.randint(0, cfg.vocab,
-                                   (R_DECODE_STEPS, R_DECODE_BATCH, 1),
-                                   generator=gen, device=device,
-                                   dtype=torch.int32)
-            serve = ts.make_serve_step(cfg, rt)
-            for name in ("unsharded", "sharded"):
-                cache = tree_map(torch.clone, cache0)
-                p = params
-                if name == "sharded":
-                    p = shd.place(params, shd.params_shardings(mesh, params))
-                    cache = shd.place(cache, shd.cache_shardings(mesh, cache))
-                logits, times = [], []
-                _zero(counted)
-                with torch.no_grad():
-                    for tok in tokens:
-                        if name == "sharded":
-                            tok = shd.place({"t": tok}, shd.batch_shardings(
-                                mesh, {"t": tok}))["t"]
-                        sync()
-                        t0 = time.perf_counter()
-                        out, cache = serve(p, cache, tok)
-                        sync()
-                        times.append(1e3 * (time.perf_counter() - t0))
-                        logits.append(shd.gather({"l": out})["l"])
-                report["decode"][name] = {
-                    "logits": torch.stack(logits),
-                    "cache": shd.gather(cache), "launches": _read(counted),
-                    "ms": times}
-                del cache, p
-            base, r = report["decode"]["unsharded"], report["decode"][
-                "sharded"]
-            r["bitwise"] = (torch.equal(r["logits"], base["logits"])
-                            and same(r["cache"], base["cache"]))
-            want = cfg.n_layers * R_DECODE_STEPS if device == "cuda" else 0
-            if not r["bitwise"] or r["launches"] != base["launches"] or \
-                    r["launches"].get("flash_decode") != want:
-                raise AssertionError(
-                    f"4r decode: bitwise {r['bitwise']}, launches "
-                    f"{r['launches']} vs {base['launches']} (flash_decode "
-                    f"{want} expected)")
-            for name, d in report["decode"].items():
-                log(f"[4r (ii) decode_32k] {cfg.name}, {cfg.n_layers} "
-                    f"layers, pallas, batch {R_DECODE_BATCH}, "
-                    f"{R_DECODE_STEPS} steps up to slot {ctx - 1} of {ctx}, "
-                    f"{name}: ms a step {[round(t, 2) for t in d['ms']]}, "
-                    f"launches {d['launches']}"
-                    + (", logits and caches bitwise the unsharded run's"
-                       if name == "sharded" else "") + f"; {smi}")
-            for d in report["decode"].values():
-                del d["logits"], d["cache"]
+            for cfg, variants, decode in cells:
+                t0 = time.perf_counter()
+                report[cfg.name] = run_cell(mesh, cfg, variants, decode)
+                report[cfg.name]["wall_s"] = time.perf_counter() - t0
+                log(f"[4r cell] {cfg.name} at {cfg.n_layers} layers: "
+                    f"{report[cfg.name]['wall_s']:.1f} s")
         finally:
             dist.destroy_process_group()
     return report
@@ -5129,6 +5236,24 @@ def main(argv=None) -> int:
     except AssertionError as exc:
         return fail(f"phase 3d: {exc}")
     errs["flash_decode"] = dec_errs["flash_decode"]
+    t0 = time.perf_counter()
+    try:
+        ring_errs = ring_part_checks(torch, kfd)
+        torch.cuda.synchronize()
+    except AssertionError as exc:
+        return fail(f"phase 3d: {exc}")
+    log(f"[3d kernels] flash decode on parts of a ring of {D_RING} slots "
+        f"(off, ring): windows {D_RING_WINDOWS}, pos {D_RING_POS}, "
+        f"{D_RING_PARTS} parts, (B, Hq, Hkv, hd) {D_RING_SHAPES}, f32 and "
+        f"bf16, {ring_errs['cases']} cases: each part's o max abs err "
+        f"{ring_errs['part']:.3g} (tol 2e-5; bf16 "
+        f"{ring_errs['part_bf16']:.3g}, bf16_tols), lse "
+        f"{ring_errs['lse']:.3g} (tol 1e-4) vs the plain version; the "
+        f"parts merged by their lse vs the whole ring's call "
+        f"{ring_errs['merged']:.3g} (bf16 {ring_errs['merged_bf16']:.3g}); "
+        f"off 0 and the ring's length bitwise the call without them; "
+        f"{time.perf_counter() - t0:.1f} s")
+    dec_errs["ring_parts"] = ring_errs
     log(f"[3d kernels] flash decode at {D_SHAPE} (B, ctx, Hq, Hkv, hd) at "
         f"pos {D_POS}, 0 and {D_CTX - 1}, the runs' seams {D_SEAMS} "
         f"(B, ctx, Hq, Hkv, hd, pos, window), ring buffers (pos 100 and 1000 "
@@ -5952,6 +6077,19 @@ def main(argv=None) -> int:
             log(table)
             report[f"profile_{path}"] = {"window_ms": 1e3 * window,
                                          "busy_ms": busy, "table": table}
+
+    # phase 4r's runs on DTensors: each kernel's launches a run
+    by_name = {r["name"]: r for r in records}
+    for arch, cell in report["sharded"].items():
+        for part, runs in (("train_4k", cell["train"]),
+                           ("decode_32k", cell["decode"])):
+            for run, r in runs.items():
+                if run == "unsharded":
+                    continue
+                path = f"{arch} {part} {run} on a one-rank world, 4r"
+                for name, n in r["launches"].items():
+                    if n and name in by_name:
+                        by_name[name]["launches_by_path"][path] = n
 
     report["kernels"] = records
     report["device"] = {"kind": kind, "smi": smi}

@@ -16,11 +16,16 @@
 // i <= pos.  With a window the cache is a ring buffer: slot i holds
 // key_pos = pos - ((pos - i) mod ctx) (a floored modulo: C++ '%' truncates
 // toward zero, so the remainder is brought into [0, ctx) by hand), visible
-// when 0 <= key_pos <= pos and key_pos > pos - window.  In both modes a
-// slot past pos was never written (its key_pos is negative), so only slots
-// 0 .. min(pos, ctx - 1) are visited: blocks wholly past pos are skipped,
-// which changes nothing but the rounding order, since the slot of pos itself
-// is always visible.  Scores are scaled by 1/sqrt(HD); masked scores take no
+// when 0 <= key_pos <= pos and key_pos > pos - window.  The cache may be a
+// part of a longer one split over cards: slot i is then the global slot
+// off + i of a ring of `ring` slots, which take the place of i and ctx
+// above (off 0 and ring = ctx: the whole cache).  In both modes a slot
+// past pos was never written (its key_pos is negative), so only slots
+// 0 .. min(pos - off, ctx - 1) are visited: blocks wholly past pos are
+// skipped, which changes nothing but the rounding order, since the slot of
+// pos itself is always visible (or, in a part that does not hold it, the
+// part contributes o = 0 and lse about -1e30, which weigh nothing in the
+// merge).  Scores are scaled by 1/sqrt(HD); masked scores take no
 // weight; o = acc / max(l, 1e-30) in q's type.  Any ctx is taken (the TPU
 // kernel needs ctx % block_s == 0).
 //
@@ -102,6 +107,8 @@ struct Shape {
   float scale;
   float* lse = nullptr;           // (B, Hq) log-sum-exp of the scores, or
                                   // not written
+  int off = 0;                    // the global slot of slot 0
+  int ring = 0;                   // the whole ring's slots, >= off + ctx
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -202,13 +209,14 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Slots 0 .. visible_slots - 1 can hold a visible key (see the header).
 __device__ __forceinline__ int visible_slots(const Shape& sh, int pos) {
-  return max(0, min(pos + 1, sh.ctx));
+  return max(0, min(pos - sh.off + 1, sh.ctx));
 }
 
 __device__ __forceinline__ bool visible(const Shape& sh, int pos, int slot) {
+  slot += sh.off;                 // the global slot
   if (sh.window <= 0) return slot <= pos;
-  int r = (pos - slot) % sh.ctx;  // truncated toward zero ...
-  if (r < 0) r += sh.ctx;         // ... brought to the floored modulo
+  int r = (pos - slot) % sh.ring; // truncated toward zero ...
+  if (r < 0) r += sh.ring;        // ... brought to the floored modulo
   const int key_pos = pos - r;
   return key_pos >= 0 && key_pos <= pos && key_pos > pos - sh.window;
 }
@@ -621,7 +629,8 @@ constexpr int kBadShape = -1;
 
 template <typename Op>
 int by_shape(const Shape& sh, int hd, int bf16, const Op& op) {
-  if (sh.B <= 0 || sh.ctx <= 0 || sh.Hkv <= 0 || sh.Hq % sh.Hkv)
+  if (sh.B <= 0 || sh.ctx <= 0 || sh.Hkv <= 0 || sh.Hq % sh.Hkv ||
+      sh.off < 0 || sh.ring < sh.off + sh.ctx)
     return kBadShape;
   const int g = sh.Hq / sh.Hkv;
   if (bf16) {
@@ -666,13 +675,15 @@ extern "C" {
 // arrivals: B * Hkv int32 counts, 0 before the first call (each call leaves
 // them at 0), both kept by the caller from call to call on one stream.
 // bf16 != 0: q, k, v, o are bf16, else f32.  hd in {64, 112, 128}; window
-// <= 0: none.  Returns a cudaError_t, or -1 for a shape the kernel does not
-// take.
+// <= 0: none.  off and ring: k and v are the slots off .. off + ctx - 1 of
+// a ring of `ring` slots (0 and ctx: the whole cache; see the header).
+// Returns a cudaError_t, or -1 for a shape the kernel does not take.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* pos, float* part, int* arrivals, void* o,
                         int B, int ctx, int Hq, int Hkv, int hd, int window,
-                        float scale, int bf16, cudaStream_t stream) {
-  const Shape sh{B, ctx, Hq, Hkv, window, 1, scale};
+                        int off, int ring, float scale, int bf16,
+                        cudaStream_t stream) {
+  const Shape sh{B, ctx, Hq, Hkv, window, 1, scale, nullptr, off, ring};
   return by_shape(sh, hd, bf16,
                   LaunchOp{q, k, v, pos, part, arrivals, o, sh, stream});
 }
@@ -683,9 +694,9 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
 int flash_decode_lse_launch(const void* q, const void* k, const void* v,
                             const int* pos, float* part, int* arrivals,
                             void* o, float* lse, int B, int ctx, int Hq,
-                            int Hkv, int hd, int window, float scale,
-                            int bf16, cudaStream_t stream) {
-  const Shape sh{B, ctx, Hq, Hkv, window, 1, scale, lse};
+                            int Hkv, int hd, int window, int off, int ring,
+                            float scale, int bf16, cudaStream_t stream) {
+  const Shape sh{B, ctx, Hq, Hkv, window, 1, scale, lse, off, ring};
   return by_shape(sh, hd, bf16,
                   LaunchOp{q, k, v, pos, part, arrivals, o, sh, stream});
 }
@@ -694,7 +705,7 @@ int flash_decode_lse_launch(const void* q, const void* k, const void* v,
 // out[7]; returns a cudaError_t, or -1 for a shape the kernel does not take.
 int flash_decode_resources(int B, int ctx, int Hq, int Hkv, int hd, int bf16,
                            int* out) {
-  const Shape sh{B, ctx, Hq, Hkv, 0, 1, 1.f};
+  const Shape sh{B, ctx, Hq, Hkv, 0, 1, 1.f, nullptr, 0, ctx};
   return by_shape(sh, hd, bf16, ResourcesOp{sh, out});
 }
 

@@ -12,7 +12,13 @@ host never waits for it), or a Python int.  Slots past ``pos`` are
 masked; with ``window`` set the cache is a ring buffer, slot i holding
 position ``pos - ((pos - i) mod ctx)`` (a floored modulo), visible when
 it lies in ``(pos - window, pos]`` and is not negative.  Any ctx is
-taken (the TPU kernel needs ``ctx % block_s == 0``).
+taken (the TPU kernel needs ``ctx % block_s == 0``).  A cache may be one
+part of a longer one split over cards: ``off`` is the global slot its
+slot 0 holds and ``ring`` the whole ring's slots (defaults 0 and the
+part's own ctx, the whole cache), so its slot i is the global slot
+``off + i`` and the ring's positions are taken modulo ``ring``.  A part
+with no visible slot gives o = 0 and lse about -1e30, which weigh
+nothing when the parts are merged by their log-sum-exp.
 
 On a CUDA tensor :func:`flash_decode` launches the hand-written kernel
 in ``csrc/flash_decode.cu`` (one launch a call: the cache split into
@@ -50,12 +56,12 @@ def _library():
     """The built ``csrc/flash_decode.cu`` with its C signature."""
     c = build.load("flash_decode").cdll
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # q, k, v, pos, part, arrivals, o; B, ctx, Hq, Hkv, hd, window; scale;
-    # bf16; stream
-    c.flash_decode_launch.argtypes = [ptr] * 7 + [i32] * 6 + [f32, i32, ptr]
+    # q, k, v, pos, part, arrivals, o; B, ctx, Hq, Hkv, hd, window, off,
+    # ring; scale; bf16; stream
+    c.flash_decode_launch.argtypes = [ptr] * 7 + [i32] * 8 + [f32, i32, ptr]
     c.flash_decode_launch.restype = i32
     # the same with lse after o
-    c.flash_decode_lse_launch.argtypes = ([ptr] * 8 + [i32] * 6
+    c.flash_decode_lse_launch.argtypes = ([ptr] * 8 + [i32] * 8
                                           + [f32, i32, ptr])
     c.flash_decode_lse_launch.restype = i32
     # B, ctx, Hq, Hkv, hd, bf16; out[7]
@@ -64,7 +70,7 @@ def _library():
     return c
 
 
-def _check(q, k, v, pos, window):
+def _check(q, k, v, pos, window, off=0, ring=None):
     what = "flash_decode"
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: q must be (B, 1, Hq, hd) and k, v one "
@@ -77,6 +83,9 @@ def _check(q, k, v, pos, window):
                          f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be >= 1, got {window}")
+    if off < 0 or (ring is not None and ring < off + k.shape[1]):
+        raise ValueError(f"{what}: a part of {k.shape[1]} slots from slot "
+                         f"{off} does not lie in a ring of {ring}")
     for t in (q, k, v):
         if (t.dtype not in (torch.float32, torch.bfloat16)
                 or t.dtype != q.dtype):
@@ -105,22 +114,28 @@ def _check(q, k, v, pos, window):
 # ---------------------------------------------------------------------------
 
 
-def visible_slots(pos, ctx: int, window: Optional[int], device):
-    """(ctx,) boolean: which cache slots hold a key the token at ``pos``
-    attends to (``pos`` an int or a 0-d tensor; torch's ``%`` floors)."""
-    idx = torch.arange(ctx, device=device)
+def visible_slots(pos, ctx: int, window: Optional[int], device,
+                  off: int = 0, ring: Optional[int] = None):
+    """(ctx,) boolean: which slots of a part of ``ctx`` slots from global
+    slot ``off`` of a ring of ``ring`` (default: the part itself) hold a
+    key the token at ``pos`` attends to (``pos`` an int or a 0-d tensor;
+    torch's ``%`` floors)."""
+    idx = torch.arange(off, off + ctx, device=device)
     if window is None:
         return idx <= pos
-    key_pos = pos - ((pos - idx) % ctx)
+    key_pos = pos - ((pos - idx) % (ring or ctx))
     return (key_pos >= 0) & (key_pos <= pos) & (key_pos > pos - window)
 
 
 def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None,
-                       lse: bool = False):
+                       lse: bool = False, off: int = 0,
+                       ring: Optional[int] = None):
     """Plain PyTorch decode attention: the reference oracle's arithmetic
     (``kernels/ref.py::decode_attention_ref``: float32 scores scaled by
     ``1/√hd``, masked at -1e30, softmax, P·V) over the model's layout,
-    grouped-query heads by index.  o like q; with ``lse``, ``(o, lse)``,
+    grouped-query heads by index; ``off`` and ``ring`` place the cache in
+    a longer ring (module docstring), and a cache with no visible slot
+    gives o = 0, as the kernel.  o like q; with ``lse``, ``(o, lse)``,
     lse (B, Hq) float32 the scores' log-sum-exp."""
     b, _, hq, hd = q.shape
     ctx, hkv = k.shape[1], k.shape[2]
@@ -128,8 +143,10 @@ def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None,
         pos = pos.reshape(())
     qg = q.float().reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (1.0 / hd ** 0.5)
-    s = torch.where(visible_slots(pos, ctx, window, q.device), s, NEG_INF)
+    vis = visible_slots(pos, ctx, window, q.device, off, ring)
+    s = torch.where(vis, s, NEG_INF)
     o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v.float())
+    o = torch.where(vis.any(), o, 0.0)
     o = o.reshape(b, 1, hq, hd).to(q.dtype)
     if lse:
         return o, torch.logsumexp(s, dim=-1).reshape(b, hq)
@@ -142,14 +159,17 @@ def flash_decode_plain(q, k, v, pos, *, window: Optional[int] = None,
 
 
 def flash_decode(q, k, v, pos, *, window: Optional[int] = None,
-                 lse: bool = False):
+                 lse: bool = False, off: int = 0,
+                 ring: Optional[int] = None):
     """o (B, 1, Hq, hd) in q's dtype; with ``lse``, ``(o, lse)``, lse (B,
     Hq) float32 each row's log-sum-exp of its scaled scores over the
     visible slots (about -1e30 where none is), to merge the parts of a
-    cache split over cards."""
-    _check(q, k, v, pos, window)
+    cache split over cards; ``off`` and ``ring``: the cache as a part of
+    a longer ring (module docstring)."""
+    _check(q, k, v, pos, window, off, ring)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, pos, window=window, lse=lse)
+        return flash_decode_plain(q, k, v, pos, window=window, lse=lse,
+                                  off=off, ring=ring)
     b, _, hq, hd = q.shape
     ctx, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -165,7 +185,8 @@ def flash_decode(q, k, v, pos, *, window: Optional[int] = None,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             part.data_ptr(), arrivals.data_ptr(), o.data_ptr())
     rest = (b, ctx, hq, hkv, hd, 0 if window is None else int(window),
-            1.0 / hd ** 0.5, int(q.dtype == torch.bfloat16), stream)
+            int(off), int(ring or ctx), 1.0 / hd ** 0.5,
+            int(q.dtype == torch.bfloat16), stream)
     with torch.cuda.device(q.device):     # the kernel sizes by its SMs
         if lse:
             rc = _library().flash_decode_lse_launch(

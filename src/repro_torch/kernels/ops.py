@@ -101,10 +101,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
-                 window: Optional[int] = None, lse: bool = False):
+                 window: Optional[int] = None, lse: bool = False,
+                 off: int = 0, ring: Optional[int] = None):
     """q: (B, 1, Hq, hd); k, v caches: (B, ctx, Hkv, hd); ``pos`` the
     decoded token's position, a one-element integer tensor on q's device
     (or an int) → (B, 1, Hq, hd); with ``lse`` also the rows' (B, Hq)
-    log-sum-exp of their scores."""
+    log-sum-exp of their scores.  ``off`` and ``ring``: k and v are the
+    slots from ``off`` of a ring of ``ring`` (a part of a cache split
+    over cards; default the whole cache)."""
     return fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
-                           pos, window=window, lse=lse)
+                           pos, window=window, lse=lse, off=off, ring=ring)

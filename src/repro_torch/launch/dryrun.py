@@ -55,9 +55,16 @@ the world size, ``collective_bytes_per_device`` and ``collective_by_op``
 (rank 0's collectives, at their results' bytes), ``collective_s`` (those
 bytes over :data:`NVLINK_BW`) and ``dominant`` over the three terms;
 ``compute_s`` and ``memory_s`` are per device too (the FLOPs rank 0 ran,
-its arguments).  ``memory.argument_bytes_per_device`` is measured from
-rank 0's local shards, beside ``memory.sized_argument_bytes_per_device``
-(the rules at this mesh and cut) and
+its arguments; the kernels' products at the rows and heads, or part of
+the cache, that one device launches them on).  Every assigned arch runs
+on a mesh at every shape: the dense, VLM, audio and MoE families (GQA or
+MLA), the SSM family and the hybrid with the Mamba-2 mixer on each
+rank's heads (its caches split on channels and heads at decode), and
+``long_500k``'s decode against the window's ring of 8192 slots split on
+its sequence over ``"model"``.  ``memory.argument_bytes_per_device`` is
+measured from rank 0's local shards, beside
+``memory.sized_argument_bytes_per_device`` (the rules at this mesh and
+cut) and
 ``memory.production_argument_bytes_per_device`` (the production mesh's,
 uncut); ``memory.peak_bytes`` is the largest over the ranks.  Rank 0
 returns the row (the others return it too) and ``main`` prints it on
@@ -306,20 +313,27 @@ def _local_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _kernel_flops(cfg, shape, rt, launches: dict, visible: int) -> dict:
-    """The products of the port's kernels launched in one step."""
-    b, s = shape.global_batch, shape.seq_len
+def _kernel_flops(cfg, shape, rt, launches: dict, visible: int,
+                  rows: int = 0, split: int = 1) -> dict:
+    """The products of the port's kernels launched in one step on one
+    device: its ``rows`` of the batch (default all of it) and, over a
+    ``"model"`` axis of ``split``, its part of the heads (B4, B3) or of
+    the heads or the cache (B5: each card scores ``1 / split`` of the
+    visible (head, slot) pairs)."""
+    b, s = rows or shape.global_batch, shape.seq_len
     win = rt.win(cfg)
     per = {}
     if cfg.n_heads:
         hq, hd = cfg.n_heads, cfg.hd()
-        per["flash_attention_fwd"] = cost.attention_flops(b, s, hq, hd,
-                                                          True, win)
-        per.update(cost.attention_bwd_flops(b, s, hq, hd, True, win))
-        per["flash_decode"] = cost.decode_flops(b, hq, hd, visible)
+        per["flash_attention_fwd"] = cost.attention_flops(
+            b, s, hq // split, hd, True, win)
+        per.update(cost.attention_bwd_flops(b, s, hq // split, hd, True,
+                                            win))
+        per["flash_decode"] = cost.decode_flops(b, hq, hd, visible) // split
     if cfg.ssm is not None:
         _, H, _ = m2.dims(cfg)
-        per["ssd_scan_fwd"] = cost.ssd_flops(b, s, H, cfg.ssm.head_dim,
+        per["ssd_scan_fwd"] = cost.ssd_flops(b, s, H // split,
+                                             cfg.ssm.head_dim,
                                              cfg.ssm.d_state)
         per["ssd_scan_bwd"] = 2 * per["ssd_scan_fwd"]
     return {name: n * per[name] for name, n in launches.items()
@@ -436,9 +450,11 @@ def run_pair(arch: str, shape_name: str, rt=None, opt=None,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     # the kernels run on each device's rows and heads (or part of the
-    # cache): a device's share of their products
-    kernel_flops = {k: n // chips for k, n in _kernel_flops(
-        cfg, shape, rt, launches, visible).items()}
+    # cache): what one device launched
+    split = mesh.shape.get("model", 1) if mesh is not None else 1
+    kernel_flops = _kernel_flops(cfg, shape, rt, launches, visible,
+                                 rows=b // ways if b % ways == 0 else b,
+                                 split=split)
     flops = counted.flops + sum(kernel_flops.values())
     ms = 1e3 * statistics.median(times)
     tokens = b * (shape.seq_len if shape.mode != "decode" else 1)

@@ -247,11 +247,16 @@ def _attend_local(x, q, k, v, **opts):
 
 
 def attend_decode(q, k, v, pos, *, window: Optional[int] = None,
-                  impl: str = "pallas", lse: bool = False):
+                  impl: str = "pallas", lse: bool = False, off: int = 0,
+                  ring: Optional[int] = None):
+    """Decode attention of q against the cache k, v (``off`` and
+    ``ring``: a part of a ring split over cards)."""
     if impl == "pallas":
-        return ops.flash_decode(q, k, v, pos, window=window, lse=lse)
+        return ops.flash_decode(q, k, v, pos, window=window, lse=lse,
+                                off=off, ring=ring)
     if impl in IMPLS:
-        return fd.flash_decode_plain(q, k, v, pos, window=window, lse=lse)
+        return fd.flash_decode_plain(q, k, v, pos, window=window, lse=lse,
+                                     off=off, ring=ring)
     raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
 
 
@@ -275,14 +280,13 @@ def _decode_local(q, k, v, cache_k, cache_v, pos, *, window, impl):
     kernel runs through ``local_map`` on each rank's rows and heads and
     its part of the cache; where the sequence is split, each part's
     output and log-sum-exp are merged over ``"model"`` (flash decoding
-    across cards: two all-reduces of (B, Hq) and one of the output)."""
+    across cards: two all-reduces of (B, Hq) and one of the output).  Each
+    part attends as the slots ``off ..`` of the whole cache of ``ctx``
+    slots (B5's ``off`` and ``ring``); a windowed cache is a ring of them,
+    the token going to global slot ``pos % ctx``."""
     from torch.distributed.tensor.experimental import local_map
     mesh = cache_k.device_mesh
     split = bool(sharded.sharded_axes(cache_k, 1))
-    if split and window is not None:
-        raise NotImplementedError(
-            "decode against a ring-buffer (windowed) cache split on its "
-            "sequence over cards is not ported")
     dims = {0: sharded.sharded_axes(cache_k, 0)}
     if sharded.sharded_axes(cache_k, 2):
         dims[2] = sharded.MODEL
@@ -299,8 +303,8 @@ def _decode_local(q, k, v, cache_k, cache_v, pos, *, window, impl):
         _write_slot(cv, v, slot, off)
         if m == 1:
             return attend_decode(q, ck, cv, pos, window=window, impl=impl)
-        o, lse = attend_decode(q, ck, cv, pos - off, window=window,
-                               impl=impl, lse=True)
+        o, lse = attend_decode(q, ck, cv, pos, window=window, impl=impl,
+                               lse=True, off=off, ring=ctx)
         top = sharded.model_reduce(lse, "max", mesh)
         w = torch.exp(lse - top)                              # (B, Hq)
         num = sharded.model_reduce(o.float() * w[:, None, :, None], "sum",

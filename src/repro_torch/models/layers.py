@@ -112,11 +112,17 @@ def ffn_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in float32; ``params["scale"]`` (N, d)."""
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
+            across=None) -> torch.Tensor:
+    """RMSNorm computed in float32; ``params["scale"]`` (N, d).  ``across``
+    takes the mean of squares of this part of d to the whole's (a sum
+    over the ranks that hold the other parts); none when x is whole."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    ms = x.square().mean(-1, keepdim=True)
+    if across is not None:
+        ms = across(ms)
+    x = x * torch.rsqrt(ms + eps)
     return (x * _per_copy(params["scale"].float(), x)).to(dt)
 
 

@@ -14,6 +14,22 @@ block plus the inter-chunk state recurrence), the oracle of the kernels.
 :func:`mamba2_decode` is the one-token step over one parameter set (a
 copy axis of 1): the rolling conv window and the per-head SSM state
 recurrence, both caches updated in place.
+
+On a mesh over a ``torch.distributed`` world (DTensors placed by the
+sharding rules: ``in_proj`` split on its columns and ``out_proj`` on its
+rows over ``"model"``, the rest whole) each rank runs the mixer on its
+heads.  The in-projection's split does not fall on head boundaries, so
+its columns are all-gathered and each rank takes its heads' z, x and dt
+and the B and C its heads read (:func:`_forward_sharded`); the conv runs
+on the rank's channels, the scan on its heads (B3 and B3′ through
+:func:`repro_torch.models.sharded.ssd_on_local_heads`), the gated
+RMSNorm sums its squares over ``"model"`` (it normalises over all of
+d_in), and the out-projection's partial sum goes back to the residual.
+At decode the caches are split too, ``conv`` on its channels (not on
+head boundaries) and ``ssm`` on its heads: each rank rolls its channels
+of the window and steps its heads' state in place, and the conv outputs
+are all-gathered between the two (:func:`_decode_sharded`).  On one card
+none of this runs.
 """
 from __future__ import annotations
 
@@ -147,81 +163,266 @@ def ssd_reference(x, dt, A, Bm, Cm, chunk: int):
     return y.to(x.dtype), carry
 
 
-def _refuse_sharded(x):
-    if sharded.is_dtensor(x):
-        raise NotImplementedError(
-            "the Mamba-2 mixer on a mesh of several devices (the SSD scan "
-            "on each rank's heads) is not ported yet; run the SSM and "
-            "hybrid families on one card")
+def _scan_inputs(cfg: ArchConfig, proj, conv_w, conv_b, dt_bias, h: int):
+    """The scan's inputs from an in-projection of ``h`` heads: proj (N, B,
+    S, ·) holds z and x of those heads, the B and C columns of the groups
+    they read and their dt, in that order.  Returns z (N, B, S, h·P), xs
+    (N·B, S, h, P) and Bm, Cm (N·B, S, g, N) — views of the causal
+    conv's output (conv_w (N, W, ch), conv_b (N, ch) over those
+    channels) — and dt (N·B, S, h) float32 after its bias and softplus."""
+    s = cfg.ssm
+    n, b, S, _ = proj.shape
+    d = h * s.head_dim
+    gn = (proj.shape[-1] - 2 * d - h) // 2
+    z, xbc, dt = torch.split(proj, [d, d + 2 * gn, h], dim=-1)
+    xbc = _causal_conv(conv_w, conv_b, xbc)
+    # views of the conv output (row stride ch), no copies
+    xs, Bm, Cm = torch.split(xbc, [d, gn, gn], dim=-1)
+    xs = xs.reshape(n * b, S, h, s.head_dim)
+    Bm = Bm.reshape(n * b, S, -1, s.d_state)
+    Cm = Cm.reshape(n * b, S, -1, s.d_state)
+    # softplus as the reference's jax.nn.softplus: logaddexp(x, 0)
+    dt = dt.float() + _per_copy(dt_bias, dt)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt)).reshape(n * b, S, h)
+    return z, xs, dt, Bm, Cm
+
+
+def _gated(D, y, xs, z):
+    """``(y + D·x) ∘ silu(z)``, (N, B, S, h·P), over h heads: y and xs
+    (N·B, S, h, P), D (N, h), z (N, B, S, h·P)."""
+    n, b, S, _ = z.shape
+    h = D.shape[-1]
+    y = y.reshape(n, b, S, h, -1)
+    y = y + xs.reshape(y.shape) * D.reshape(n, 1, 1, h, 1).to(y.dtype)
+    return y.reshape(z.shape) * F.silu(z)
+
+
+def _local_split(cfg: ArchConfig, m: int):
+    """The split of the mixer over a ``"model"`` axis of ``m``: ``(heads,
+    in_spans, ch_spans)``, a rank's heads and the functions of ``(r, m)``
+    that give rank r's (start, length) spans of the in-projection's
+    columns (its z, x, the B and C of the groups its heads read, its dt)
+    and of the conv's channels (its x, B and C).  Raises ``ValueError``
+    where a group's heads would straddle ranks."""
+    s = cfg.ssm
+    d_in, H, _ = dims(cfg)
+    G, N = s.n_groups, s.d_state
+    if H % m or not (G % m == 0 or m % G == 0):
+        raise ValueError(
+            f"{cfg.name}: the Mamba-2 mixer's {H} heads in {G} groups on a "
+            f"'model' axis of {m}: each rank's heads must read whole groups")
+    h, g = H // m, max(1, G // m)
+    d, gn = h * s.head_dim, G * N
+
+    def ch_spans(r, m, at=0):
+        g0 = r * G // m           # the first group rank r's heads read
+        return [(at + r * d, d), (at + d_in + g0 * N, g * N),
+                (at + d_in + gn + g0 * N, g * N)]
+
+    def in_spans(r, m):
+        return ([(r * d, d)] + ch_spans(r, m, d_in)
+                + [(2 * d_in + 2 * gn + r * h, h)])
+
+    return h, in_spans, ch_spans
 
 
 def mamba2_forward(params, cfg: ArchConfig, x):
-    """Full-sequence train path of N copies: x (N, B, S, d) → same."""
-    _refuse_sharded(x)
+    """Full-sequence train path of N copies: x (N, B, S, d) → same.  On
+    DTensors (x whole over ``"model"``) see :func:`_forward_sharded`."""
+    if sharded.is_dtensor(x):
+        return _forward_sharded(params, cfg, x)
     # the kernels' module imports this one for its oracle: import late
     from repro_torch.kernels import ops
-    s = cfg.ssm
-    d_in, H, _ = dims(cfg)
-    n, b, S, _ = x.shape
+    _, H, _ = dims(cfg)
     proj = linear(x, params["in_proj"])
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc = _causal_conv(params["conv_w"], params["conv_b"], xbc)
-    gn = s.n_groups * s.d_state
-    # views of the conv output (row stride conv_ch), no copies
-    xs, Bm, Cm = torch.split(xbc, [d_in, gn, gn], dim=-1)
-    xs = xs.reshape(n * b, S, H, s.head_dim)
-    Bm = Bm.reshape(n * b, S, s.n_groups, s.d_state)
-    Cm = Cm.reshape(n * b, S, s.n_groups, s.d_state)
-    # softplus as the reference's jax.nn.softplus: logaddexp(x, 0)
-    dt = dt.float() + _per_copy(params["dt_bias"], dt)
-    dt = torch.logaddexp(dt, torch.zeros_like(dt)).reshape(n * b, S, H)
+    z, xs, dt, Bm, Cm = _scan_inputs(cfg, proj, params["conv_w"],
+                                     params["conv_b"], params["dt_bias"], H)
     A = -torch.exp(params["A_log"])                        # (N, H)
     # dt stays float32 under bf16, as the reference's scan reads it
-    y = ops.ssd(xs, dt, A, Bm, Cm, chunk=min(s.chunk, S))
-    y = y.reshape(n, b, S, H, s.head_dim)
-    y = y + xs.reshape(y.shape) * params["D"].reshape(n, 1, 1, H, 1).to(
-        y.dtype)
-    y = y.reshape(n, b, S, d_in)
-    y = rmsnorm(params["norm"], y * F.silu(z))
+    y = ops.ssd(xs, dt, A, Bm, Cm, chunk=min(cfg.ssm.chunk, x.shape[2]))
+    y = rmsnorm(params["norm"], _gated(params["D"], y, xs, z))
     return linear(y, params["out_proj"])
+
+
+def _forward_sharded(params, cfg: ArchConfig, x):
+    """The train path on a mesh, each rank on its heads: the in-projection
+    (split over ``"model"`` on its columns, off the head boundaries) is
+    all-gathered and each rank takes its heads' z, x and dt columns and
+    the B and C columns of the groups they read
+    (:func:`sharded.take_spans`; the gradient is reduce-scattered back to
+    the projection's split), so its product is one batched GEMM a rank
+    with no redundant columns but B and C; the causal conv and dt's
+    softplus run on the rank's channels and heads, the scan on its heads
+    (:func:`sharded.ssd_on_local_heads`, B and C as the groups of its own
+    heads: a group that several ranks read is a copy on each), then the
+    gate and the gated RMSNorm over all of d_in, whose mean of squares
+    is summed across ranks by an explicit all-reduce of a (N, B, S)
+    float32 partial (DTensor's own norm moved the activations between
+    placements in the backward); the out-projection, split on its rows
+    as the heads are, gives a partial sum over ``"model"``.  Each step
+    runs through ``local_map`` on the ranks' rows (those of x) or in
+    DTensor's own operations."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = sharded.sharded_axes(x, 1)
+    m = sharded.axis_size(x, sharded.MODEL)
+    h, in_spans, ch_spans = _local_split(cfg, m)
+    w = params["in_proj"]
+    w = sharded.take_spans(sharded.pin(w, sharded.with_model(
+        w, sharded.Replicate())), in_spans, -1)
+    cw = sharded.take_spans(params["conv_w"], ch_spans, -1)
+    cb = sharded.take_spans(params["conv_b"], ch_spans, -1)
+    proj = linear(x, w)                                   # (N, B, S, m·p)
+
+    def per_head(t, grad=False):
+        # split on its last dim as the heads are; the gradient of a
+        # parameter read by the rank's rows alone is a partial sum over them
+        return sharded.placements(t, {t.dim() - 1: sharded.MODEL},
+                                  partial=rows if grad else ())
+
+    dtb = sharded.pin(params["dt_bias"], per_head(params["dt_bias"]))
+    D = sharded.pin(params["D"], per_head(params["D"]))
+    scale = params["norm"]["scale"]
+    scale = sharded.pin(scale, per_head(scale))
+    zpl = sharded.placements(x, {1: rows, 3: sharded.MODEL})
+    hpl = sharded.placements(x, {0: rows, 2: sharded.MODEL})
+    z, xs, dt, Bm, Cm = local_map(
+        lambda *a: _scan_inputs(cfg, *a, h),
+        out_placements=(list(zpl),) + (list(hpl),) * 4,
+        in_placements=(zpl, per_head(cw), per_head(cb), per_head(dtb)),
+        in_grad_placements=(zpl, per_head(cw, True), per_head(cb, True),
+                            per_head(dtb, True)),
+        device_mesh=mesh)(proj, cw, cb, dtb)
+    A = -torch.exp(params["A_log"])                        # (N, H)
+    y = sharded.ssd_on_local_heads(xs, dt, A, Bm, Cm, rows=rows,
+                                   chunk=min(cfg.ssm.chunk, x.shape[2]))
+    across = _across(m, mesh)
+
+    def gated_norm(D, y, xs, z, scale):
+        return rmsnorm({"scale": scale}, _gated(D, y, xs, z), across=across)
+
+    y = local_map(gated_norm, out_placements=list(zpl),
+                  in_placements=(per_head(D), hpl, hpl, zpl,
+                                 per_head(scale)),
+                  in_grad_placements=(per_head(D, True), hpl, hpl, zpl,
+                                      per_head(scale, True)),
+                  device_mesh=mesh)(D, y, xs, z, scale)
+    return linear(y, params["out_proj"])
+
+
+def _across(m: int, mesh):
+    """The gated RMSNorm's mean of squares over a rank's 1/m of d_in to
+    the whole's: a 1/m share of it summed over ``"model"``."""
+    if m == 1:
+        return None
+    return lambda ms: sharded.model_sum(ms / m, mesh)
+
+
+def _conv_step(w, b, state, xbc):
+    """One token through the rolling conv window of some channels: state
+    (B, d_conv-1, ch) updated in place, xbc (1, B, ch), w (d_conv, ch), b
+    (ch) → silu(conv + b), (B, ch)."""
+    win = torch.cat([state, xbc[0, :, None, :]], dim=1)        # (B, W, ch)
+    conv = F.silu(torch.einsum("bwc,wc->bc", win, w) + b)
+    state.copy_(win[:, 1:])
+    return conv
+
+
+def _ssm_step(params, cfg: ArchConfig, conv, dt, z, ssm_state, h0: int,
+              dtype):
+    """The SSM state step of the heads ``h0 ..`` (those of ``ssm_state``
+    (B, h, P, N) float32, updated in place): conv (B, CH) every channel's
+    conv output, dt (B, H) and z (1, B, d_in) every head's.  Returns the
+    gated y of those heads, (1, B, 1, h·P) in ``dtype``."""
+    s = cfg.ssm
+    d_in, H, _ = dims(cfg)
+    b, h = conv.shape[0], ssm_state.shape[1]
+    heads = slice(h0, h0 + h)
+    gn = s.n_groups * s.d_state
+    xs, Bm, Cm = torch.split(conv, [d_in, gn, gn], dim=-1)
+    xs = xs.reshape(b, H, s.head_dim)[:, heads].float()
+    rep = H // s.n_groups
+    Bh = Bm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
+        rep, dim=1)[:, heads]                              # (B, h, N)
+    Ch_ = Cm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
+        rep, dim=1)[:, heads]
+
+    # softplus as the reference's jax.nn.softplus: logaddexp(x, 0)
+    dt = dt.float()[:, heads] + params["dt_bias"][0][heads]    # (B, h)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+    A = -torch.exp(params["A_log"][0][heads])
+    dA = torch.exp(dt * A[None, :])
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xs, Bh)
+    ssm_state.mul_(dA[:, :, None, None]).add_(upd)
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch_)
+    y = y + xs * params["D"][0][heads][None, :, None]
+    y = y.reshape(1, b, 1, h * s.head_dim).to(dtype)
+    cols = slice(h0 * s.head_dim, (h0 + h) * s.head_dim)
+    return y * F.silu(z[:, :, None, cols])
 
 
 def mamba2_decode(params, cfg: ArchConfig, x, conv_state, ssm_state):
     """One-token step of one parameter set (leaves with a copy axis of 1):
     x (1, B, 1, d); conv_state (B, d_conv-1, CH) and ssm_state (B, H, P,
     N) float32, both updated in place (the reference returns new ones).
-    Returns y (1, B, 1, d)."""
-    _refuse_sharded(x)
-    s = cfg.ssm
-    d_in, H, _ = dims(cfg)
-    b = x.shape[1]
+    Returns y (1, B, 1, d).  On DTensor caches see
+    :func:`_decode_sharded`."""
     proj = linear(x[:, :, 0], params["in_proj"])          # (1, B, ·)
+    if sharded.is_dtensor(conv_state):
+        return _decode_sharded(params, cfg, x, proj, conv_state, ssm_state)
     z, xbc, dt = _split_proj(cfg, proj)
+    conv = _conv_step(params["conv_w"][0], params["conv_b"][0], conv_state,
+                      xbc)
+    y = _ssm_step(params, cfg, conv, dt[0], z, ssm_state, 0, x.dtype)
+    y = rmsnorm(params["norm"], y)
+    return linear(y, params["out_proj"])
 
-    # rolling conv window
-    win = torch.cat([conv_state, xbc[0, :, None, :]], dim=1)   # (B, W, CH)
-    conv = F.silu(torch.einsum("bwc,wc->bc", win, params["conv_w"][0])
-                  + params["conv_b"][0])
-    conv_state.copy_(win[:, 1:])
 
-    gn = s.n_groups * s.d_state
-    xs, Bm, Cm = torch.split(conv, [d_in, gn, gn], dim=-1)
-    xs = xs.reshape(b, H, s.head_dim).float()
-    rep = H // s.n_groups
-    Bh = Bm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
-        rep, dim=1)                                        # (B, H, N)
-    Ch_ = Cm.reshape(b, s.n_groups, s.d_state).float().repeat_interleave(
-        rep, dim=1)
+def _decode_sharded(params, cfg: ArchConfig, x, proj, conv_state,
+                    ssm_state):
+    """The one-token step against DTensor caches placed by
+    ``cache_shardings``: rows over the data axes, ``conv`` (B, W-1, CH)
+    split on its channels and ``ssm`` (B, H, P, N) on its heads over
+    ``"model"`` where they divide.  The in-projection's output (B rows)
+    is all-gathered over ``"model"``; each rank rolls its channels of the
+    conv window in place and the conv outputs are all-gathered (both a
+    few KB); each rank steps the SSM state of its heads in place, and
+    the gated RMSNorm (its mean of squares summed over ``"model"``) and
+    the row-split out-projection run as in the train path
+    (:func:`_forward_sharded`)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = conv_state.device_mesh
+    rows = sharded.sharded_axes(conv_state, 0)
+    split_ch = bool(sharded.sharded_axes(conv_state, 2))
+    split_h = bool(sharded.sharded_axes(ssm_state, 1))
+    proj = sharded.pin(proj, sharded.placements(proj, {1: rows}))
+    ypl = sharded.placements(proj, {1: rows, 3: sharded.MODEL} if split_h
+                             else {1: rows})
+    m = sharded.axis_size(ssm_state, sharded.MODEL) if split_h else 1
+    scale = params["norm"]["scale"]
+    scale = sharded.pin(scale, sharded.placements(
+        scale, {1: sharded.MODEL} if split_h else {}))
+    names = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "scale")
 
-    # softplus as the reference's jax.nn.softplus: logaddexp(x, 0)
-    dt = dt[0].float() + params["dt_bias"][0]              # (B, H)
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))
-    A = -torch.exp(params["A_log"][0])
-    dA = torch.exp(dt * A[None, :])
-    upd = torch.einsum("bh,bhp,bhn->bhpn", dt, xs, Bh)
-    ssm_state.mul_(dA[:, :, None, None]).add_(upd)
-    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch_)
-    y = y + xs * params["D"][0][None, :, None]
-    y = y.reshape(1, b, 1, d_in).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z[:, :, None, :]))
+    def body(proj, conv_state, ssm_state, *leaves):
+        p = dict(zip(names, leaves))
+        r = sharded.model_rank(mesh)[0]
+        z, xbc, dt = _split_proj(cfg, proj)
+        c = conv_state.shape[-1]
+        at = r * c if split_ch else 0
+        conv = _conv_step(p["conv_w"][0].narrow(-1, at, c),
+                          p["conv_b"][0].narrow(-1, at, c), conv_state,
+                          xbc.narrow(-1, at, c))
+        if split_ch:
+            conv = sharded.model_gather(conv, -1, mesh)
+        h0 = r * ssm_state.shape[1] if split_h else 0
+        y = _ssm_step(p, cfg, conv, dt[0], z, ssm_state, h0, x.dtype)
+        return rmsnorm(p, y, across=_across(m, mesh))
+
+    leaves = [params[k] for k in names[:-1]] + [scale]
+    y = local_map(body, out_placements=list(ypl),
+                  in_placements=(proj.placements, conv_state.placements,
+                                 ssm_state.placements,
+                                 *(t.placements for t in leaves)),
+                  device_mesh=mesh)(proj, conv_state, ssm_state, *leaves)
     return linear(y, params["out_proj"])

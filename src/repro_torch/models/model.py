@@ -41,9 +41,11 @@ inserts the tensor-parallel collectives, :mod:`.sharded` pins each
 sub-block's input and output (the Megatron pair), ``seq_parallel`` pins
 the residual stream to its sequence split over ``"model"`` at the
 reference's five points (:func:`_sp`), attention runs on each rank's
-heads and the MoE layer on each rank's experts
-(``moe_shard_axes``).  On plain tensors none of this runs, so every
-one-card path is unchanged.
+heads, the MoE layer on each rank's experts (``moe_shard_axes``) and
+the Mamba-2 mixer on each rank's heads (:mod:`.mamba2`), and decode
+runs against caches split as ``cache_shardings`` places them (a
+windowed KV ring split on its sequence too).  On plain tensors none of
+this runs, so every one-card path is unchanged.
 :func:`param_spec` and :func:`cache_spec` give shapes and dtypes on the
 ``meta`` device, as the reference's ``eval_shape``.
 """
@@ -343,8 +345,12 @@ def _moe_block(lp, cfg: ArchConfig, x, rt: Runtime):
 
 
 def _ssm_block(lp, cfg: ArchConfig, x, rt: Runtime):
-    return _sp(x, rt) + m2.mamba2_forward(lp["mixer"], cfg,
-                                          rmsnorm(lp["ln"], x))
+    """An SSM layer: the mixer's input whole over ``"model"`` (under
+    ``seq_parallel`` its sequence gathered: the scan runs along it), its
+    output a partial sum handed back to the residual's placements."""
+    x = _sp(x, rt)
+    h = sharded.tp_in(rmsnorm(lp["ln"], x))
+    return x + sharded.tp_out(m2.mamba2_forward(lp["mixer"], cfg, h), x)
 
 
 def _layer_params(layers):

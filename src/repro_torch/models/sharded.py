@@ -6,8 +6,8 @@ On a mesh over a ``torch.distributed`` world
 (:func:`repro_torch.launch.mesh.make_device_mesh`) the parameters,
 optimizer state, batch and cache are DTensors
 (:func:`repro_torch.launch.sharding.place`), and DTensor's sharding
-propagation inserts the collectives of the step's dense products.  Four
-things are pinned here, as the reference pins them:
+propagation inserts the collectives of the step's dense products.  The
+rest is pinned here, as the reference pins it:
 
 * :func:`pin` redistributes a DTensor to given placements and its
   gradient to given ones (the residual stream's sequence sharding under
@@ -16,9 +16,17 @@ things are pinned here, as the reference pins them:
   its row-parallel output);
 * :func:`on_local_heads` runs attention (the flash kernels, or any impl)
   through ``local_map`` on each rank's batch rows and heads;
-* :func:`model_rank` and :func:`model_reduce` serve the bodies that
-  ``local_map`` runs with explicit collectives over ``"model"`` (the MoE
-  layer, decode against a sequence-split cache).
+* :func:`ssd_on_local_heads` runs the Mamba-2 SSD scan (B3 forward, B3′
+  backward) through ``local_map`` on each rank's rows and heads, with
+  the groups' B and C that those heads read, and :func:`take_spans`
+  gives each rank its own columns of a replicated tensor (the mixer's
+  in-projection, which its sharding rule splits off its head
+  boundaries);
+* :func:`model_rank`, :func:`model_reduce`, :func:`model_sum` and
+  :func:`model_gather` serve the bodies that ``local_map`` runs with
+  explicit collectives over ``"model"`` (the MoE layer, decode against a
+  sequence-split cache, the Mamba-2 mixer's gated RMSNorm and its step
+  on split conv and SSM caches).
 
 A plain tensor passes through every function here unchanged, so every
 one-card path is untouched.
@@ -159,6 +167,83 @@ def on_local_heads(fn, q, k, v, rows: tuple):
                      device_mesh=q.device_mesh)(q, k, v)
 
 
+def ssd_on_local_heads(x, dt, A, Bm, Cm, *, chunk: int, rows: tuple = ()):
+    """:func:`repro_torch.kernels.ops.ssd` (y (B, S, H, P)) on each rank's
+    batch rows and heads: x (B, S, H, P) and dt (B, S, H) are pinned to
+    rows (dim 0) over the axes ``rows`` and heads (dim 2) over
+    ``"model"``, A ((H,) or (copies, H)) to the same heads, and Bm and Cm
+    (B, S, G, N) to the rows and to groups over ``"model"``, each rank
+    holding the groups its own heads read.  A group whose heads several
+    ranks share comes in as a copy on each (the Mamba-2 mixer takes each
+    rank's groups from its in-projection; which groups those are is
+    :func:`repro_torch.models.mamba2._local_split`'s rule).  The scan runs
+    on the local tensors through ``local_map``.  Raises ``ValueError``
+    where ``"model"`` does not divide both H and G, rather than gather.
+    Plain tensors go straight to the kernel's wrapper."""
+    from repro_torch.kernels import ops
+    if not is_dtensor(x):
+        return ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    m = axis_size(x, MODEL)
+    h, g = x.shape[2], Bm.shape[2]
+    if h % m or g % m:
+        raise ValueError(
+            f"the SSD scan over {h} heads in {g} groups on a 'model' axis "
+            f"of {m}: 'model' must divide both, each rank holding the "
+            "groups its heads read (a group that several ranks read as a "
+            "copy on each)")
+    hpl = placements(x, {0: rows, 2: MODEL})
+    apl = placements(A, {A.dim() - 1: MODEL})
+    agpl = placements(A, {A.dim() - 1: MODEL}, partial=rows)
+    bpl = placements(Bm, {0: rows, 2: MODEL})
+    x, dt = pin(x, hpl), pin(dt, placements(dt, {0: rows, 2: MODEL}))
+    A = pin(A, apl)
+    Bm, Cm = pin(Bm, bpl), pin(Cm, bpl)
+
+    def local(*ts):
+        return ops.ssd(*(_ContiguousGrad.apply(t) for t in ts), chunk=chunk)
+
+    return local_map(local, out_placements=list(hpl),
+                     in_placements=(hpl, dt.placements, apl, bpl, bpl),
+                     in_grad_placements=(hpl, dt.placements, agpl, bpl,
+                                         bpl),
+                     device_mesh=mesh)(x, dt, A, Bm, Cm)
+
+
+def take_spans(t, spans, dim: int):
+    """Each rank's columns of ``t`` (whole over ``"model"``) along
+    ``dim``: ``spans(r, m)`` gives rank r's (start, length) spans, which
+    are concatenated in order, so the result is split on ``dim`` over
+    ``"model"``, rank r's part being its spans.  Its gradient to ``t`` is
+    a partial sum over ``"model"`` (a span that several ranks take sums
+    their parts).  Adjacent spans are joined, so a rank whose spans are
+    all of ``t`` takes ``t`` itself (a view).  A plain tensor takes rank 0
+    of 1's spans."""
+    def take(t, r, m):
+        joined = []
+        for a, n in spans(r, m):
+            if joined and joined[-1][0] + joined[-1][1] == a:
+                joined[-1] = (joined[-1][0], joined[-1][1] + n)
+            else:
+                joined.append((a, n))
+        parts = [t.narrow(dim, a, n) for a, n in joined]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+    if not is_dtensor(t):
+        return take(t, 0, 1)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = t.device_mesh
+    split = axis_size(t, MODEL) > 1   # an axis of one splits nothing
+    out, grad = ((Shard(dim % t.dim()), Partial()) if split
+                 else (Replicate(), Replicate()))
+    return local_map(lambda t: take(t, *model_rank(mesh)),
+                     out_placements=list(with_model(t, out)),
+                     in_placements=(t.placements,),
+                     in_grad_placements=(with_model(t, grad),),
+                     device_mesh=mesh)(t)
+
+
 class _ContiguousGrad(torch.autograd.Function):
 
     @staticmethod
@@ -178,6 +263,38 @@ def model_rank(mesh) -> tuple:
         return 0, 1
     i = names.index(MODEL)
     return mesh.get_local_rank(i), mesh.size(i)
+
+
+def model_gather(t, dim: int, mesh):
+    """Every rank's ``t`` along ``"model"`` concatenated on ``dim`` in rank
+    order: DTensor's own all-gather of a ``Shard(dim)`` tensor (the one
+    every redistribution to ``Replicate()`` runs, whatever the torch calls
+    it; counted by :func:`repro_torch.launch.cost.count_sharded`)."""
+    sub = mesh[MODEL]
+    if sub.size() == 1:
+        return t
+    return DTensor.from_local(t.contiguous(), sub, [Shard(dim % t.dim())],
+                              run_check=False).full_tensor()
+
+
+class _ModelSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return model_reduce(t, "sum", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_reduce(g.contiguous(), "sum", ctx.mesh), None
+
+
+def model_sum(t, mesh):
+    """``t`` summed over the ``"model"`` axis of ``mesh``, differentiably:
+    each rank's gradient is the sum of every rank's gradient of the sum
+    (an all-reduce each way), for a sum that each rank goes on to use on
+    its own part."""
+    return _ModelSum.apply(t, mesh)
 
 
 def model_reduce(t, op: str, mesh):

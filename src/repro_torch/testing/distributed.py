@@ -156,9 +156,12 @@ def sharded_cases(cfg, weights, batch, cache, plan: dict):
     ``"serve"`` (prefill logits of the batch's tokens, then one decode
     step a row of ``cache["tokens"]`` (T, B, 1) from ``cache["cache"]``)
     and ``"collectives"`` (a baseline and a ZeRO-1 step's collectives and
-    local argument bytes).  ``weights`` (numpy, the reference's init),
-    ``batch`` and ``cache`` (numpy) are the same on every rank.  Returns
-    numpy results keyed by (mesh, case), and each case's seconds."""
+    local argument bytes), ``"ssd_heads"`` (:func:`_ssd_heads`);
+    ``"window"`` sets the runtime's window there
+    (the cache then a ring of that many slots).  ``weights`` (numpy, the
+    reference's init), ``batch`` and ``cache`` (numpy) are the same on
+    every rank.  Returns numpy results keyed by (mesh, case), and each
+    case's seconds."""
     from repro_torch.fed import train_step as ts
     from repro_torch.interop import params_from_numpy
     from repro_torch.launch import cost
@@ -167,7 +170,6 @@ def sharded_cases(cfg, weights, batch, cache, plan: dict):
     from repro_torch.models.model import Runtime
     from repro_torch.optim import momentum
 
-    rt0 = Runtime(attn_impl="naive")
     opt = momentum(0.9)
     params = params_from_numpy(weights)
     tbatch = params_from_numpy(batch)
@@ -182,6 +184,7 @@ def sharded_cases(cfg, weights, batch, cache, plan: dict):
             out["seconds"][(key, name)] = now - clock[0]
             clock[0] = now
 
+        rt0 = Runtime(attn_impl="naive", window=cases.get("window"))
         bsh = shd.batch_shardings(mesh, tbatch)
         if cases.get("place"):
             state = ts.TrainState(params, opt.init(params), 0)
@@ -222,6 +225,9 @@ def sharded_cases(cfg, weights, batch, cache, plan: dict):
             out[(key, "serve")] = _serve(cfg, rt0, params, tbatch, cache,
                                          mesh)
             lap("serve")
+        if cases.get("ssd_heads"):
+            out[(key, "ssd_heads")] = _ssd_heads(mesh)
+            lap("ssd_heads")
         if cases.get("collectives"):
             got = {}
             for zero1 in (False, True):
@@ -237,6 +243,57 @@ def sharded_cases(cfg, weights, batch, cache, plan: dict):
                               "count": coll.count}
             out[(key, "collectives")] = got
             lap("collectives")
+    return out
+
+
+def _ssd_heads(mesh) -> dict:
+    """``sharded.ssd_on_local_heads`` on replicated DTensors against
+    ``ops.ssd`` on the whole tensors, y and every gradient: with one group
+    (B and C handed in as a copy for each rank, as the Mamba-2 mixer hands
+    a group that several ranks read, the copies' gradients summed) and
+    with as many groups as ``"model"`` has ranks (B and C split); and
+    whether groups that ``"model"`` does not divide raise.  Returns the
+    largest gap by group count and ``"raises"``."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models import sharded
+    dm = mesh.device_mesh
+    rep = [Replicate()] * dm.ndim
+    gen = torch.Generator().manual_seed(5)
+    b, s, h, p, n = 4, 32, 4, 8, 16
+    m = mesh.shape["model"]
+    out = {}
+    for g in (1, m):
+        ins = [torch.randn(b, s, h, p, generator=gen),
+               0.1 + 0.5 * torch.rand(b, s, h, generator=gen),
+               -0.5 - torch.rand(h, generator=gen),
+               torch.randn(b, s, g, n, generator=gen),
+               torch.randn(b, s, g, n, generator=gen)]
+        dy = torch.randn(b, s, h, p, generator=gen)
+        whole = [t.clone().requires_grad_() for t in ins]
+        y = ops.ssd(*whole, chunk=16)
+        y.backward(dy)
+        k = m // g                     # the ranks that read each group
+        handed = ins[:3] + [t.repeat_interleave(k, dim=2) for t in ins[3:]]
+        parts = [distribute_tensor(t, dm, rep).requires_grad_()
+                 for t in handed]
+        yd = sharded.ssd_on_local_heads(*parts, chunk=16,
+                                        rows=tuple(data_axes(mesh)))
+        yd.backward(distribute_tensor(dy, dm, list(yd.placements)))
+        grads = [t.grad.full_tensor() for t in parts]
+        grads[3:] = [t.reshape(b, s, g, k, n).sum(3) for t in grads[3:]]
+        out[g] = max(float((a - b_).abs().max()) for a, b_ in
+                     [(yd.full_tensor(), y)] + [
+                         (t, w.grad) for t, w in zip(grads, whole)])
+    bad = [distribute_tensor(t, dm, rep) for t in (
+        torch.zeros(b, s, 6, p), torch.ones(b, s, 6), -torch.ones(6),
+        torch.zeros(b, s, 3, n), torch.zeros(b, s, 3, n))]
+    try:                       # 3 groups over 2 ranks: a group straddles
+        sharded.ssd_on_local_heads(*bad, chunk=16)
+        out["raises"] = False
+    except ValueError:
+        out["raises"] = True
     return out
 
 

@@ -1205,3 +1205,129 @@ def test_one_rank_world_train_step_is_bitwise_the_unsharded_one(cuda,
         assert torch.equal(got[0], want[0]), name
         assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), name
         assert got[2] == want[2], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("window", [64, 24])
+def test_flash_decode_on_parts_of_a_ring(cuda, window, parts, dtype):
+    """B5 on the parts of a ring of 64 slots split as decode against a
+    ring split over cards splits it (``off``, ``ring``), at pos 10 (the
+    parts past it empty), 63, 64 (the wrap) and 200: each part's o within
+    2e-5 (bf16 2e-2) and lse within 1e-4 of the plain version's, the
+    parts merged by their lse within the same of the whole ring's call;
+    off 0 and the part's own length bitwise the call without them."""
+    ring, c = 64, 64 // parts
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    q, k, v = _decode_inputs(cuda, 2, ring, 8, 2, 128, dtype)
+    for pos in (10, 63, 64, 200):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        whole, whole_lse = kfd.flash_decode(q, k, v, p, window=window,
+                                            lse=True)
+        o0, lse0 = kfd.flash_decode(q, k, v, p, window=window, lse=True,
+                                    off=0, ring=ring)
+        assert torch.equal(o0, whole) and torch.equal(lse0, whole_lse)
+        got = []
+        for i in range(parts):
+            kp, vp = (t[:, i * c:(i + 1) * c].contiguous() for t in (k, v))
+            o, lse = kfd.flash_decode(q, kp, vp, p, window=window, lse=True,
+                                      off=i * c, ring=ring)
+            po, plse = kfd.flash_decode_plain(q, kp, vp, p, window=window,
+                                              lse=True, off=i * c, ring=ring)
+            torch.testing.assert_close(o.float(), po.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+            got.append((o, lse))
+        top = torch.stack([lse for _, lse in got]).amax(0)
+        w = [torch.exp(lse - top) for _, lse in got]
+        merged = sum(o.float() * wi[:, None, :, None]
+                     for (o, _), wi in zip(got, w)) / sum(w)[:, None, :, None]
+        torch.testing.assert_close(merged, whole.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_one_rank_world_mamba2_mixer_is_bitwise_the_unsharded_one(cuda,
+                                                                  tmp_path):
+    """A one-rank NCCL world on a (1, 1) ("data", "model") mesh: the
+    reduced mamba2-2.7b train step through B3 and B3′ on DTensors gives
+    the unsharded step's losses and parameters bitwise over 2 steps, and
+    4 decode steps against DTensor caches its logits and caches bitwise,
+    with the same kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.fed import train_step as ts
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_world, make_device_mesh
+    from repro_torch.models.model import Runtime, init, init_cache
+    from repro_torch.optim import momentum
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = get_arch("mamba2-2.7b").reduced()
+    rt = Runtime(attn_impl="pallas")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params0 = init(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(),
+             "weights": torch.ones((2, 64), device=cuda)}
+    cache0 = init_cache(cfg, 2, 16, rt, device=cuda)
+    for name, t in cache0.items():
+        if name != "pos":
+            t.normal_(generator=gen)
+    dec = torch.randint(0, cfg.vocab, (4, 2, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kernels = (kssd.ssd_scan_fwd, kssd.ssd_scan_bwd)
+    leaves = lambda t: [x for _, x in tree_leaves_with_path(t)]  # noqa
+    init_world("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+               world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1))
+        runs = {}
+        for name, zero1 in (("unsharded", None), ("baseline", False),
+                            ("zero1", True)):
+            params, opt = tree_map(torch.clone, params0), momentum(0.9)
+            if zero1 is None:
+                state, b = ts.TrainState(params, opt.init(params), 0), batch
+            else:
+                state = ts.place_state(params, opt, mesh, zero1=zero1)
+                b = shd.place(batch, shd.batch_shardings(mesh, batch))
+            before = [k.launches for k in kernels]
+            step = ts.make_train_step(cfg, rt, opt)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, b, 1e-2)
+                losses.append(m["loss"])
+            runs[name] = (torch.stack(losses),
+                          leaves(shd.gather(state.params)),
+                          [k.launches - n for k, n in zip(kernels, before)])
+        serve = ts.make_serve_step(cfg, rt)
+        for name in ("unsharded", "sharded"):
+            p, c = params0, tree_map(torch.clone, cache0)
+            if name == "sharded":
+                p = shd.place(p, shd.params_shardings(mesh, p))
+                c = shd.place(c, shd.cache_shardings(mesh, c))
+            logits = []
+            with torch.no_grad():
+                for tok in dec:
+                    if name == "sharded":
+                        tok = shd.place({"t": tok}, shd.batch_shardings(
+                            mesh, {"t": tok}))["t"]
+                    out, c = serve(p, c, tok)
+                    logits.append(shd.gather({"l": out})["l"])
+            runs["decode " + name] = (torch.stack(logits),
+                                      leaves(shd.gather(c)))
+    finally:
+        dist.destroy_process_group()
+    want = runs["unsharded"]
+    assert all(n > 0 for n in want[2])
+    for name in ("baseline", "zero1"):
+        got = runs[name]
+        assert torch.equal(got[0], want[0]), name
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), name
+        assert got[2] == want[2], name
+    got, want = runs["decode sharded"], runs["decode unsharded"]
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))

@@ -13,6 +13,13 @@
 * A ctx that is not a multiple of the reference's block (the port's
   kernel takes any ctx; the reference's kernel asserts it), against the
   oracle alone; and ``pos`` as a device tensor.
+* A ring cut into parts, as decode against a ring split over cards
+  runs it (``off`` and ``ring``): each part's output and log-sum-exp
+  merged by the latter give the whole ring's output within 2e-5 (bf16:
+  2e-2) and the reference oracle's, at a ring of 64 under windows 64 and
+  24, pos 10 (parts past it empty), 63, 64 (the wrap) and 200, in 2 and
+  4 parts; ``off`` 0 with the part's own length is bitwise the call
+  without them.
 * The CUDA kernel's partition, mirrored in float32 (:func:`split_decode`):
   32-slot tiles in contiguous runs, each an online softmax, merged in run
   order, with empty runs.  It is held against the oracle and the Pallas
@@ -222,6 +229,71 @@ def test_wrapper_checks_its_inputs_on_the_cpu():
         fd.flash_decode(torch.zeros((2, 1, 8, 64)), k, k,
                         torch.tensor([1, 2]))
     assert fd.flash_decode.launches == 0
+
+
+RING, RING_POS = 64, (10, 63, 64, 200)
+
+
+def merge_parts(parts):
+    """The parts' (o (B, 1, Hq, hd), lse (B, Hq)) merged by their
+    log-sum-exp, as decode against a cache split over cards merges
+    them."""
+    lse = torch.stack([lse for _, lse in parts])
+    w = torch.exp(lse - lse.amax(0))                       # (parts, B, Hq)
+    num = sum(o.float() * wi[:, None, :, None] for (o, _), wi in zip(parts, w))
+    return (num / w.sum(0)[:, None, :, None]).to(parts[0][0].dtype)
+
+
+def _whole_ring(q, k, v, pos, window):
+    """The plain version's arithmetic with no ``off`` or ``ring``, written
+    out (the ring's slot i holds position pos - ((pos - i) mod ctx))."""
+    b, _, hq, hd = q.shape
+    ctx, hkv = k.shape[1], k.shape[2]
+    idx = torch.arange(ctx)
+    key_pos = pos - ((pos - idx) % ctx)
+    vis = (key_pos >= 0) & (key_pos <= pos) & (key_pos > pos - window)
+    qg = q.float().reshape(b, hkv, hq // hkv, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (1.0 / hd ** 0.5)
+    s = torch.where(vis, s, NEG_INF)
+    o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(b, 1, hq, hd).to(q.dtype), torch.logsumexp(
+        s, dim=-1).reshape(b, hq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("window", [RING, 24])
+def test_ring_parts_merge_to_the_whole_ring(window, parts, dtype):
+    tol = TOL[dtype]
+    c = RING // parts
+    errs = [0.0, 0.0]
+    for pos in RING_POS:
+        (jq, jk, jv), (tq, tk, tv) = _both(
+            _bhd(6, RING, 64, seed=pos + parts), dtype)
+        q, k, v = (t.reshape((2, 3) + t.shape[1:]).transpose(1, 2)
+                   .contiguous() for t in (tq, tk, tv))     # Hq = Hkv = 3
+        p = torch.tensor(pos, dtype=torch.int32)
+        whole, whole_lse = _whole_ring(q, k, v, pos, window)
+        for call in (fd.flash_decode_plain, fd.flash_decode, ops.flash_decode):
+            o, lse = call(q, k, v, p, window=window, lse=True, off=0,
+                          ring=RING)
+            assert torch.equal(o, whole) and torch.equal(lse, whole_lse)
+            got = merge_parts([call(
+                q, k[:, i * c:(i + 1) * c].contiguous(),
+                v[:, i * c:(i + 1) * c].contiguous(), p, window=window,
+                lse=True, off=i * c, ring=RING) for i in range(parts)])
+            errs[0] = max(errs[0], _parity(got, whole.float(), tol))
+        oracle = ref_ref.decode_attention_ref(jq, jk, jv, pos, window=window)
+        errs[1] = max(errs[1], _parity(
+            got.transpose(1, 2).reshape(6, 1, 64), oracle, tol))
+        if pos < c:                       # the parts past pos are empty
+            o, lse = fd.flash_decode_plain(q, k[:, c:2 * c], v[:, c:2 * c],
+                                           p, window=window, lse=True,
+                                           off=c, ring=RING)
+            assert not o.any() and bool((lse < -1e29).all())
+    print(f"PARITY flash_decode ring of {RING} in {parts} parts window="
+          f"{window} {dtype} pos {RING_POS}: merged vs whole ring "
+          f"max_abs_err={errs[0]:.3g}, vs oracle {errs[1]:.3g} tol={tol}")
 
 
 SPLITS = (1, 3, 6, 32)
